@@ -1,0 +1,234 @@
+"""The three tile kernels K1–K3, each beside its plain PyTorch version.
+
+Counterparts of custom_op_benchmark_tpu/ops/pallas/tiled_kernels.py:
+
+- :func:`sddmm_tiles` (K1) — per nonzero tile t and head h,
+  ``S[h, t] = mask[t] ⊙ (A[rows[t]·R : +R, h] @ B[cols[t]·C : +C, h]ᵀ)``;
+- :func:`spmm_row_sweep` (K2) — per row block i,
+  ``Y[i] = Σ_{t ∈ ptr[i]..ptr[i+1]} vals[t] @ X[cols[t]]``;
+- :func:`spmm_col_sweep` (K3) — per column block j, over the column-sorted
+  tile view, ``X'[j] = Σ_t vals[perm[t]]ᵀ @ Y[rows[perm[t]]]``.
+
+Shapes: node arrays are ``(n, d)`` or ``(n, H, d)`` (heads read in place);
+tile arrays are ``(T, R, C)`` or ``(H, T, R, C)`` to match. Node rows at or
+past ``n`` count as zero, so callers never pad rows or features.
+
+Each wrapper runs its CUDA kernel (csrc/tiled_kernels.cu) when given CUDA
+tensors, and its plain version only when given CPU tensors; on any other
+input it raises. ``<wrapper>.launches`` counts kernel launches.
+
+Index arrays stay int32 everywhere, as the kernels take them; the plain
+versions convert to int64 (``.long()``) at the point where they index.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from custom_op_benchmark_tpu_torch.ops.kernels import _build
+from custom_op_benchmark_tpu_torch.ops.segments import sorted_segment_reduce
+
+TILE = 128  # the only tile size the kernels take (tile_r == tile_c)
+
+
+# ---------------------------------------------------------------------------
+# Shared by the wrappers (also used by ops/kernels/attention.py)
+# ---------------------------------------------------------------------------
+
+def _heads(x: torch.Tensor) -> torch.Tensor:
+    """(n, d) → (n, 1, d); (n, H, d) unchanged."""
+    return x[:, None] if x.dim() == 2 else x
+
+
+def _tiles4(vals: torch.Tensor) -> torch.Tensor:
+    """(T, R, C) → (1, T, R, C); (H, T, R, C) unchanged."""
+    return vals[None] if vals.dim() == 3 else vals
+
+
+def _row_tiles(x: torch.Tensor, blocks: torch.Tensor,
+               size: int) -> torch.Tensor:
+    """Rows ``blocks[t]·size : +size`` of ``x`` (n, H, d) per tile →
+    (T, size, H, d); rows at or past n read as zero."""
+    idx = (blocks.long()[:, None] * size
+           + torch.arange(size, device=x.device))
+    xz = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+    return xz[idx.clamp(max=x.shape[0])]
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU, False when every tensor lies
+    on one CUDA device; raises on anything else."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(
+            f"tensors on several devices: {sorted(map(str, devices))}")
+    (dev,) = devices
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    return False
+
+
+def _check_cuda(*, ints=(), floats=(), mask=None) -> None:
+    for t in ints:
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError("index arrays must be contiguous int32")
+    for t in floats:
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("the kernels take contiguous float32 tensors, "
+                             f"got {t.dtype}, contiguous={t.is_contiguous()}")
+    if mask is not None:
+        if mask.dtype != torch.bool or not mask.is_contiguous():
+            raise ValueError("mask must be a contiguous bool tensor")
+        if tuple(mask.shape[1:]) != (TILE, TILE):
+            raise ValueError(f"the kernels take {TILE}x{TILE} tiles, got "
+                             f"{tuple(mask.shape[1:])}")
+
+
+def _p(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t: torch.Tensor):
+    return (t.device.index,
+            ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream))
+
+
+# ---------------------------------------------------------------------------
+# K1: SDDMM over tiles
+# ---------------------------------------------------------------------------
+
+def sddmm_tiles_plain(tile_rows, tile_cols, mask, A, B):
+    t, r, c = mask.shape
+    a = _row_tiles(_heads(A), tile_rows, r)                 # (T, R, H, d)
+    b = _row_tiles(_heads(B), tile_cols, c)                 # (T, C, H, d)
+    s = torch.where(mask, torch.einsum("trhd,tchd->htrc", a, b), 0.0)
+    return s[0] if A.dim() == 2 else s
+
+
+def sddmm_tiles(tile_rows, tile_cols, mask, A, B):
+    """A: (nA, [H,] d), B: (nB, [H,] d), mask (T, R, C) → (T, R, C), or
+    (H, T, R, C) for three-dimensional A and B; zero off the mask."""
+    if A.shape[1:] != B.shape[1:]:
+        raise ValueError(f"A {tuple(A.shape)} and B {tuple(B.shape)} differ "
+                         "in heads or width")
+    if _on_cpu(tile_rows, tile_cols, mask, A, B):
+        return sddmm_tiles_plain(tile_rows, tile_cols, mask, A, B)
+    _check_cuda(ints=(tile_rows, tile_cols), floats=(A, B), mask=mask)
+    t = mask.shape[0]
+    if tile_rows.shape != (t,) or tile_cols.shape != (t,):
+        raise ValueError(f"tile_rows/tile_cols must have shape ({t},)")
+    a, b = _heads(A), _heads(B)
+    h, d = a.shape[1], a.shape[2]
+    out = torch.empty((h, t, TILE, TILE), device=A.device, dtype=A.dtype)
+    if t:
+        dev, stream = _stream(A)
+        _build.check(_build.library().sddmm_tiles_f32(
+            _p(tile_rows), _p(tile_cols), _p(mask), _p(a), _p(b), _p(out),
+            t, h, d, a.shape[0], b.shape[0], dev, stream), "sddmm_tiles")
+        sddmm_tiles.launches += 1
+    return out[0] if A.dim() == 2 else out
+
+
+sddmm_tiles.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: SpMM row sweep
+# ---------------------------------------------------------------------------
+
+def spmm_row_sweep_plain(tile_ptr, tile_cols, vals, x, n_out=None):
+    v = _tiles4(vals)
+    _, _, r, c = v.shape
+    nrb = tile_ptr.shape[0] - 1
+    xt = _row_tiles(_heads(x), tile_cols, c)                # (T, C, H, d)
+    prod = torch.einsum("htrc,tchd->trhd", v, xt)           # (T, R, H, d)
+    y = sorted_segment_reduce(prod, tile_ptr, "sum")        # (NRB, R, H, d)
+    y = y.reshape((nrb * r,) + tuple(y.shape[2:]))
+    y = y[: nrb * r if n_out is None else n_out]
+    return y[:, 0] if x.dim() == 2 else y
+
+
+def spmm_row_sweep(tile_ptr, tile_cols, vals, x,
+                   n_out: Optional[int] = None):
+    """vals: (T, R, C) or (H, T, R, C), x: (n_x, [H,] d) →
+    y (n_out, [H,] d) with ``n_out`` ≤ NRB·R (default NRB·R)."""
+    if _on_cpu(tile_ptr, tile_cols, vals, x):
+        return spmm_row_sweep_plain(tile_ptr, tile_cols, vals, x, n_out)
+    _check_cuda(ints=(tile_ptr, tile_cols), floats=(vals, x))
+    v, xh = _tiles4(vals), _heads(x)
+    h, t = v.shape[0], v.shape[1]
+    d = xh.shape[2]
+    nrb = tile_ptr.shape[0] - 1
+    n_out = nrb * TILE if n_out is None else n_out
+    _check_sweep(v, xh, n_out, nrb)
+    out = torch.empty((n_out, h, d), device=x.device, dtype=x.dtype)
+    dev, stream = _stream(x)
+    _build.check(_build.library().spmm_row_sweep_f32(
+        _p(tile_ptr), _p(tile_cols), _p(v), _p(xh), _p(out),
+        nrb, t, h, d, xh.shape[0], n_out, dev, stream), "spmm_row_sweep")
+    spmm_row_sweep.launches += 1
+    return out[:, 0] if x.dim() == 2 else out
+
+
+spmm_row_sweep.launches = 0
+
+
+def _check_sweep(v, xh, n_out, n_blocks):
+    if tuple(v.shape[2:]) != (TILE, TILE):
+        raise ValueError(f"the kernels take {TILE}x{TILE} tiles, got "
+                         f"{tuple(v.shape[2:])}")
+    if v.shape[0] != xh.shape[1]:
+        raise ValueError(f"{v.shape[0]} heads of tiles, {xh.shape[1]} of x")
+    if not 0 <= n_out <= n_blocks * TILE:
+        raise ValueError(f"n_out={n_out} outside [0, {n_blocks * TILE}]")
+
+
+# ---------------------------------------------------------------------------
+# K3: SpMM column sweep (transpose)
+# ---------------------------------------------------------------------------
+
+def spmm_col_sweep_plain(tile_ptr_c, tile_perm_c, tile_rows, vals, y,
+                         n_out=None):
+    perm = tile_perm_c.long()
+    v = _tiles4(vals)[:, perm]                              # column order
+    _, _, r, c = v.shape
+    ncb = tile_ptr_c.shape[0] - 1
+    yt = _row_tiles(_heads(y), tile_rows[perm], r)          # (T, R, H, d)
+    prod = torch.einsum("htrc,trhd->tchd", v, yt)           # (T, C, H, d)
+    x = sorted_segment_reduce(prod, tile_ptr_c, "sum")      # (NCB, C, H, d)
+    x = x.reshape((ncb * c,) + tuple(x.shape[2:]))
+    x = x[: ncb * c if n_out is None else n_out]
+    return x[:, 0] if y.dim() == 2 else x
+
+
+def spmm_col_sweep(tile_ptr_c, tile_perm_c, tile_rows, vals, y,
+                   n_out: Optional[int] = None):
+    """vals: (T, R, C) or (H, T, R, C), y: (n_y, [H,] d) →
+    x' (n_out, [H,] d) = Σ valsᵀ·y over column blocks, with ``n_out`` ≤
+    NCB·C (default NCB·C)."""
+    if _on_cpu(tile_ptr_c, tile_perm_c, tile_rows, vals, y):
+        return spmm_col_sweep_plain(tile_ptr_c, tile_perm_c, tile_rows, vals,
+                                    y, n_out)
+    _check_cuda(ints=(tile_ptr_c, tile_perm_c, tile_rows), floats=(vals, y))
+    v, yh = _tiles4(vals), _heads(y)
+    h, t = v.shape[0], v.shape[1]
+    d = yh.shape[2]
+    ncb = tile_ptr_c.shape[0] - 1
+    n_out = ncb * TILE if n_out is None else n_out
+    _check_sweep(v, yh, n_out, ncb)
+    out = torch.empty((n_out, h, d), device=y.device, dtype=y.dtype)
+    dev, stream = _stream(y)
+    _build.check(_build.library().spmm_col_sweep_f32(
+        _p(tile_ptr_c), _p(tile_perm_c), _p(tile_rows), _p(v), _p(yh),
+        _p(out), ncb, t, h, d, yh.shape[0], n_out, dev, stream),
+        "spmm_col_sweep")
+    spmm_col_sweep.launches += 1
+    return out[:, 0] if y.dim() == 2 else out
+
+
+spmm_col_sweep.launches = 0
