@@ -3,20 +3,36 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — AdamW train steps of
-``GraphTransformer(dim=512, num_heads=8, num_layers=3, out_dim=10)`` on the
-512×30 clique batch through its 128×128 tile view — and checks it:
+Drives the port's two main paths and checks them. The first: AdamW train
+steps of ``GraphTransformer(dim=512, num_heads=8, num_layers=3,
+out_dim=10)`` on the 512×30 clique batch through its 128×128 tile view.
+The second: the grid regime at full size — the tile-aligned 1024×1024 grid
+graph at d = 128, through the grid suite (``utils/bench_suite.py``) and
+the two grid experiments (``experiments/``), which run S1, S2, S4 and S5.
 
 1. device: a CUDA device is present; print its name and power limit, then
-   build the four CUDA kernels from ``custom_op_benchmark_tpu_torch/csrc``;
+   build the CUDA kernels from ``custom_op_benchmark_tpu_torch/csrc`` (one
+   nvcc for each source, all started together);
 2. kernel parity: each kernel against its plain PyTorch version on the
    card, at the slice's shapes, K2/K3 also at d=1024, and on a small
    irregular graph with an empty row block and an empty column block;
 3. the slice at full width: logits, loss and every parameter's gradient
    on the card against the same module copied to the CPU, where the
    wrappers run the plain versions;
-4. train: three AdamW steps with finite losses, every kernel launched;
-5. times: each kernel against its plain version, and one train step.
+4. train: three AdamW steps with finite losses, K1–K4 launched;
+5. times: each kernel against its plain version, and one train step;
+6. grid build: the graph, its tile-aligned order and tiling on the host,
+   moved to the card;
+7. grid kernel parity: S1, S2, S4, S5 (all four switch settings) and K4 at
+   d = 128 and d = 40 against their plain versions at the grid's shapes,
+   K4 and S5 also at d = 200, and all of them again on the small irregular
+   graph at d = 128, 40, 33 and 200;
+8. the grid path: S1 and S2 against the segment oracle, then the grid
+   suite (its allclose gates at 2e-3 and its timed rows, with roofline
+   fractions against the measured copy bandwidth) and the two experiments'
+   rows, with every launch counter set to 0 before and read after;
+9. grid times: S1, S2, S4, S5 and K4 at d = 128 against their plain
+   versions, and the peak memory of the grid attention backward.
 
 Exits non-zero on any failure, and at once when no CUDA device is present.
 The last line of standard output is
@@ -48,6 +64,11 @@ SEED = 0
 CLIQUES = (512, 30)
 MODEL = dict(dim=512, num_heads=8, num_layers=3, out_dim=10)
 WIDE = 1024
+# The grid path: the reference's run_grid_suite shape.
+GRID = (1024, 1024)
+GRID_D = 128
+# Each grid kernel call is tens of ms: fewer timed calls than the slice's.
+GRID_TIMING = dict(warmup=1, iters=3, repeats=3)
 
 
 def log(msg: str) -> None:
@@ -88,10 +109,11 @@ def phase_device():
 
 
 class Kernels:
-    """The four kernels, their plain versions and where they came from."""
+    """The eight kernels, their plain versions and where they came from."""
 
     def __init__(self):
         from custom_op_benchmark_tpu_torch.ops.kernels import attention as ka
+        from custom_op_benchmark_tpu_torch.ops.kernels import grid_dma as kg
         from custom_op_benchmark_tpu_torch.ops.kernels import (
             tiled_kernels as kt,
         )
@@ -109,6 +131,20 @@ class Kernels:
                 ka.fused_attention_rows, ka.fused_attention_rows_plain,
                 "custom_op_benchmark_tpu_torch/csrc/attention.cu",
                 "custom_op_benchmark_tpu/ops/pallas/attention.py:86"),
+            "spmm_row_sweep_dma": (
+                kg.spmm_row_sweep_dma, kg.spmm_row_sweep_dma_plain,
+                "custom_op_benchmark_tpu_torch/csrc/grid_dma.cu",
+                "scripts/exp_grid_dma.py:74"),
+            "spmm_row_sweep_dma_v2": (
+                kg.spmm_row_sweep_dma_v2, kt.spmm_row_sweep_plain,
+                "custom_op_benchmark_tpu_torch/csrc/grid_dma.cu",
+                "scripts/exp_grid_dma.py:159"),
+            "spmm_dotonly": (kt.spmm_dotonly, kt.spmm_dotonly_plain, tk,
+                             "scripts/exp_grid_bisect.py:86"),
+            "attn_variant": (
+                ka.attn_variant, ka.attn_variant_plain,
+                "custom_op_benchmark_tpu_torch/csrc/attention.cu",
+                "scripts/exp_grid_bisect.py:152"),
         }
 
     def reset(self):
@@ -117,6 +153,13 @@ class Kernels:
 
     def launches(self):
         return {name: fn.launches for name, (fn, *_) in self.table.items()}
+
+
+SLICE_KERNELS = ("sddmm_tiles", "spmm_row_sweep", "spmm_col_sweep",
+                 "fused_attention_rows")
+S5_SETTINGS = {f"attn_variant:{'exp' if e else 'noexp'},"
+               f"{'mask' if m else 'nomask'}": dict(use_exp=e, use_mask=m)
+               for e in (True, False) for m in (True, False)}
 
 
 def kernel_calls(tg, q, k, v, vals):
@@ -131,26 +174,38 @@ def kernel_calls(tg, q, k, v, vals):
     }
 
 
+def split_kwargs(args):
+    """A call's positional arguments and the keyword arguments its last
+    element holds, if that is a dict."""
+    if args and isinstance(args[-1], dict):
+        return args[:-1], args[-1]
+    return args, {}
+
+
 def check_kernels(kern, calls, label, only=None):
     """Kernel vs plain on the card; also checks that two kernel runs agree
-    bit for bit. Returns the max abs error per kernel."""
+    bit for bit. A call's key is the kernel's name, or ``name:tag``; a dict
+    as its last argument holds keyword arguments (the same for the plain
+    version). Returns the max abs error per key."""
     errs = {}
-    for name, args in calls.items():
+    for key, args in calls.items():
+        name = key.partition(":")[0]
         if only is not None and name not in only:
             continue
+        args, kwargs = split_kwargs(args)
         fn, plain = kern.table[name][:2]
-        got, again = fn(*args), fn(*args)
-        want = plain(*args)
+        got, again = fn(*args, **kwargs), fn(*args, **kwargs)
+        want = plain(*args, **kwargs)
         torch.cuda.synchronize()
         assert got.shape == want.shape, (name, got.shape, want.shape)
         assert torch.equal(got, again), f"{name} is not deterministic"
         err = float((got - want).abs().max())
         ok = torch.allclose(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
-        log(f"[parity] {label:28s} {name:22s} shape {tuple(got.shape)} "
+        log(f"[parity] {label:28s} {key:26s} shape {tuple(got.shape)} "
             f"max_abs_err {err:.3e} max|plain| "
             f"{float(want.abs().max()):.3e} {'ok' if ok else 'FAIL'}")
-        assert ok, f"{name} disagrees with its plain version ({label})"
-        errs[name] = err
+        assert ok, f"{key} disagrees with its plain version ({label})"
+        errs[key] = err
     return errs
 
 
@@ -267,27 +322,83 @@ def phase_train(kern, dev, g, tg, x, labels, model):
     log(f"[train] losses {losses} acc {[float(a) for _, a in results]}")
     log(f"[train] launches in 3 steps: {launches}")
     assert all(np.isfinite(losses)), losses
-    assert all(n > 0 for n in launches.values()), launches
+    assert all(launches[k] > 0 for k in SLICE_KERNELS), launches
     return launches, lambda: step(state, g, xx, yy, mm)
+
+
+def well_posed_s5(tg, n, d, device, seed):
+    """Inputs on which S5 without ``exp`` is well posed (the same design as
+    tests/test_torch_grid_kernels.py). Without ``exp`` the recurrence is
+    ``l = l·(m_prev − m) + Σ(s − m)``, a sign-changing sum, and the masked
+    −1e30 terms overflow once multiplied, so on general inputs rounding
+    decides the sign of ``l`` and whether a row reads 0. Here:
+
+    - every live row is a whole tile row (the even rows of each tile); the
+      odd rows are masked out everywhere (their m stays −1e9, so
+      m_prev − m = 0 and they read 0). Where n is not a multiple of 128,
+      the keys past n (zero) score 0 in a row's last tile and their −m
+      terms make ``l`` negative, so those rows read 0 in both variants:
+      only the grid's check (n a multiple of 128) sees non-zero outputs;
+    - q is 1 in features 0 and 1; k holds 16 × the key's column block in
+      feature 0 and ±1 in feature 1; v holds two entries of ±1; scale 1/8.
+      So every score is exact in f32, a tile's scores spread by 1/4, and
+      the row maxima rise by at least 2 from one of a row's tiles to the
+      next: |l·(m_prev − m)| outgrows |Σ(s − m)| and no rounding can flip
+      the sign of l.
+    """
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def pm1(shape):
+        return torch.randint(0, 2, shape, device=device,
+                             generator=gen).float() * 2 - 1
+
+    q = torch.zeros(n, d, device=device)
+    q[:, :2] = 1.0
+    k = torch.zeros(n, d, device=device)
+    k[:, 0] = (torch.arange(n, device=device) // 128).float() * 16
+    k[:, 1] = pm1((n,))
+    v = torch.zeros(n, d, device=device)
+    v[:, :2] = pm1((n, 2))
+    live = torch.arange(128, device=device) % 2 == 0
+    mask = live[None, :, None].expand(tg.num_tiles, 128, 128).contiguous()
+    return mask, q, k, v, 0.125
+
+
+def grid_kernel_calls(tg, x, vals, x40, wp=None):
+    """The grid kernels' arguments as the grid path gives them: ``tg`` the
+    row-sorted tiling (SpMM), its transpose the attention's. ``wp`` (from
+    :func:`well_posed_s5`) feeds S5 without ``exp``; without it those two
+    settings take the grid's own inputs (for timing)."""
+    from custom_op_benchmark_tpu_torch.ops.kernels.grid_dma import pad_layout
+
+    tgt = tg.transpose()
+    cols_pad, vals_pad = pad_layout(tg, vals)
+    scale = x.shape[-1] ** -0.5
+    att = (tgt.tile_ptr, tgt.tile_cols, tgt.mask, x, x, x, scale)
+    calls = {
+        "spmm_row_sweep_dma": (cols_pad, vals_pad, x),
+        "spmm_row_sweep_dma_v2": (tg.tile_ptr, tg.tile_cols, vals, x),
+        "spmm_dotonly": (tg.tile_ptr, tg.tile_cols, x),
+        f"fused_attention_rows:d={x.shape[-1]}": att,
+    }
+    if x40 is not None:
+        calls["fused_attention_rows:d=40"] = (
+            tgt.tile_ptr, tgt.tile_cols, tgt.mask, x40, x40, x40, 40 ** -0.5)
+    for key, kw in S5_SETTINGS.items():
+        if kw["use_exp"] or wp is None:
+            calls[key] = att + (kw,)
+        else:
+            calls[key] = (tgt.tile_ptr, tgt.tile_cols) + wp + (kw,)
+    return calls
 
 
 def time_ms(fn, warmup=3, iters=10, repeats=5):
     """Median over ``repeats`` of the mean time of ``iters`` back-to-back
     calls, by CUDA events, after ``warmup`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
+    from custom_op_benchmark_tpu_torch.utils.benchlib import time_cuda
+
+    return statistics.median(time_cuda(fn, warmup=warmup, iters=iters,
+                                       repeats=repeats)) * 1e3
 
 
 def phase_times(kern, slice_inputs, train_step):
@@ -317,6 +428,138 @@ def phase_times(kern, slice_inputs, train_step):
     return times
 
 
+def phase_grid_build(dev):
+    from custom_op_benchmark_tpu_torch.utils.bench_suite import grid_case
+
+    t0 = time.perf_counter()
+    case = grid_case(*GRID, GRID_D, device=dev)
+    torch.cuda.synchronize()
+    tg = case.tg
+    log(f"[grid] {GRID[0]}x{GRID[1]} n={case.n} e={case.e} T={tg.num_tiles} "
+        f"nrb={tg.num_row_blocks} max_tiles_per_row={tg.max_tiles_per_row} "
+        f"density={tg.density:.4f}; host build {case.host_s:.2f} s, with "
+        f"the move to the card {time.perf_counter() - t0:.2f} s")
+    return case
+
+
+def phase_grid_parity(kern, dev, case):
+    rng = np.random.default_rng(SEED + 2)
+    tg = case.tg
+    x40 = normal(rng, tg.n_nodes, 40, device=dev)
+    wp = well_posed_s5(tg, tg.n_nodes, GRID_D, dev, SEED + 3)
+    errs = check_kernels(kern, grid_kernel_calls(tg, case.q_al, case.vals,
+                                                 x40, wp), f"grid d={GRID_D}")
+    del wp, x40
+    # K4/S5's D = 256 instantiation at the grid's shapes (d = 200).
+    x200 = normal(rng, tg.n_nodes, 200, device=dev)
+    wp = well_posed_s5(tg, tg.n_nodes, 200, dev, SEED + 5)
+    check_kernels(kern, grid_kernel_calls(tg, x200, case.vals, None, wp),
+                  "grid d=200", only=("fused_attention_rows", "attn_variant"))
+    del wp, x200
+    torch.cuda.synchronize()
+    # The irregular graph of phase 2: an empty row and column block.
+    n_small = 300
+    src = rng.choice(np.r_[0:128, 256:n_small], size=4000)
+    dst = rng.choice(np.r_[0:256], size=4000)
+    from custom_op_benchmark_tpu_torch.graph import from_coo, tile_graph
+    small = tile_graph(from_coo(src, dst, n_small), 128, 128, device=dev)
+    # d = 33 moves x through S1/S2's 4-byte copies (rows not 16-byte
+    # aligned); d = 200 runs K4/S5's D = 256 instantiation.
+    for d in (GRID_D, 40, 33, 200):
+        xs = normal(rng, n_small, d, device=dev)
+        sv = torch.where(small.mask, normal(rng, small.num_tiles, 128, 128,
+                                            device=dev), 0.0)
+        wp = well_posed_s5(small, n_small, d, dev, SEED + 4)
+        check_kernels(kern, grid_kernel_calls(
+            small, xs, sv, normal(rng, n_small, 40, device=dev), wp),
+            f"irregular n=300 d={d}")
+    torch.cuda.synchronize()
+    return errs
+
+
+def phase_grid_path(kern, case):
+    """The grid path, counted: S1/S2 against the segment oracle, the grid
+    suite, and the two experiments' rows."""
+    from custom_op_benchmark_tpu_torch.experiments import (
+        exp_grid_bisect,
+        exp_grid_dma,
+    )
+    from custom_op_benchmark_tpu_torch.ops import vector_spmm
+    from custom_op_benchmark_tpu_torch.ops.kernels.grid_dma import (
+        pad_layout,
+        spmm_row_sweep_dma,
+        spmm_row_sweep_dma_v2,
+    )
+    from custom_op_benchmark_tpu_torch.utils.bench_suite import (
+        _check,
+        run_grid_suite,
+    )
+
+    kern.reset()
+    records, ok = [], True
+    ro, tg = case.ro, case.tg
+    y0 = vector_spmm(case.g, case.ed, case.q, impl="xla")
+    cols_pad, vals_pad = pad_layout(tg, case.vals)
+    y1 = spmm_row_sweep_dma(cols_pad, vals_pad, case.q_al, ro.n_new)
+    ok &= _check("grid spmm S1 vs segment", ro.gather_nodes(y1), y0, records)
+    y2 = spmm_row_sweep_dma_v2(tg.tile_ptr, tg.tile_cols, case.vals,
+                               case.q_al, ro.n_new)
+    ok &= _check("grid spmm S2 vs segment", ro.gather_nodes(y2), y0, records)
+    del y0, y1, y2, cols_pad, vals_pad
+    suite, suite_ok = run_grid_suite(*GRID, GRID_D, case=case,
+                                     **GRID_TIMING)
+    records += suite
+    for r in records:
+        if "check" in r:
+            log(f"[grid] gate {r['check']:40s} max_diff {r['max_diff']:.3e} "
+                f"{'ok' if r['ok'] else 'FAIL'}")
+    dma = exp_grid_dma.run(case, **GRID_TIMING)
+    bisect = exp_grid_bisect.run(case, **GRID_TIMING)
+    torch.cuda.synchronize()
+    launches = kern.launches()
+    log(f"[grid] launches on the grid path: {launches}")
+    log(json.dumps({"grid_suite": records}))
+    log(json.dumps({"grid_dma": dma}))
+    log(json.dumps({"grid_bisect": bisect}))
+    assert ok and suite_ok, "a grid gate failed"
+    assert dma["allclose"] and dma["allclose_v2"], dma
+    assert all(n > 0 for n in launches.values()), launches
+    return launches
+
+
+def phase_grid_times(kern, case):
+    from custom_op_benchmark_tpu_torch.utils.bench_suite import (
+        tiled_grid_attention,
+    )
+
+    times = {}
+    calls = grid_kernel_calls(case.tg, case.q_al, case.vals, None)
+    for key in ("spmm_row_sweep_dma", "spmm_row_sweep_dma_v2", "spmm_dotonly",
+                f"fused_attention_rows:d={GRID_D}", *S5_SETTINGS):
+        args, kwargs = split_kwargs(calls[key])
+        fn, plain = kern.table[key.partition(":")[0]][:2]
+        p1 = time_ms(lambda: plain(*args, **kwargs), **GRID_TIMING)
+        k1 = time_ms(lambda: fn(*args, **kwargs), **GRID_TIMING)
+        k2 = time_ms(lambda: fn(*args, **kwargs), **GRID_TIMING)
+        p2 = time_ms(lambda: plain(*args, **kwargs), **GRID_TIMING)
+        times[key] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        log(f"[time] {key:30s} grid d={GRID_D} kernel {k1:.4f}/{k2:.4f} ms"
+            f"  plain {p1:.4f}/{p2:.4f} ms")
+    del calls
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    q = case.q_al.detach().requires_grad_()
+    (tiled_grid_attention(case, q) ** 2).sum().backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[time] grid attention backward (d={GRID_D}): peak memory "
+        f"{peak / 2**30:.2f} GiB, {(peak - base) / 2**30:.2f} GiB above the "
+        f"{base / 2**30:.2f} GiB held before it")
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -330,13 +573,29 @@ def main() -> int:
     launches, train_step = phase_train(kern, dev, g, tg, x, labels, model)
     times = phase_times(kern, slice_inputs, train_step)
     torch.cuda.synchronize()
+    del slice_inputs, train_step, model
+    torch.cuda.empty_cache()
+    case = phase_grid_build(dev)
+    grid_errs = phase_grid_parity(kern, dev, case)
+    grid_launches = phase_grid_path(kern, case)
+    grid_times = phase_grid_times(kern, case)
+    torch.cuda.synchronize()
     report = []
     for name, (_, _, source, replaces) in kern.table.items():
-        ms, plain_ms = times[(name, "h=8 d=64")]
+        if name in SLICE_KERNELS:
+            (ms, plain_ms), err = times[(name, "h=8 d=64")], errs[name]
+            n, shape = launches[name], "GraphTransformer slice, h=8 d=64"
+        else:
+            # S5 with exp and mask: well posed on the grid's own inputs, so
+            # its error and its time come from the same call.
+            key = ("attn_variant:exp,mask" if name == "attn_variant"
+                   else name)
+            (ms, plain_ms), err = grid_times[key], grid_errs[key]
+            n, shape = grid_launches[name], f"grid 1024x1024, d={GRID_D}"
         report.append({"name": name, "route": "cuda", "source": source,
-                       "replaces": replaces, "launches": launches[name],
-                       "max_abs_err": errs[name], "ms": ms,
-                       "plain_ms": plain_ms})
+                       "replaces": replaces, "launches": n,
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "shape": shape})
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

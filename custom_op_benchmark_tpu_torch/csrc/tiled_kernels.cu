@@ -9,6 +9,10 @@
 //   K3 spmm_col_sweep   <- spmm_col_sweep_kernel
 //     X'[j, h] = sum_{k in ptr_c[j]..ptr_c[j+1]} vals[h,t]^T @ Y[rows[t]*128 : +128, h],
 //                with t = perm[k]
+// and, from scripts/exp_grid_bisect.py, the diagnostic
+//   S4 spmm_dotonly     <- spmm_dotonly
+//     K2 with every vals tile replaced by the constant 0.01: the same tile
+//     products with no vals bytes read (a compile-time switch of K2).
 //
 // What bounds them on this card: each is a batch of 128x128xd tile
 // products in f32. At the GraphTransformer slice's shapes (T = 344 tiles,
@@ -104,7 +108,8 @@ sddmm_tiles_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
 //   out row r = sum_c vals[t][r][c] * x[blk[t]*128 + c].
 // COL = true: column sweep over perm[ptr[j]..ptr[j+1]],
 //   out row c = sum_r vals[t][r][c] * x[blk[t]*128 + r].
-template <bool COL>
+// DOTONLY = true (row sweep only): every vals entry is 0.01; vals is not read.
+template <bool COL, bool DOTONLY = false>
 __global__ void __launch_bounds__(THREADS)
 spmm_sweep_kernel(const int* __restrict__ ptr, const int* __restrict__ perm,
                   const int* __restrict__ blk, const float* __restrict__ vals,
@@ -127,10 +132,13 @@ spmm_sweep_kernel(const int* __restrict__ ptr, const int* __restrict__ perm,
   for (int p = lo; p < hi; ++p) {
     const int t = COL ? perm[p] : p;
     const long long x0 = (long long)blk[t] * TILE;
-    const float* v = vals + ((long long)h * T + t) * TILE * TILE;
+    const float* v =
+        DOTONLY ? nullptr : vals + ((long long)h * T + t) * TILE * TILE;
     for (int k0 = 0; k0 < TILE; k0 += KC) {
       for (int e = tid; e < TILE * KC; e += THREADS) {
-        if (COL) {
+        if (DOTONLY) {
+          Ls[e / TILE][e % TILE] = 0.01f;
+        } else if (COL) {
           const int k = e / TILE, c = e % TILE;
           Ls[k][c] = v[(k0 + k) * TILE + c];
         } else {
@@ -211,6 +219,18 @@ int spmm_col_sweep_f32(const int* tile_ptr_c, const int* tile_perm_c,
   dim3 grid(ncb, (d + DC - 1) / DC, H);
   spmm_sweep_kernel<true><<<grid, THREADS, 0, stream>>>(
       tile_ptr_c, tile_perm_c, tile_rows, vals, y, out, T, d, n_y, n_out);
+  return (int)cudaGetLastError();
+}
+
+// S4: x: (n_x, H, d) -> out: (n_out, H, d), n_out <= nrb * 128; the row
+// sweep with every tile's values the constant 0.01 (no vals argument).
+int spmm_dotonly_f32(const int* tile_ptr, const int* tile_cols,
+                     const float* x, float* out, int nrb, int H, int d,
+                     int n_x, int n_out, int device, cudaStream_t stream) {
+  cudaSetDevice(device);
+  dim3 grid(nrb, (d + DC - 1) / DC, H);
+  spmm_sweep_kernel<false, true><<<grid, THREADS, 0, stream>>>(
+      tile_ptr, nullptr, tile_cols, nullptr, x, out, 0, d, n_x, n_out);
   return (int)cudaGetLastError();
 }
 

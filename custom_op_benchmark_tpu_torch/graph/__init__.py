@@ -6,7 +6,16 @@ from custom_op_benchmark_tpu_torch.graph.builders import (
     random_graph,
 )
 from custom_op_benchmark_tpu_torch.graph.graph import Graph, from_coo
+from custom_op_benchmark_tpu_torch.graph.reorder import (
+    Reordering,
+    connected_components,
+    degree_balanced_order,
+    reorder_graph,
+    tile_aligned_order,
+)
 from custom_op_benchmark_tpu_torch.graph.tiled import TiledGraph, tile_graph
 
-__all__ = ["Graph", "TiledGraph", "clique_batch", "from_coo", "grid_graph",
-           "random_graph", "tile_graph"]
+__all__ = ["Graph", "Reordering", "TiledGraph", "clique_batch",
+           "connected_components", "degree_balanced_order", "from_coo",
+           "grid_graph", "random_graph", "reorder_graph", "tile_aligned_order",
+           "tile_graph"]

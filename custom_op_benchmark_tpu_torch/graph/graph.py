@@ -56,6 +56,10 @@ class Graph:
         return self.src.shape[0]
 
     @property
+    def has_padding(self) -> bool:
+        return self.num_edges_padded != self.n_edges
+
+    @property
     def edge_mask(self) -> torch.Tensor:
         """(E,) bool — True on real edges, False on the padded tail."""
         return torch.arange(self.num_edges_padded,
@@ -91,6 +95,12 @@ class Graph:
             n_nodes=self.n_nodes,
             n_edges=self.n_edges,
         )
+
+    def to(self, device) -> "Graph":
+        moved = {f.name: getattr(self, f.name).to(device)
+                 for f in dataclasses.fields(self)
+                 if isinstance(getattr(self, f.name), torch.Tensor)}
+        return dataclasses.replace(self, **moved)
 
     def __repr__(self) -> str:
         return (f"Graph(n_nodes={self.n_nodes}, n_edges={self.n_edges}, "

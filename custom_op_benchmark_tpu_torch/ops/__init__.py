@@ -1,5 +1,18 @@
-"""Ops on the block-sparse tile view, with hand VJPs over the CUDA kernels."""
+"""The op family: the public API (segment oracle and strategy dispatch)
+and the ops on the block-sparse tile view, with hand VJPs over the CUDA
+kernels."""
 
+from custom_op_benchmark_tpu_torch.ops.primitives import (
+    attention,
+    edge_softmax,
+    gat_attention,
+    gsddmm,
+    gspmm,
+    node_mul_edge,
+    sddmm,
+    softmax_aggregate_dst,
+    vector_spmm,
+)
 from custom_op_benchmark_tpu_torch.ops.tiled import (
     tiled_attention,
     tiled_sddmm,
@@ -7,4 +20,7 @@ from custom_op_benchmark_tpu_torch.ops.tiled import (
     tiled_spmm,
 )
 
-__all__ = ["tiled_attention", "tiled_sddmm", "tiled_softmax", "tiled_spmm"]
+__all__ = ["attention", "edge_softmax", "gat_attention", "gsddmm", "gspmm",
+           "node_mul_edge", "sddmm", "softmax_aggregate_dst",
+           "tiled_attention", "tiled_sddmm", "tiled_softmax", "tiled_spmm",
+           "vector_spmm"]

@@ -1,0 +1,174 @@
+"""Execution-strategy dispatch for the public op API.
+
+Counterpart of custom_op_benchmark_tpu/ops/dispatch.py, for the strategies
+the port has so far:
+
+- ``"xla"``    — the segment oracle (ops/xla.py), any graph;
+- ``"tiled"``  — the CUDA tile kernels (ops/kernels/) on the tile-aligned
+  node order, through ops/tiled.py; ``"pallas"`` is its alias, as in the
+  reference, so it reaches the hand kernels;
+- ``"auto"``   — the segment path below :data:`AUTO_MIN_EDGES` edges, as in
+  the reference; above it the reference asks the strategy advisor
+  (``utils/summary.describe``), which is not ported yet (ROADMAP M5).
+
+``"dense_block"`` and ``"ell"`` raise NotImplementedError naming their
+ROADMAP items (M5, M8). The tiled view (reorder, tiles, edge permutations)
+is built on the host once per :class:`Graph` object and cached by object
+identity; the entry goes when the graph is garbage-collected.
+"""
+
+from __future__ import annotations
+
+import weakref
+
+import numpy as np
+import torch
+
+from custom_op_benchmark_tpu_torch.graph.graph import Graph
+
+# Below this edge count the segment path wins once the view build is
+# counted (the reference's threshold).
+AUTO_MIN_EDGES = 20_000
+
+_VIEW_CACHE: dict = {}
+
+_NOT_PORTED = {
+    "dense_block": "the dense-block strategy is not ported yet (ROADMAP M5)",
+    "ell": "the ELL strategy is not ported yet (ROADMAP M8)",
+    "auto": ("impl='auto' on a graph of 20,000 edges or more needs the "
+             "strategy advisor, which is not ported yet (ROADMAP M5); pass "
+             "impl='xla' or impl='tiled'"),
+}
+
+
+def _views_for(g: Graph) -> dict:
+    key = id(g)
+    entry = _VIEW_CACHE.get(key)
+    if entry is None:
+        entry = _VIEW_CACHE[key] = {}
+        weakref.finalize(g, _VIEW_CACHE.pop, key, None)
+    return entry
+
+
+def resolve(g: Graph, impl: str) -> str:
+    """Map the user's ``impl`` to a strategy the port runs: ``"xla"`` or
+    ``"tiled"``. Raises NotImplementedError for the unported ones."""
+    if impl == "pallas":
+        impl = "tiled"
+    if impl in ("xla", "tiled"):
+        return impl
+    if impl == "auto":
+        if g.n_edges < AUTO_MIN_EDGES:
+            return "xla"
+        raise NotImplementedError(_NOT_PORTED["auto"])
+    if impl in ("dense_block", "ell"):
+        raise NotImplementedError(_NOT_PORTED[impl])
+    raise ValueError("impl must be one of auto/xla/pallas/dense_block/tiled/"
+                     f"ell, got {impl!r}")
+
+
+def get_tiled(g: Graph):
+    """(ro, tg, eperm, eperm_inv): tile-aligned reorder and 128×128 tiling,
+    cached per graph, on the graph's device.
+
+    ``eperm`` maps the reordered graph's canonical edge k to the original
+    canonical edge id (a padded tail to a padded original edge);
+    ``eperm_inv`` maps an original edge id to its reordered position, the
+    padded tail to the last slot.
+    """
+    views = _views_for(g)
+    if "tiled" not in views:
+        from custom_op_benchmark_tpu_torch.graph.reorder import (
+            reorder_graph,
+            tile_aligned_order,
+        )
+        from custom_op_benchmark_tpu_torch.graph.tiled import tile_graph
+
+        ro = tile_aligned_order(g, block=128)
+        g2, eperm = reorder_graph(g, ro)
+        tg = tile_graph(g2, 128, 128)
+        eperm_full = np.full(g2.num_edges_padded, g.num_edges_padded - 1,
+                             dtype=np.int64)
+        eperm_full[: len(eperm)] = eperm
+        eperm_inv = np.full(g.num_edges_padded, g2.num_edges_padded - 1,
+                            dtype=np.int64)
+        eperm_inv[eperm] = np.arange(len(eperm))
+        views["tiled"] = (ro, tg, torch.from_numpy(eperm_full).to(g.device),
+                          torch.from_numpy(eperm_inv).to(g.device))
+    return views["tiled"]
+
+
+def _not_ported(strategy: str):
+    raise NotImplementedError(_NOT_PORTED[strategy])
+
+
+# ---------------------------------------------------------------------------
+# Op routing. Each function takes the original operand shapes — (n, d) or
+# (n, h, d) nodes, (E,) or (E, h) edges — and returns results in canonical
+# edge or node order with matching rank, as the segment path does. Heads
+# are the tile kernels' own grid axis (the reference vmaps over them).
+# ---------------------------------------------------------------------------
+
+def _edges_to_tiles(tg, eperm, x):
+    """Canonical edge values (E[, h]) → tile-dense (T, R, C) or
+    (h, T, R, C)."""
+    s = tg.scatter_edges(x[eperm])[: tg.num_tiles]
+    return s if x.dim() == 1 else s.permute(3, 0, 1, 2)
+
+
+def _tiles_to_edges(tg, eperm_inv, s):
+    """Tile-dense (T, R, C) or (h, T, R, C) → canonical (E[, h])."""
+    if s.dim() == 4:
+        s = s.permute(1, 2, 3, 0)
+    return tg.gather_edges(s)[eperm_inv]
+
+
+def sddmm(strategy: str, g, A, B):
+    if strategy != "tiled":
+        _not_ported(strategy)
+    from custom_op_benchmark_tpu_torch.ops.tiled import tiled_sddmm
+
+    ro, tg, _, eperm_inv = get_tiled(g)
+    s = tiled_sddmm(tg, ro.scatter_nodes(A), ro.scatter_nodes(B))
+    return _tiles_to_edges(tg, eperm_inv, s)
+
+
+def vector_spmm(strategy: str, g, edata, x):
+    if strategy != "tiled":
+        _not_ported(strategy)
+    from custom_op_benchmark_tpu_torch.ops.tiled import tiled_spmm
+
+    ro, tg, eperm, _ = get_tiled(g)
+    vals = _edges_to_tiles(tg, eperm, edata)
+    return ro.gather_nodes(tiled_spmm(tg, vals, ro.scatter_nodes(x),
+                                      out_rows=ro.n_new))
+
+
+def edge_softmax(strategy: str, g, x, by: str):
+    if strategy != "tiled":
+        _not_ported(strategy)
+    from custom_op_benchmark_tpu_torch.ops.tiled import tiled_softmax
+
+    _, tg, eperm, eperm_inv = get_tiled(g)
+    y = tiled_softmax(tg, _edges_to_tiles(tg, eperm, x), by=by)
+    return _tiles_to_edges(tg, eperm_inv, y)
+
+
+def node_mul_edge(strategy: str, g, A, Be):
+    _not_ported(strategy)
+
+
+def attention(strategy: str, g, q, k, v, scale: float, edge_bias=None):
+    if strategy != "tiled":
+        _not_ported(strategy)
+    from custom_op_benchmark_tpu_torch.ops.tiled import tiled_attention
+
+    assert edge_bias is None  # the caller routes edge-bias to ELL
+    ro, tg, _, _ = get_tiled(g)
+    y = tiled_attention(tg, ro.scatter_nodes(q), ro.scatter_nodes(k),
+                        ro.scatter_nodes(v), scale=scale, normalize="dst")
+    return ro.gather_nodes(y)
+
+
+def gat_attention(strategy: str, g, a_l, a_r, z, negative_slope: float):
+    _not_ported(strategy)

@@ -1,8 +1,9 @@
 """Build the hand-written CUDA kernels and load them with ctypes.
 
 The sources under ``custom_op_benchmark_tpu_torch/csrc/`` have a plain C
-interface, so ``nvcc`` compiles them in seconds into one shared library
-(no PyTorch headers). The build runs at first use, into
+interface, so ``nvcc`` compiles them in seconds (no PyTorch headers): one
+``nvcc -c`` per source, all started together, then one link into a shared
+library. The build runs at first use, into
 ``build/torch_kernels/`` at the repository root, keyed on a hash of the
 sources and flags: an unchanged checkout reuses its library, a changed one
 builds anew. A failed build raises with nvcc's output; there is no
@@ -22,9 +23,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("tiled_kernels.cu", "attention.cu")
+SOURCES = ("tiled_kernels.cu", "attention.cu", "grid_dma.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +37,11 @@ _SIGNATURES = {
     "spmm_col_sweep_f32": [_P] * 6 + [_I] * 7 + [_P],
     "fused_attention_rows_f32": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I,
                                                        _P],
+    "spmm_dotonly_f32": [_P] * 4 + [_I] * 6 + [_P],
+    "attn_variant_f32": [_P] * 7 + [_I] * 6 + [ctypes.c_float] + [_I] * 3
+    + [_P],
+    "spmm_row_sweep_dma_f32": [_P] * 4 + [_I] * 7 + [_P],
+    "spmm_row_sweep_dma_v2_f32": [_P] * 5 + [_I] * 6 + [_P],
 }
 
 
@@ -69,16 +75,31 @@ def build() -> Path:
         raise RuntimeError(f"cannot build the CUDA kernels: no nvcc at "
                            f"{nvcc} (set CUDA_HOME or put nvcc on PATH)")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(name).stem}.o" for name in SOURCES]
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / name) for name in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / name)]
+            for name, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in jobs]
+    outs = [p.communicate()[0] for p in procs]
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", str(tmp), *map(str, objs)]
+    failed = [(cmd, out) for cmd, p, out in zip(jobs, procs, outs)
+              if p.returncode != 0]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        outs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed = [(link, outs[-1])]
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-    so.with_suffix(".log").write_text(log)
+        cmd, out = failed[0]
+        raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{out}")
+    so.with_suffix(".log").write_text("".join(outs))
     os.replace(tmp, so)
     return so
 

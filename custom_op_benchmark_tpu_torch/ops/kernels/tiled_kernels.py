@@ -7,7 +7,12 @@ Counterparts of custom_op_benchmark_tpu/ops/pallas/tiled_kernels.py:
 - :func:`spmm_row_sweep` (K2) — per row block i,
   ``Y[i] = Σ_{t ∈ ptr[i]..ptr[i+1]} vals[t] @ X[cols[t]]``;
 - :func:`spmm_col_sweep` (K3) — per column block j, over the column-sorted
-  tile view, ``X'[j] = Σ_t vals[perm[t]]ᵀ @ Y[rows[perm[t]]]``.
+  tile view, ``X'[j] = Σ_t vals[perm[t]]ᵀ @ Y[rows[perm[t]]]``;
+
+and of ``spmm_dotonly`` in scripts/exp_grid_bisect.py:
+
+- :func:`spmm_dotonly` (S4) — K2 with every vals entry the constant 0.01,
+  a diagnostic that does K2's tile products without reading vals.
 
 Shapes: node arrays are ``(n, d)`` or ``(n, H, d)`` (heads read in place);
 tile arrays are ``(T, R, C)`` or ``(H, T, R, C)`` to match. Node rows at or
@@ -176,6 +181,50 @@ def spmm_row_sweep(tile_ptr, tile_cols, vals, x,
 
 
 spmm_row_sweep.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# S4: the row sweep with constant tiles (diagnostic)
+# ---------------------------------------------------------------------------
+
+DOTONLY_VALUE = 0.01
+
+
+def spmm_dotonly_plain(tile_ptr, tile_cols, x, n_out=None):
+    """Every row of block i is 0.01 · Σ_{t of i} Σ_c x[cols[t]·C + c]."""
+    nrb = tile_ptr.shape[0] - 1
+    xt = _row_tiles(_heads(x), tile_cols, TILE)             # (T, C, H, d)
+    colsum = xt.sum(1) * DOTONLY_VALUE                      # (T, H, d)
+    y = sorted_segment_reduce(colsum, tile_ptr, "sum")      # (NRB, H, d)
+    y = y[:, None].expand(nrb, TILE, *y.shape[1:])
+    y = y.reshape((nrb * TILE,) + tuple(y.shape[2:]))
+    y = y[: nrb * TILE if n_out is None else n_out]
+    return y[:, 0] if x.dim() == 2 else y
+
+
+def spmm_dotonly(tile_ptr, tile_cols, x, n_out: Optional[int] = None):
+    """x: (n_x, [H,] d) → y (n_out, [H,] d) = K2 over the tiles of
+    ``tile_ptr``/``tile_cols`` with every tile 128×128 of 0.01 (the mask is
+    not read). ``n_out`` ≤ NRB·128 (default NRB·128)."""
+    if _on_cpu(tile_ptr, tile_cols, x):
+        return spmm_dotonly_plain(tile_ptr, tile_cols, x, n_out)
+    _check_cuda(ints=(tile_ptr, tile_cols), floats=(x,))
+    xh = _heads(x)
+    h, d = xh.shape[1], xh.shape[2]
+    nrb = tile_ptr.shape[0] - 1
+    n_out = nrb * TILE if n_out is None else n_out
+    if not 0 <= n_out <= nrb * TILE:
+        raise ValueError(f"n_out={n_out} outside [0, {nrb * TILE}]")
+    out = torch.empty((n_out, h, d), device=x.device, dtype=x.dtype)
+    dev, stream = _stream(x)
+    _build.check(_build.library().spmm_dotonly_f32(
+        _p(tile_ptr), _p(tile_cols), _p(xh), _p(out), nrb, h, d,
+        xh.shape[0], n_out, dev, stream), "spmm_dotonly")
+    spmm_dotonly.launches += 1
+    return out[:, 0] if x.dim() == 2 else out
+
+
+spmm_dotonly.launches = 0
 
 
 def _check_sweep(v, xh, n_out, n_blocks):

@@ -93,10 +93,14 @@ def test_spmm_col_sweep_matches_pallas(graphs):
     assert not got[3 * TS:4 * TS].any()   # the empty column block
 
 
-@pytest.mark.parametrize("scale", [0.25, 3.0])
-def test_fused_attention_rows_matches_pallas(graphs, scale):
+@pytest.mark.parametrize("scale, d", [
+    pytest.param(0.25, D, id="0.25"),
+    pytest.param(3.0, D, id="3.0"),
+    pytest.param(128 ** -0.5, 128, id="d128"),
+])
+def test_fused_attention_rows_matches_pallas(graphs, scale, d):
     jg, tg = graphs
-    q, k, v = _normal(6, N, D), _normal(7, N, D), _normal(8, N, D)
+    q, k, v = _normal(6, N, d), _normal(7, N, d), _normal(8, N, d)
     want = jax_attention(jg.tile_ptr, jg.tile_cols, jg.mask,
                          _pad(q, tg.n_rows_padded), _pad(k, tg.n_cols_padded),
                          _pad(v, tg.n_cols_padded), jg.max_tiles_per_row,
@@ -104,7 +108,7 @@ def test_fused_attention_rows_matches_pallas(graphs, scale):
     got = k_attn.fused_attention_rows(
         tg.tile_ptr, tg.tile_cols, tg.mask, torch.from_numpy(q),
         torch.from_numpy(k), torch.from_numpy(v), scale)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want)[:N, :D], **TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want)[:N, :d], **TOL)
     no_edges = np.diff(tg.tile_ptr.numpy()).repeat(TS)[:N] == 0
     assert not got[torch.from_numpy(no_edges)].any()
 
@@ -170,3 +174,37 @@ def test_wrappers_raise_off_cpu_without_a_kernel(graphs, device):
     with pytest.raises(ValueError):
         k_attn.fused_attention_rows(tg.tile_ptr, tg.tile_cols, tg.mask,
                                     a, b, b, 1.0)
+
+
+def _attention_args(d, heads=None, tiles=2, rows=300):
+    """CPU tensors shaped as the attention kernel takes them."""
+    shape = (rows, d) if heads is None else (rows, heads, d)
+    x = torch.zeros(shape)
+    return (torch.tensor([0, 1, 2, 2], dtype=torch.int32),
+            torch.zeros(tiles, dtype=torch.int32),
+            torch.zeros((tiles, 128, 128), dtype=torch.bool), x, x, x)
+
+
+@pytest.mark.parametrize("d, heads", [(128, None), (40, 3), (1, None),
+                                      (256, 2)])
+def test_attention_kernel_checks_accept_widths_to_256(d, heads):
+    """The checks the CUDA kernel's wrapper makes take every head width
+    from 1 to 256 (the kernel was built for 64 only before)."""
+    n_q, h, dd, nrb = k_attn.check_kernel_args(*_attention_args(d, heads))
+    assert (n_q, h, dd, nrb) == (300, heads or 1, d, 3)
+
+
+@pytest.mark.parametrize("bad", ["d257", "float64", "rows", "tile", "cols"])
+def test_attention_kernel_checks_refuse(bad):
+    ptr, cols, mask, q, k, v = _attention_args(257 if bad == "d257" else 64)
+    if bad == "float64":
+        q = q.double()
+    elif bad == "rows":
+        q = torch.zeros(3 * 128 + 1, 64)
+    elif bad == "tile":
+        mask = torch.zeros((2, 64, 64), dtype=torch.bool)
+    elif bad == "cols":
+        cols = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        k_attn.check_kernel_args(ptr, cols, mask, q, k if bad != "rows"
+                                 else q, v if bad != "rows" else q)
