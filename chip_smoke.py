@@ -3,12 +3,17 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths and checks them. The first: AdamW train
+Drives the port's three main paths and checks them. The first: AdamW train
 steps of ``GraphTransformer(dim=512, num_heads=8, num_layers=3,
 out_dim=10)`` on the 512×30 clique batch through its 128×128 tile view.
 The second: the grid regime at full size — the tile-aligned 1024×1024 grid
 graph at d = 128, through the grid suite (``utils/bench_suite.py``) and
 the two grid experiments (``experiments/``), which run S1, S2, S4 and S5.
+The third: the ELL strategy — the power-law graph of the reference's
+power-law suite (n = 131,072, 2M edges, d = 128) through that suite and
+the S3 experiment, and the arxiv configuration (160,000 nodes, 40
+classes) trained full-graph on the ELL path by GAT (3 layers, 4 heads of
+128), GCN and GraphSAGE (hidden 128), the last two on S3.
 
 1. device: a CUDA device is present; print its name and power limit, then
    build the CUDA kernels from ``custom_op_benchmark_tpu_torch/csrc`` (one
@@ -32,7 +37,23 @@ the two grid experiments (``experiments/``), which run S1, S2, S4 and S5.
    fractions against the measured copy bandwidth) and the two experiments'
    rows, with every launch counter set to 0 before and read after;
 9. grid times: S1, S2, S4, S5 and K4 at d = 128 against their plain
-   versions, and the peak memory of the grid attention backward.
+   versions, and the peak memory of the grid attention backward;
+10. power-law build: the graph and its dual ELL packing on both ladders on
+    the host (seconds and padding waste), moved to the card;
+11. S3 parity against its plain version, bit-for-bit repeats: at the
+    experiment's shape, on every bucket of both packings of both ladders
+    at d = 128, at d = 1, 33 and 200, at an R that is not a multiple of 8
+    and on a bucket of padding only;
+12. the power-law path: the suite's gates at 2e-3 and its timed rows, and
+    the S3 experiment's rows, with the counters set to 0 before and read
+    after;
+13. the arxiv configuration: for GAT, GCN and GraphSAGE at full width, the
+    ELL path against the segment path on the card from the same weights
+    (logits, loss, every gradient), S3 launched in the forward and the
+    backward of GCN and SAGE, then three AdamW steps through
+    ``fit_full_graph(strategy="ell")`` with finite losses, the step time
+    and the peak memory of each path;
+14. S3 times: S3 against its plain version at the experiment's shape.
 
 Exits non-zero on any failure, and at once when no CUDA device is present.
 The last line of standard output is
@@ -69,6 +90,15 @@ GRID = (1024, 1024)
 GRID_D = 128
 # Each grid kernel call is tens of ms: fewer timed calls than the slice's.
 GRID_TIMING = dict(warmup=1, iters=3, repeats=3)
+# The power-law path: the reference's run_powerlaw_suite shape.
+POWERLAW = (131072, 2_000_000, 128)
+# The arxiv_gat configuration (custom_op_benchmark_tpu/train/run.py:106-118)
+# and its model; GCN and GraphSAGE at its width (reddit_sage's too).
+ARXIV = dict(num_classes=40, nodes_per_class=4000, feat_dim=128,
+             avg_degree=13)
+ARXIV_MODELS = {"GAT": dict(hidden_dim=128, num_layers=3, num_heads=4),
+                "GCN": dict(hidden_dim=128, num_layers=2),
+                "GraphSAGE": dict(hidden_dim=128, num_layers=2)}
 
 
 def log(msg: str) -> None:
@@ -109,10 +139,11 @@ def phase_device():
 
 
 class Kernels:
-    """The eight kernels, their plain versions and where they came from."""
+    """The nine kernels, their plain versions and where they came from."""
 
     def __init__(self):
         from custom_op_benchmark_tpu_torch.ops.kernels import attention as ka
+        from custom_op_benchmark_tpu_torch.ops.kernels import gather_sum as ks
         from custom_op_benchmark_tpu_torch.ops.kernels import grid_dma as kg
         from custom_op_benchmark_tpu_torch.ops.kernels import (
             tiled_kernels as kt,
@@ -145,6 +176,10 @@ class Kernels:
                 ka.attn_variant, ka.attn_variant_plain,
                 "custom_op_benchmark_tpu_torch/csrc/attention.cu",
                 "scripts/exp_grid_bisect.py:152"),
+            "gather_sum": (
+                ks.gather_sum, ks.gather_sum_plain,
+                "custom_op_benchmark_tpu_torch/csrc/gather_sum.cu",
+                "scripts/exp_pallas_gather.py:63"),
         }
 
     def reset(self):
@@ -157,6 +192,8 @@ class Kernels:
 
 SLICE_KERNELS = ("sddmm_tiles", "spmm_row_sweep", "spmm_col_sweep",
                  "fused_attention_rows")
+GRID_KERNELS = ("spmm_row_sweep_dma", "spmm_row_sweep_dma_v2",
+                "spmm_dotonly", "attn_variant")
 S5_SETTINGS = {f"attn_variant:{'exp' if e else 'noexp'},"
                f"{'mask' if m else 'nomask'}": dict(use_exp=e, use_mask=m)
                for e in (True, False) for m in (True, False)}
@@ -523,7 +560,8 @@ def phase_grid_path(kern, case):
     log(json.dumps({"grid_bisect": bisect}))
     assert ok and suite_ok, "a grid gate failed"
     assert dma["allclose"] and dma["allclose_v2"], dma
-    assert all(n > 0 for n in launches.values()), launches
+    assert all(launches[k] > 0 for k in SLICE_KERNELS + GRID_KERNELS), \
+        launches
     return launches
 
 
@@ -560,6 +598,201 @@ def phase_grid_times(kern, case):
     return times
 
 
+def sync_peak_gib() -> float:
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_powerlaw_build(dev):
+    from custom_op_benchmark_tpu_torch.ops import ell_dual
+    from custom_op_benchmark_tpu_torch.utils.bench_suite import powerlaw_case
+
+    t0 = time.perf_counter()
+    case = powerlaw_case(*POWERLAW, device=dev)
+    torch.cuda.synchronize()
+    moved_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train = ell_dual(case.g, profile="train")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    for ladder, (se, de) in (("pow2", (case.se, case.de)), ("train", train)):
+        log(f"[powerlaw] {ladder} ladder: src {len(se.buckets)} buckets, "
+            f"{se.total_slots} slots, waste {se.padding_waste:.3f}; dst "
+            f"{len(de.buckets)} buckets, {de.total_slots} slots, waste "
+            f"{de.padding_waste:.3f}")
+    log(f"[powerlaw] n={case.n} e={case.e} d={case.d}; host build (graph "
+        f"and pow-2 packing) {case.host_s:.2f} s, {moved_s:.2f} s with the "
+        f"inputs and the move to the card; train-ladder packing "
+        f"{train_s:.2f} s")
+    return case, train
+
+
+def phase_s3_parity(kern, dev, case, train):
+    from custom_op_benchmark_tpu_torch.experiments import exp_pallas_gather
+
+    rng = np.random.default_rng(SEED + 6)
+    cols, x = exp_pallas_gather.inputs(dev)
+    calls = {"gather_sum:experiment": (cols, x)}
+    for ladder, pair in (("pow2", (case.se, case.de)), ("train", train)):
+        for eg in pair:
+            for b in eg.buckets:
+                calls[f"gather_sum:{ladder},{eg.direction},D={b.width}"] = (
+                    b.cols, case.q)
+    widest = max(case.de.buckets, key=lambda b: b.num_rows)
+    for d in (1, 33, 200):
+        calls[f"gather_sum:d={d}"] = (widest.cols,
+                                      normal(rng, case.n, d, device=dev))
+    calls["gather_sum:R=1001"] = (cols[:1001], x)
+    calls["gather_sum:padding"] = (
+        torch.full((64, 16), case.n, dtype=torch.int32, device=dev), case.q)
+    errs = check_kernels(kern, calls, "power law / S3")
+    torch.cuda.synchronize()
+    return errs, (cols, x)
+
+
+def phase_powerlaw_path(kern, case, s3_inputs):
+    """The power-law path, counted: the suite and the S3 experiment."""
+    from custom_op_benchmark_tpu_torch.experiments import exp_pallas_gather
+    from custom_op_benchmark_tpu_torch.utils.bench_suite import (
+        run_powerlaw_suite,
+    )
+
+    kern.reset()
+    torch.cuda.reset_peak_memory_stats()
+    records, ok = run_powerlaw_suite(case=case, **GRID_TIMING)
+    peak = sync_peak_gib()
+    for r in records:
+        if "check" in r:
+            log(f"[powerlaw] gate {r['check']:44s} max_diff "
+                f"{r['max_diff']:.3e} {'ok' if r['ok'] else 'FAIL'}")
+    gather = exp_pallas_gather.run(*s3_inputs, **GRID_TIMING)
+    torch.cuda.synchronize()
+    launches = kern.launches()
+    log(f"[powerlaw] launches on the power-law path: {launches}; peak "
+        f"memory of the suite {peak:.2f} GiB")
+    log(json.dumps({"powerlaw_suite": records}))
+    log(json.dumps({"exp_pallas_gather": gather}))
+    assert ok, "a power-law gate failed"
+    assert gather["allclose"] and gather["allclose_full"], gather
+    assert launches["gather_sum"] > 0, launches
+    return launches
+
+
+def arxiv_model(name, num_classes, in_dim):
+    from custom_op_benchmark_tpu_torch import models
+
+    return getattr(models, name)(
+        out_dim=num_classes, in_dim=in_dim, **ARXIV_MODELS[name],
+        generator=torch.Generator().manual_seed(SEED))
+
+
+def phase_arxiv(dev):
+    """The arxiv configuration on the ELL path: parity against the segment
+    path, S3 counted in the forward and the backward, three AdamW steps
+    through fit_full_graph, step times and peak memory."""
+    from custom_op_benchmark_tpu_torch.data import planted_partition
+    from custom_op_benchmark_tpu_torch.ops import ell_dual
+    from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import (
+        gather_sum,
+    )
+    from custom_op_benchmark_tpu_torch.train import (
+        create_train_state,
+        fit_full_graph,
+        make_train_step,
+        masked_cross_entropy,
+    )
+
+    t0 = time.perf_counter()
+    ds = planted_partition(**ARXIV)
+    g = ds.graph.to(dev)
+    ell = ell_dual(g, profile="train")
+    torch.cuda.synchronize()
+    se, de = ell
+    log(f"[arxiv] n={g.n_nodes} e={g.n_edges} classes={ds.num_classes}; "
+        f"train-ladder waste src {se.padding_waste:.3f} dst "
+        f"{de.padding_waste:.3f}; host build {time.perf_counter() - t0:.2f} s")
+    x = torch.from_numpy(ds.features).to(dev)
+    labels = torch.from_numpy(ds.labels).to(dev)
+    mask = torch.from_numpy(ds.train_mask).to(dev)
+    results = {"s3_launches": 0}
+
+    for name in ARXIV_MODELS:
+        model = arxiv_model(name, ds.num_classes, x.shape[1]).to(dev)
+        runs = {}
+        for path, views in (("segment", {}), ("ell", {"ell": ell})):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            model.zero_grad(set_to_none=True)
+            gather_sum.launches = 0
+            logits = model(g, x, **views)
+            loss = masked_cross_entropy(logits, labels, mask)
+            torch.cuda.synchronize()
+            n_fwd = gather_sum.launches
+            loss.backward()
+            peak = sync_peak_gib()
+            n_bwd = gather_sum.launches - n_fwd
+            runs[path] = (logits.detach(), loss.detach(),
+                          {k: p.grad for k, p in model.named_parameters()})
+            log(f"[arxiv] {name} {path:7s} forward+backward: loss "
+                f"{loss.item():.6f}, peak memory {peak:.2f} GiB, S3 "
+                f"launches forward {n_fwd} backward {n_bwd}")
+            if path == "ell" and name != "GAT":
+                assert n_fwd > 0 and n_bwd > 0, (name, n_fwd, n_bwd)
+            del logits, loss
+        (lg_s, ls_s, gr_s), (lg_e, ls_e, gr_e) = runs["segment"], runs["ell"]
+        assert torch.isfinite(lg_e).all() and lg_e.shape == lg_s.shape
+        worst = ("", 0.0)
+        for key, got, want in ([("logits", lg_e, lg_s), ("loss", ls_e, ls_s)]
+                               + [(k, gr_e[k], gr_s[k]) for k in gr_s]):
+            e = rel_err(got, want)
+            assert e <= MODEL_RTOL, f"{name} {key}: ELL vs segment {e:.3e}"
+            worst = max(worst, (key, e), key=lambda t: t[1])
+        log(f"[arxiv] {name} ELL vs segment: logits, loss and {len(gr_s)} "
+            f"gradients within {MODEL_RTOL:g} of max|segment| (worst "
+            f"{worst[0]} {worst[1]:.3e})")
+        del runs, lg_s, ls_s, gr_s, lg_e, ls_e, gr_e
+
+        gather_sum.launches = 0
+        _, metrics = fit_full_graph(model, ds, epochs=3, log_every=1,
+                                    learning_rate=2e-3, strategy="ell")
+        torch.cuda.synchronize()
+        n_s3 = gather_sum.launches
+        results["s3_launches"] += n_s3
+        losses = [h["loss"] for h in metrics["history"]]
+        log(f"[arxiv] {name} fit_full_graph(strategy='ell'), 3 epochs: "
+            f"losses {losses} val_acc {metrics['val_acc']:.4f}; S3 launches "
+            f"{n_s3}")
+        assert len(losses) == 3 and all(np.isfinite(losses)), losses
+        if name != "GAT":
+            assert n_s3 > 0, (name, n_s3)
+
+        for path, views in (("ell", {"ell": ell}), ("segment", {})):
+            state = create_train_state(model, learning_rate=2e-3)
+            step = make_train_step(apply_kwargs=views)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(lambda: step(state, g, x, labels, mask), warmup=1,
+                         iters=3, repeats=3)
+            peak = sync_peak_gib()
+            results[(name, path)] = (ms, peak)
+            log(f"[time] arxiv {name} train step ({path}) {ms:.3f} ms, "
+                f"peak memory {peak:.2f} GiB")
+            del state, step
+        del model
+    return results
+
+
+def phase_s3_times(kern, s3_inputs):
+    fn, plain = kern.table["gather_sum"][:2]
+    p1 = time_ms(lambda: plain(*s3_inputs))
+    k1 = time_ms(lambda: fn(*s3_inputs))
+    k2 = time_ms(lambda: fn(*s3_inputs))
+    p2 = time_ms(lambda: plain(*s3_inputs))
+    log(f"[time] gather_sum (S3) 125000x16 d=128 kernel {k1:.4f}/{k2:.4f} ms"
+        f"  plain {p1:.4f}/{p2:.4f} ms")
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -580,11 +813,27 @@ def main() -> int:
     grid_launches = phase_grid_path(kern, case)
     grid_times = phase_grid_times(kern, case)
     torch.cuda.synchronize()
+    del case
+    torch.cuda.empty_cache()
+    pl_case, train = phase_powerlaw_build(dev)
+    s3_errs, s3_inputs = phase_s3_parity(kern, dev, pl_case, train)
+    del train
+    phase_powerlaw_path(kern, pl_case, s3_inputs)
+    del pl_case
+    torch.cuda.empty_cache()
+    arxiv = phase_arxiv(dev)
+    s3_times = phase_s3_times(kern, s3_inputs)
+    torch.cuda.synchronize()
     report = []
     for name, (_, _, source, replaces) in kern.table.items():
         if name in SLICE_KERNELS:
             (ms, plain_ms), err = times[(name, "h=8 d=64")], errs[name]
             n, shape = launches[name], "GraphTransformer slice, h=8 d=64"
+        elif name == "gather_sum":
+            (ms, plain_ms), err = s3_times, s3_errs["gather_sum:experiment"]
+            n = arxiv["s3_launches"]
+            shape = ("ELL bucket 125000x16, d=128 (exp_pallas_gather); "
+                     "launches: GCN and GraphSAGE fit_full_graph, arxiv")
         else:
             # S5 with exp and mask: well posed on the grid's own inputs, so
             # its error and its time come from the same call.

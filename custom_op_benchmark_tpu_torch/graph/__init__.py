@@ -5,6 +5,13 @@ from custom_op_benchmark_tpu_torch.graph.builders import (
     grid_graph,
     random_graph,
 )
+from custom_op_benchmark_tpu_torch.graph.ell import (
+    DEFAULT_WIDTHS,
+    TRAIN_WIDTHS,
+    EllBucket,
+    EllGraph,
+    ell_pack,
+)
 from custom_op_benchmark_tpu_torch.graph.graph import Graph, from_coo
 from custom_op_benchmark_tpu_torch.graph.reorder import (
     Reordering,
@@ -15,7 +22,8 @@ from custom_op_benchmark_tpu_torch.graph.reorder import (
 )
 from custom_op_benchmark_tpu_torch.graph.tiled import TiledGraph, tile_graph
 
-__all__ = ["Graph", "Reordering", "TiledGraph", "clique_batch",
-           "connected_components", "degree_balanced_order", "from_coo",
-           "grid_graph", "random_graph", "reorder_graph", "tile_aligned_order",
-           "tile_graph"]
+__all__ = ["DEFAULT_WIDTHS", "EllBucket", "EllGraph", "Graph",
+           "Reordering", "TRAIN_WIDTHS", "TiledGraph", "clique_batch",
+           "connected_components", "degree_balanced_order", "ell_pack",
+           "from_coo", "grid_graph", "random_graph", "reorder_graph",
+           "tile_aligned_order", "tile_graph"]

@@ -1,0 +1,185 @@
+"""ELL packing: the degree-bucketed, row-owned edge layout for general graphs.
+
+Same layout as the JAX package's ``EllGraph`` (custom_op_benchmark_tpu/
+graph/ell.py), held as torch tensors:
+
+- rows are grouped into **degree buckets**; bucket ``b`` stores its rows'
+  edges as a dense ``(R_b, D_b)`` index matrix padded with the dummy node
+  ``n_nodes`` (ELLPACK), ``R_b`` a multiple of ``row_pad``;
+- every node lives in exactly one packed row, so node outputs are
+  assembled with a **gather** through ``row_pos``, and canonical-edge
+  results with a gather through ``edge_pos``: no scatter, no atomics;
+- the backward passes run the forward sweeps over the transpose packing.
+
+Packing is host-side numpy (the JAX package's numpy path, which gives the
+same arrays as its native packer); the tensors then move to the graph's
+device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from custom_op_benchmark_tpu_torch.graph.graph import Graph
+
+# Power-of-two bucket widths; ell_pack extends the list by doubling to cover
+# the max degree, so rows are never split.
+DEFAULT_WIDTHS = (4, 8, 16, 32, 64, 128, 256, 512, 1024)
+
+# The training-profile ladder (``ell_dual(g, profile="train")``): finer
+# buckets pad less, which the backward's slot-scale sweeps pay for.
+TRAIN_WIDTHS = tuple(range(4, 65, 4)) + (96, 128, 192, 256, 384, 512,
+                                         768, 1024)
+
+
+@dataclasses.dataclass(frozen=True)
+class EllBucket:
+    """Rows whose degree fits width D, edges padded to (num_rows, D).
+
+    rows: (R,) int32 owner node of each packed row; padding rows = n_nodes.
+    cols: (R, D) int32 neighbour per slot; padding = n_nodes.
+    eid:  (R, D) int32 canonical edge id per slot; padding = E_pad.
+    """
+
+    rows: torch.Tensor
+    cols: torch.Tensor
+    eid: torch.Tensor
+    width: int
+    num_rows: int
+
+    def to(self, device) -> "EllBucket":
+        return dataclasses.replace(self, rows=self.rows.to(device),
+                                   cols=self.cols.to(device),
+                                   eid=self.eid.to(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class EllGraph:
+    """Degree-bucketed ELL view of one traversal direction of a Graph.
+
+    ``direction="src"`` packs out-edges (row = src, CSR order), ``"dst"``
+    in-edges (row = dst, CSC order).
+
+    row_pos:  (n_nodes,) int32 packed-row index of each node in the bucket
+              concatenation; ``total_rows`` (an appended zeros row) for
+              zero-degree nodes.
+    edge_pos: (E_pad,) int32 flattened slot of each canonical edge in the
+              concatenation of the buckets' ``(R·D,)`` flats;
+              ``total_slots`` for padded edges.
+    twin_slot: filled by ``ops.ell.ell_dual``: per bucket, ``(R, D)`` int32
+              flattened slot, in the twin packing's concatenation, of the
+              edge at each slot; padding slots point at the twin's zero slot
+              (its ``total_slots``).
+    """
+
+    buckets: List[EllBucket]
+    row_pos: torch.Tensor
+    edge_pos: torch.Tensor
+    n_nodes: int
+    n_edges: int
+    num_edges_padded: int
+    direction: str
+    total_rows: int
+    total_slots: int
+    twin_slot: Optional[List[torch.Tensor]] = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.row_pos.device
+
+    @property
+    def padding_waste(self) -> float:
+        """Total padded slots / real edges (layout efficiency)."""
+        return self.total_slots / max(self.n_edges, 1)
+
+    def to(self, device) -> "EllGraph":
+        twin = (None if self.twin_slot is None
+                else [t.to(device) for t in self.twin_slot])
+        return dataclasses.replace(
+            self, buckets=[b.to(device) for b in self.buckets],
+            row_pos=self.row_pos.to(device), edge_pos=self.edge_pos.to(device),
+            twin_slot=twin)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+def ell_pack(g: Graph, *, direction: str = "src",
+             widths: Tuple[int, ...] = DEFAULT_WIDTHS,
+             row_pad: int = 8) -> EllGraph:
+    """Pack one traversal direction of ``g`` into degree buckets, on the
+    host; the tensors go to the graph's device.
+
+    Rows with degree 0 are dropped (their output rows read an appended zeros
+    row through ``row_pos``). ``widths`` is extended by doubling until it
+    covers the max degree, so per-row reductions are whole-segment.
+    """
+    if direction == "src":
+        indptr = _host(g.indptr_r)[: g.n_nodes + 1]
+        cols_all = _host(g.dst)
+        eids_all = np.arange(g.num_edges_padded, dtype=np.int64)
+    elif direction == "dst":
+        indptr = _host(g.indptr_c)[: g.n_nodes + 1]
+        perm = _host(g.csc_perm)
+        cols_all = _host(g.src)[perm]
+        eids_all = perm.astype(np.int64)
+    else:
+        raise ValueError(f"direction must be 'src'/'dst', got {direction!r}")
+
+    n, e = g.n_nodes, g.n_edges
+    e_pad = g.num_edges_padded
+    deg = np.diff(indptr).astype(np.int64)
+    widths = sorted(set(int(w) for w in widths))
+    max_deg = int(deg.max()) if len(deg) else 0
+    while widths[-1] < max_deg:
+        widths.append(widths[-1] * 2)
+
+    buckets = []
+    row_pos = np.full(n, -1, dtype=np.int64)
+    edge_pos = np.full(e_pad, -1, dtype=np.int64)
+    row_base = slot_base = w_lo = 0
+    for w in widths:
+        sel = np.nonzero((deg > w_lo) & (deg <= w))[0]
+        w_lo = w
+        r = len(sel)
+        if r == 0:
+            continue
+        r_pad = -(-r // row_pad) * row_pad
+        cols = np.full((r_pad, w), n, dtype=np.int32)
+        eid = np.full((r_pad, w), e_pad, dtype=np.int32)
+        rows = np.full(r_pad, n, dtype=np.int32)
+        rows[:r] = sel
+        # Slot (j, k) <- edge indptr[sel[j]] + k for k < deg.
+        k = np.arange(w)
+        mask = k[None, :] < deg[sel][:, None]
+        flat_eids = (indptr[sel][:, None] + k[None, :])[mask]
+        jj, kk = np.nonzero(mask)
+        cols[jj, kk] = cols_all[flat_eids]
+        eid[jj, kk] = eids_all[flat_eids]
+        row_pos[sel] = row_base + np.arange(r)
+        edge_pos[eids_all[flat_eids]] = slot_base + jj * w + kk
+        buckets.append(EllBucket(rows=torch.from_numpy(rows),
+                                 cols=torch.from_numpy(cols),
+                                 eid=torch.from_numpy(eid),
+                                 width=int(w), num_rows=int(r_pad)))
+        row_base += r_pad
+        slot_base += r_pad * w
+
+    row_pos[row_pos < 0] = row_base
+    edge_pos[edge_pos < 0] = slot_base
+    if slot_base >= 2 ** 31:
+        # edge_pos is stored as int32: refuse rather than truncate.
+        raise ValueError("ELL slot space exceeds int32 indexing")
+    eg = EllGraph(
+        buckets=buckets,
+        row_pos=torch.from_numpy(row_pos.astype(np.int32)),
+        edge_pos=torch.from_numpy(edge_pos.astype(np.int32)),
+        n_nodes=n, n_edges=e, num_edges_padded=e_pad, direction=direction,
+        total_rows=int(row_base), total_slots=int(slot_base),
+    )
+    return eg if g.device.type == "cpu" else eg.to(g.device)

@@ -1,13 +1,16 @@
-"""Convert a flax GraphTransformer parameter tree into the port's
-``state_dict``.
+"""Convert a flax parameter tree (GraphTransformer, GAT, GCN, GraphSAGE)
+into the port's ``state_dict``.
 
 The tree is the JAX package's ``params`` as nested dicts of numpy arrays
 (``jax.tree_util.tree_map(np.asarray, params)``). Name and layout changes:
 
 - flax ``Dense`` kernels are ``(in, out)``; ``nn.Linear`` weights are
-  ``(out, in)``, so kernels transpose. ``bias`` keeps its name.
+  ``(out, in)``, so kernels transpose (``W``, ``W_res``, ``W_self``,
+  ``W_neigh``, ...). ``bias`` keeps its name.
 - flax ``LayerNorm`` ``scale`` becomes ``weight``.
 - the flax submodule ``layer{i}`` becomes ``layers.{i}``.
+- plain parameters keep name and layout: GAT's attention vectors ``a_l``
+  and ``a_r`` (h, d), GCN's bias ``b``.
 
 Both frameworks must also agree on two defaults the port sets explicitly
 (models/transformer.py): flax's LayerNorm uses eps 1e-6 (torch: 1e-5) and

@@ -1,0 +1,142 @@
+"""Graph Attention Network (GAT) on the sparse op family.
+
+Counterpart of custom_op_benchmark_tpu/models/gat.py. A layer scores each
+edge with additive attention, takes the edge softmax over the in-edges of
+its dst and aggregates: on the segment path through
+``softmax_aggregate_dst``, on the ELL path through the fused
+``ell_gat_attention`` (ops/ell.py). The ELL path is taken exactly when the
+reference takes it: ``ell`` is given and there is no dropout to apply
+(``dropout_rate == 0`` or the module is in eval mode, the reference's
+``deterministic``).
+
+Parameters start as flax's defaults do (LeCun-normal ``W`` and ``W_res``,
+Glorot-uniform attention vectors), drawn from ``generator``; the flax
+parameter tree converts with ``models.convert.flax_to_state_dict``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
+
+from custom_op_benchmark_tpu_torch.models.flax_init import flax_init_
+from custom_op_benchmark_tpu_torch.ops import (
+    ell_gat_attention,
+    softmax_aggregate_dst,
+)
+
+
+def refuse_unported(block=None, dtype=None) -> None:
+    """Raise for the model options the port does not have yet."""
+    if block is not None:
+        raise NotImplementedError(
+            "the dense-block strategy comes with ROADMAP M5")
+    if dtype is not None:
+        raise NotImplementedError(
+            "compute dtypes other than float32 come with ROADMAP M9")
+
+
+class GATLayer(nn.Module):
+    """One multi-head GAT layer (additive attention, LeakyReLU scores).
+
+    score[e, h] = LeakyReLU(a_l·Wx[src] + a_r·Wx[dst]); α = edge softmax
+    over the in-edges of dst; out[v] = Σ α·Wx[src].
+    """
+
+    def __init__(self, in_dim: int, out_dim: int, num_heads: int = 1,
+                 negative_slope: float = 0.2, concat_heads: bool = True,
+                 residual: bool = False, dropout_rate: float = 0.0,
+                 dtype=None, *, device=None):
+        super().__init__()
+        refuse_unported(dtype=dtype)
+        h, d = num_heads, out_dim
+        self.num_heads, self.out_dim = h, d
+        self.negative_slope = negative_slope
+        self.concat_heads = concat_heads
+        self.residual = residual
+        self.dropout_rate = dropout_rate
+        self.W = nn.Linear(in_dim, h * d, bias=False, device=device)
+        self.a_l = nn.Parameter(torch.empty(h, d, device=device))
+        self.a_r = nn.Parameter(torch.empty(h, d, device=device))
+        # flax creates W_res only when the widths differ.
+        self.W_res = (nn.Linear(in_dim, h * d, bias=False, device=device)
+                      if residual and in_dim != h * d else None)
+        flax_init_(self)
+
+    def forward(self, g, x, *, ell=None, block=None):
+        refuse_unported(block=block)
+        n, h, d = x.shape[0], self.num_heads, self.out_dim
+        z = self.W(x).reshape(n, h, d)
+        if ell is not None and (self.dropout_rate == 0.0
+                                or not self.training):
+            src_ell, dst_ell = ell
+            out = ell_gat_attention(dst_ell, src_ell, self.a_l, self.a_r, z,
+                                    negative_slope=self.negative_slope)
+        else:
+            el = torch.einsum("nhd,hd->nh", z, self.a_l)
+            er = torch.einsum("nhd,hd->nh", z, self.a_r)
+            # Padded edge endpoints clamp; their scores are masked.
+            scores = (el[g.src.long().clamp(max=n - 1)]
+                      + er[g.dst.long().clamp(max=n - 1)])
+            scores = F.leaky_relu(scores, self.negative_slope)
+            dropout_fn = None
+            if self.dropout_rate > 0.0 and self.training:
+                p = self.dropout_rate
+
+                def dropout_fn(a):
+                    return F.dropout(a, p, training=True)
+            out = softmax_aggregate_dst(g, scores, z, dropout_fn=dropout_fn)
+        if self.residual:
+            res = x if self.W_res is None else self.W_res(x)
+            out = out + res.reshape(n, h, d)
+        if self.concat_heads:
+            return out.reshape(n, h * d)
+        return out.mean(1)
+
+
+class GAT(nn.Module):
+    """A GAT stack for node classification (ELU between layers).
+
+    ``remat=True`` checkpoints each hidden layer
+    (``torch.utils.checkpoint``, non-reentrant): its activations are
+    recomputed in the backward instead of living until it. ``in_dim`` is
+    the width of the node features.
+    """
+
+    def __init__(self, hidden_dim: int, out_dim: int, num_layers: int = 2,
+                 num_heads: int = 8, dropout_rate: float = 0.0,
+                 remat: bool = False, dtype=None, *, in_dim: int,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        refuse_unported(dtype=dtype)
+        self.dropout_rate = dropout_rate
+        self.remat = remat
+        width = hidden_dim * num_heads
+        self.layers = nn.ModuleList(
+            GATLayer(in_dim if i == 0 else width, hidden_dim, num_heads,
+                     dropout_rate=dropout_rate, residual=i > 0,
+                     device=device)
+            for i in range(num_layers - 1))
+        self.layers.append(GATLayer(in_dim if num_layers == 1 else width,
+                                    out_dim, num_heads=1, concat_heads=False,
+                                    device=device))
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        flax_init_(self, generator)
+
+    def forward(self, g, x, *, ell=None, block=None):
+        refuse_unported(block=block)
+        for layer in self.layers[:-1]:
+            if self.remat:
+                x = checkpoint(layer, g, x, ell=ell, use_reentrant=False)
+            else:
+                x = layer(g, x, ell=ell)
+            x = F.elu(x)
+            if self.dropout_rate > 0.0:
+                x = F.dropout(x, self.dropout_rate, training=self.training)
+        return self.layers[-1](g, x, ell=ell)

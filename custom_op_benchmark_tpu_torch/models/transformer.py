@@ -1,58 +1,57 @@
 """Masked graph transformer: dot-product attention restricted to edges.
 
 Counterpart of custom_op_benchmark_tpu/models/transformer.py, on its
-``tiled=`` path: every layer's attention is the fused tile kernel K4, and
-its gradient the K1–K3 recompute. Layer for layer it matches the flax
-module, including flax's defaults: LayerNorm with eps 1e-6 and GELU in its
-tanh approximation (torch defaults to eps 1e-5 and the exact GELU).
+``tiled=`` and ``ell=`` paths: on the tile path every layer's attention is
+the fused tile kernel K4, and its gradient the K1–K3 recompute; on the ELL
+path it is ``ell_attention``, or with edge features the fused
+``ell_edge_bias_attention`` (ops/ell.py). Layer for layer it matches the
+flax module, including flax's defaults: LayerNorm with eps 1e-6 and GELU
+in its tanh approximation (torch defaults to eps 1e-5 and the exact GELU).
 """
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
+from custom_op_benchmark_tpu_torch.models.flax_init import flax_init_
+from custom_op_benchmark_tpu_torch.ops.ell import (
+    ell_attention,
+    ell_edge_bias_attention,
+)
 from custom_op_benchmark_tpu_torch.ops.tiled import tiled_attention
 
 LN_EPS = 1e-6        # flax.linen.LayerNorm's default epsilon
 GELU_APPROX = "tanh"  # flax.linen.gelu's default approximation
 
 
-def _only_tiled(tiled, edge_feat, block, ell) -> None:
+def _refuse_unported(tiled, edge_feat, block) -> None:
+    """Without ``ell``, the reference takes the dense-block path, then the
+    tile path, then the segment path; the port has the tile path only."""
     if edge_feat is not None:
         raise NotImplementedError(
-            "edge features need NodeMulEdge from the segment op family "
-            "(ROADMAP M2)")
+            "edge features run on the ell= path here; the transformer's "
+            "segment path is not ported yet (ROADMAP M9)")
     if block is not None:
         raise NotImplementedError(
             "the dense-block strategy comes with ROADMAP M5")
-    if ell is not None:
-        raise NotImplementedError("the ELL strategy comes with ROADMAP M8")
     if tiled is None:
         raise NotImplementedError(
-            "the segment path needs the segment oracle (ROADMAP M2); pass "
-            "tiled=tile_graph(g)")
-
-
-def lecun_normal_(weight: torch.Tensor, generator=None) -> torch.Tensor:
-    """flax's default Dense init: truncated normal, variance 1/fan_in."""
-    fan_in = weight.shape[1]
-    # Std of a standard normal truncated to [-2, 2].
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
-                                 generator=generator)
+            "the transformer's segment path is not ported yet (ROADMAP "
+            "M9); pass tiled=tile_graph(g) or ell=ell_dual(g)")
 
 
 class GraphMultiHeadAttention(nn.Module):
     """Multi-head dot-product attention over graph edges.
 
-    scores[e, h] = <Q[dst], K[src]>/√d, α = softmax over the in-edges of
-    dst, out[v] = Σ_{e=(u,v)} α[e]·V[u]: the fused tile kernel on the
-    transposed tiling.
+    scores[e, h] = <Q[dst], K[src]>/√d (+ <Q[src], E[e]>/√d with edge
+    features), α = softmax over the in-edges of dst, out[v] =
+    Σ_{e=(u,v)} α[e]·V[u]: with ``ell`` (the ``(src, dst)`` pair of
+    ``ell_dual``) the fused ELL attention over the dst packing, else the
+    fused tile kernel on the transposed tiling.
     """
 
     def __init__(self, dim: int, num_heads: int, head_dim: int, *,
@@ -67,12 +66,21 @@ class GraphMultiHeadAttention(nn.Module):
 
     def forward(self, g, x, edge_feat=None, *, tiled=None, block=None,
                 ell=None):
-        _only_tiled(tiled, edge_feat, block, ell)
+        if ell is None:
+            _refuse_unported(tiled, edge_feat, block)
         n, h, d = x.shape[0], self.num_heads, self.head_dim
         q = self.Wq(x).reshape(n, h, d)
         k = self.Wk(x).reshape(n, h, d)
         v = self.Wv(x).reshape(n, h, d)
-        out = tiled_attention(tiled, q, k, v, normalize="dst")
+        if ell is not None:
+            src_ell, dst_ell = ell
+            if edge_feat is None:
+                out = ell_attention(dst_ell, src_ell, q, k, v)
+            else:
+                out = ell_edge_bias_attention(dst_ell, src_ell, q, k, v,
+                                              edge_feat)
+        else:
+            out = tiled_attention(tiled, q, k, v, normalize="dst")
         return self.Wo(out.reshape(n, h * d))
 
 
@@ -122,16 +130,8 @@ class GraphTransformer(nn.Module):
                          if out_dim is not None else None)
         self.reset_parameters(generator)
 
-    @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        for m in self.modules():
-            if isinstance(m, nn.Linear):
-                lecun_normal_(m.weight, generator)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, nn.LayerNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
+        flax_init_(self, generator)
 
     def forward(self, g, x, edge_feat=None, *, tiled=None, block=None,
                 ell=None):

@@ -7,13 +7,14 @@ the port has so far:
 - ``"tiled"``  — the CUDA tile kernels (ops/kernels/) on the tile-aligned
   node order, through ops/tiled.py; ``"pallas"`` is its alias, as in the
   reference, so it reaches the hand kernels;
+- ``"ell"``    — the degree-bucketed layout (ops/ell.py), general graphs;
 - ``"auto"``   — the segment path below :data:`AUTO_MIN_EDGES` edges, as in
   the reference; above it the reference asks the strategy advisor
   (``utils/summary.describe``), which is not ported yet (ROADMAP M5).
 
-``"dense_block"`` and ``"ell"`` raise NotImplementedError naming their
-ROADMAP items (M5, M8). The tiled view (reorder, tiles, edge permutations)
-is built on the host once per :class:`Graph` object and cached by object
+``"dense_block"`` raises NotImplementedError naming ROADMAP M5. The tiled
+view (reorder, tiles, edge permutations) and the dual ELL packing are
+built on the host once per :class:`Graph` object and cached by object
 identity; the entry goes when the graph is garbage-collected.
 """
 
@@ -34,10 +35,9 @@ _VIEW_CACHE: dict = {}
 
 _NOT_PORTED = {
     "dense_block": "the dense-block strategy is not ported yet (ROADMAP M5)",
-    "ell": "the ELL strategy is not ported yet (ROADMAP M8)",
     "auto": ("impl='auto' on a graph of 20,000 edges or more needs the "
              "strategy advisor, which is not ported yet (ROADMAP M5); pass "
-             "impl='xla' or impl='tiled'"),
+             "impl='xla', 'tiled' or 'ell'"),
 }
 
 
@@ -51,20 +51,32 @@ def _views_for(g: Graph) -> dict:
 
 
 def resolve(g: Graph, impl: str) -> str:
-    """Map the user's ``impl`` to a strategy the port runs: ``"xla"`` or
-    ``"tiled"``. Raises NotImplementedError for the unported ones."""
+    """Map the user's ``impl`` to a strategy the port runs: ``"xla"``,
+    ``"tiled"`` or ``"ell"``. Raises NotImplementedError for the unported
+    ones."""
     if impl == "pallas":
         impl = "tiled"
-    if impl in ("xla", "tiled"):
+    if impl in ("xla", "tiled", "ell"):
         return impl
     if impl == "auto":
         if g.n_edges < AUTO_MIN_EDGES:
             return "xla"
         raise NotImplementedError(_NOT_PORTED["auto"])
-    if impl in ("dense_block", "ell"):
+    if impl == "dense_block":
         raise NotImplementedError(_NOT_PORTED[impl])
     raise ValueError("impl must be one of auto/xla/pallas/dense_block/tiled/"
                      f"ell, got {impl!r}")
+
+
+def get_ell(g: Graph):
+    """(src_ell, dst_ell): the dual ELL packing, cached per graph, on the
+    graph's device."""
+    views = _views_for(g)
+    if "ell" not in views:
+        from custom_op_benchmark_tpu_torch.ops.ell import ell_dual
+
+        views["ell"] = ell_dual(g)
+    return views["ell"]
 
 
 def get_tiled(g: Graph):
@@ -98,15 +110,13 @@ def get_tiled(g: Graph):
     return views["tiled"]
 
 
-def _not_ported(strategy: str):
-    raise NotImplementedError(_NOT_PORTED[strategy])
-
-
 # ---------------------------------------------------------------------------
-# Op routing. Each function takes the original operand shapes — (n, d) or
-# (n, h, d) nodes, (E,) or (E, h) edges — and returns results in canonical
-# edge or node order with matching rank, as the segment path does. Heads
-# are the tile kernels' own grid axis (the reference vmaps over them).
+# Op routing, for the strategies ``resolve`` returns other than "xla":
+# "tiled" or "ell". Each function takes the original operand shapes — (n, d)
+# or (n, h, d) nodes, (E,) or (E, h) edges — and returns results in
+# canonical edge or node order with matching rank, as the segment path
+# does. Heads are the tile kernels' own grid axis (the reference vmaps over
+# them).
 # ---------------------------------------------------------------------------
 
 def _edges_to_tiles(tg, eperm, x):
@@ -124,8 +134,10 @@ def _tiles_to_edges(tg, eperm_inv, s):
 
 
 def sddmm(strategy: str, g, A, B):
-    if strategy != "tiled":
-        _not_ported(strategy)
+    if strategy == "ell":
+        from custom_op_benchmark_tpu_torch.ops.ell import ell_sddmm
+
+        return ell_sddmm(*get_ell(g), A, B)
     from custom_op_benchmark_tpu_torch.ops.tiled import tiled_sddmm
 
     ro, tg, _, eperm_inv = get_tiled(g)
@@ -134,8 +146,10 @@ def sddmm(strategy: str, g, A, B):
 
 
 def vector_spmm(strategy: str, g, edata, x):
-    if strategy != "tiled":
-        _not_ported(strategy)
+    if strategy == "ell":
+        from custom_op_benchmark_tpu_torch.ops.ell import ell_spmm
+
+        return ell_spmm(*get_ell(g), edata, x)[: x.shape[0]]
     from custom_op_benchmark_tpu_torch.ops.tiled import tiled_spmm
 
     ro, tg, eperm, _ = get_tiled(g)
@@ -145,8 +159,11 @@ def vector_spmm(strategy: str, g, edata, x):
 
 
 def edge_softmax(strategy: str, g, x, by: str):
-    if strategy != "tiled":
-        _not_ported(strategy)
+    if strategy == "ell":
+        from custom_op_benchmark_tpu_torch.ops.ell import ell_softmax
+
+        se, de = get_ell(g)
+        return ell_softmax(se if by == "src" else de, x)[: x.shape[0]]
     from custom_op_benchmark_tpu_torch.ops.tiled import tiled_softmax
 
     _, tg, eperm, eperm_inv = get_tiled(g)
@@ -155,12 +172,25 @@ def edge_softmax(strategy: str, g, x, by: str):
 
 
 def node_mul_edge(strategy: str, g, A, Be):
-    _not_ported(strategy)
+    """ELL only: the tiled strategy has no kernel for it, and the caller
+    routes it here, as in the reference."""
+    from custom_op_benchmark_tpu_torch.ops.ell import ell_node_mul_edge
+
+    return ell_node_mul_edge(*get_ell(g), A, Be)[: Be.shape[0]]
 
 
 def attention(strategy: str, g, q, k, v, scale: float, edge_bias=None):
-    if strategy != "tiled":
-        _not_ported(strategy)
+    if strategy == "ell":
+        from custom_op_benchmark_tpu_torch.ops.ell import (
+            ell_attention,
+            ell_edge_bias_attention,
+        )
+
+        se, de = get_ell(g)
+        if edge_bias is None:
+            return ell_attention(de, se, q, k, v, scale=scale)
+        return ell_edge_bias_attention(de, se, q, k, v, edge_bias,
+                                       scale=scale)
     from custom_op_benchmark_tpu_torch.ops.tiled import tiled_attention
 
     assert edge_bias is None  # the caller routes edge-bias to ELL
@@ -171,4 +201,10 @@ def attention(strategy: str, g, q, k, v, scale: float, edge_bias=None):
 
 
 def gat_attention(strategy: str, g, a_l, a_r, z, negative_slope: float):
-    _not_ported(strategy)
+    """ELL only: the tiled strategy has no kernel for it, and the caller
+    routes it here, as in the reference."""
+    from custom_op_benchmark_tpu_torch.ops.ell import ell_gat_attention
+
+    se, de = get_ell(g)
+    return ell_gat_attention(de, se, a_l, a_r, z,
+                             negative_slope=negative_slope)

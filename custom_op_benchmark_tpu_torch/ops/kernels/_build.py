@@ -23,7 +23,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("tiled_kernels.cu", "attention.cu", "grid_dma.cu")
+SOURCES = ("tiled_kernels.cu", "attention.cu", "grid_dma.cu",
+           "gather_sum.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,6 +43,7 @@ _SIGNATURES = {
     + [_P],
     "spmm_row_sweep_dma_f32": [_P] * 4 + [_I] * 7 + [_P],
     "spmm_row_sweep_dma_v2_f32": [_P] * 5 + [_I] * 6 + [_P],
+    "gather_sum_f32": [_P] * 3 + [_I] * 6 + [_P],
 }
 
 

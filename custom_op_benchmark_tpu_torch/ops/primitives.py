@@ -11,8 +11,9 @@ Counterpart of custom_op_benchmark_tpu/ops/primitives.py:
   ``(E, h)``;
 - ``impl`` selects the execution strategy through ops/dispatch.py:
   ``"xla"`` (the segment oracle), ``"tiled"``/``"pallas"`` (the CUDA tile
-  kernels on the tile-aligned order) and ``"auto"``; the dense-block and
-  ELL strategies are not ported yet and raise.
+  kernels on the tile-aligned order), ``"ell"`` (the degree-bucketed
+  layout, ops/ell.py) and ``"auto"``; the dense-block strategy is not
+  ported yet and raises.
 
 Shapes are checked before anything runs, as the reference checks them at
 trace time.

@@ -1,10 +1,10 @@
-"""Full-graph training step for node classification.
+"""Full-graph training for node classification.
 
 Counterpart of the JAX package's ``create_train_state``,
-``masked_cross_entropy`` and ``make_train_step``
-(custom_op_benchmark_tpu/train/loop.py). PyTorch runs eagerly and updates
-the parameters in place, so the state is the model and its optimizer, and a
-step returns ``(loss, acc)``.
+``masked_cross_entropy``, ``make_train_step``, ``make_eval_step`` and
+``fit_full_graph`` (custom_op_benchmark_tpu/train/loop.py). PyTorch runs
+eagerly and updates the parameters in place, so the state is the model and
+its optimizer, and a step returns ``(loss, acc)``.
 """
 
 from __future__ import annotations
@@ -58,9 +58,87 @@ def make_train_step(apply_kwargs: Optional[dict] = None):
         state.optimizer.step()
         state.step += 1
         with torch.no_grad():
-            m = mask.to(logits.dtype)
-            hit = (logits.argmax(-1) == labels).to(logits.dtype)
-            acc = (hit * m).sum() / m.sum().clamp(min=1.0)
+            acc = _accuracy(logits, labels, mask)
         return loss.detach(), acc
 
     return train_step
+
+
+def _accuracy(logits, labels, mask):
+    m = mask.to(logits.dtype)
+    hit = (logits.argmax(-1) == labels).to(logits.dtype)
+    return (hit * m).sum() / m.sum().clamp(min=1.0)
+
+
+def make_eval_step(apply_kwargs: Optional[dict] = None):
+    """An evaluation step: the model in eval mode, no gradients; returns
+    ``(loss, acc)`` over the nodes where ``mask`` is set."""
+    views = dict(apply_kwargs or {})
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, g, x, labels, mask):
+        state.model.eval()
+        logits = state.model(g, x, **views)
+        return (masked_cross_entropy(logits, labels, mask),
+                _accuracy(logits, labels, mask))
+
+    return eval_step
+
+
+def fit_full_graph(model: nn.Module, dataset, *, epochs: int = 100,
+                   learning_rate: float = 1e-2, weight_decay: float = 5e-4,
+                   seed: int = 0, log_every: int = 0,
+                   target_val_acc: Optional[float] = None,
+                   strategy: Optional[str] = None):
+    """Train on the whole graph each epoch (the Cora/ogbn-arxiv configs).
+
+    ``strategy``: None (segment ops) or ``"ell"`` (the degree-bucketed
+    fused path, with the training ladder ``ell_dual(g, profile="train")``);
+    the view is built once and passed to every call of the model. Training
+    runs on the model's device. The parameters are drawn afresh from
+    ``seed`` (``model.reset_parameters``, on the host), as the reference
+    initialises them from its PRNG key. Returns ``(state, metrics)`` with
+    the final ``val_loss`` and ``val_acc`` and, every ``log_every`` epochs,
+    a history entry.
+    """
+    if strategy in ("auto", "block"):
+        raise NotImplementedError(
+            f"strategy={strategy!r} needs the dense-block strategy and the "
+            "strategy advisor, which come with ROADMAP M5")
+    device = next(model.parameters()).device
+    g = dataset.graph.to(device)
+    apply_kwargs = {}
+    if strategy == "ell":
+        from custom_op_benchmark_tpu_torch.ops.ell import ell_dual
+
+        apply_kwargs["ell"] = ell_dual(g, profile="train")
+    elif strategy is not None:
+        raise ValueError(f"unknown strategy {strategy!r}")
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    x, labels = t(dataset.features), t(dataset.labels)
+    train_mask, val_mask = t(dataset.train_mask), t(dataset.val_mask)
+    if hasattr(model, "reset_parameters"):
+        # Drawn on the host, so a seed gives the same weights on any device.
+        model.to("cpu").reset_parameters(torch.Generator().manual_seed(seed))
+    model.to(device)
+    state = create_train_state(model, learning_rate=learning_rate,
+                               weight_decay=weight_decay)
+    train_step = make_train_step(apply_kwargs=apply_kwargs)
+    eval_step = make_eval_step(apply_kwargs=apply_kwargs)
+
+    history = []
+    for epoch in range(epochs):
+        loss, acc = train_step(state, g, x, labels, train_mask)
+        if log_every and (epoch + 1) % log_every == 0:
+            vl, va = eval_step(state, g, x, labels, val_mask)
+            history.append(dict(epoch=epoch + 1, loss=float(loss),
+                                train_acc=float(acc), val_loss=float(vl),
+                                val_acc=float(va)))
+            if target_val_acc is not None and float(va) >= target_val_acc:
+                break
+    vl, va = eval_step(state, g, x, labels, val_mask)
+    return state, dict(val_loss=float(vl), val_acc=float(va),
+                       history=history)

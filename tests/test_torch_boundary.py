@@ -28,6 +28,9 @@ def test_import_pulls_in_no_jax():
         "import custom_op_benchmark_tpu_torch.utils.bench_suite\n"
         "import custom_op_benchmark_tpu_torch.experiments.exp_grid_dma\n"
         "import custom_op_benchmark_tpu_torch.experiments.exp_grid_bisect\n"
+        "import custom_op_benchmark_tpu_torch.experiments.exp_pallas_gather\n"
+        "import custom_op_benchmark_tpu_torch.data\n"
+        "import custom_op_benchmark_tpu_torch.ops.ell\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "assert not bad, bad\n"

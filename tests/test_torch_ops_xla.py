@@ -310,8 +310,7 @@ def test_dispatch_caches_the_tiled_view(blocky):
 
 
 @pytest.mark.parametrize("impl, err", [
-    ("dense_block", NotImplementedError), ("ell", NotImplementedError),
-    ("cuda", ValueError)])
+    ("dense_block", NotImplementedError), ("cuda", ValueError)])
 def test_dispatch_refuses_what_is_not_ported(impl, err):
     g = clique_batch(2, 4)
     x = torch.ones(g.n_nodes, 4)
@@ -325,11 +324,15 @@ def test_auto_uses_the_oracle_on_small_graphs_only():
     big = clique_batch(30, 30)       # 27,000 edges
     with pytest.raises(NotImplementedError, match="M5"):
         dispatch.resolve(big, "auto")
+    # The tiled strategy has no kernel for these two; they route to ELL,
+    # as in the reference.
     g = clique_batch(2, 4)
-    with pytest.raises(NotImplementedError, match="M8"):
-        tops.node_mul_edge(g, torch.ones(8, 4), torch.ones(g.n_edges, 4),
-                           impl="tiled")
-    with pytest.raises(NotImplementedError, match="M8"):
-        tops.gat_attention(g, torch.ones(2, 4), torch.ones(2, 4),
-                           torch.ones(8, 2, 4), impl="pallas")
+    A, Be = torch.rand(8, 4), torch.rand(g.n_edges, 4)
+    torch.testing.assert_close(tops.node_mul_edge(g, A, Be, impl="tiled"),
+                               tops.node_mul_edge(g, A, Be, impl="xla"))
+    a_l, a_r, z = torch.rand(2, 4), torch.rand(2, 4), torch.rand(8, 2, 4)
+    torch.testing.assert_close(
+        tops.gat_attention(g, a_l, a_r, z, impl="pallas"),
+        tops.gat_attention(g, a_l, a_r, z, impl="xla"))
+    assert dispatch.resolve(g, "ell") == "ell"
 
