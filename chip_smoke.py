@@ -24,20 +24,27 @@ classes) trained full-graph on the ELL path by GAT (3 layers, 4 heads of
 3. the slice at full width: logits, loss and every parameter's gradient
    on the card against the same module copied to the CPU, where the
    wrappers run the plain versions;
-4. train: three AdamW steps with finite losses, K1–K4 launched;
-5. times: each kernel against its plain version, and one train step;
+4. train: three AdamW steps with finite losses, each step launching K4
+   3 times, K1 and K3 6 times and K2 3 times (3 layers);
+5. times: each kernel against its plain version, its bound on these
+   inputs (bytes at 3.35 TB/s or f32-accurate products at 165 TFLOP/s,
+   whichever is longer) and its library yardstick (one PyTorch call that
+   computes the same function, timed here and used nowhere in the port);
+   the tensor-core K4 against S5 with exp and mask (the CUDA-core K4);
+   then one train step;
 6. grid build: the graph, its tile-aligned order and tiling on the host,
    moved to the card;
-7. grid kernel parity: S1, S2, S4, S5 (all four switch settings) and K4 at
-   d = 128 and d = 40 against their plain versions at the grid's shapes,
-   K4 and S5 also at d = 200, and all of them again on the small irregular
-   graph at d = 128, 40, 33 and 200;
+7. grid kernel parity: S1, S2, S4, S5 (all four switch settings), K4 at
+   d = 128 and d = 40 and K3 at d = 128 against their plain versions at
+   the grid's shapes, K4 and S5 also at d = 200, and S1, S2, S4, S5 and K4
+   again on the small irregular graph at d = 128, 100, 40, 33 and 200;
 8. the grid path: S1 and S2 against the segment oracle, then the grid
    suite (its allclose gates at 2e-3 and its timed rows, with roofline
    fractions against the measured copy bandwidth) and the two experiments'
    rows, with every launch counter set to 0 before and read after;
-9. grid times: S1, S2, S4, S5 and K4 at d = 128 against their plain
-   versions, and the peak memory of the grid attention backward;
+9. grid times: S1, S2, S4, S5, K4 and K1–K3 at d = 128 against their
+   plain versions, with bounds and library yardsticks as in 5, and the
+   peak memory of the grid attention backward;
 10. power-law build: the graph and its dual ELL packing on both ladders on
     the host (seconds and padding waste), moved to the card;
 11. S3 parity against its plain version, bit-for-bit repeats: at the
@@ -53,7 +60,12 @@ classes) trained full-graph on the ELL path by GAT (3 layers, 4 heads of
     backward of GCN and SAGE, then three AdamW steps through
     ``fit_full_graph(strategy="ell")`` with finite losses, the step time
     and the peak memory of each path;
-14. S3 times: S3 against its plain version at the experiment's shape.
+14. S3 times: S3 against its plain version and ``F.embedding_bag`` at the
+    experiment's shape.
+
+The line before the last is the ``kernels`` JSON: for each of the nine
+kernels its source, the TPU kernel it replaces, its launches on the main
+path, its error, time, plain time, bound and library time.
 
 Exits non-zero on any failure, and at once when no CUDA device is present.
 The last line of standard output is
@@ -61,6 +73,7 @@ The last line of standard output is
 """
 
 import copy
+import gc
 import json
 import statistics
 import subprocess
@@ -70,7 +83,8 @@ import time
 import numpy as np
 import torch
 
-# Kernel vs plain version, both f32 with f32 accumulation: they sum the
+# Kernel vs plain version, both f32 with f32 accumulation (K3 and K4 take
+# their products in 3xTF32, good to 2^-22 of each product): they sum the
 # same products (at most 3·128 per output) in other orders, so they agree
 # to about 1e-6 relative. Elementwise:
 # |kernel − plain| ≤ ATOL + RTOL·|plain|.
@@ -80,6 +94,13 @@ KERNEL_RTOL = KERNEL_ATOL = 1e-4
 # weight gradients summed over 15,360 nodes in other orders. The check is
 # max|card − cpu| ≤ MODEL_RTOL · max|cpu| for each tensor.
 MODEL_RTOL = 1e-3
+# Peaks of one NVIDIA H100 SXM at 700 W (NVIDIA's data sheet) for the
+# kernels' bounds: HBM bandwidth; f32-accurate products on the tensor
+# cores (3xTF32: three passes at the 495 TFLOP/s TF32 rate); f32 outside
+# the tensor cores.
+PEAK_BYTES = 3.35e12
+PEAK_MMA_F32 = 495e12 / 3
+PEAK_F32 = 67e12
 SEED = 0
 # The slice: the clique batch, the model, and the wide SpMM width.
 CLIQUES = (512, 30)
@@ -359,7 +380,12 @@ def phase_train(kern, dev, g, tg, x, labels, model):
     log(f"[train] losses {losses} acc {[float(a) for _, a in results]}")
     log(f"[train] launches in 3 steps: {launches}")
     assert all(np.isfinite(losses)), losses
-    assert all(launches[k] > 0 for k in SLICE_KERNELS), launches
+    # Per step, each of the 3 layers runs K4 once forward and K1 twice, K3
+    # twice and K2 once in its backward (ops/tiled.py).
+    layers = MODEL["num_layers"]
+    per_step = {"sddmm_tiles": 2 * layers, "spmm_row_sweep": layers,
+                "spmm_col_sweep": 2 * layers, "fused_attention_rows": layers}
+    assert all(launches[k] == 3 * n for k, n in per_step.items()), launches
     return launches, lambda: step(state, g, xx, yy, mm)
 
 
@@ -438,25 +464,264 @@ def time_ms(fn, warmup=3, iters=10, repeats=5):
                                        repeats=repeats)) * 1e3
 
 
+# ---------------------------------------------------------------------------
+# Bounds and library yardsticks
+# ---------------------------------------------------------------------------
+
+def work(name, args, out):
+    """(bytes, operations, peak operations/s, tile-dense operations) that
+    kernel ``name``'s function needs on these inputs: each distinct input
+    tensor read once and the output written once; tile products counted
+    where the data is nonzero (the mask's edges, nonzero tile values; S4's
+    constant tiles are dense), at the f32-accurate tensor-core peak; S3's
+    adds over its valid slots at the CUDA-core f32 peak. The last entry
+    counts every tile product whole, as the tile kernels take them."""
+    pos, kw = split_kwargs(args)
+    distinct = {t.data_ptr(): t for t in (*pos, out) if torch.is_tensor(t)}
+    nbytes = sum(t.numel() * t.element_size() for t in distinct.values())
+    if name == "gather_sum":
+        cols, x = pos
+        ops = int((cols < x.shape[0]).sum()) * x.shape[-1]
+        return nbytes, ops, PEAK_F32, cols.numel() * x.shape[-1]
+    if name in ("sddmm_tiles", "fused_attention_rows", "attn_variant"):
+        mask, a = pos[2], pos[3]
+        hd = a.shape[-1] * (a.shape[1] if a.dim() == 3 else 1)
+        live = (int(mask.sum()) if kw.get("use_mask", True)
+                else mask.numel())
+        per = 2 if name == "sddmm_tiles" else 4
+        ops, dense = per * live * hd, per * mask.numel() * hd
+    elif name == "spmm_dotonly":
+        tile_cols, x = pos[1], pos[2]
+        ops = dense = 2 * tile_cols.numel() * 128 * 128 * x[0].numel()
+    else:   # K2, K3, S1, S2: the nonzero tile values times d
+        vals = next(t for t in pos if torch.is_tensor(t) and t.dim() >= 3
+                    and t.is_floating_point())
+        ops = 2 * int((vals != 0).sum()) * out.shape[-1]
+        dense = 2 * vals.numel() * out.shape[-1]
+    return nbytes, ops, PEAK_MMA_F32, dense
+
+
+def bound(name, args, out):
+    """The least time on the card (ms), what sets it, the bytes and
+    operations, and the tile-dense operations."""
+    nbytes, ops, peak, dense = work(name, args, out)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, ops, dense)
+
+
+def _heads_first(x, rows):
+    """(n, [H,] d) → (H, rows, d) contiguous, rows past n zero."""
+    xh = x if x.dim() == 3 else x[:, None]
+    out = xh.new_zeros((xh.shape[1], rows, xh.shape[2]))
+    out[:, : xh.shape[0]] = xh.permute(1, 0, 2)
+    return out
+
+
+def _edges(ptr, cols, mask, rows=None):
+    """Global (row, col) of every edge of a tile view, and the (t, r, c)
+    of each, in row-major order of (row, col)."""
+    if rows is None:
+        rows = torch.repeat_interleave(
+            torch.arange(ptr.numel() - 1, device=ptr.device),
+            torch.diff(ptr.long()))
+    t, r, c = mask.nonzero(as_tuple=True)
+    gr, gc = rows.long()[t] * 128 + r, cols.long()[t] * 128 + c
+    order = torch.argsort(gr * (int(gc.max()) + 1) + gc)
+    return gr[order], gc[order], (t[order], r[order], c[order])
+
+
+def bsr_yardstick(ptr, cols, vals, x):
+    """``torch.sparse_bsr_tensor(ptr, cols, vals[h]) @ x[:, h]``, one call
+    per head (PyTorch refuses a BSR product batched over heads: "expand is
+    unsupported for SparseBsr tensors")."""
+    v = vals if vals.dim() == 4 else vals[None]
+    h, nrb = v.shape[0], ptr.numel() - 1
+    ncb = -(-x.shape[0] // 128)
+    xp = _heads_first(x, ncb * 128)                      # (H, N, d)
+    per_head = [torch.sparse_bsr_tensor(ptr, cols, v[i],
+                                        size=(nrb * 128, ncb * 128))
+                for i in range(h)]
+
+    def fn():
+        return [m @ xp[i] for i, m in enumerate(per_head)]
+
+    def check(want):
+        got = torch.stack(fn()).permute(1, 0, 2)[: want.shape[0]]
+        return float((got - want.reshape(got.shape)).abs().max())
+
+    return f"torch.sparse_bsr_tensor @ dense ({h} calls, one a head)", \
+        fn, check
+
+
+def col_bsr_yardstick(ptr_c, perm, rows, vals, y):
+    """K3's function as the BSR product of the transposed tile view."""
+    v = vals if vals.dim() == 4 else vals[None]
+    p = perm.long()
+    vt = v[:, p].transpose(-1, -2).contiguous()
+    what, fn, check = bsr_yardstick(ptr_c, rows[p].contiguous(), vt, y)
+    return what.replace("@", "(transposed view) @"), fn, check
+
+
+def sampled_yardstick(rows, cols, mask, a, b):
+    """``torch.sparse.sampled_addmm`` on the edges as a CSR of ones, per
+    head."""
+    gr, gc, (t, r, c) = _edges(None, cols, mask, rows)
+    ones = torch.ones(gr.numel(), device=a.device)
+    csr = torch.sparse_coo_tensor(torch.stack([gr, gc]), ones,
+                                  size=(a.shape[0], b.shape[0])
+                                  ).coalesce().to_sparse_csr()
+    ah = _heads_first(a, a.shape[0])
+    bt = _heads_first(b, b.shape[0]).transpose(1, 2).contiguous()
+
+    def fn():
+        return [torch.sparse.sampled_addmm(csr, ah[i], bt[i], beta=0.0)
+                for i in range(ah.shape[0])]
+
+    def check(want):
+        got = torch.stack([m.values() for m in fn()])
+        want = want if want.dim() == 4 else want[None]
+        return float((got - want[:, t, r, c]).abs().max())
+
+    return f"torch.sparse.sampled_addmm (CSR, per head, {ah.shape[0]} " \
+           f"calls)", fn, check
+
+
+def sdpa_yardstick(ptr, cols, mask, q, k, v, scale):
+    """``F.scaled_dot_product_attention`` with the tile view's dense boolean
+    mask, and the backend PyTorch takes for these f32 inputs."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    gr, gc, _ = _edges(ptr, cols, mask)
+    dense = torch.zeros(q.shape[0], k.shape[0], dtype=torch.bool,
+                        device=q.device)
+    dense[gr, gc] = True
+    q4, k4, v4 = (_heads_first(t, t.shape[0])[None] for t in (q, k, v))
+
+    def fn():
+        return sdpa(q4, k4, v4, attn_mask=dense, scale=scale)
+
+    backend = "none"
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+               SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([be]):
+                fn()
+            backend = be.name
+            break
+        except RuntimeError:
+            continue
+
+    def check(want):
+        got = fn()[0].permute(1, 0, 2)
+        return float((got - want.reshape(got.shape)).abs().max())
+
+    return (f"F.scaled_dot_product_attention, dense bool mask "
+            f"{q.shape[0]}x{k.shape[0]} ({backend} backend)", fn, check)
+
+
+def embedding_bag_yardstick(cols, x):
+    """``F.embedding_bag(cols, x with a zero row appended, mode="sum")``."""
+    xz = torch.cat([x, x.new_zeros(1, x.shape[1])])
+
+    def fn():
+        return torch.nn.functional.embedding_bag(cols, xz, mode="sum")
+
+    def check(want):
+        return float((fn() - want).abs().max())
+
+    return "F.embedding_bag(mode='sum')", fn, check
+
+
+def yardstick(name, args):
+    """One PyTorch call computing kernel ``name``'s function on these
+    inputs, built outside the timing: (what, fn, check), or (why there is
+    none, None, None)."""
+    pos, _ = split_kwargs(args)
+    if name in ("spmm_row_sweep", "spmm_row_sweep_dma_v2"):
+        return bsr_yardstick(*pos[:4])
+    if name == "spmm_col_sweep":
+        return col_bsr_yardstick(*pos[:5])
+    if name == "spmm_dotonly":
+        from custom_op_benchmark_tpu_torch.ops.kernels.tiled_kernels import (
+            DOTONLY_VALUE,
+        )
+
+        ptr, cols, x = pos[:3]
+        full = torch.full((cols.numel(), 128, 128), DOTONLY_VALUE,
+                          device=x.device)
+        return bsr_yardstick(ptr, cols, full, x)
+    if name == "sddmm_tiles":
+        return sampled_yardstick(*pos[:5])
+    if name == "fused_attention_rows":
+        return sdpa_yardstick(*pos[:7])
+    if name == "gather_sum":
+        return embedding_bag_yardstick(*pos[:2])
+    return "n/a (a diagnostic)", None, None
+
+
+def time_library(label, key, lib, want, timing):
+    """Time a yardstick twice and check it against the plain version's
+    output ``want``; returns its ms or None."""
+    what, fn, check = lib
+    if fn is None:
+        log(f"[library] {key:30s} {label}: {what}")
+        return None
+    err = check(want)
+    ms = [time_ms(fn, **timing) for _ in range(2)]
+    log(f"[library] {key:30s} {label}: {what} {ms[0]:.4f}/{ms[1]:.4f} ms, "
+        f"max abs err vs plain {err:.3e}")
+    return sum(ms) / 2
+
+
+def time_row(kern, key, args, label, timing, lib=None):
+    """A kernel and its plain version on the same inputs, in turns (plain,
+    kernel, kernel, plain: each time the mean of two), its bound on these
+    inputs and, if ``lib`` is given, the library yardstick's time."""
+    name = key.partition(":")[0]
+    pos, kw = split_kwargs(args)
+    fn, plain = kern.table[name][:2]
+    want = plain(*pos, **kw)
+    bound_ms, bound_by, nbytes, ops, dense = bound(name, args, want)
+    p1 = time_ms(lambda: plain(*pos, **kw), **timing)
+    k1 = time_ms(lambda: fn(*pos, **kw), **timing)
+    k2 = time_ms(lambda: fn(*pos, **kw), **timing)
+    p2 = time_ms(lambda: plain(*pos, **kw), **timing)
+    row = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None, library="n/a")
+    log(f"[time] {key:30s} {label:11s} kernel {k1:.4f}/{k2:.4f} ms  plain "
+        f"{p1:.4f}/{p2:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP) share "
+        f"{bound_ms / row['ms']:.3f}; tile-dense {dense / 1e9:.3f} GFLOP, "
+        f"bound {dense / PEAK_MMA_F32 * 1e3:.4f} ms, "
+        f"{dense / row['ms'] / 1e9:.1f} TFLOP/s")
+    if lib:
+        built = yardstick(name, args) if lib is True else lib
+        row["library"] = built[0]
+        row["library_ms"] = time_library(label, key, built, want, timing)
+    del want
+    return row
+
+
 def phase_times(kern, slice_inputs, train_step):
+    """Each slice kernel against its plain version and its library
+    yardstick at h=8 d=64 (K4 also against S5 with exp and mask, the
+    CUDA-core kernel), K2/K3 at d=1024; then one train step."""
     tgt, q, k, v, vals, x = slice_inputs
     times = {}
-    for label, calls in (("h=8 d=64", kernel_calls(tgt, q, k, v, vals)),
-                         (f"h=1 d={WIDE}", kernel_calls(tgt, x, x, x,
-                                                        vals[0]))):
-        for name, args in calls.items():
-            if label != "h=8 d=64" and name in ("sddmm_tiles",
-                                                "fused_attention_rows"):
+    narrow = kernel_calls(tgt, q, k, v, vals)
+    narrow["attn_variant:exp,mask"] = narrow["fused_attention_rows"]
+    wide = kernel_calls(tgt, x, x, x, vals[0])
+    for label, calls in (("h=8 d=64", narrow), (f"h=1 d={WIDE}", wide)):
+        for key, args in calls.items():
+            if label != "h=8 d=64" and key in ("sddmm_tiles",
+                                               "fused_attention_rows"):
                 continue
-            fn, plain = kern.table[name][:2]
-            # Plain, kernel, kernel, plain: each time is the mean of two.
-            p1 = time_ms(lambda: plain(*args))
-            k1 = time_ms(lambda: fn(*args))
-            k2 = time_ms(lambda: fn(*args))
-            p2 = time_ms(lambda: plain(*args))
-            times[(name, label)] = ((k1 + k2) / 2, (p1 + p2) / 2)
-            log(f"[time] {name:22s} {label:11s} kernel {k1:.4f}/{k2:.4f} ms"
-                f"  plain {p1:.4f}/{p2:.4f} ms")
+            times[(key, label)] = time_row(
+                kern, key, args, label, {},
+                lib=label == "h=8 d=64" and key in SLICE_KERNELS)
+            torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     step_ms = time_ms(train_step, warmup=1, iters=3, repeats=3)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -487,6 +752,10 @@ def phase_grid_parity(kern, dev, case):
     errs = check_kernels(kern, grid_kernel_calls(tg, case.q_al, case.vals,
                                                  x40, wp), f"grid d={GRID_D}")
     del wp, x40
+    # K3 as the grid attention's backward runs it (dk and dv).
+    errs.update(check_kernels(
+        kern, kernel_calls(tg, case.q_al, case.q_al, case.q_al, case.vals),
+        f"grid d={GRID_D}", only=("spmm_col_sweep",)))
     # K4/S5's D = 256 instantiation at the grid's shapes (d = 200).
     x200 = normal(rng, tg.n_nodes, 200, device=dev)
     wp = well_posed_s5(tg, tg.n_nodes, 200, dev, SEED + 5)
@@ -500,9 +769,10 @@ def phase_grid_parity(kern, dev, case):
     dst = rng.choice(np.r_[0:256], size=4000)
     from custom_op_benchmark_tpu_torch.graph import from_coo, tile_graph
     small = tile_graph(from_coo(src, dst, n_small), 128, 128, device=dev)
-    # d = 33 moves x through S1/S2's 4-byte copies (rows not 16-byte
-    # aligned); d = 200 runs K4/S5's D = 256 instantiation.
-    for d in (GRID_D, 40, 33, 200):
+    # d = 33 moves x through S1/S2's and K4's 4-byte copies (rows not
+    # 16-byte aligned); d = 100 leaves K4's second 64-feature chunk partly
+    # empty; d = 200 runs K4/S5's D = 256 instantiation.
+    for d in (GRID_D, 100, 40, 33, 200):
         xs = normal(rng, n_small, d, device=dev)
         sv = torch.where(small.mask, normal(rng, small.num_tiles, 128, 128,
                                             device=dev), 0.0)
@@ -566,23 +836,32 @@ def phase_grid_path(kern, case):
 
 
 def phase_grid_times(kern, case):
+    """The grid kernels against their plain versions and library
+    yardsticks at d = 128: S1, S2, S4, K4 (new, and old as S5 with exp and
+    mask), every S5 setting, and K1-K3 at the grid's shapes."""
     from custom_op_benchmark_tpu_torch.utils.bench_suite import (
         tiled_grid_attention,
     )
 
     times = {}
     calls = grid_kernel_calls(case.tg, case.q_al, case.vals, None)
-    for key in ("spmm_row_sweep_dma", "spmm_row_sweep_dma_v2", "spmm_dotonly",
-                f"fused_attention_rows:d={GRID_D}", *S5_SETTINGS):
-        args, kwargs = split_kwargs(calls[key])
-        fn, plain = kern.table[key.partition(":")[0]][:2]
-        p1 = time_ms(lambda: plain(*args, **kwargs), **GRID_TIMING)
-        k1 = time_ms(lambda: fn(*args, **kwargs), **GRID_TIMING)
-        k2 = time_ms(lambda: fn(*args, **kwargs), **GRID_TIMING)
-        p2 = time_ms(lambda: plain(*args, **kwargs), **GRID_TIMING)
-        times[key] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        log(f"[time] {key:30s} grid d={GRID_D} kernel {k1:.4f}/{k2:.4f} ms"
-            f"  plain {p1:.4f}/{p2:.4f} ms")
+    sweep = kernel_calls(case.tg, case.q_al, case.q_al, case.q_al, case.vals)
+    bsr = yardstick("spmm_row_sweep_dma_v2", calls["spmm_row_sweep_dma_v2"])
+    no_sdpa = ("n/a (dense mask of 1.1 TB)", None, None)
+    label = f"grid d={GRID_D}"
+    for key, args, lib in (
+            ("spmm_row_sweep_dma", calls["spmm_row_sweep_dma"], bsr),
+            ("spmm_row_sweep_dma_v2", calls["spmm_row_sweep_dma_v2"], bsr),
+            ("spmm_dotonly", calls["spmm_dotonly"], True),
+            (f"fused_attention_rows:d={GRID_D}",
+             calls[f"fused_attention_rows:d={GRID_D}"], no_sdpa),
+            *((k, calls[k], None) for k in S5_SETTINGS),
+            ("sddmm_tiles", sweep["sddmm_tiles"], True),
+            ("spmm_row_sweep", sweep["spmm_row_sweep"], bsr),
+            ("spmm_col_sweep", sweep["spmm_col_sweep"], True)):
+        times[key] = time_row(kern, key, args, label, GRID_TIMING, lib=lib)
+        torch.cuda.empty_cache()
+    del bsr, sweep
     del calls
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -783,14 +1062,8 @@ def phase_arxiv(dev):
 
 
 def phase_s3_times(kern, s3_inputs):
-    fn, plain = kern.table["gather_sum"][:2]
-    p1 = time_ms(lambda: plain(*s3_inputs))
-    k1 = time_ms(lambda: fn(*s3_inputs))
-    k2 = time_ms(lambda: fn(*s3_inputs))
-    p2 = time_ms(lambda: plain(*s3_inputs))
-    log(f"[time] gather_sum (S3) 125000x16 d=128 kernel {k1:.4f}/{k2:.4f} ms"
-        f"  plain {p1:.4f}/{p2:.4f} ms")
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    return time_row(kern, "gather_sum", s3_inputs, "125000x16 d=128", {},
+                    lib=True)
 
 
 def main() -> int:
@@ -814,7 +1087,10 @@ def main() -> int:
     grid_times = phase_grid_times(kern, case)
     torch.cuda.synchronize()
     del case
+    gc.collect()
     torch.cuda.empty_cache()
+    log(f"[grid] device memory still allocated after the grid: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     pl_case, train = phase_powerlaw_build(dev)
     s3_errs, s3_inputs = phase_s3_parity(kern, dev, pl_case, train)
     del train
@@ -827,10 +1103,10 @@ def main() -> int:
     report = []
     for name, (_, _, source, replaces) in kern.table.items():
         if name in SLICE_KERNELS:
-            (ms, plain_ms), err = times[(name, "h=8 d=64")], errs[name]
+            row, err = times[(name, "h=8 d=64")], errs[name]
             n, shape = launches[name], "GraphTransformer slice, h=8 d=64"
         elif name == "gather_sum":
-            (ms, plain_ms), err = s3_times, s3_errs["gather_sum:experiment"]
+            row, err = s3_times, s3_errs["gather_sum:experiment"]
             n = arxiv["s3_launches"]
             shape = ("ELL bucket 125000x16, d=128 (exp_pallas_gather); "
                      "launches: GCN and GraphSAGE fit_full_graph, arxiv")
@@ -839,12 +1115,16 @@ def main() -> int:
             # its error and its time come from the same call.
             key = ("attn_variant:exp,mask" if name == "attn_variant"
                    else name)
-            (ms, plain_ms), err = grid_times[key], grid_errs[key]
+            row, err = grid_times[key], grid_errs[key]
             n, shape = grid_launches[name], f"grid 1024x1024, d={GRID_D}"
         report.append({"name": name, "route": "cuda", "source": source,
                        "replaces": replaces, "launches": n,
-                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       "shape": shape})
+                       "max_abs_err": err, "ms": row["ms"],
+                       "plain_ms": row["plain_ms"],
+                       "bound_ms": row["bound_ms"],
+                       "bound_by": row["bound_by"],
+                       "library_ms": row["library_ms"],
+                       "library": row["library"], "shape": shape})
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,10 @@
 //   K4 fused_attention_rows <- custom_op_benchmark_tpu/ops/pallas/attention.py
 //   S5 attn_variant         <- scripts/exp_grid_bisect.py (K4 with use_exp /
 //                              use_mask switches, a diagnostic)
+// with two kernels: attention_mma_kernel (K4 for 1 <= d <= 128, on the
+// tensor cores) and attention_rows_kernel (S5, and K4 for 128 < d <= 256,
+// on the CUDA cores). The wrappers in ops/kernels/attention.py choose by
+// width and say so.
 // Per row block I and head h, a flash-style forward over I's nonzero
 // adjacency tiles, one tile at a time:
 //   s      = (Q[I] K[J]^T) * scale, non-edges set to -1e30 (UseMask)
@@ -20,11 +24,39 @@
 // function.
 //
 // What bounds it on this card: two 128x128xd tile products per tile
-// (4*T*H*128*128*d FLOP) in f32 FMA plus 128*128 exponentials per tile;
-// the K/V tiles mostly hit L2 because a column block is shared by a few
-// row blocks. It is bound by f32 FMA issue, not by HBM.
+// (4*T*H*128*128*d FLOP) plus 128*128 exponentials per tile; the K/V
+// tiles mostly hit L2 because a column block is shared by a few row
+// blocks. At d = 64 that is about 90 FLOP per byte moved: above the
+// card's ratio for f32 on either the CUDA cores (67 TFLOP/s) or 3xTF32 on
+// the tensor cores (495 / 3 = 165 TFLOP/s) against 3.35 TB/s, so the tile
+// products bound it, not HBM.
 //
-// What the design does about it: a row's d features are split across
+// attention_mma_kernel: one block of 8 warps owns a 128-row block and a
+// head; each warp owns 16 query rows. S = Q K^T and acc += P V run as
+// mma.sync m16n8k8 in 3xTF32 (mma_async.cuh), so the products are as
+// accurate as f32 FMAs. A warp's 16 x 128 scores stay in its accumulator
+// registers (no score tile in shared memory): the row max and sum are
+// taken over the thread's own 32 values and then across the 4 threads of
+// a quad with shuffles. P feeds the second product straight from those
+// registers: the C fragment holds keys 2t, 2t+1 where the A fragment wants
+// k = t, t+4, so the product runs over keys in the order (0, 2, 4, 6, 1,
+// 3, 5, 7) of each 8, and V's B fragment is read in that same order.
+// Splitting a B value into TF32 parts takes three instructions, and each
+// of the 8 warps reads every K and V value, so splitting in each warp
+// bounded the kernel by instruction issue. K and V therefore move in
+// 64-feature chunks (a tile's K chunks, then its V chunks) through two
+// shared-memory buffers by cp.async, one chunk ahead, and each landed
+// chunk is split once, in place, into its hi parts and a lo copy. Q rows
+// (stride d + 4 floats), chunks (stride 68) and the mask (144 bytes)
+// make every fragment read hit distinct banks; the mask rides with a
+// tile's first K chunk and is read as two bytes per row in the
+// accumulator's layout. Shared memory: 128 * ((D + 4) + 4 * 68) * 4 +
+// 128 * 144 bytes (188 KB at D = 64, 220 KB at D = 128), so wider heads
+// take attention_rows_kernel. Exponentials are exp2 of log2e-scaled
+// scores. A block writes only its own rows: no atomics, results repeat
+// bit for bit.
+//
+// attention_rows_kernel: a row's d features are split across
 // S = D/32 neighbouring threads of one warp, each holding 32 query and 32
 // accumulator values in registers, capped at 128 registers so that two
 // blocks share an SM (measured on the H100: 20 % faster at d = 128 than
@@ -46,6 +78,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_async.cuh"
 
 namespace {
 
@@ -250,26 +284,314 @@ int dispatch_width(const int* ptr, const int* cols, const uint8_t* mask,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// attention_mma_kernel: K4 on the tensor cores, 1 <= d <= 128
+// ---------------------------------------------------------------------------
+
+constexpr int MMA_THREADS = 256;  // 8 warps x 16 query rows
+constexpr int MASK_LD = 144;      // staged mask row stride, bytes
+constexpr int CHUNK = 64;         // features of K or V staged at a time
+constexpr int CLD = CHUNK + 4;    // staged chunk row stride, floats
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct MmaCfg {
+  static constexpr int QLD = D + 4;       // staged Q row stride, floats
+  static constexpr int NC = D / CHUNK;    // chunks of K, then of V, a tile
+  static constexpr size_t SMEM = sizeof(float) * TILE * (QLD + 4 * CLD) +
+                                 (size_t)TILE * MASK_LD;
+};
+
+// Rows row0 .. row0 + 127, features f0 .. f0 + W - 1 of a (n, H, d) array
+// (row stride ld) into dst (row stride DLD); rows at or past n and
+// features at or past d are filled with zeros by the copy. vec: 16-byte
+// copies (d % 4 == 0, aligned); else 4-byte ones.
+template <int W, int DLD>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          long long row0, int n, int f0,
+                                          int d, long long ld, int vec,
+                                          int tid) {
+  if (vec) {
+    for (int e = tid; e < TILE * W / 4; e += MMA_THREADS) {
+      const int r = e / (W / 4), f = (e % (W / 4)) * 4;
+      const bool ok = row0 + r < n && f0 + f < d;
+      cp_async16(dst + r * DLD + f, ok ? src + (row0 + r) * ld + f0 + f : src,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < TILE * W; e += MMA_THREADS) {
+      const int r = e / W, f = e % W;
+      const bool ok = row0 + r < n && f0 + f < d;
+      cp_async4(dst + r * DLD + f, ok ? src + (row0 + r) * ld + f0 + f : src,
+                ok ? 4 : 0);
+    }
+  }
+}
+
+// Split a staged 128 x CHUNK chunk in place into its TF32 hi parts,
+// writing the lo parts to lo (same layout).
+__device__ __forceinline__ void split_chunk(float* x, float* lo, int tid) {
+  for (int e = tid; e < TILE * CHUNK / 4; e += MMA_THREADS) {
+    const int o = (e / (CHUNK / 4)) * CLD + (e % (CHUNK / 4)) * 4;
+    const float4 v = *reinterpret_cast<const float4*>(x + o);
+    uint32_t h[4], l[4];
+    split_tf32(v.x, h[0], l[0]);
+    split_tf32(v.y, h[1], l[1]);
+    split_tf32(v.z, h[2], l[2]);
+    split_tf32(v.w, h[3], l[3]);
+    *reinterpret_cast<float4*>(x + o) =
+        make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                    __uint_as_float(h[2]), __uint_as_float(h[3]));
+    *reinterpret_cast<float4*>(lo + o) =
+        make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                    __uint_as_float(l[2]), __uint_as_float(l[3]));
+  }
+}
+
+// d += a * b with B's fragment at offsets o0, o1 of a split chunk.
+__device__ __forceinline__ void mma_chunk(float (&d)[4],
+                                          const uint32_t (&ahi)[4],
+                                          const uint32_t (&alo)[4],
+                                          const float* hi, const float* lo,
+                                          int o0, int o1) {
+  mma_3xtf32_parts(d, ahi, alo, __float_as_uint(hi[o0]),
+                   __float_as_uint(hi[o1]), __float_as_uint(lo[o0]),
+                   __float_as_uint(lo[o1]));
+}
+
+// scale2 = scale * log2(e). vec: q, k, v rows move as 16-byte copies
+// (d % 4 == 0 and 16-byte aligned bases).
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+attention_mma_kernel(const int* __restrict__ ptr,
+                     const int* __restrict__ cols,
+                     const uint8_t* __restrict__ mask,
+                     const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     int d, int n_q, int n_kv, int n_out, float scale2,
+                     int vec) {
+  using C = MmaCfg<D>;
+  constexpr int QLD = C::QLD, NC = C::NC, STEPS = 2 * NC;
+  constexpr int NT = D / 8, KEYS8 = TILE / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);  // [TILE][QLD]
+  // Two chunk buffers, each hi [TILE][CLD] then lo [TILE][CLD].
+  float* Bs = Qs + TILE * QLD;
+  uint8_t* Ms = reinterpret_cast<uint8_t*>(Bs + 4 * TILE * CLD);
+
+  const int i = blockIdx.x, h = blockIdx.y;
+  const long long ld = (long long)gridDim.y * d;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const float* qh = q + (long long)h * d;
+  const float* kh = k + (long long)h * d;
+  const float* vh = v + (long long)h * d;
+  const int lo = ptr[i], hi = ptr[i + 1];
+
+  // The block's copies run in steps: for each tile, its K chunks, then
+  // its V chunks, step s into buffer s % 2; the mask rides with a tile's
+  // first K chunk.
+  auto issue = [&](int step) {
+    const int t = lo + step / STEPS, c = step % STEPS;
+    if (t >= hi) return;
+    load_rows<CHUNK, CLD>(Bs + (step % 2) * 2 * TILE * CLD,
+                          c < NC ? kh : vh, (long long)cols[t] * TILE, n_kv,
+                          (c % NC) * CHUNK, d, ld, vec, tid);
+    if (c == 0) {
+      const uint8_t* mt = mask + (long long)t * TILE * TILE;
+      for (int e = tid; e < TILE * TILE / 16; e += MMA_THREADS) {
+        const int r = e / (TILE / 16), cc = (e % (TILE / 16)) * 16;
+        cp_async16(Ms + r * MASK_LD + cc, mt + r * TILE + cc, 16);
+      }
+    }
+  };
+
+  // This thread's rows of the warp's 16: g (index 0) and g + 8 (index 1).
+  float m0 = M_INIT * LOG2E, m1 = M_INIT * LOG2E, l0 = 0.f, l1 = 0.f;
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[n][u] = 0.f;
+
+  if (lo < hi) {
+    load_rows<D, QLD>(Qs, qh, (long long)i * TILE, n_q, 0, d, ld, vec, tid);
+    issue(0);
+    cp_async_commit();
+    issue(1);
+    cp_async_commit();
+  }
+  const float* qw = Qs + (warp * 16 + g) * QLD + t4;
+  const int kw = g * CLD + t4, vw = 2 * t4 * CLD + g;  // B fragment offsets
+  const uint8_t* mw = Ms + (warp * 16 + g) * MASK_LD + 2 * t4;
+  const int kd = (d + 7) / 8;  // contraction steps of S; the rest is zero
+
+  float s[KEYS8][4];  // the tile's scores, then its P
+  for (int t = lo; t < hi; ++t) {
+#pragma unroll
+    for (int c = 0; c < STEPS; ++c) {
+      const int step = (t - lo) * STEPS + c;
+      float* bh = Bs + (c % 2) * 2 * TILE * CLD;  // c % 2 == step % 2
+      float* bl = bh + TILE * CLD;
+      cp_async_wait<1>();  // this step's chunk (and Q, mask) has landed
+      __syncthreads();
+      split_chunk(bh, bl, tid);
+      __syncthreads();
+
+      if (c < NC) {
+        // S += Q[:, c*64 : +64] K_c^T.
+        if (c == 0) {
+#pragma unroll
+          for (int j = 0; j < KEYS8; ++j)
+#pragma unroll
+            for (int u = 0; u < 4; ++u) s[j][u] = 0.f;
+        }
+        const int kend = min(CHUNK / 8, kd - c * (CHUNK / 8));
+        for (int kk = 0; kk < kend; ++kk) {
+          const float* qa = qw + c * CHUNK + kk * 8;
+          uint32_t ah[4], al[4];
+          split_a(qa[0], qa[8 * QLD], qa[4], qa[8 * QLD + 4], ah, al);
+          const int kb = kw + kk * 8;
+#pragma unroll
+          for (int j = 0; j < KEYS8; ++j)
+            mma_chunk(s[j], ah, al, bh, bl, kb + j * 8 * CLD,
+                      kb + j * 8 * CLD + 4);
+        }
+      }
+
+      if (c == NC - 1) {
+        // Scale, mask, the tile's row max (log2 units), and P.
+        float mx0 = m0, mx1 = m1;
+#pragma unroll
+        for (int j = 0; j < KEYS8; ++j) {
+          const uint16_t b0 = *reinterpret_cast<const uint16_t*>(mw + 8 * j);
+          const uint16_t b1 =
+              *reinterpret_cast<const uint16_t*>(mw + 8 * MASK_LD + 8 * j);
+          s[j][0] = (b0 & 0xff) ? s[j][0] * scale2 : NEG_INF;
+          s[j][1] = (b0 >> 8) ? s[j][1] * scale2 : NEG_INF;
+          s[j][2] = (b1 & 0xff) ? s[j][2] * scale2 : NEG_INF;
+          s[j][3] = (b1 >> 8) ? s[j][3] * scale2 : NEG_INF;
+          mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+          mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+        }
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, o));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, o));
+        }
+        const float c0 = exp2f(m0 - mx0), c1 = exp2f(m1 - mx1);
+        m0 = mx0;
+        m1 = mx1;
+        // l is this thread's share of the row sum; the quad's shares are
+        // added at the end (each is scaled by the same corrections).
+        float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < KEYS8; ++j) {
+          s[j][0] = exp2f(s[j][0] - m0);
+          s[j][1] = exp2f(s[j][1] - m0);
+          s[j][2] = exp2f(s[j][2] - m1);
+          s[j][3] = exp2f(s[j][3] - m1);
+          ps0 += s[j][0] + s[j][1];
+          ps1 += s[j][2] + s[j][3];
+        }
+        l0 = l0 * c0 + ps0;
+        l1 = l1 * c1 + ps1;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          acc[n][0] *= c0;
+          acc[n][1] *= c0;
+          acc[n][2] *= c1;
+          acc[n][3] *= c1;
+        }
+      }
+
+      if (c >= NC) {
+        // acc[:, (c-NC)*64 : +64] += P V_c over the tile's keys, 8 at a
+        // time in the order (0, 2, 4, 6, 1, 3, 5, 7): a0..a3 of P are c0,
+        // c2, c1, c3 of S.
+        const int N0 = (c - NC) * (CHUNK / 8);  // first n-tile of acc
+#pragma unroll
+        for (int j = 0; j < KEYS8; ++j) {
+          uint32_t ah[4], al[4];
+          split_a(s[j][0], s[j][2], s[j][1], s[j][3], ah, al);
+          const int vb = vw + j * 8 * CLD;
+#pragma unroll
+          for (int n = 0; n < CHUNK / 8; ++n)
+            if ((N0 + n) * 8 < d)
+              mma_chunk(acc[N0 + n], ah, al, bh, bl, vb + n * 8,
+                        vb + CLD + n * 8);
+        }
+      }
+
+      __syncthreads();  // every warp is done with this buffer
+      issue(step + 2);
+      cp_async_commit();
+    }
+  }
+
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    l0 += __shfl_xor_sync(FULL, l0, o);
+    l1 += __shfl_xor_sync(FULL, l1, o);
+  }
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+  const long long row0 = (long long)i * TILE + warp * 16 + g, row1 = row0 + 8;
+  float* oh = out + (long long)h * d;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int f = n * 8 + 2 * t4 + u;
+      if (f >= d) continue;
+      if (row0 < n_out) oh[row0 * ld + f] = l0 > 0.f ? acc[n][u] / den0 : 0.f;
+      if (row1 < n_out)
+        oh[row1 * ld + f] = l1 > 0.f ? acc[n][2 + u] / den1 : 0.f;
+    }
+}
+
+template <int D>
+int launch_mma(const int* ptr, const int* cols, const uint8_t* mask,
+               const float* q, const float* k, const float* v, float* out,
+               int nrb, int H, int d, int n_q, int n_kv, int n_out,
+               float scale, int vec, cudaStream_t stream) {
+  auto kernel = attention_mma_kernel<D>;
+  const int smem = (int)MmaCfg<D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(nrb, H);
+  kernel<<<grid, MMA_THREADS, smem, stream>>>(ptr, cols, mask, q, k, v, out,
+                                             d, n_q, n_kv, n_out,
+                                             scale * LOG2E, vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// q: (n_q, H, d), k/v: (n_kv, H, d), mask: (T, 128, 128)
-// -> out: (n_out, H, d), n_out <= nrb * 128, 1 <= d <= 256.
+// K4 on the tensor cores. q: (n_q, H, d), k/v: (n_kv, H, d), mask
+// (T, 128, 128), 16-byte aligned -> out: (n_out, H, d), n_out <= nrb * 128,
+// 1 <= d <= 128. vec: q, k, v are 16-byte aligned and d % 4 == 0.
 int fused_attention_rows_f32(const int* tile_ptr, const int* tile_cols,
                              const uint8_t* mask, const float* q,
                              const float* k, const float* v, float* out,
                              int nrb, int H, int d, int n_q, int n_kv,
-                             int n_out, float scale, int device,
+                             int n_out, float scale, int vec, int device,
                              cudaStream_t stream) {
   cudaSetDevice(device);
-  return dispatch_width<true, true>(tile_ptr, tile_cols, mask, q, k, v, out,
-                                    nrb, H, d, n_q, n_kv, n_out, scale,
-                                    stream);
+  if (d >= 1 && d <= 64)
+    return launch_mma<64>(tile_ptr, tile_cols, mask, q, k, v, out, nrb, H, d,
+                          n_q, n_kv, n_out, scale, vec, stream);
+  if (d > 64 && d <= 128)
+    return launch_mma<128>(tile_ptr, tile_cols, mask, q, k, v, out, nrb, H,
+                           d, n_q, n_kv, n_out, scale, vec, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
-// S5: as fused_attention_rows_f32, with the exponentials (use_exp) and the
-// mask (use_mask) switched on or off.
+// S5 on attention_rows_kernel, 1 <= d <= 256, with the exponentials
+// (use_exp) and the mask (use_mask) switched on or off; with both on it is
+// K4 on the CUDA cores (for 128 < d <= 256).
 int attn_variant_f32(const int* tile_ptr, const int* tile_cols,
                      const uint8_t* mask, const float* q, const float* k,
                      const float* v, float* out, int nrb, int H, int d,

@@ -35,6 +35,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_async.cuh"
+
 namespace {
 
 constexpr int TILE = 128;
@@ -45,29 +47,6 @@ constexpr int VLD = KC + 4;   // padded vals stage row
 constexpr int STAGE_V = TILE * VLD;
 constexpr int STAGE_X = KC * DC;
 constexpr size_t SMEM = 2 * sizeof(float) * (STAGE_V + STAGE_X);
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // PADDED = true (S1): block i sweeps slots i*max_tpr .. +max_tpr of
 // (cols_pad, vals_pad). PADDED = false (S2): tiles ptr[i] .. ptr[i+1].

@@ -5,9 +5,9 @@ interface, so ``nvcc`` compiles them in seconds (no PyTorch headers): one
 ``nvcc -c`` per source, all started together, then one link into a shared
 library. The build runs at first use, into
 ``build/torch_kernels/`` at the repository root, keyed on a hash of the
-sources and flags: an unchanged checkout reuses its library, a changed one
-builds anew. A failed build raises with nvcc's output; there is no
-fallback.
+sources, their headers and the flags: an unchanged checkout reuses its
+library, a changed one builds anew. A failed build raises with nvcc's
+output; there is no fallback.
 """
 
 from __future__ import annotations
@@ -35,9 +35,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "sddmm_tiles_f32": [_P] * 6 + [_I] * 6 + [_P],
     "spmm_row_sweep_f32": [_P] * 5 + [_I] * 7 + [_P],
-    "spmm_col_sweep_f32": [_P] * 6 + [_I] * 7 + [_P],
+    "spmm_col_sweep_f32": [_P] * 6 + [_I] * 8 + [_P],
     "fused_attention_rows_f32": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I,
-                                                       _P],
+                                                       _I, _P],
     "spmm_dotonly_f32": [_P] * 4 + [_I] * 6 + [_P],
     "attn_variant_f32": [_P] * 7 + [_I] * 6 + [ctypes.c_float] + [_I] * 3
     + [_P],
@@ -57,9 +57,9 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return BUILD_DIR / f"libtorch_kernels_{h.hexdigest()[:16]}.so"
 
 

@@ -10,14 +10,16 @@ head h, over I's nonzero tiles (the src direction):
     out[I] = Σ_t exp(s − m) @ V[J(t)] / Σ_t rowsum(exp(s − m)),
              or 0 for a row with no edges.
 
-Both run in one CUDA template (csrc/attention.cu) with the online-softmax
-recurrence, one tile at a time, and never store a score in device memory;
-S5 switches the exponentials (``use_exp``) and the mask (``use_mask``) off.
-The plain K4 materialises the masked scores and composes the softmax; the
-plain S5 runs the recurrence one tile slot at a time over all row blocks,
-since without ``exp`` it is not a softmax. Each wrapper runs its kernel on
-CUDA tensors and its plain version only on CPU tensors;
-``<wrapper>.launches`` counts kernel launches.
+Both run the online-softmax recurrence in csrc/attention.cu, one tile at
+a time, and never store a score in device memory. K4 takes the
+tensor-core kernel for head widths 1 to 128 and the CUDA-core kernel for
+129 to 256 (:func:`kernel_route`); S5 always takes the CUDA-core kernel,
+which switches the exponentials (``use_exp``) and the mask (``use_mask``)
+off. The plain K4 materialises the masked scores and composes the
+softmax; the plain S5 runs the recurrence one tile slot at a time over
+all row blocks, since without ``exp`` it is not a softmax. Each wrapper
+runs its kernel on CUDA tensors and its plain version only on CPU
+tensors; ``<wrapper>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ from custom_op_benchmark_tpu_torch.ops.segments import sorted_segment_reduce
 
 NEG_INF = -1e30
 M_INIT = -1e9      # the kernel's first running max
-MAX_HEAD_DIM = 256  # widest head the kernel is built for (csrc/attention.cu)
+MAX_HEAD_DIM = 256  # widest head the kernels are built for (csrc/attention.cu)
+MMA_MAX_HEAD_DIM = 128  # widest head of the tensor-core kernel
 
 
 def fused_attention_rows_plain(tile_ptr, tile_cols, mask, q, k, v, scale):
@@ -83,6 +86,14 @@ def check_kernel_args(tile_ptr, tile_cols, mask, q, k, v):
     return n_q, h, d, nrb
 
 
+def kernel_route(d: int) -> str:
+    """The CUDA kernel that serves K4 at head width d: ``"mma"``, the
+    tensor-core kernel (1 ≤ d ≤ 128), or ``"rows"``, the CUDA-core kernel
+    that S5 runs (128 < d ≤ 256), whose Q, K and V tiles would not fit the
+    tensor-core kernel's shared memory."""
+    return "mma" if d <= MMA_MAX_HEAD_DIM else "rows"
+
+
 def _launch(entry, args, tile_ptr, tile_cols, mask, q, k, v, scale):
     n_q, h, d, nrb = check_kernel_args(tile_ptr, tile_cols, mask, q, k, v)
     qh, kh, vh = _heads(q), _heads(k), _heads(v)
@@ -95,6 +106,16 @@ def _launch(entry, args, tile_ptr, tile_cols, mask, q, k, v, scale):
     return out[:, 0] if q.dim() == 2 else out
 
 
+def _mma_args(mask, q, k, v):
+    """The tensor-core kernel's extra argument (``vec``: q, k and v rows
+    move as 16-byte copies); it stages the mask with 16-byte copies."""
+    if mask.data_ptr() % 16:
+        raise ValueError("mask must be 16-byte aligned")
+    d = q.shape[-1]
+    return (int(d % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                   for t in (q, k, v))),)
+
+
 def fused_attention_rows(tile_ptr, tile_cols, mask, q, k, v, scale: float):
     """q: (n_q, [H,] d), k/v: (n_kv, [H,] d), mask (T, R, C) →
     out (n_q, [H,] d), softmax over each row's tiles. n_q ≤ NRB·R; on the
@@ -104,8 +125,11 @@ def fused_attention_rows(tile_ptr, tile_cols, mask, q, k, v, scale: float):
     if _on_cpu(tile_ptr, tile_cols, mask, q, k, v):
         return fused_attention_rows_plain(tile_ptr, tile_cols, mask, q, k, v,
                                           scale)
-    out = _launch("fused_attention_rows_f32", (), tile_ptr, tile_cols, mask,
-                  q, k, v, scale)
+    if kernel_route(q.shape[-1]) == "mma":
+        entry, args = "fused_attention_rows_f32", _mma_args(mask, q, k, v)
+    else:
+        entry, args = "attn_variant_f32", (1, 1)
+    out = _launch(entry, args, tile_ptr, tile_cols, mask, q, k, v, scale)
     fused_attention_rows.launches += 1
     return out
 

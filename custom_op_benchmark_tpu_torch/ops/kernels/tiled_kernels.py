@@ -270,11 +270,14 @@ def spmm_col_sweep(tile_ptr_c, tile_perm_c, tile_rows, vals, y,
     ncb = tile_ptr_c.shape[0] - 1
     n_out = ncb * TILE if n_out is None else n_out
     _check_sweep(v, yh, n_out, ncb)
+    if v.data_ptr() % 16:
+        raise ValueError("vals must be 16-byte aligned")
+    vec = int(d % 4 == 0 and yh.data_ptr() % 16 == 0)
     out = torch.empty((n_out, h, d), device=y.device, dtype=y.dtype)
     dev, stream = _stream(y)
     _build.check(_build.library().spmm_col_sweep_f32(
         _p(tile_ptr_c), _p(tile_perm_c), _p(tile_rows), _p(v), _p(yh),
-        _p(out), ncb, t, h, d, yh.shape[0], n_out, dev, stream),
+        _p(out), ncb, t, h, d, yh.shape[0], n_out, vec, dev, stream),
         "spmm_col_sweep")
     spmm_col_sweep.launches += 1
     return out[:, 0] if y.dim() == 2 else out
