@@ -19,23 +19,25 @@ classes) trained full-graph on the ELL path by GAT (3 layers, 4 heads of
    build the CUDA kernels from ``custom_op_benchmark_tpu_torch/csrc`` (one
    nvcc for each source, all started together);
 2. kernel parity: each kernel against its plain PyTorch version on the
-   card, at the slice's shapes, K2/K3 also at d=1024, and on a small
-   irregular graph with an empty row block and an empty column block;
+   card, at the slice's shapes, K1-K3 also at d=1024, K1 on masks with
+   empty 16×8 fragments, strips and tiles and on a dense mask (its skip of
+   empty fragments), and on a small irregular graph with an empty row
+   block and an empty column block (K1-K3 also at d = 40, 33 and 200);
 3. the slice at full width: logits, loss and every parameter's gradient
    on the card against the same module copied to the CPU, where the
    wrappers run the plain versions;
 4. train: three AdamW steps with finite losses, each step launching K4
    3 times, K1 and K3 6 times and K2 3 times (3 layers);
-5. times: each kernel against its plain version, its bound on these
-   inputs (bytes at 3.35 TB/s or f32-accurate products at 165 TFLOP/s,
-   whichever is longer) and its library yardstick (one PyTorch call that
-   computes the same function, timed here and used nowhere in the port);
-   the tensor-core K4 against S5 with exp and mask (the CUDA-core K4);
-   then one train step;
+5. times: each kernel against its plain version (K1-K3 also at
+   d = 1024), its bound on these inputs (bytes at 3.35 TB/s or
+   f32-accurate products at 165 TFLOP/s, whichever is longer) and its
+   library yardstick (one PyTorch call that computes the same function,
+   timed here and used nowhere in the port); the tensor-core K4 against
+   S5 with exp and mask (the CUDA-core K4); then one train step;
 6. grid build: the graph, its tile-aligned order and tiling on the host,
    moved to the card;
 7. grid kernel parity: S1, S2, S4, S5 (all four switch settings), K4 at
-   d = 128 and d = 40 and K3 at d = 128 against their plain versions at
+   d = 128 and d = 40 and K1-K3 at d = 128 against their plain versions at
    the grid's shapes, K4 and S5 also at d = 200, and S1, S2, S4, S5 and K4
    again on the small irregular graph at d = 128, 100, 40, 33 and 200;
 8. the grid path: S1 and S2 against the segment oracle, then the grid
@@ -131,6 +133,13 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp(min=1e-12))
 
 
+def live_share(mask):
+    """The share of a tile view's 16×8 score fragments that hold an edge:
+    the fragments K1 does not skip."""
+    t = mask.shape[0]
+    return float(mask.reshape(t, 8, 16, 16, 8).any(dim=(2, 4)).float().mean())
+
+
 def normal(rng, *shape, device):
     return torch.from_numpy(
         rng.standard_normal(shape, dtype=np.float32)).to(device)
@@ -211,8 +220,8 @@ class Kernels:
         return {name: fn.launches for name, (fn, *_) in self.table.items()}
 
 
-SLICE_KERNELS = ("sddmm_tiles", "spmm_row_sweep", "spmm_col_sweep",
-                 "fused_attention_rows")
+TILE_KERNELS = ("sddmm_tiles", "spmm_row_sweep", "spmm_col_sweep")
+SLICE_KERNELS = TILE_KERNELS + ("fused_attention_rows",)
 GRID_KERNELS = ("spmm_row_sweep_dma", "spmm_row_sweep_dma_v2",
                 "spmm_dotonly", "attn_variant")
 S5_SETTINGS = {f"attn_variant:{'exp' if e else 'noexp'},"
@@ -230,6 +239,27 @@ def kernel_calls(tg, q, k, v, vals):
         "fused_attention_rows": (tg.tile_ptr, tg.tile_cols, tg.mask, q, k, v,
                                  q.shape[-1] ** -0.5),
     }
+
+
+def skip_calls(tg, a, b, device):
+    """K1 on masks that test its skip of fragments with no edge: one where
+    about half of the 16×8 fragments, a quarter of the 16-row strips and a
+    tenth of the tiles are empty and the rest random, and a dense one."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    t = tg.num_tiles
+
+    def keep(*shape, p):
+        return torch.rand(shape, device=device, generator=gen) < p
+
+    live = (keep(t, 8, 1, 16, 1, p=0.5) & keep(t, 8, 1, 1, 1, p=0.75)
+            & keep(t, 1, 1, 1, 1, p=0.9))
+    bits = keep(t, 8, 16, 16, 8, p=0.5)
+    holes = (live & bits).reshape(t, 128, 128).contiguous()
+    dense = torch.ones((t, 128, 128), dtype=torch.bool, device=device)
+    return {"sddmm_tiles:empty fragments": (tg.tile_rows, tg.tile_cols, holes,
+                                            a, b),
+            "sddmm_tiles:dense mask": (tg.tile_rows, tg.tile_cols, dense, a,
+                                       b)}
 
 
 def split_kwargs(args):
@@ -282,8 +312,9 @@ def phase_parity(kern, dev, tg):
 
     x = normal(rng, n, WIDE, device=dev)
     check_kernels(kern, kernel_calls(tgt, x, x, x, vals[0]),
-                  f"slice h=1 d={WIDE}", only=("spmm_row_sweep",
-                                            "spmm_col_sweep"))
+                  f"slice h=1 d={WIDE}", only=TILE_KERNELS)
+    torch.cuda.synchronize()
+    check_kernels(kern, skip_calls(tgt, q, k, dev), "slice h=8 d=64")
     torch.cuda.synchronize()
 
     # n = 300 is not a multiple of 128; row block 1 has no out-edges and
@@ -294,9 +325,11 @@ def phase_parity(kern, dev, tg):
     small = tile_graph(from_coo(src, dst, n_small), 128, 128, device=dev)
     assert int(torch.diff(small.tile_ptr)[1]) == 0
     assert int(torch.diff(small.tile_ptr_c)[2]) == 0
-    for hh, dd, only in ((2, 64, None),
-                         (3, 40, ("sddmm_tiles", "spmm_row_sweep",
-                                  "spmm_col_sweep"))):
+    # d = 40 and 33: K1/K2's 16- and 4-byte copies with a partial 32- or
+    # 64-feature chunk; d = 200: K1's contraction over seven chunks, K2/K3
+    # over two feature slices.
+    for hh, dd, only in ((2, 64, None), (3, 40, TILE_KERNELS),
+                         (2, 33, TILE_KERNELS), (1, 200, TILE_KERNELS)):
         qs, ks, vs = (normal(rng, n_small, hh, dd, device=dev)
                       for _ in range(3))
         sv = normal(rng, hh, small.num_tiles, 128, 128, device=dev)
@@ -320,7 +353,8 @@ def build_slice(dev):
         **MODEL, generator=torch.Generator().manual_seed(SEED))
     log(f"[slice] n={g.n_nodes} e={g.n_edges} tiles={tg.num_tiles} "
         f"row_blocks={tg.num_row_blocks} max_tiles_per_row="
-        f"{tg.max_tiles_per_row} density={tg.density:.4f}")
+        f"{tg.max_tiles_per_row} density={tg.density:.4f} live 16x8 "
+        f"fragments {live_share(tg.mask):.4f}")
     return g, tg_cpu, tg, x, labels, model_cpu
 
 
@@ -715,8 +749,7 @@ def phase_times(kern, slice_inputs, train_step):
     wide = kernel_calls(tgt, x, x, x, vals[0])
     for label, calls in (("h=8 d=64", narrow), (f"h=1 d={WIDE}", wide)):
         for key, args in calls.items():
-            if label != "h=8 d=64" and key in ("sddmm_tiles",
-                                               "fused_attention_rows"):
+            if label != "h=8 d=64" and key == "fused_attention_rows":
                 continue
             times[(key, label)] = time_row(
                 kern, key, args, label, {},
@@ -739,7 +772,8 @@ def phase_grid_build(dev):
     tg = case.tg
     log(f"[grid] {GRID[0]}x{GRID[1]} n={case.n} e={case.e} T={tg.num_tiles} "
         f"nrb={tg.num_row_blocks} max_tiles_per_row={tg.max_tiles_per_row} "
-        f"density={tg.density:.4f}; host build {case.host_s:.2f} s, with "
+        f"density={tg.density:.4f} live 16x8 fragments "
+        f"{live_share(tg.mask):.4f}; host build {case.host_s:.2f} s, with "
         f"the move to the card {time.perf_counter() - t0:.2f} s")
     return case
 
@@ -752,10 +786,10 @@ def phase_grid_parity(kern, dev, case):
     errs = check_kernels(kern, grid_kernel_calls(tg, case.q_al, case.vals,
                                                  x40, wp), f"grid d={GRID_D}")
     del wp, x40
-    # K3 as the grid attention's backward runs it (dk and dv).
+    # K1-K3 as the grid attention's backward runs them.
     errs.update(check_kernels(
         kern, kernel_calls(tg, case.q_al, case.q_al, case.q_al, case.vals),
-        f"grid d={GRID_D}", only=("spmm_col_sweep",)))
+        f"grid d={GRID_D}", only=TILE_KERNELS))
     # K4/S5's D = 256 instantiation at the grid's shapes (d = 200).
     x200 = normal(rng, tg.n_nodes, 200, device=dev)
     wp = well_posed_s5(tg, tg.n_nodes, 200, dev, SEED + 5)

@@ -289,7 +289,6 @@ int dispatch_width(const int* ptr, const int* cols, const uint8_t* mask,
 // ---------------------------------------------------------------------------
 
 constexpr int MMA_THREADS = 256;  // 8 warps x 16 query rows
-constexpr int MASK_LD = 144;      // staged mask row stride, bytes
 constexpr int CHUNK = 64;         // features of K or V staged at a time
 constexpr int CLD = CHUNK + 4;    // staged chunk row stride, floats
 constexpr float LOG2E = 1.4426950408889634f;
@@ -301,63 +300,6 @@ struct MmaCfg {
   static constexpr size_t SMEM = sizeof(float) * TILE * (QLD + 4 * CLD) +
                                  (size_t)TILE * MASK_LD;
 };
-
-// Rows row0 .. row0 + 127, features f0 .. f0 + W - 1 of a (n, H, d) array
-// (row stride ld) into dst (row stride DLD); rows at or past n and
-// features at or past d are filled with zeros by the copy. vec: 16-byte
-// copies (d % 4 == 0, aligned); else 4-byte ones.
-template <int W, int DLD>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          long long row0, int n, int f0,
-                                          int d, long long ld, int vec,
-                                          int tid) {
-  if (vec) {
-    for (int e = tid; e < TILE * W / 4; e += MMA_THREADS) {
-      const int r = e / (W / 4), f = (e % (W / 4)) * 4;
-      const bool ok = row0 + r < n && f0 + f < d;
-      cp_async16(dst + r * DLD + f, ok ? src + (row0 + r) * ld + f0 + f : src,
-                 ok ? 16 : 0);
-    }
-  } else {
-    for (int e = tid; e < TILE * W; e += MMA_THREADS) {
-      const int r = e / W, f = e % W;
-      const bool ok = row0 + r < n && f0 + f < d;
-      cp_async4(dst + r * DLD + f, ok ? src + (row0 + r) * ld + f0 + f : src,
-                ok ? 4 : 0);
-    }
-  }
-}
-
-// Split a staged 128 x CHUNK chunk in place into its TF32 hi parts,
-// writing the lo parts to lo (same layout).
-__device__ __forceinline__ void split_chunk(float* x, float* lo, int tid) {
-  for (int e = tid; e < TILE * CHUNK / 4; e += MMA_THREADS) {
-    const int o = (e / (CHUNK / 4)) * CLD + (e % (CHUNK / 4)) * 4;
-    const float4 v = *reinterpret_cast<const float4*>(x + o);
-    uint32_t h[4], l[4];
-    split_tf32(v.x, h[0], l[0]);
-    split_tf32(v.y, h[1], l[1]);
-    split_tf32(v.z, h[2], l[2]);
-    split_tf32(v.w, h[3], l[3]);
-    *reinterpret_cast<float4*>(x + o) =
-        make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
-                    __uint_as_float(h[2]), __uint_as_float(h[3]));
-    *reinterpret_cast<float4*>(lo + o) =
-        make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
-                    __uint_as_float(l[2]), __uint_as_float(l[3]));
-  }
-}
-
-// d += a * b with B's fragment at offsets o0, o1 of a split chunk.
-__device__ __forceinline__ void mma_chunk(float (&d)[4],
-                                          const uint32_t (&ahi)[4],
-                                          const uint32_t (&alo)[4],
-                                          const float* hi, const float* lo,
-                                          int o0, int o1) {
-  mma_3xtf32_parts(d, ahi, alo, __float_as_uint(hi[o0]),
-                   __float_as_uint(hi[o1]), __float_as_uint(lo[o0]),
-                   __float_as_uint(lo[o1]));
-}
 
 // scale2 = scale * log2(e). vec: q, k, v rows move as 16-byte copies
 // (d % 4 == 0 and 16-byte aligned bases).
@@ -394,16 +336,11 @@ attention_mma_kernel(const int* __restrict__ ptr,
   auto issue = [&](int step) {
     const int t = lo + step / STEPS, c = step % STEPS;
     if (t >= hi) return;
-    load_rows<CHUNK, CLD>(Bs + (step % 2) * 2 * TILE * CLD,
-                          c < NC ? kh : vh, (long long)cols[t] * TILE, n_kv,
-                          (c % NC) * CHUNK, d, ld, vec, tid);
-    if (c == 0) {
-      const uint8_t* mt = mask + (long long)t * TILE * TILE;
-      for (int e = tid; e < TILE * TILE / 16; e += MMA_THREADS) {
-        const int r = e / (TILE / 16), cc = (e % (TILE / 16)) * 16;
-        cp_async16(Ms + r * MASK_LD + cc, mt + r * TILE + cc, 16);
-      }
-    }
+    load_rows<TILE, CHUNK, CLD, MMA_THREADS>(
+        Bs + (step % 2) * 2 * TILE * CLD, c < NC ? kh : vh,
+        (long long)cols[t] * TILE, n_kv, (c % NC) * CHUNK, d, ld, vec, tid);
+    if (c == 0)
+      load_mask<MMA_THREADS>(Ms, mask + (long long)t * TILE * TILE, tid);
   };
 
   // This thread's rows of the warp's 16: g (index 0) and g + 8 (index 1).
@@ -415,7 +352,8 @@ attention_mma_kernel(const int* __restrict__ ptr,
     for (int u = 0; u < 4; ++u) acc[n][u] = 0.f;
 
   if (lo < hi) {
-    load_rows<D, QLD>(Qs, qh, (long long)i * TILE, n_q, 0, d, ld, vec, tid);
+    load_rows<TILE, D, QLD, MMA_THREADS>(Qs, qh, (long long)i * TILE, n_q, 0,
+                                         d, ld, vec, tid);
     issue(0);
     cp_async_commit();
     issue(1);
@@ -435,7 +373,7 @@ attention_mma_kernel(const int* __restrict__ ptr,
       float* bl = bh + TILE * CLD;
       cp_async_wait<1>();  // this step's chunk (and Q, mask) has landed
       __syncthreads();
-      split_chunk(bh, bl, tid);
+      split_rows<TILE, CHUNK, CLD, MMA_THREADS>(bh, bl, tid);
       __syncthreads();
 
       if (c < NC) {
@@ -454,7 +392,7 @@ attention_mma_kernel(const int* __restrict__ ptr,
           const int kb = kw + kk * 8;
 #pragma unroll
           for (int j = 0; j < KEYS8; ++j)
-            mma_chunk(s[j], ah, al, bh, bl, kb + j * 8 * CLD,
+            mma_split(s[j], ah, al, bh, bl, kb + j * 8 * CLD,
                       kb + j * 8 * CLD + 4);
         }
       }
@@ -518,7 +456,7 @@ attention_mma_kernel(const int* __restrict__ ptr,
 #pragma unroll
           for (int n = 0; n < CHUNK / 8; ++n)
             if ((N0 + n) * 8 < d)
-              mma_chunk(acc[N0 + n], ah, al, bh, bl, vb + n * 8,
+              mma_split(acc[N0 + n], ah, al, bh, bl, vb + n * 8,
                         vb + CLD + n * 8);
         }
       }

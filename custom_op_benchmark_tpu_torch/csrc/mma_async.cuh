@@ -47,6 +47,47 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Rows row0 .. row0 + ROWS - 1, features f0 .. f0 + W - 1 of a row-major
+// array (row stride ld floats) into dst (row stride DLD floats), by the NT
+// threads of a block; rows at or past n and features at or past d are
+// filled with zeros by the copy. vec: 16-byte copies (W, f0, d and ld are
+// multiples of 4 and src is 16-byte aligned); else 4-byte ones.
+template <int ROWS, int W, int DLD, int NT>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          long long row0, long long n,
+                                          int f0, int d, long long ld,
+                                          int vec, int tid) {
+  if (vec) {
+    for (int e = tid; e < ROWS * W / 4; e += NT) {
+      const int r = e / (W / 4), f = (e % (W / 4)) * 4;
+      const bool ok = row0 + r < n && f0 + f < d;
+      cp_async16(dst + r * DLD + f, ok ? src + (row0 + r) * ld + f0 + f : src,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < ROWS * W; e += NT) {
+      const int r = e / W, f = e % W;
+      const bool ok = row0 + r < n && f0 + f < d;
+      cp_async4(dst + r * DLD + f, ok ? src + (row0 + r) * ld + f0 + f : src,
+                ok ? 4 : 0);
+    }
+  }
+}
+
+// A 128 x 128 tile's mask bytes into dst, row stride MASK_LD bytes (144:
+// reading two bytes per row in the accumulator layout, c0 c1 at (g, 2t),
+// hits distinct banks), 16-byte copies; src 16-byte aligned.
+constexpr int MASK_LD = 144;
+
+template <int NT>
+__device__ __forceinline__ void load_mask(uint8_t* dst, const uint8_t* src,
+                                          int tid) {
+  for (int e = tid; e < 128 * 128 / 16; e += NT) {
+    const int r = e / 8, c = (e % 8) * 16;
+    cp_async16(dst + r * MASK_LD + c, src + r * 128 + c, 16);
+  }
+}
+
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
@@ -96,4 +137,38 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   split_tf32(b0, bh0, bl0);
   split_tf32(b1, bh1, bl1);
   mma_3xtf32_parts(d, ahi, alo, bh0, bh1, bl0, bl1);
+}
+
+// Split a staged ROWS x W block (row stride LD floats) in place into its
+// TF32 hi parts, writing the lo parts to lo (same layout), by the NT
+// threads of a block: done once, it spares every warp that reads a value
+// as a B operand the three instructions of splitting it.
+template <int ROWS, int W, int LD, int NT>
+__device__ __forceinline__ void split_rows(float* x, float* lo, int tid) {
+  for (int e = tid; e < ROWS * W / 4; e += NT) {
+    const int o = (e / (W / 4)) * LD + (e % (W / 4)) * 4;
+    const float4 v = *reinterpret_cast<const float4*>(x + o);
+    uint32_t h[4], l[4];
+    split_tf32(v.x, h[0], l[0]);
+    split_tf32(v.y, h[1], l[1]);
+    split_tf32(v.z, h[2], l[2]);
+    split_tf32(v.w, h[3], l[3]);
+    *reinterpret_cast<float4*>(x + o) =
+        make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                    __uint_as_float(h[2]), __uint_as_float(h[3]));
+    *reinterpret_cast<float4*>(lo + o) =
+        make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                    __uint_as_float(l[2]), __uint_as_float(l[3]));
+  }
+}
+
+// d += a * b with B's fragment at offsets o0, o1 of a split block (hi, lo).
+__device__ __forceinline__ void mma_split(float (&d)[4],
+                                          const uint32_t (&ahi)[4],
+                                          const uint32_t (&alo)[4],
+                                          const float* hi, const float* lo,
+                                          int o0, int o1) {
+  mma_3xtf32_parts(d, ahi, alo, __float_as_uint(hi[o0]),
+                   __float_as_uint(hi[o1]), __float_as_uint(lo[o0]),
+                   __float_as_uint(lo[o1]));
 }

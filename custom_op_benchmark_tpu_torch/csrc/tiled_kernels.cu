@@ -16,31 +16,61 @@
 //
 // What bounds them on this card: each is a batch of 128x128xd tile
 // products in f32. At the GraphTransformer slice's shapes (T = 344 tiles,
-// 8 heads, d = 64) each kernel does 2*T*H*128*128*d = 5.8 GFLOP and moves
-// about 180 MB of tile-dense scores (written by K1, read by K2/K3), about
-// 25 FLOP per byte: close to the card's ratio of CUDA-core f32 FLOP/s to
-// HBM bandwidth (67 T / 3.35 T = 20), so on the CUDA cores f32 FMA issue
-// and the score stream bound them together; with f32-accurate tensor-core
-// products (165 TFLOP/s, ratio 49) the score stream alone is the bound.
-// K2/K3 at d = 1024 (one head) do 11.5 GFLOP on 22.5 MB of scores and are
-// bound by their products.
+// 8 heads, d = 64) each kernel does 2*T*H*128*128*d = 5.8 GFLOP of whole
+// tile products and moves about 180 MB of tile-dense scores (written by
+// K1, read by K2/K3), about 25 FLOP per byte. All three run their products
+// on the tensor cores in 3xTF32 (mma_async.cuh), as accurate as f32 FMAs:
+// three TF32 passes at 495 TFLOP/s give 165 TFLOP/s of f32-accurate
+// products (67 on the CUDA cores), a ratio of 49 FLOP per byte of HBM
+// (3.35 TB/s), so the score stream bounds them. K2/K3 at d = 1024 (one
+// head) do 11.5 GFLOP on 22.5 MB of scores and are bound by their
+// products.
 //
-// What the design does about it, K1 and K2 (and S4): each thread block
-// owns one output block outright (a score tile for K1, a 128 x 64 slice of
-// a row block for K2), stages both operands through shared memory in
-// 32-deep chunks with coalesced loads, and keeps an 8x8 (K1) or 8x4 (K2)
-// register tile of f32 accumulators per thread, so each shared-memory load
-// feeds 4-8 FMAs on the CUDA cores.
+// K1 (sddmm_tiles_kernel): one block of 8 warps owns one (tile, head)
+// score tile; warp w owns its rows 16w .. 16w + 15 and all 128 columns,
+// 16 m16n8 fragments of accumulators, as K4's QK^T does. A and B rows are
+// both K-major, so A's fragment (g, t) and B's (k = t, n = g) are read
+// from row-major stages of 32 features (stride 36 floats, 4 mod 32: no
+// bank conflicts); the contraction runs over d in such chunks, so any d
+// works (features past d are zero-filled by the copy). Each B value is
+// read by all 8 warps, so a landed B chunk is split into TF32 parts once,
+// in shared memory; A's fragments are split in registers, each used for
+// 16 fragments. The mask tile rides with the first chunk; from it each
+// warp marks the fragments of its rows that hold no edge, and skips their
+// products (a warp-uniform branch). The function selects (jnp.where in
+// the TPU kernel), so a skipped fragment, stored as zeros, is what the
+// select would give: no value changes. The tensor cores' f32 sums do not
+// round to nearest: with all 384 mma additions of d = 1024 run into one
+// accumulator, K1 missed the 1e-4 gate (an error of 1.1e-5 of a sum of
+// 1024 squares, measured on the H100). So each 8-deep step's three
+// products go into a zeroed fragment, which an f32 add (rounded to
+// nearest) folds into the accumulator. With the skip (the slice's and the
+// grid's tiles have 12-14 % of their fragments live) the products fall
+// 7-8x, and the output stream alone bounds K1. Stores are float2 rows of
+// the accumulator layout (each 32-byte sector written whole). 72 KB of
+// shared memory and at most 128 registers a thread let two blocks share
+// an SM, so one block's stores and copies overlap the other's products.
+// Measured on the H100 against this design, and slower on the grid by
+// 3-35 %: 64-feature chunks or a two-stage ring with B split in registers,
+// a ring with one block an SM, half-tile blocks of 4 warps, and one
+// persistent block per slot that loads the next tile while storing.
 //
-// K3 (spmm_col_sweep_kernel) runs its products on the tensor cores in
-// 3xTF32 (mma_async.cuh), as accurate as f32 FMAs: three TF32 passes at
-// 495 TFLOP/s give 165 TFLOP/s of f32-accurate products, against 67 on
-// the CUDA cores. One block owns a column block, a head and up to 128
-// features, so each vals tile is read once for every d <= 128 (the
-// CUDA-core sweep read it once per 64 features). The operands move
-// through a three-stage cp.async ring of (64 rows of a vals tile, the
-// matching 64 rows of y), 68 KB a stage at 128 features, so two chunks
-// are in flight while one is multiplied, across tile boundaries.
+// K2 (spmm_row_sweep_kernel) and S4 follow K3's design: one block owns a
+// row block, a head and up to 128 features (each vals tile read once for
+// any d <= 128), and a three-stage cp.async ring carries chunks of (64
+// columns of a vals tile, the matching 64 rows of x) across tile
+// boundaries. vals is the A operand as it lies (m = row, k = column):
+// stride 68 floats (4 mod 32) makes the a0 (g, t) reads conflict-free, and
+// x's stride DN + 8 (8 mod 32) the b0 (k = t, n = g) reads. Warp w owns
+// rows 32 * (w / 2) .. + 32 and features (w % 2) * DN / 2 .. + DN / 2. A
+// fragments are split in registers (each used for DN / 16 fragments), and
+// B's in registers as K3 does (each used for two): splitting x once per
+// chunk in shared memory (two stages then fit) was 3 % slower at the
+// slice and 1 % faster on the grid, measured on the H100. S4 replaces the
+// A fragments by the constant 0.01 and reads no vals.
+//
+// K3 (spmm_col_sweep_kernel): the transposed sweep on the same ring, one
+// block per column block, head and up to 128 features.
 //
 // All of them: no atomics, outputs repeat bit for bit. K2/K3 loop over
 // each block's exact tile range (no padding to the longest row, as the TPU
@@ -48,8 +78,10 @@
 //
 // Layouts: node arrays are (n, H, d) contiguous, read in place per head
 // (row stride H*d, head offset h*d); rows at or past n read as zero, so
-// callers never pad. Tile arrays are (H, T, 128, 128) contiguous; the mask
-// is (T, 128, 128) bytes shared by every head. Indices are int32.
+// callers never pad. Tile arrays are (H, T, 128, 128) contiguous and
+// 16-byte aligned; the mask is (T, 128, 128) bytes shared by every head,
+// 16-byte aligned. Indices are int32. Node arrays move as 16-byte copies
+// when d % 4 == 0 and they are 16-byte aligned, else as 4-byte ones.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,139 +91,273 @@
 namespace {
 
 constexpr int TILE = 128;     // tile_r == tile_c
-constexpr int KC = 32;        // contraction depth staged per step
-constexpr int THREADS = 256;  // 16 x 16 threads
-constexpr int DC = 64;        // feature columns owned by one sweep block
+constexpr int THREADS = 256;  // 8 warps
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void __launch_bounds__(THREADS)
+__host__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// ---------------------------------------------------------------------------
+// K1: SDDMM over tiles
+// ---------------------------------------------------------------------------
+
+constexpr int SD_KC = 32;          // features of A and B staged per chunk
+constexpr int SD_LD = SD_KC + 4;   // stage row stride, floats
+constexpr size_t SD_SMEM =
+    sizeof(float) * 3 * TILE * SD_LD + (size_t)TILE * MASK_LD;
+
+// Bit j set where rows ms .. ms + 15 of a staged mask hold an edge in
+// columns 8j .. 8j + 7: one m16n8 fragment of the warp's scores. Lanes 2j
+// and 2j + 1 read the fragment's upper and lower 8 rows.
+__device__ __forceinline__ unsigned live_fragments(const uint8_t* ms,
+                                                   int lane) {
+  const uint8_t* m = ms + (lane % 2) * 8 * MASK_LD + (lane / 2) * 8;
+  uint32_t any = 0;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const uint2 v = *reinterpret_cast<const uint2*>(m + r * MASK_LD);
+    any |= v.x | v.y;
+  }
+  const unsigned b = __ballot_sync(FULL, any != 0);
+  unsigned live = 0;
+#pragma unroll
+  for (int j = 0; j < TILE / 8; ++j)
+    if ((b >> (2 * j)) & 3u) live |= 1u << j;
+  return live;
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
 sddmm_tiles_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
                    const uint8_t* __restrict__ mask,
                    const float* __restrict__ A, const float* __restrict__ B,
-                   float* __restrict__ out, int T, int d, int nA, int nB) {
+                   float* __restrict__ out, int T, int d, int nA, int nB,
+                   int vec) {
+  constexpr int NT = TILE / 8;  // fragments (8 columns each) of a warp
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                 // [TILE][SD_LD]
+  float* Bhi = As + TILE * SD_LD;   // B's TF32 hi parts
+  float* Blo = Bhi + TILE * SD_LD;  // and lo parts
+  uint8_t* Ms = reinterpret_cast<uint8_t*>(Blo + TILE * SD_LD);
+
   const int t = blockIdx.x, h = blockIdx.y;
   const long long ld = (long long)gridDim.y * d;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
   const long long r0 = (long long)rows[t] * TILE;
   const long long c0 = (long long)cols[t] * TILE;
   const float* Ah = A + (long long)h * d;
   const float* Bh = B + (long long)h * d;
+  const int n_chunks = d > SD_KC ? (d + SD_KC - 1) / SD_KC : 1;
+  const int kd = (d + 7) / 8;  // contraction steps; the rest is zero
 
-  // Stored k-major with one float of padding: the transposing store and
-  // the row reads below both hit 32 distinct banks.
-  __shared__ float As[KC][TILE + 1];
-  __shared__ float Bs[KC][TILE + 1];
-  float acc[8][8];
+  float acc[NT][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int u = 0; u < 4; ++u) acc[j][u] = 0.f;
 
-  for (int k0 = 0; k0 < d; k0 += KC) {
-    for (int e = tid; e < TILE * KC; e += THREADS) {
-      const int r = e / KC, k = e % KC, gk = k0 + k;
-      As[k][r] = (r0 + r < nA && gk < d) ? Ah[(r0 + r) * ld + gk] : 0.f;
-      Bs[k][r] = (c0 + r < nB && gk < d) ? Bh[(c0 + r) * ld + gk] : 0.f;
-    }
+  load_mask<THREADS>(Ms, mask + (long long)t * TILE * TILE, tid);
+  unsigned live = 0;  // bit j: the warp's fragment j holds an edge
+  const float* aw = As + (warp * 16 + g) * SD_LD + t4;
+  const int bw = g * SD_LD + t4;
+  for (int c = 0; c < n_chunks; ++c) {
+    load_rows<TILE, SD_KC, SD_LD, THREADS>(As, Ah, r0, nA, c * SD_KC, d, ld,
+                                           vec, tid);
+    load_rows<TILE, SD_KC, SD_LD, THREADS>(Bhi, Bh, c0, nB, c * SD_KC, d,
+                                           ld, vec, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < KC; ++k) {
-      float a[8], b[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = As[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
+    if (c == 0) live = live_fragments(Ms + warp * 16 * MASK_LD, lane);
+    split_rows<TILE, SD_KC, SD_LD, THREADS>(Bhi, Blo, tid);
     __syncthreads();
+    if (live) {
+      const int kend = min(SD_KC / 8, kd - c * (SD_KC / 8));
+#pragma unroll
+      for (int kk = 0; kk < SD_KC / 8; ++kk) {
+        if (kk >= kend) break;
+        const float* a = aw + kk * 8;
+        uint32_t ah[4], al[4];
+        split_a(a[0], a[8 * SD_LD], a[4], a[8 * SD_LD + 4], ah, al);
+        const int kb = bw + kk * 8;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          if ((live >> j) & 1u) {
+            float s[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_split(s, ah, al, Bhi, Blo, kb + j * 8 * SD_LD,
+                      kb + j * 8 * SD_LD + 4);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) acc[j][u] += s[u];
+          }
+      }
+    }
+    __syncthreads();  // every warp is done with the stage
   }
 
-  const uint8_t* m = mask + (long long)t * TILE * TILE;
-  float* o = out + ((long long)h * T + t) * TILE * TILE;
+  // Rows g and g + 8 of the warp's 16, columns 8j + 2t4, + 1: the mask
+  // selects, two bytes per row; one float2 per row and fragment.
+  const uint8_t* mw = Ms + (warp * 16 + g) * MASK_LD + 2 * t4;
+  float* o = out + (((long long)h * T + t) * TILE + warp * 16 + g) * TILE +
+             2 * t4;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int idx = (ty + 16 * i) * TILE + tx + 16 * j;
-      o[idx] = m[idx] ? acc[i][j] : 0.f;
-    }
+  for (int j = 0; j < NT; ++j) {
+    const uint16_t m0 = *reinterpret_cast<const uint16_t*>(mw + 8 * j);
+    const uint16_t m1 =
+        *reinterpret_cast<const uint16_t*>(mw + 8 * MASK_LD + 8 * j);
+    *reinterpret_cast<float2*>(o + 8 * j) = make_float2(
+        (m0 & 0xff) ? acc[j][0] : 0.f, (m0 >> 8) ? acc[j][1] : 0.f);
+    *reinterpret_cast<float2*>(o + 8 * TILE + 8 * j) = make_float2(
+        (m1 & 0xff) ? acc[j][2] : 0.f, (m1 >> 8) ? acc[j][3] : 0.f);
+  }
 }
 
-// Row sweep, one block per (row block, 64-wide feature slice, head), over
+// ---------------------------------------------------------------------------
+// K2 and S4: SpMM row sweep
+// ---------------------------------------------------------------------------
+
+constexpr int RS_COLS = 64;  // tile columns (rows of x) per stage
+constexpr int RS_STAGES = 3;
+constexpr int RS_VLD = RS_COLS + 4;
+
+template <int DN>
+struct RowCfg {
+  static constexpr int XLD = DN + 8;
+  static constexpr int STAGE = TILE * RS_VLD + RS_COLS * XLD;  // floats
+  static constexpr size_t SMEM = sizeof(float) * RS_STAGES * STAGE;
+};
+
+// Row sweep, one block per (row block, feature slice of DN, head), over
 // tiles ptr[i]..ptr[i+1] (row-sorted order):
 //   out row r = sum_c vals[t][r][c] * x[blk[t]*128 + c].
 // DOTONLY = true: every vals entry is 0.01; vals is not read.
-template <bool DOTONLY>
-__global__ void __launch_bounds__(THREADS)
-spmm_sweep_kernel(const int* __restrict__ ptr, const int* __restrict__ blk,
-                  const float* __restrict__ vals,
-                  const float* __restrict__ x, float* __restrict__ out,
-                  int T, int d, int n_x, int n_out) {
-  const int i = blockIdx.x, d0 = blockIdx.y * DC, h = blockIdx.z;
+template <int DN, bool DOTONLY>
+__global__ void __launch_bounds__(THREADS, 1)
+spmm_row_sweep_kernel(const int* __restrict__ ptr,
+                      const int* __restrict__ blk,
+                      const float* __restrict__ vals,
+                      const float* __restrict__ x, float* __restrict__ out,
+                      int T, int d, int n_x, int n_out, int vec) {
+  constexpr int XLD = RowCfg<DN>::XLD, STAGE = RowCfg<DN>::STAGE;
+  constexpr int NI = DN / 16, CHUNKS = TILE / RS_COLS;
+  extern __shared__ __align__(16) float smem[];
+  const int i = blockIdx.x, d0 = blockIdx.y * DN, h = blockIdx.z;
   const long long ld = (long long)gridDim.z * d;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4, wm = warp / 2, wn = warp % 2;
   const float* xh = x + (long long)h * d;
+  const int lo = ptr[i], n_chunks = (ptr[i + 1] - lo) * CHUNKS;
 
-  __shared__ float Ls[KC][TILE + 1];  // tile chunk, [contraction][out row]
-  __shared__ float Xs[KC][DC];        // x chunk, [contraction][feature]
-  float acc[8][4];
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+  // Chunk q: columns (q % CHUNKS) * RS_COLS .. + RS_COLS of tile lo + q /
+  // CHUNKS and the matching rows of x, into stage q % RS_STAGES.
+  auto issue = [&](int q) {
+    float* vs = smem + (q % RS_STAGES) * STAGE;
+    const int t = lo + q / CHUNKS, c0 = (q % CHUNKS) * RS_COLS;
+    if constexpr (!DOTONLY)
+      load_rows<TILE, RS_COLS, RS_VLD, THREADS>(
+          vs, vals + ((long long)h * T + t) * TILE * TILE, 0, TILE, c0, TILE,
+          TILE, 1, tid);
+    load_rows<RS_COLS, DN, XLD, THREADS>(vs + TILE * RS_VLD, xh,
+                                         (long long)blk[t] * TILE + c0, n_x,
+                                         d0, d, ld, vec, tid);
+  };
 
-  const int lo = ptr[i], hi = ptr[i + 1];
-  for (int t = lo; t < hi; ++t) {
-    const long long x0 = (long long)blk[t] * TILE;
-    const float* v =
-        DOTONLY ? nullptr : vals + ((long long)h * T + t) * TILE * TILE;
-    for (int k0 = 0; k0 < TILE; k0 += KC) {
-      for (int e = tid; e < TILE * KC; e += THREADS) {
-        if (DOTONLY) {
-          Ls[e / TILE][e % TILE] = 0.01f;
+  float acc[2][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[mi][ni][u] = 0.f;
+  uint32_t ch, cl;  // S4's constant, split
+  split_tf32(0.01f, ch, cl);
+
+#pragma unroll
+  for (int q = 0; q < RS_STAGES - 1; ++q) {
+    if (q < n_chunks) issue(q);
+    cp_async_commit();
+  }
+  for (int q = 0; q < n_chunks; ++q) {
+    cp_async_wait<RS_STAGES - 2>();  // chunk q has landed
+    __syncthreads();  // and every warp is done with chunk q - 1's stage
+    if (q + RS_STAGES - 1 < n_chunks) issue(q + RS_STAGES - 1);
+    cp_async_commit();
+    const float* vs = smem + (q % RS_STAGES) * STAGE;
+    const float* va = vs + (32 * wm + g) * RS_VLD + t4;
+    const float* xb = vs + TILE * RS_VLD + t4 * XLD + wn * (DN / 2) + g;
+#pragma unroll
+    for (int ks = 0; ks < RS_COLS / 8; ++ks) {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        if constexpr (DOTONLY) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            ah[mi][u] = ch;
+            al[mi][u] = cl;
+          }
         } else {
-          const int r = e / KC, k = e % KC;
-          Ls[k][r] = v[r * TILE + k0 + k];
+          const float* a = va + 16 * mi * RS_VLD + ks * 8;
+          split_a(a[0], a[8 * RS_VLD], a[4], a[8 * RS_VLD + 4], ah[mi],
+                  al[mi]);
         }
       }
-      for (int e = tid; e < KC * DC; e += THREADS) {
-        const int k = e / DC, f = e % DC;
-        const long long gr = x0 + k0 + k;
-        Xs[k][f] = (gr < n_x && d0 + f < d) ? xh[gr * ld + d0 + f] : 0.f;
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const float* b = xb + ks * 8 * XLD + 8 * ni;
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          mma_3xtf32(acc[mi][ni], ah[mi], al[mi], b[0], b[4 * XLD]);
       }
-      __syncthreads();
-#pragma unroll 4
-      for (int k = 0; k < KC; ++k) {
-        float a[8], b[4];
-#pragma unroll
-        for (int ii = 0; ii < 8; ++ii) a[ii] = Ls[k][ty + 16 * ii];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) b[jj] = Xs[k][tx + 16 * jj];
-#pragma unroll
-        for (int ii = 0; ii < 8; ++ii)
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj)
-            acc[ii][jj] = fmaf(a[ii], b[jj], acc[ii][jj]);
-      }
-      __syncthreads();
     }
   }
 
   float* oh = out + (long long)h * d;
 #pragma unroll
-  for (int ii = 0; ii < 8; ++ii) {
-    const long long r = (long long)i * TILE + ty + 16 * ii;
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int f = d0 + tx + 16 * jj;
-      if (r < n_out && f < d) oh[r * ld + f] = acc[ii][jj];
-    }
-  }
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const long long r =
+            (long long)i * TILE + 32 * wm + 16 * mi + g + (u >= 2 ? 8 : 0);
+        const int f = d0 + wn * (DN / 2) + 8 * ni + 2 * t4 + (u & 1);
+        if (r < n_out && f < d) oh[r * ld + f] = acc[mi][ni][u];
+      }
 }
 
-// Column sweep on the tensor cores, one block per (column block, feature
+template <int DN, bool DOTONLY>
+int launch_row_sweep(const int* ptr, const int* blk, const float* vals,
+                     const float* x, float* out, int nrb, int T, int H, int d,
+                     int n_x, int n_out, cudaStream_t stream) {
+  auto kernel = spmm_row_sweep_kernel<DN, DOTONLY>;
+  const int smem = (int)RowCfg<DN>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = d % 4 == 0 && aligned16(x);
+  dim3 grid(nrb, (d + DN - 1) / DN, H);
+  kernel<<<grid, THREADS, smem, stream>>>(ptr, blk, vals, x, out, T, d, n_x,
+                                         n_out, vec);
+  return (int)cudaGetLastError();
+}
+
+template <bool DOTONLY>
+int row_sweep(const int* ptr, const int* blk, const float* vals,
+              const float* x, float* out, int nrb, int T, int H, int d,
+              int n_x, int n_out, cudaStream_t stream) {
+  if (d <= 64)
+    return launch_row_sweep<64, DOTONLY>(ptr, blk, vals, x, out, nrb, T, H,
+                                         d, n_x, n_out, stream);
+  return launch_row_sweep<128, DOTONLY>(ptr, blk, vals, x, out, nrb, T, H, d,
+                                        n_x, n_out, stream);
+}
+
+// ---------------------------------------------------------------------------
+// K3: SpMM column sweep
+// ---------------------------------------------------------------------------
+
+// Column sweep, one block per (column block, feature
 // slice of DN, head), over the tiles perm[ptr[j]..ptr[j+1]]:
 //   out row c = sum_r vals[t][r][c] * y[blk[t]*128 + r],
 // i.e. out[j] (128 x DN) = sum_t A_t B_t with A_t = vals[t]^T (c x r) and
@@ -334,28 +500,36 @@ int launch_col_sweep(const int* ptr, const int* perm, const int* rows,
 
 extern "C" {
 
-// A: (nA, H, d), B: (nB, H, d), mask: (T, 128, 128) -> out: (H, T, 128, 128).
+// A: (nA, H, d), B: (nB, H, d), mask: (T, 128, 128), 16-byte aligned ->
+// out: (H, T, 128, 128).
 int sddmm_tiles_f32(const int* rows, const int* cols, const uint8_t* mask,
                     const float* A, const float* B, float* out, int T, int H,
                     int d, int nA, int nB, int device, cudaStream_t stream) {
   cudaSetDevice(device);
+  cudaError_t err = cudaFuncSetAttribute(
+      sddmm_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SD_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(sddmm_tiles_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = d % 4 == 0 && aligned16(A) && aligned16(B);
   dim3 grid(T, H);
-  sddmm_tiles_kernel<<<grid, THREADS, 0, stream>>>(rows, cols, mask, A, B,
-                                                  out, T, d, nA, nB);
+  sddmm_tiles_kernel<<<grid, THREADS, SD_SMEM, stream>>>(
+      rows, cols, mask, A, B, out, T, d, nA, nB, vec);
   return (int)cudaGetLastError();
 }
 
-// vals: (H, T, 128, 128), x: (n_x, H, d) -> out: (n_out, H, d), with
-// n_out <= nrb * 128.
+// vals: (H, T, 128, 128), 16-byte aligned, x: (n_x, H, d) -> out:
+// (n_out, H, d), with n_out <= nrb * 128.
 int spmm_row_sweep_f32(const int* tile_ptr, const int* tile_cols,
                        const float* vals, const float* x, float* out, int nrb,
                        int T, int H, int d, int n_x, int n_out, int device,
                        cudaStream_t stream) {
   cudaSetDevice(device);
-  dim3 grid(nrb, (d + DC - 1) / DC, H);
-  spmm_sweep_kernel<false><<<grid, THREADS, 0, stream>>>(
-      tile_ptr, tile_cols, vals, x, out, T, d, n_x, n_out);
-  return (int)cudaGetLastError();
+  return row_sweep<false>(tile_ptr, tile_cols, vals, x, out, nrb, T, H, d,
+                          n_x, n_out, stream);
 }
 
 // vals: (H, T, 128, 128), 16-byte aligned, y: (n_y, H, d) -> out:
@@ -379,10 +553,8 @@ int spmm_dotonly_f32(const int* tile_ptr, const int* tile_cols,
                      const float* x, float* out, int nrb, int H, int d,
                      int n_x, int n_out, int device, cudaStream_t stream) {
   cudaSetDevice(device);
-  dim3 grid(nrb, (d + DC - 1) / DC, H);
-  spmm_sweep_kernel<true><<<grid, THREADS, 0, stream>>>(
-      tile_ptr, tile_cols, nullptr, x, out, 0, d, n_x, n_out);
-  return (int)cudaGetLastError();
+  return row_sweep<true>(tile_ptr, tile_cols, nullptr, x, out, nrb, 0, H, d,
+                         n_x, n_out, stream);
 }
 
 }  // extern "C"

@@ -127,6 +127,8 @@ def sddmm_tiles(tile_rows, tile_cols, mask, A, B):
     t = mask.shape[0]
     if tile_rows.shape != (t,) or tile_cols.shape != (t,):
         raise ValueError(f"tile_rows/tile_cols must have shape ({t},)")
+    if mask.data_ptr() % 16:
+        raise ValueError("mask must be 16-byte aligned")
     a, b = _heads(A), _heads(B)
     h, d = a.shape[1], a.shape[2]
     out = torch.empty((h, t, TILE, TILE), device=A.device, dtype=A.dtype)
@@ -171,6 +173,8 @@ def spmm_row_sweep(tile_ptr, tile_cols, vals, x,
     nrb = tile_ptr.shape[0] - 1
     n_out = nrb * TILE if n_out is None else n_out
     _check_sweep(v, xh, n_out, nrb)
+    if v.data_ptr() % 16:
+        raise ValueError("vals must be 16-byte aligned")
     out = torch.empty((n_out, h, d), device=x.device, dtype=x.dtype)
     dev, stream = _stream(x)
     _build.check(_build.library().spmm_row_sweep_f32(

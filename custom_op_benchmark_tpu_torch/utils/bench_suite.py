@@ -22,11 +22,16 @@ measured copy bandwidth. The byte models are bounds computed from shapes
 (``unique``: every node row and edge value moved once; ``refetch``: one
 neighbour row per edge), not measured traffic.
 
-On the CPU the checks run (the kernels' plain versions stand in) and the
-rows are recorded as not measured: a CPU run gives no device time.
+The suites run on the CUDA device (``cuda_device()``, which raises where
+there is none) unless the caller asks for the CPU: ``device="cpu"`` or a
+case built there, and ``--device cpu`` on the command line, for the
+``--small`` sizes only. On the CPU the checks run (the kernels' plain
+versions stand in) and the rows are recorded as not measured: a CPU run
+gives no device time.
 
 Run:  python -m custom_op_benchmark_tpu_torch.utils.bench_suite --powerlaw [--small]
       python -m custom_op_benchmark_tpu_torch.utils.bench_suite --grid [--small]
+      (add --device cpu to run a --small suite on the CPU)
 """
 
 from __future__ import annotations
@@ -72,6 +77,7 @@ from custom_op_benchmark_tpu_torch.utils.benchlib import (
     bench_ms,
     hbm_bandwidth_bytes,
 )
+from custom_op_benchmark_tpu_torch.utils.device import cuda_device
 
 # The reference's gate (wrapper.py's allclose defaults, loosened for f32
 # sums taken in other orders over up to 5 tiles of 128 products).
@@ -176,10 +182,11 @@ class PowerLawCase:
 
 
 def powerlaw_case(n: int = 131072, e: int = 2_000_000, d: int = 128, *,
-                  device="cpu") -> PowerLawCase:
+                  device=None) -> PowerLawCase:
     """``random_graph(n, e, seed=0, power_law=True)`` and ``ell_dual`` on
-    the host, moved to ``device``; inputs as the reference draws them from
-    ``np.random.default_rng(0)``."""
+    the host, moved to ``device`` (default: the CUDA device); inputs as the
+    reference draws them from ``np.random.default_rng(0)``."""
+    device = cuda_device() if device is None else device
     t0 = time.perf_counter()
     g = random_graph(n, e, seed=0, power_law=True)
     se, de = ell_dual(g)
@@ -261,10 +268,11 @@ def segment_powerlaw_gat(case: PowerLawCase, a_l, a_r, z):
 def run_powerlaw_suite(n=131072, e=2_000_000, d=128, *, device=None,
                        case=None, warmup=1, iters=5, repeats=3):
     """Segment oracle against the ELL path on a power-law graph: every row
-    and gate of the reference's suite. Returns (records, all_ok). Times
+    and gate of the reference's suite, on ``case``'s device, else on
+    ``device`` (default: the CUDA device). Returns (records, all_ok). Times
     the rows only on a CUDA device."""
     if case is None:
-        case = powerlaw_case(n, e, d, device=device or "cpu")
+        case = powerlaw_case(n, e, d, device=device)
     dev = case.q.device
     records, ok = [], True
     g, se, de = case.g, case.se, case.de
@@ -415,10 +423,12 @@ class GridCase:
 
 
 def grid_case(rows: int = 1024, cols: int = 1024, d: int = 128, *,
-              device="cpu") -> GridCase:
+              device=None) -> GridCase:
     """Build the grid, its tile-aligned order and 128×128 tiling on the
-    host, then move them to ``device``; inputs as the reference makes them
-    (``np.random.default_rng(0)``: normal q, then uniform edge values)."""
+    host, then move them to ``device`` (default: the CUDA device); inputs
+    as the reference makes them (``np.random.default_rng(0)``: normal q,
+    then uniform edge values)."""
+    device = cuda_device() if device is None else device
     t0 = time.perf_counter()
     g = grid_graph(rows, cols)
     ro = tile_aligned_order(g, block=128)
@@ -469,9 +479,11 @@ def byte_models(case: GridCase) -> dict:
 
 def run_grid_suite(rows=1024, cols=1024, d=128, *, device=None, case=None,
                    warmup=1, iters=5, repeats=3):
-    """Returns (records, all_ok). Times the rows only on a CUDA device."""
+    """The grid suite on ``case``'s device, else on ``device`` (default:
+    the CUDA device). Returns (records, all_ok). Times the rows only on a
+    CUDA device."""
     if case is None:
-        case = grid_case(rows, cols, d, device=device or "cpu")
+        case = grid_case(rows, cols, d, device=device)
     dev = case.q.device
     records, ok = [], True
     n, e = case.n, case.e
@@ -535,17 +547,27 @@ def main(argv=None):
                     help="run the grid (locality-rich) suite")
     ap.add_argument("--small", action="store_true",
                     help="the power-law suite at n=2048, e=16384, d=32, or "
-                    "a 48x48 grid at d=32 (these run on the CPU too)")
+                    "a 48x48 grid at d=32")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where to run (default: the CUDA device, and fail "
+                    "without one); cpu runs the checks with the kernels' "
+                    "plain versions and times nothing, --small only")
     ap.add_argument("--json", type=str, default=None,
                     help="write the records to this file")
     args = ap.parse_args(argv)
     if args.powerlaw == args.grid:
         ap.error("pick one suite: --powerlaw or --grid (the clique suite "
                  "waits for ROADMAP M5 and M13)")
-    device = "cuda" if torch.cuda.is_available() else "cpu"
-    if not args.small and device != "cuda":
-        print("bench_suite: the full-size suites need a CUDA device",
-              file=sys.stderr)
+    if args.device == "cpu" and not args.small:
+        print("bench_suite: the full-size suites run on the CUDA device "
+              "only", file=sys.stderr)
+        return 1
+    try:
+        device = (torch.device("cpu") if args.device == "cpu"
+                  else cuda_device())
+    except RuntimeError as err:
+        print(f"bench_suite: {err} (pass --device cpu to run a --small suite "
+              "on the CPU)", file=sys.stderr)
         return 1
     if args.powerlaw:
         size = (2048, 16384, 32) if args.small else ()

@@ -29,6 +29,7 @@ def test_import_pulls_in_no_jax():
         "import custom_op_benchmark_tpu_torch.experiments.exp_grid_dma\n"
         "import custom_op_benchmark_tpu_torch.experiments.exp_grid_bisect\n"
         "import custom_op_benchmark_tpu_torch.experiments.exp_pallas_gather\n"
+        "import custom_op_benchmark_tpu_torch.experiments.ab_tiled\n"
         "import custom_op_benchmark_tpu_torch.data\n"
         "import custom_op_benchmark_tpu_torch.ops.ell\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"

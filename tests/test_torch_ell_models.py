@@ -286,7 +286,7 @@ def test_fit_full_graph_refuses_other_strategies(strategy, err):
 def test_powerlaw_case_matches_the_reference_inputs():
     from custom_op_benchmark_tpu.graph import random_graph as jax_rg
 
-    case = bench_suite.powerlaw_case(2048, 16384, 32)
+    case = bench_suite.powerlaw_case(2048, 16384, 32, device="cpu")
     jg = jax_rg(2048, 16384, seed=0, power_law=True)
     np.testing.assert_array_equal(case.g.src.numpy(), np.asarray(jg.src))
     rng = np.random.default_rng(0)
@@ -296,6 +296,7 @@ def test_powerlaw_case_matches_the_reference_inputs():
 
 
 def test_powerlaw_suite_small_is_ok(capsys):
-    assert bench_suite.main(["--powerlaw", "--small"]) == 0
+    assert bench_suite.main(["--powerlaw", "--small", "--device",
+                             "cpu"]) == 0
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary == {"suite_ok": True, "checks": 7, "benches": 23}

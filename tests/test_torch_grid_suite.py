@@ -54,7 +54,7 @@ def cases():
     vals = tg.scatter_edges(ed[jnp.asarray(eperm)])[: tg.num_tiles]
     jax_case = dict(g=g, ro=ro, tg=tg, q=q, ed=ed, vals=vals,
                     q_al=ro.scatter_nodes(q))
-    return jax_case, bench_suite.grid_case(SIDE, SIDE, D)
+    return jax_case, bench_suite.grid_case(SIDE, SIDE, D, device="cpu")
 
 
 def test_grid_case_matches_the_reference_inputs(cases):
@@ -108,7 +108,8 @@ def test_grid_attention_and_grad_match_jax(cases):
 
 def test_run_grid_suite_small_on_the_cpu(cases):
     _, case = cases
-    records, ok = bench_suite.run_grid_suite(SIDE, SIDE, D, case=case)
+    records, ok = bench_suite.run_grid_suite(SIDE, SIDE, D, device="cpu",
+                                             case=case)
     assert ok
     checks = [r for r in records if "check" in r]
     assert [r["check"] for r in checks] == [
@@ -131,7 +132,8 @@ def test_byte_models_are_the_reference_formulas(cases):
 def test_main_small_prints_suite_ok():
     proc = subprocess.run(
         [sys.executable, "-m", "custom_op_benchmark_tpu_torch.utils.bench_suite",
-         "--grid", "--small"], capture_output=True, text=True, timeout=300)
+         "--grid", "--small", "--device", "cpu"], capture_output=True,
+        text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert '"suite_ok": true' in proc.stdout.splitlines()[-1]
 
@@ -139,6 +141,34 @@ def test_main_small_prints_suite_ok():
 def test_main_refuses_the_unported_suites():
     with pytest.raises(SystemExit):
         bench_suite.main(["--small"])
+
+
+@pytest.mark.parametrize("suite", ["--grid", "--powerlaw"])
+def test_main_needs_a_cuda_device_unless_asked_for_the_cpu(suite, capsys):
+    """With no card the suites stop, naming the missing device, instead of
+    carrying on on the CPU; only ``--device cpu`` runs them there."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the suite would run")
+    assert bench_suite.main([suite, "--small"]) == 1
+    err = capsys.readouterr().err
+    assert "no CUDA device" in err and "--device cpu" in err
+
+
+@pytest.mark.parametrize("suite", ["--grid", "--powerlaw"])
+def test_main_runs_only_the_small_suites_on_the_cpu(suite, capsys):
+    assert bench_suite.main([suite, "--device", "cpu"]) == 1
+    assert "CUDA device only" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("fn", ["run_grid_suite", "run_powerlaw_suite",
+                                "grid_case", "powerlaw_case"])
+def test_suites_take_the_cuda_device_by_default(fn):
+    """Given no device (and no case), the runners and case builders ask
+    ``cuda_device()`` for the card, which raises where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the suite would run")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(bench_suite, fn)(48, 48, 32)
 
 
 def test_timing_needs_a_cuda_device():
