@@ -3,17 +3,21 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths and checks them. The first: AdamW train
-steps of ``GraphTransformer(dim=512, num_heads=8, num_layers=3,
-out_dim=10)`` on the 512×30 clique batch through its 128×128 tile view.
-The second: the grid regime at full size — the tile-aligned 1024×1024 grid
+Drives the port's main paths and checks them. The first: AdamW train steps
+of ``GraphTransformer(dim=512, num_heads=8, num_layers=3, out_dim=10)`` on
+the 512×30 clique batch through its 128×128 tile view. The second: the
+dense-block path on the same clique batch, where ``impl="auto"`` resolves
+to the dense blocks: the reference's clique GAT step (3 layers, 8 heads of
+64, 128-d features) through ``fit_full_graph(strategy="auto")``. The
+third: the grid regime at full size — the tile-aligned 1024×1024 grid
 graph at d = 128, through the grid suite (``utils/bench_suite.py``) and
 the two grid experiments (``experiments/``), which run S1, S2, S4 and S5.
-The third: the ELL strategy — the power-law graph of the reference's
+The fourth: the ELL strategy — the power-law graph of the reference's
 power-law suite (n = 131,072, 2M edges, d = 128) through that suite and
 the S3 experiment, and the arxiv configuration (160,000 nodes, 40
 classes) trained full-graph on the ELL path by GAT (3 layers, 4 heads of
-128), GCN and GraphSAGE (hidden 128), the last two on S3.
+128), GCN and GraphSAGE (hidden 128), the last two on S3, one launch per
+copy-sum over all of a packing's buckets.
 
 1. device: a CUDA device is present; print its name and power limit, then
    build the CUDA kernels from ``custom_op_benchmark_tpu_torch/csrc`` (one
@@ -34,40 +38,62 @@ classes) trained full-graph on the ELL path by GAT (3 layers, 4 heads of
    library yardstick (one PyTorch call that computes the same function,
    timed here and used nowhere in the port); the tensor-core K4 against
    S5 with exp and mask (the CUDA-core K4); then one train step;
-6. grid build: the graph, its tile-aligned order and tiling on the host,
+6. bf16: K1-K4 on bf16 inputs against their plain versions (one bf16
+   rounding) at the slice's shapes and on the irregular graph (d = 64, 33,
+   200); the op family and the attention through ``impl="tiled"`` in bf16
+   against f32 at 2e-2, forward and backward, counted; times with bounds
+   at bf16 bytes and the bf16 tensor-core peak;
+7. K4 at heads wider than 128 (d = 300 and 1024, the wide form) on the
+   irregular graph against its plain version at 1e-4, bit for bit on
+   repeat, through ``attention(impl="tiled")`` counted, and timed;
+8. the dense-block path: ``resolve(g, "auto") == "dense_block"``, the
+   clique GAT's logits, loss and gradients on the block layout against
+   the segment path on the card, three steps of
+   ``fit_full_graph(strategy="auto")``, the block step's time and peak
+   memory, and ``vector_spmm`` at d = 1024 through auto (dense blocks),
+   tiled (K2) and xla, agreeing at 2e-3;
+9. grid build: the graph, its tile-aligned order and tiling on the host,
    moved to the card;
-7. grid kernel parity: S1, S2, S4, S5 (all four switch settings), K4 at
-   d = 128 and d = 40 and K1-K3 at d = 128 against their plain versions at
-   the grid's shapes, K4 and S5 also at d = 200, and S1, S2, S4, S5 and K4
-   again on the small irregular graph at d = 128, 100, 40, 33 and 200;
-8. the grid path: S1 and S2 against the segment oracle, then the grid
-   suite (its allclose gates at 2e-3 and its timed rows, with roofline
-   fractions against the measured copy bandwidth) and the two experiments'
-   rows, with every launch counter set to 0 before and read after;
-9. grid times: S1, S2, S4, S5, K4 and K1–K3 at d = 128 against their
-   plain versions, with bounds and library yardsticks as in 5, and the
-   peak memory of the grid attention backward;
-10. power-law build: the graph and its dual ELL packing on both ladders on
+10. grid kernel parity: S1, S2, S4, S5 (all four switch settings), K4 at
+    d = 128 and d = 40 and K1-K3 at d = 128 against their plain versions
+    at the grid's shapes, K4 and S5 also at d = 200, and S1, S2, S4, S5
+    and K4 again on the small irregular graph at d = 128, 100, 40, 33 and
+    200;
+11. the grid path: S1 and S2 against the segment oracle, then the grid
+    suite (its allclose gates at 2e-3 and its timed rows, with roofline
+    fractions against the measured copy bandwidth) and the two
+    experiments' rows, with every launch counter set to 0 before and read
+    after;
+12. grid times: S1, S2, S4, S5, K4 and K1–K3 at d = 128 against their
+    plain versions, with bounds and library yardsticks as in 5, and the
+    peak memory of the grid attention backward;
+13. power-law build: the graph and its dual ELL packing on both ladders on
     the host (seconds and padding waste), moved to the card;
-11. S3 parity against its plain version, bit-for-bit repeats: at the
+14. S3 parity against its plain version, bit-for-bit repeats: at the
     experiment's shape, on every bucket of both packings of both ladders
-    at d = 128, at d = 1, 33 and 200, at an R that is not a multiple of 8
-    and on a bucket of padding only;
-12. the power-law path: the suite's gates at 2e-3 and its timed rows, and
+    at d = 128 and on each packing's whole table, at d = 1, 33 and 200,
+    at an R that is not a multiple of 8 and on a bucket of padding only;
+    the one-launch copy-sum against the per-bucket result, bit for bit,
+    one launch each;
+15. the power-law path: the suite's gates at 2e-3 and its timed rows, and
     the S3 experiment's rows, with the counters set to 0 before and read
     after;
-13. the arxiv configuration: for GAT, GCN and GraphSAGE at full width, the
-    ELL path against the segment path on the card from the same weights
-    (logits, loss, every gradient), S3 launched in the forward and the
-    backward of GCN and SAGE, then three AdamW steps through
-    ``fit_full_graph(strategy="ell")`` with finite losses, the step time
-    and the peak memory of each path;
-14. S3 times: S3 against its plain version and ``F.embedding_bag`` at the
-    experiment's shape.
+16. the arxiv configuration: the one-launch copy-sum against the
+    per-bucket result on its training ladder; for GAT, GCN and GraphSAGE
+    at full width, the ELL path against the segment path on the card from
+    the same weights (logits, loss, every gradient), S3 launched in the
+    forward and the backward of GCN and SAGE, then three AdamW steps
+    through ``fit_full_graph(strategy="ell")`` with finite losses, the
+    step time, the S3 launches of a step (one per copy-sum) and the peak
+    memory of each path;
+17. S3 times: S3 against its plain version and ``F.embedding_bag`` at the
+    experiment's shape, and a second bound: its gathered bytes at the
+    card's L2 gather rate, measured on a table that fits the 50 MB L2.
 
 The line before the last is the ``kernels`` JSON: for each of the nine
-kernels its source, the TPU kernel it replaces, its launches on the main
-path, its error, time, plain time, bound and library time.
+kernels, and for K1-K4 in bf16 and K4 at d = 300 and 1024, its source,
+the TPU kernel it replaces, its launches on its path, its error, time,
+plain time, bound and library time.
 
 Exits non-zero on any failure, and at once when no CUDA device is present.
 The last line of standard output is
@@ -91,6 +117,16 @@ import torch
 # to about 1e-6 relative. Elementwise:
 # |kernel − plain| ≤ ATOL + RTOL·|plain|.
 KERNEL_RTOL = KERNEL_ATOL = 1e-4
+# bf16 kernel vs its plain version: both sum in f32 and round once to bf16,
+# so they differ by one bf16 rounding (2^-7 of the value) above the f32
+# gate's floor, which takes the f32 sums' other order (a result that
+# cancels to near 0 keeps their absolute difference). Elementwise:
+# |kernel − plain| ≤ BF16_RTOL·|plain| + KERNEL_ATOL.
+BF16_RTOL = 2.0 ** -7
+# The op family in bf16 against f32 (tests/test_dtypes.py:54-57).
+DTYPE_RTOL = DTYPE_ATOL = 2e-2
+# Strategies against each other (the suites' and bench.py's gate).
+SUITE_TOL = 2e-3
 # Whole model, card vs CPU: three layers of f32 matmuls (cuBLAS vs the
 # CPU's BLAS, TF32 off), LayerNorms and kernels vs plain versions, and
 # weight gradients summed over 15,360 nodes in other orders. The check is
@@ -103,6 +139,9 @@ MODEL_RTOL = 1e-3
 PEAK_BYTES = 3.35e12
 PEAK_MMA_F32 = 495e12 / 3
 PEAK_F32 = 67e12
+# bf16 products on the tensor cores (the kernels take them as one exact
+# TF32 pass, but the card's least time for bf16 work is at this rate).
+PEAK_BF16 = 989e12
 SEED = 0
 # The slice: the clique batch, the model, and the wide SpMM width.
 CLIQUES = (512, 30)
@@ -122,6 +161,15 @@ ARXIV = dict(num_classes=40, nodes_per_class=4000, feat_dim=128,
 ARXIV_MODELS = {"GAT": dict(hidden_dim=128, num_layers=3, num_heads=4),
                 "GCN": dict(hidden_dim=128, num_layers=2),
                 "GraphSAGE": dict(hidden_dim=128, num_layers=2)}
+# The dense-block path: the reference's clique GAT step (bench.py:224-262),
+# uncut: 128-d features on the 512×30 clique batch, 10 classes.
+BLOCK_GAT = dict(hidden_dim=64, out_dim=10, num_layers=3, num_heads=8)
+BLOCK_FEAT = 128
+# K4 at heads wider than 128 (the wide form), on the irregular graph.
+K4_WIDE = (300, 1024)
+# The L2 gather rate: rows of a table that fits the 50 MB L2 (8 MiB), at
+# S3's row width, gathered in the experiment's pattern.
+L2_TABLE_ROWS = 16384
 
 
 def log(msg: str) -> None:
@@ -287,8 +335,14 @@ def check_kernels(kern, calls, label, only=None):
         torch.cuda.synchronize()
         assert got.shape == want.shape, (name, got.shape, want.shape)
         assert torch.equal(got, again), f"{name} is not deterministic"
-        err = float((got - want).abs().max())
-        ok = torch.allclose(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        if got.dtype == torch.bfloat16:
+            ok = bool((diff <= BF16_RTOL * want.float().abs()
+                       + KERNEL_ATOL).all())
+        else:
+            ok = torch.allclose(got, want, rtol=KERNEL_RTOL,
+                                atol=KERNEL_ATOL)
         log(f"[parity] {label:28s} {key:26s} shape {tuple(got.shape)} "
             f"max_abs_err {err:.3e} max|plain| "
             f"{float(want.abs().max()):.3e} {'ok' if ok else 'FAIL'}")
@@ -515,8 +569,14 @@ def work(name, args, out):
     nbytes = sum(t.numel() * t.element_size() for t in distinct.values())
     if name == "gather_sum":
         cols, x = pos
-        ops = int((cols < x.shape[0]).sum()) * x.shape[-1]
-        return nbytes, ops, PEAK_F32, cols.numel() * x.shape[-1]
+        cols = cols if torch.is_tensor(cols) else cols.cols
+        if not torch.is_tensor(pos[0]):
+            table = pos[0]
+            nbytes = sum(t.numel() * t.element_size() for t in (
+                table.buckets, table.cols, table.nodes, table.zero_nodes, x,
+                out))
+        ops = int(((cols >= 0) & (cols < x.shape[0])).sum()) * x[0].numel()
+        return nbytes, ops, PEAK_F32, cols.numel() * x[0].numel()
     if name in ("sddmm_tiles", "fused_attention_rows", "attn_variant"):
         mask, a = pos[2], pos[3]
         hd = a.shape[-1] * (a.shape[1] if a.dim() == 3 else 1)
@@ -532,7 +592,8 @@ def work(name, args, out):
                     and t.is_floating_point())
         ops = 2 * int((vals != 0).sum()) * out.shape[-1]
         dense = 2 * vals.numel() * out.shape[-1]
-    return nbytes, ops, PEAK_MMA_F32, dense
+    peak = PEAK_BF16 if out.dtype == torch.bfloat16 else PEAK_MMA_F32
+    return nbytes, ops, peak, dense
 
 
 def bound(name, args, out):
@@ -601,7 +662,7 @@ def sampled_yardstick(rows, cols, mask, a, b):
     """``torch.sparse.sampled_addmm`` on the edges as a CSR of ones, per
     head."""
     gr, gc, (t, r, c) = _edges(None, cols, mask, rows)
-    ones = torch.ones(gr.numel(), device=a.device)
+    ones = torch.ones(gr.numel(), device=a.device, dtype=a.dtype)
     csr = torch.sparse_coo_tensor(torch.stack([gr, gc]), ones,
                                   size=(a.shape[0], b.shape[0])
                                   ).coalesce().to_sparse_csr()
@@ -691,7 +752,12 @@ def yardstick(name, args):
     if name == "fused_attention_rows":
         return sdpa_yardstick(*pos[:7])
     if name == "gather_sum":
-        return embedding_bag_yardstick(*pos[:2])
+        cols, x = pos[:2]
+        if not torch.is_tensor(cols):
+            if cols.buckets.shape[0] != 1:
+                return "n/a (embedding_bag takes one width)", None, None
+            cols = cols.cols.reshape(cols.n_out, -1)
+        return embedding_bag_yardstick(cols, x)
     return "n/a (a diagnostic)", None, None
 
 
@@ -702,7 +768,12 @@ def time_library(label, key, lib, want, timing):
     if fn is None:
         log(f"[library] {key:30s} {label}: {what}")
         return None
-    err = check(want)
+    try:
+        err = check(want)
+    except RuntimeError as exc:     # PyTorch has no such call for these
+        log(f"[library] {key:30s} {label}: {what} refused these inputs: "
+            f"{str(exc).splitlines()[0]}")
+        return None
     ms = [time_ms(fn, **timing) for _ in range(2)]
     log(f"[library] {key:30s} {label}: {what} {ms[0]:.4f}/{ms[1]:.4f} ms, "
         f"max abs err vs plain {err:.3e}")
@@ -734,6 +805,8 @@ def time_row(kern, key, args, label, timing, lib=None):
         built = yardstick(name, args) if lib is True else lib
         row["library"] = built[0]
         row["library_ms"] = time_library(label, key, built, want, timing)
+        if row["library_ms"] is None and built[1] is not None:
+            row["library"] = f"n/a ({built[0]} refused these inputs)"
     del want
     return row
 
@@ -942,6 +1015,7 @@ def phase_powerlaw_build(dev):
 
 def phase_s3_parity(kern, dev, case, train):
     from custom_op_benchmark_tpu_torch.experiments import exp_pallas_gather
+    from custom_op_benchmark_tpu_torch.graph.ell import one_bucket_table
 
     rng = np.random.default_rng(SEED + 6)
     cols, x = exp_pallas_gather.inputs(dev)
@@ -958,9 +1032,15 @@ def phase_s3_parity(kern, dev, case, train):
     calls["gather_sum:R=1001"] = (cols[:1001], x)
     calls["gather_sum:padding"] = (
         torch.full((64, 16), case.n, dtype=torch.int32, device=dev), case.q)
+    packings = [(f"{ladder},{eg.direction}", eg)
+                for ladder, pair in (("pow2", (case.se, case.de)),
+                                     ("train", train)) for eg in pair]
+    for name, eg in packings:
+        calls[f"gather_sum:{name},table"] = (eg.gather_table, case.q)
     errs = check_kernels(kern, calls, "power law / S3")
     torch.cuda.synchronize()
-    return errs, (cols, x)
+    s3_table_checks(kern, "power law", packings, case.q)
+    return errs, (one_bucket_table(cols), x)
 
 
 def phase_powerlaw_path(kern, case, s3_inputs):
@@ -978,7 +1058,9 @@ def phase_powerlaw_path(kern, case, s3_inputs):
         if "check" in r:
             log(f"[powerlaw] gate {r['check']:44s} max_diff "
                 f"{r['max_diff']:.3e} {'ok' if r['ok'] else 'FAIL'}")
-    gather = exp_pallas_gather.run(*s3_inputs, **GRID_TIMING)
+    table, x = s3_inputs
+    gather = exp_pallas_gather.run(table.cols.reshape(table.n_out, -1), x,
+                                   **GRID_TIMING)
     torch.cuda.synchronize()
     launches = kern.launches()
     log(f"[powerlaw] launches on the power-law path: {launches}; peak "
@@ -991,6 +1073,304 @@ def phase_powerlaw_path(kern, case, s3_inputs):
     return launches
 
 
+def irregular_graph(rng, dev):
+    """n = 300 (not a multiple of 128); row block 1 has no out-edges and
+    column block 2 no in-edges. Returns the graph and its tile view."""
+    from custom_op_benchmark_tpu_torch.graph import from_coo, tile_graph
+
+    n_small = 300
+    src = rng.choice(np.r_[0:128, 256:n_small], size=4000)
+    dst = rng.choice(np.r_[0:256], size=4000)
+    g = from_coo(src, dst, n_small, device=dev)
+    return g, tile_graph(g, 128, 128, device=dev)
+
+
+def phase_bf16(kern, dev, g, slice_inputs):
+    """K1-K4 on bf16 inputs against their plain versions (one bf16
+    rounding) at the slice's shapes and on the irregular graph; the op
+    family and the attention through ``impl="tiled"`` in bf16 against f32,
+    forward and backward, with the launch counters set to 0 before and
+    read after; times at the slice's shapes."""
+    from custom_op_benchmark_tpu_torch import ops
+
+    tgt, q, k, v, vals, _ = slice_inputs
+    b16 = [t.bfloat16() for t in (q, k, v, vals)]
+    calls = kernel_calls(tgt, *b16)
+    errs = check_kernels(kern, calls, "slice h=8 d=64 bf16")
+    rng = np.random.default_rng(SEED + 8)
+    _, small = irregular_graph(rng, dev)
+    for hh, dd in ((2, 64), (1, 33), (1, 200)):
+        qs, ks, vs = (normal(rng, small.n_nodes, hh, dd,
+                             device=dev).bfloat16() for _ in range(3))
+        sv = normal(rng, hh, small.num_tiles, 128, 128, device=dev)
+        sv = torch.where(small.mask, sv, 0.0).bfloat16()
+        check_kernels(kern, kernel_calls(small, qs, ks, vs, sv),
+                      f"irregular n=300 h={hh} d={dd} bf16")
+    torch.cuda.synchronize()
+
+    # The op family (tests/test_dtypes.py) and the attention on the
+    # clique batch, h=8 d=64, through the tile strategy. Inputs of scale
+    # 0.35 keep the scores near 1, where 2e-2 holds a bf16 sum of 64
+    # products.
+    gd = g.to(dev)
+    a32, b32 = (0.35 * normal(rng, g.n_nodes, 8, 64, device=dev)
+                for _ in range(2))
+
+    def family(a, b):
+        a, b = a.detach().requires_grad_(), b.detach().requires_grad_()
+        s = ops.sddmm(gd, a, b, impl="tiled")
+        al = ops.edge_softmax(gd, s, by="src", impl="tiled")
+        y = ops.vector_spmm(gd, al, b, impl="tiled")
+        att = ops.attention(gd, a, b, b, impl="tiled")
+        (y.float().sum() + att.float().sum()).backward()
+        return [t.detach() for t in (s[: g.n_edges], al[: g.n_edges], y,
+                                     att, a.grad, b.grad)]
+
+    want = family(a32, b32)
+    kern.reset()
+    got = family(a32.bfloat16(), b32.bfloat16())
+    torch.cuda.synchronize()
+    launches = kern.launches()
+    names = ("scores", "alpha", "spmm", "attention", "grad a", "grad b")
+    for i, (name, lo, hi) in enumerate(zip(names, got, want)):
+        assert lo.dtype == torch.bfloat16, (name, lo.dtype)
+        assert torch.isfinite(lo.float()).all(), name
+        # The forward outputs are gated; the gradients, sums of many bf16
+        # roundings, are reported.
+        ok = i >= 4 or torch.allclose(lo.float(), hi, rtol=DTYPE_RTOL,
+                                      atol=DTYPE_ATOL)
+        log(f"[bf16] op family via tiled, {name:9s} bf16 vs f32 max abs diff "
+            f"{float((lo.float() - hi).abs().max()):.3e} (max|f32| "
+            f"{float(hi.abs().max()):.3e}) "
+            f"{'reported' if i >= 4 else 'ok' if ok else 'FAIL'}")
+        assert ok, f"bf16 {name} disagrees with f32"
+    log(f"[bf16] launches of the bf16 op family and attention, forward and "
+        f"backward: {launches}")
+    assert all(launches[n] > 0 for n in SLICE_KERNELS), launches
+    del got, want
+    times = {}
+    for key in SLICE_KERNELS:
+        times[key] = time_row(kern, key, calls[key], "h=8 d=64 bf16", {},
+                              lib=True)
+        torch.cuda.empty_cache()
+    return errs, launches, times
+
+
+def phase_wide_k4(kern, dev, tg):
+    """K4 at heads wider than 128 (the wide form): against its plain
+    version at 1e-4, bit for bit on repeat, on the irregular graph; the
+    attention op through ``impl="tiled"`` counted; times. Then the same
+    widths, one head, on the slice's tiles (n = 15,360), checked and timed
+    beside SDPA: the irregular graph is small enough for a dense mask to
+    win, the slice shows the kernel where the graph is real."""
+    from custom_op_benchmark_tpu_torch import ops
+
+    rng = np.random.default_rng(SEED + 9)
+    g, small = irregular_graph(rng, dev)
+    errs, launches, times = {}, {}, {}
+    for d in K4_WIDE:
+        key = f"fused_attention_rows:slice d={d}"
+        args = (tg.tile_ptr, tg.tile_cols, tg.mask,
+                *(normal(rng, tg.n_nodes, d, device=dev) for _ in range(3)),
+                d ** -0.5)
+        check_kernels(kern, {key: args}, "slice h=1 wide K4")
+        time_row(kern, key, args, f"slice d={d}", {}, lib=True)
+        del args
+        torch.cuda.empty_cache()
+    for d in K4_WIDE:
+        qs, ks, vs = (normal(rng, small.n_nodes, d, device=dev)
+                      for _ in range(3))
+        key = f"fused_attention_rows:d={d}"
+        call = {key: (small.tile_ptr, small.tile_cols, small.mask, qs, ks,
+                      vs, d ** -0.5)}
+        errs.update(check_kernels(kern, call, "irregular n=300 wide K4"))
+        kern.reset()
+        y = ops.attention(g, qs, ks, vs, impl="tiled")
+        torch.cuda.synchronize()
+        assert torch.isfinite(y).all() and y.shape == qs.shape
+        launches[key] = kern.launches()["fused_attention_rows"]
+        log(f"[wide] attention(impl='tiled') at d={d}: K4 launches "
+            f"{launches[key]}")
+        assert launches[key] == 1, launches
+        times[key] = time_row(kern, key, call[key], f"n=300 d={d}", {},
+                              lib=True)
+    return errs, launches, times
+
+
+def phase_block(kern, dev, g):
+    """The dense-block path at full width: ``impl="auto"`` resolves to the
+    dense blocks; the clique GAT step (3 layers, 8 heads of 64) on the
+    block layout against the segment path on the card; three steps of
+    ``fit_full_graph(strategy="auto")``; the step time and peak memory;
+    ``vector_spmm`` at d = 1024 through auto, tiled (K2) and xla."""
+    from custom_op_benchmark_tpu_torch import ops
+    from custom_op_benchmark_tpu_torch.data.synthetic import (
+        NodeClassificationDataset,
+    )
+    from custom_op_benchmark_tpu_torch.models import GAT
+    from custom_op_benchmark_tpu_torch.ops import dispatch
+    from custom_op_benchmark_tpu_torch.train import (
+        create_train_state,
+        fit_full_graph,
+        make_train_step,
+        masked_cross_entropy,
+    )
+
+    gd = g.to(dev)
+    t0 = time.perf_counter()
+    strategy = dispatch.resolve(gd, "auto")
+    bg = dispatch.get_block(gd)
+    log(f"[block] resolve(clique_batch{CLIQUES}, 'auto') = {strategy!r}; "
+        f"{dispatch.summary(gd)}; B={bg.num_blocks} L={bg.block_len}; host "
+        f"build {time.perf_counter() - t0:.2f} s")
+    assert strategy == "dense_block", strategy
+    rng = np.random.default_rng(SEED + 10)
+    n, c = g.n_nodes, BLOCK_GAT["out_dim"]
+    ds = NodeClassificationDataset(
+        graph=g,
+        features=rng.standard_normal((n, BLOCK_FEAT), dtype=np.float32),
+        labels=rng.integers(0, c, size=n).astype(np.int32),
+        train_mask=(train := rng.random(n) < 0.6), val_mask=~train,
+        test_mask=np.zeros(n, bool), num_classes=c, name="cliques")
+    x = torch.from_numpy(ds.features).to(dev)
+    labels = torch.from_numpy(ds.labels).to(dev)
+    mask = torch.from_numpy(ds.train_mask).to(dev)
+    model = GAT(**BLOCK_GAT, in_dim=BLOCK_FEAT,
+                generator=torch.Generator().manual_seed(SEED)).to(dev)
+    runs = {}
+    for path, views in (("segment", {}), ("block", {"block": bg})):
+        model.zero_grad(set_to_none=True)
+        logits = model(gd, x, **views)
+        loss = masked_cross_entropy(logits, labels, mask)
+        loss.backward()
+        runs[path] = (logits.detach(), loss.detach(),
+                      {k: p.grad for k, p in model.named_parameters()})
+    (lg_s, ls_s, gr_s), (lg_b, ls_b, gr_b) = runs["segment"], runs["block"]
+    assert torch.isfinite(lg_b).all() and lg_b.shape == (n, c)
+    worst = ("", 0.0)
+    for key, got, want in ([("logits", lg_b, lg_s), ("loss", ls_b, ls_s)]
+                           + [(k, gr_b[k], gr_s[k]) for k in gr_s]):
+        e = rel_err(got, want)
+        assert e <= MODEL_RTOL, f"block GAT {key}: block vs segment {e:.3e}"
+        worst = max(worst, (key, e), key=lambda t: t[1])
+    log(f"[block] GAT block vs segment on the card: logits, loss and "
+        f"{len(gr_s)} gradients within {MODEL_RTOL:g} of max|segment| "
+        f"(worst {worst[0]} {worst[1]:.3e})")
+    del runs, lg_s, ls_s, gr_s, lg_b, ls_b, gr_b
+
+    kern.reset()
+    _, metrics = fit_full_graph(model, ds, epochs=3, log_every=1,
+                                strategy="auto")
+    torch.cuda.synchronize()
+    losses = [h["loss"] for h in metrics["history"]]
+    log(f"[block] fit_full_graph(strategy='auto'), 3 epochs: losses {losses} "
+        f"val_acc {metrics['val_acc']:.4f}; kernel launches "
+        f"{kern.launches()}")
+    assert len(losses) == 3 and all(np.isfinite(losses)), losses
+    state = create_train_state(model)
+    step = make_train_step(apply_kwargs={"block": bg})
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(lambda: step(state, gd, x, labels, mask), warmup=1,
+                      iters=3, repeats=3)
+    peak = sync_peak_gib()
+    log(f"[time] clique GAT train step (block, 3 layers, 8x64, AdamW) "
+        f"{step_ms:.3f} ms, peak memory {peak:.2f} GiB")
+    del state, step, model
+
+    # The headline bench's workload and gate (bench.py:51-145).
+    xw = normal(rng, n, WIDE, device=dev)
+    ed = torch.rand(gd.num_edges_padded, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+    kern.reset()
+    ys = {impl: ops.vector_spmm(gd, ed, xw, impl=impl)
+          for impl in ("auto", "tiled", "xla")}
+    torch.cuda.synchronize()
+    k2 = kern.launches()["spmm_row_sweep"]
+    for impl in ("auto", "tiled"):
+        ok = torch.allclose(ys[impl], ys["xla"], rtol=SUITE_TOL,
+                            atol=SUITE_TOL)
+        log(f"[block] vector_spmm d={WIDE} impl={impl!r} vs 'xla': max abs "
+            f"diff {float((ys[impl] - ys['xla']).abs().max()):.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        assert ok, impl
+    assert k2 == 1, k2
+    spmm_ms = {impl: time_ms(lambda: ops.vector_spmm(gd, ed, xw, impl=impl))
+               for impl in ("auto", "tiled")}
+    log(f"[time] vector_spmm d={WIDE} on 512x30 cliques: dense_block "
+        f"{spmm_ms['auto']:.4f} ms, tiled (K2) {spmm_ms['tiled']:.4f} ms")
+    return dict(step_ms=step_ms, peak=peak, spmm_ms=spmm_ms)
+
+
+def l2_gather_rate(dev):
+    """Bytes per second that S3 gathers from a table resident in the 50 MB
+    L2 (8 MiB: L2_TABLE_ROWS rows of 128 floats), in the experiment's
+    pattern (125,000 rows of 16 random slots): the rate that bounds a
+    gather whose rows mostly hit L2."""
+    from custom_op_benchmark_tpu_torch.graph.ell import one_bucket_table
+    from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import (
+        gather_sum,
+    )
+
+    rng = np.random.default_rng(SEED + 11)
+    x = normal(rng, L2_TABLE_ROWS, POWERLAW[2], device=dev)
+    cols = torch.from_numpy(rng.integers(
+        0, L2_TABLE_ROWS, size=(125_000, 16)).astype(np.int32)).to(dev)
+    table = one_bucket_table(cols)
+    ms = time_ms(lambda: gather_sum(table, x))
+    rate = cols.numel() * x.shape[1] * 4 / (ms / 1e3)
+    log(f"[s3] L2 gather rate: {cols.numel()} rows of {x.shape[1]} floats "
+        f"from an {x.numel() * 4 / 2**20:.0f} MiB table in {ms:.4f} ms: "
+        f"{rate / 1e12:.3f} TB/s")
+    return rate
+
+
+def s3_table_checks(kern, label, packings, x):
+    """S3 over each packing's table in one launch against the per-bucket
+    result (S3 on each bucket alone, assembled through row_pos), bit for
+    bit; one launch per copy-sum."""
+    from custom_op_benchmark_tpu_torch.ops import ell
+    from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import (
+        gather_sum,
+    )
+
+    for name, eg in packings:
+        kern.reset()
+        new = ell._copy_agg_raw(eg, x)
+        torch.cuda.synchronize()
+        assert kern.launches()["gather_sum"] == 1, kern.launches()
+        old = ell.ell_combine_rows(eg, [gather_sum(b.cols, x)
+                                        for b in eg.buckets])
+        same = torch.equal(new, old)
+        log(f"[s3] {label} {name}: {len(eg.buckets)} buckets in one launch "
+            f"(table {tuple(eg.gather_table.buckets.shape)}), same bits as "
+            f"per bucket: {same}")
+        assert same, (label, name)
+
+
+def counted_copy_sums(ell_module, fn):
+    """Run ``fn`` with S3's launch counter at 0, and return how many ELL
+    copy-sums (``ops.ell._copy_agg_raw`` calls) it made."""
+    from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import (
+        gather_sum,
+    )
+
+    real, calls = ell_module._copy_agg_raw, []
+
+    def counted(*a):
+        calls.append(1)
+        return real(*a)
+
+    gather_sum.launches = 0
+    ell_module._copy_agg_raw = counted
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        ell_module._copy_agg_raw = real
+    return len(calls)
+
+
 def arxiv_model(name, num_classes, in_dim):
     from custom_op_benchmark_tpu_torch import models
 
@@ -999,11 +1379,12 @@ def arxiv_model(name, num_classes, in_dim):
         generator=torch.Generator().manual_seed(SEED))
 
 
-def phase_arxiv(dev):
+def phase_arxiv(kern, dev):
     """The arxiv configuration on the ELL path: parity against the segment
     path, S3 counted in the forward and the backward, three AdamW steps
     through fit_full_graph, step times and peak memory."""
     from custom_op_benchmark_tpu_torch.data import planted_partition
+    from custom_op_benchmark_tpu_torch.ops import ell as ell_ops
     from custom_op_benchmark_tpu_torch.ops import ell_dual
     from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import (
         gather_sum,
@@ -1027,6 +1408,7 @@ def phase_arxiv(dev):
     x = torch.from_numpy(ds.features).to(dev)
     labels = torch.from_numpy(ds.labels).to(dev)
     mask = torch.from_numpy(ds.train_mask).to(dev)
+    s3_table_checks(kern, "arxiv train", [("src", se), ("dst", de)], x)
     results = {"s3_launches": 0}
 
     for name in ARXIV_MODELS:
@@ -1087,17 +1469,45 @@ def phase_arxiv(dev):
             ms = time_ms(lambda: step(state, g, x, labels, mask), warmup=1,
                          iters=3, repeats=3)
             peak = sync_peak_gib()
-            results[(name, path)] = (ms, peak)
+            sums = counted_copy_sums(ell_ops, lambda: step(state, g, x,
+                                                           labels, mask))
+            launches = gather_sum.launches
+            results[(name, path)] = (ms, peak, launches)
             log(f"[time] arxiv {name} train step ({path}) {ms:.3f} ms, "
-                f"peak memory {peak:.2f} GiB")
+                f"peak memory {peak:.2f} GiB, S3 launches a step {launches} "
+                f"({sums} copy-sums)")
+            assert launches == sums, (name, path, launches, sums)
             del state, step
         del model
     return results
 
 
-def phase_s3_times(kern, s3_inputs):
-    return time_row(kern, "gather_sum", s3_inputs, "125000x16 d=128", {},
-                    lib=True)
+def phase_s3_times(kern, s3_inputs, l2_rate):
+    """S3 at the experiment's shape (a one-bucket table) against its plain
+    version and embedding_bag, with a second bound: the gathered bytes at
+    the card's L2 gather rate."""
+    row = time_row(kern, "gather_sum", s3_inputs, "125000x16 d=128", {},
+                   lib=True)
+    table, x = s3_inputs
+    gathered = table.cols.numel() * x.shape[1] * 4
+    row["bound_l2_ms"] = gathered / l2_rate * 1e3
+    log(f"[time] gather_sum gathers {gathered / 1e9:.3f} GB: at the L2 "
+        f"gather rate {l2_rate / 1e12:.3f} TB/s that takes "
+        f"{row['bound_l2_ms']:.4f} ms (share "
+        f"{row['bound_l2_ms'] / row['ms']:.3f})")
+    return row
+
+
+def kernel_row(name, source, replaces, n, err, row, shape):
+    out = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": n, "max_abs_err": err,
+           "ms": row["ms"], "plain_ms": row["plain_ms"],
+           "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+           "library_ms": row["library_ms"], "library": row["library"],
+           "shape": shape}
+    if "bound_l2_ms" in row:
+        out["bound_l2_ms"] = row["bound_l2_ms"]
+    return out
 
 
 def main() -> int:
@@ -1113,7 +1523,15 @@ def main() -> int:
     launches, train_step = phase_train(kern, dev, g, tg, x, labels, model)
     times = phase_times(kern, slice_inputs, train_step)
     torch.cuda.synchronize()
-    del slice_inputs, train_step, model
+    del train_step, model
+    torch.cuda.empty_cache()
+    bf16_errs, bf16_launches, bf16_times = phase_bf16(kern, dev, g,
+                                                      slice_inputs)
+    del slice_inputs
+    torch.cuda.empty_cache()
+    wide_errs, wide_launches, wide_times = phase_wide_k4(kern, dev, tg)
+    phase_block(kern, dev, g)
+    gc.collect()
     torch.cuda.empty_cache()
     case = phase_grid_build(dev)
     grid_errs = phase_grid_parity(kern, dev, case)
@@ -1131,8 +1549,8 @@ def main() -> int:
     phase_powerlaw_path(kern, pl_case, s3_inputs)
     del pl_case
     torch.cuda.empty_cache()
-    arxiv = phase_arxiv(dev)
-    s3_times = phase_s3_times(kern, s3_inputs)
+    arxiv = phase_arxiv(kern, dev)
+    s3_times = phase_s3_times(kern, s3_inputs, l2_gather_rate(dev))
     torch.cuda.synchronize()
     report = []
     for name, (_, _, source, replaces) in kern.table.items():
@@ -1142,8 +1560,9 @@ def main() -> int:
         elif name == "gather_sum":
             row, err = s3_times, s3_errs["gather_sum:experiment"]
             n = arxiv["s3_launches"]
-            shape = ("ELL bucket 125000x16, d=128 (exp_pallas_gather); "
-                     "launches: GCN and GraphSAGE fit_full_graph, arxiv")
+            shape = ("ELL bucket 125000x16, d=128 (exp_pallas_gather, a "
+                     "one-bucket table); launches: GCN and GraphSAGE "
+                     "fit_full_graph, arxiv, one per copy-sum")
         else:
             # S5 with exp and mask: well posed on the grid's own inputs, so
             # its error and its time come from the same call.
@@ -1151,14 +1570,20 @@ def main() -> int:
                    else name)
             row, err = grid_times[key], grid_errs[key]
             n, shape = grid_launches[name], f"grid 1024x1024, d={GRID_D}"
-        report.append({"name": name, "route": "cuda", "source": source,
-                       "replaces": replaces, "launches": n,
-                       "max_abs_err": err, "ms": row["ms"],
-                       "plain_ms": row["plain_ms"],
-                       "bound_ms": row["bound_ms"],
-                       "bound_by": row["bound_by"],
-                       "library_ms": row["library_ms"],
-                       "library": row["library"], "shape": shape})
+        report.append(kernel_row(name, source, replaces, n, err, row,
+                                 shape))
+    for name in SLICE_KERNELS:
+        _, _, source, replaces = kern.table[name]
+        report.append(kernel_row(
+            f"{name}:bf16", source, replaces, bf16_launches[name],
+            bf16_errs[name], bf16_times[name],
+            "slice h=8 d=64, bf16; launches: the bf16 op family and "
+            "attention through impl='tiled', forward and backward"))
+    _, _, source, replaces = kern.table["fused_attention_rows"]
+    for key, row in wide_times.items():
+        report.append(kernel_row(
+            key, source, replaces, wide_launches[key], wide_errs[key], row,
+            "irregular n=300, one head; launches: attention(impl='tiled')"))
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,12 @@
-// Fused block-sparse graph attention for Hopper (sm_90a), f32.
+// Fused block-sparse graph attention for Hopper (sm_90a).
 //
 // Replaces two Pallas TPU kernels:
 //   K4 fused_attention_rows <- custom_op_benchmark_tpu/ops/pallas/attention.py
 //   S5 attn_variant         <- scripts/exp_grid_bisect.py (K4 with use_exp /
 //                              use_mask switches, a diagnostic)
-// with two kernels: attention_mma_kernel (K4 for 1 <= d <= 128, on the
-// tensor cores) and attention_rows_kernel (S5, and K4 for 128 < d <= 256,
-// on the CUDA cores). The wrappers in ops/kernels/attention.py choose by
-// width and say so.
+// with two kernels: attention_mma_kernel (K4 at any head width, f32 or
+// bf16, on the tensor cores) and attention_rows_kernel (S5, f32, d <= 256,
+// on the CUDA cores).
 // Per row block I and head h, a flash-style forward over I's nonzero
 // adjacency tiles, one tile at a time:
 //   s      = (Q[I] K[J]^T) * scale, non-edges set to -1e30 (UseMask)
@@ -32,7 +31,8 @@
 // products bound it, not HBM.
 //
 // attention_mma_kernel: one block of 8 warps owns a 128-row block and a
-// head; each warp owns 16 query rows. S = Q K^T and acc += P V run as
+// head (and, for d > 128, 128 output features); each warp owns 16 query
+// rows. S = Q K^T and acc += P V run as
 // mma.sync m16n8k8 in 3xTF32 (mma_async.cuh), so the products are as
 // accurate as f32 FMAs. A warp's 16 x 128 scores stay in its accumulator
 // registers (no score tile in shared memory): the row max and sum are
@@ -51,10 +51,24 @@
 // make every fragment read hit distinct banks; the mask rides with a
 // tile's first K chunk and is read as two bytes per row in the
 // accumulator's layout. Shared memory: 128 * ((D + 4) + 4 * 68) * 4 +
-// 128 * 144 bytes (188 KB at D = 64, 220 KB at D = 128), so wider heads
-// take attention_rows_kernel. Exponentials are exp2 of log2e-scaled
-// scores. A block writes only its own rows: no atomics, results repeat
-// bit for bit.
+// 128 * 144 bytes (188 KB at D = 64, 220 KB at D = 128). Exponentials are
+// exp2 of log2e-scaled scores. A block writes only its own rows: no
+// atomics, results repeat bit for bit.
+//
+// Heads wider than 128 (WIDE): Q no longer fits shared memory whole, so
+// one block computes 128 output features of a row block. For each tile it
+// runs ceil(d / 64) K steps, each staging a 64-feature chunk of Q beside
+// the chunk of K (Q's fragments are split in registers, as before), then
+// the V chunks of its own features; each 8-deep step of the long QK^T sum
+// goes into a zeroed fragment and is added in f32. Two buffers of (K hi,
+// K lo, Q) take 204 KB. The scores are recomputed by each of the
+// ceil(d / 128) blocks of a row block: ceil(d / 128) times K4's QK^T work
+// and Q, K reads, for widths no model of the reference uses.
+//
+// bf16: K and V (and WIDE's Q) chunks land as bf16 in the lo room of a
+// buffer and are widened once into the hi room; Q resident is widened as
+// it is loaded. QK^T is bf16 x bf16, one TF32 pass; P stays f32, so P V
+// takes two (lo*v + hi*v). The output is rounded to bf16 once.
 //
 // attention_rows_kernel: a row's d features are split across
 // S = D/32 neighbouring threads of one warp, each holding 32 query and 32
@@ -285,60 +299,89 @@ int dispatch_width(const int* ptr, const int* cols, const uint8_t* mask,
 }
 
 // ---------------------------------------------------------------------------
-// attention_mma_kernel: K4 on the tensor cores, 1 <= d <= 128
+// attention_mma_kernel: K4 on the tensor cores, any d >= 1, f32 or bf16
 // ---------------------------------------------------------------------------
 
 constexpr int MMA_THREADS = 256;  // 8 warps x 16 query rows
-constexpr int CHUNK = 64;         // features of K or V staged at a time
+constexpr int CHUNK = 64;         // features of Q, K or V staged at a time
 constexpr int CLD = CHUNK + 4;    // staged chunk row stride, floats
+constexpr int WIDE_D = 128;       // output features of a wide block
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+// WIDE = false (d <= 128): Q resident in shared memory, a tile's D / 64 K
+// chunks then its D / 64 V chunks. WIDE = true (d > 128): one block per
+// 128 output features; a tile's ceil(d / 64) K steps each stage a Q chunk
+// beside the K chunk, then the V chunks of the block's features.
+template <int D, bool WIDE>
 struct MmaCfg {
-  static constexpr int QLD = D + 4;       // staged Q row stride, floats
-  static constexpr int NC = D / CHUNK;    // chunks of K, then of V, a tile
-  static constexpr size_t SMEM = sizeof(float) * TILE * (QLD + 4 * CLD) +
-                                 (size_t)TILE * MASK_LD;
+  static constexpr int QLD = D + 4;         // resident Q row stride, floats
+  static constexpr int NC = D / CHUNK;      // K (and V) chunks, not WIDE
+  // A buffer: hi [TILE][CLD], lo [TILE][CLD] (bf16: the staged chunks),
+  // and WIDE, the Q chunk [TILE][CLD].
+  static constexpr int BUF = (WIDE ? 3 : 2) * TILE * CLD;
+  static constexpr size_t SMEM =
+      sizeof(float) * ((WIDE ? 0 : TILE * QLD) + 2 * BUF) +
+      (size_t)TILE * MASK_LD;
 };
 
-// scale2 = scale * log2(e). vec: q, k, v rows move as 16-byte copies
-// (d % 4 == 0 and 16-byte aligned bases).
-template <int D>
+// scale2 = scale * log2(e). vec: q, k, v rows move as 16-byte copies.
+template <typename E, int D, bool WIDE>
 __global__ void __launch_bounds__(MMA_THREADS, 1)
 attention_mma_kernel(const int* __restrict__ ptr,
                      const int* __restrict__ cols,
                      const uint8_t* __restrict__ mask,
-                     const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ out,
-                     int d, int n_q, int n_kv, int n_out, float scale2,
-                     int vec) {
-  using C = MmaCfg<D>;
-  constexpr int QLD = C::QLD, NC = C::NC, STEPS = 2 * NC;
+                     const E* __restrict__ q, const E* __restrict__ k,
+                     const E* __restrict__ v, E* __restrict__ out, int d,
+                     int n_q, int n_kv, int n_out, float scale2, int vec) {
+  using C = MmaCfg<D, WIDE>;
+  constexpr int QLD = C::QLD, BUF = C::BUF;
+  constexpr int QS = WIDE ? CLD : QLD;  // row stride of Q's fragments
   constexpr int NT = D / 8, KEYS8 = TILE / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);  // [TILE][QLD]
-  // Two chunk buffers, each hi [TILE][CLD] then lo [TILE][CLD].
-  float* Bs = Qs + TILE * QLD;
-  uint8_t* Ms = reinterpret_cast<uint8_t*>(Bs + 4 * TILE * CLD);
+  float* Qs = reinterpret_cast<float*>(smem);  // [TILE][QLD], not WIDE
+  float* Bs = Qs + (WIDE ? 0 : TILE * QLD);    // two buffers
+  uint8_t* Ms = reinterpret_cast<uint8_t*>(Bs + 2 * BUF);
 
   const int i = blockIdx.x, h = blockIdx.y;
+  const int fo = WIDE ? blockIdx.z * D : 0;  // the block's first feature
   const long long ld = (long long)gridDim.y * d;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
-  const float* qh = q + (long long)h * d;
-  const float* kh = k + (long long)h * d;
-  const float* vh = v + (long long)h * d;
+  const E* qh = q + (long long)h * d;
+  const E* kh = k + (long long)h * d;
+  const E* vh = v + (long long)h * d;
   const int lo = ptr[i], hi = ptr[i + 1];
+  const int nk = WIDE ? (d + CHUNK - 1) / CHUNK : C::NC;  // K steps
+  const int nv = WIDE ? (min(D, d - fo) + CHUNK - 1) / CHUNK : C::NC;
+  const int steps = nk + nv;  // a tile's steps
 
-  // The block's copies run in steps: for each tile, its K chunks, then
-  // its V chunks, step s into buffer s % 2; the mask rides with a tile's
-  // first K chunk.
+  // The block's copies run in steps: for each tile, its K chunks (with Q
+  // chunks, WIDE), then its V chunks, step s into buffer s % 2; the mask
+  // rides with a tile's first K chunk. bf16 chunks land in the lo room.
   auto issue = [&](int step) {
-    const int t = lo + step / STEPS, c = step % STEPS;
+    const int t = lo + step / steps, c = step % steps;
     if (t >= hi) return;
-    load_rows<TILE, CHUNK, CLD, MMA_THREADS>(
-        Bs + (step % 2) * 2 * TILE * CLD, c < NC ? kh : vh,
-        (long long)cols[t] * TILE, n_kv, (c % NC) * CHUNK, d, ld, vec, tid);
+    float* buf = Bs + (step % 2) * BUF;
+    const long long row = (long long)cols[t] * TILE;
+    const bool kstep = c < nk;
+    const int f0 = kstep ? c * CHUNK : fo + (c - nk) * CHUNK;
+    const E* src = kstep ? kh : vh;
+    if constexpr (is_f32<E>) {
+      load_rows<TILE, CHUNK, CLD, MMA_THREADS>(buf, src, row, n_kv, f0, d,
+                                               ld, vec, tid);
+      if (WIDE && kstep)
+        load_rows<TILE, CHUNK, CLD, MMA_THREADS>(
+            buf + 2 * TILE * CLD, qh, (long long)i * TILE, n_q, f0, d, ld,
+            vec, tid);
+    } else {
+      bf16* st = reinterpret_cast<bf16*>(buf + TILE * CLD);
+      load_rows<TILE, CHUNK, CHUNK, MMA_THREADS>(st, src, row, n_kv, f0, d,
+                                                 ld, vec, tid);
+      if (WIDE && kstep)
+        load_rows<TILE, CHUNK, CHUNK, MMA_THREADS>(
+            st + TILE * CHUNK, qh, (long long)i * TILE, n_q, f0, d, ld, vec,
+            tid);
+    }
     if (c == 0)
       load_mask<MMA_THREADS>(Ms, mask + (long long)t * TILE * TILE, tid);
   };
@@ -352,14 +395,25 @@ attention_mma_kernel(const int* __restrict__ ptr,
     for (int u = 0; u < 4; ++u) acc[n][u] = 0.f;
 
   if (lo < hi) {
-    load_rows<TILE, D, QLD, MMA_THREADS>(Qs, qh, (long long)i * TILE, n_q, 0,
-                                         d, ld, vec, tid);
+    if constexpr (!WIDE) {
+      if constexpr (is_f32<E>) {
+        load_rows<TILE, D, QLD, MMA_THREADS>(Qs, qh, (long long)i * TILE, n_q,
+                                             0, d, ld, vec, tid);
+      } else {
+        // Once per block: widened as it is read.
+        for (int e = tid; e < TILE * D; e += MMA_THREADS) {
+          const int r = e / D, f = e % D;
+          const long long row = (long long)i * TILE + r;
+          Qs[r * QLD + f] =
+              (row < n_q && f < d) ? to_f32(qh[row * ld + f]) : 0.f;
+        }
+      }
+    }
     issue(0);
     cp_async_commit();
     issue(1);
     cp_async_commit();
   }
-  const float* qw = Qs + (warp * 16 + g) * QLD + t4;
   const int kw = g * CLD + t4, vw = 2 * t4 * CLD + g;  // B fragment offsets
   const uint8_t* mw = Ms + (warp * 16 + g) * MASK_LD + 2 * t4;
   const int kd = (d + 7) / 8;  // contraction steps of S; the rest is zero
@@ -367,16 +421,24 @@ attention_mma_kernel(const int* __restrict__ ptr,
   float s[KEYS8][4];  // the tile's scores, then its P
   for (int t = lo; t < hi; ++t) {
 #pragma unroll
-    for (int c = 0; c < STEPS; ++c) {
-      const int step = (t - lo) * STEPS + c;
-      float* bh = Bs + (c % 2) * 2 * TILE * CLD;  // c % 2 == step % 2
+    for (int c = 0; c < steps; ++c) {
+      const int step = (t - lo) * steps + c;
+      float* bh = Bs + (step % 2) * BUF;
       float* bl = bh + TILE * CLD;
       cp_async_wait<1>();  // this step's chunk (and Q, mask) has landed
       __syncthreads();
-      split_rows<TILE, CHUNK, CLD, MMA_THREADS>(bh, bl, tid);
+      if constexpr (is_f32<E>) {
+        split_rows<TILE, CHUNK, CLD, MMA_THREADS>(bh, bl, tid);
+      } else {
+        const bf16* st = reinterpret_cast<const bf16*>(bl);
+        widen_rows<TILE, CHUNK, CHUNK, CLD, MMA_THREADS>(bh, st, tid);
+        if (WIDE && c < nk)
+          widen_rows<TILE, CHUNK, CHUNK, CLD, MMA_THREADS>(
+              bh + 2 * TILE * CLD, st + TILE * CHUNK, tid);
+      }
       __syncthreads();
 
-      if (c < NC) {
+      if (c < nk) {
         // S += Q[:, c*64 : +64] K_c^T.
         if (c == 0) {
 #pragma unroll
@@ -384,20 +446,46 @@ attention_mma_kernel(const int* __restrict__ ptr,
 #pragma unroll
             for (int u = 0; u < 4; ++u) s[j][u] = 0.f;
         }
+        const float* qw = WIDE ? bh + 2 * TILE * CLD + (warp * 16 + g) * CLD
+                               : Qs + (warp * 16 + g) * QLD + c * CHUNK;
         const int kend = min(CHUNK / 8, kd - c * (CHUNK / 8));
         for (int kk = 0; kk < kend; ++kk) {
-          const float* qa = qw + c * CHUNK + kk * 8;
+          const float* qa = qw + t4 + kk * 8;
           uint32_t ah[4], al[4];
-          split_a(qa[0], qa[8 * QLD], qa[4], qa[8 * QLD + 4], ah, al);
+          if constexpr (is_f32<E>) {
+            split_a(qa[0], qa[8 * QS], qa[4], qa[8 * QS + 4], ah, al);
+          } else {
+            ah[0] = exact_tf32(qa[0]);
+            ah[1] = exact_tf32(qa[8 * QS]);
+            ah[2] = exact_tf32(qa[4]);
+            ah[3] = exact_tf32(qa[8 * QS + 4]);
+          }
           const int kb = kw + kk * 8;
 #pragma unroll
-          for (int j = 0; j < KEYS8; ++j)
-            mma_split(s[j], ah, al, bh, bl, kb + j * 8 * CLD,
-                      kb + j * 8 * CLD + 4);
+          for (int j = 0; j < KEYS8; ++j) {
+            const int o = kb + j * 8 * CLD;
+            auto qk = [&](float(&dst)[4]) {
+              if constexpr (is_f32<E>)
+                mma_split(dst, ah, al, bh, bl, o, o + 4);
+              else
+                mma_tf32(dst, ah, exact_tf32(bh[o]), exact_tf32(bh[o + 4]));
+            };
+            if constexpr (WIDE) {
+              // WIDE contracts up to d in one sum: each 8-deep step is
+              // summed apart, then added in f32 (the tensor cores' sums
+              // truncate; see K1).
+              float part[4] = {0.f, 0.f, 0.f, 0.f};
+              qk(part);
+#pragma unroll
+              for (int u = 0; u < 4; ++u) s[j][u] += part[u];
+            } else {
+              qk(s[j]);
+            }
+          }
         }
       }
 
-      if (c == NC - 1) {
+      if (c == nk - 1) {
         // Scale, mask, the tile's row max (log2 units), and P.
         float mx0 = m0, mx1 = m1;
 #pragma unroll
@@ -443,22 +531,34 @@ attention_mma_kernel(const int* __restrict__ ptr,
         }
       }
 
-      if (c >= NC) {
-        // acc[:, (c-NC)*64 : +64] += P V_c over the tile's keys, 8 at a
+      if (c >= nk) {
+        // acc[:, (c-nk)*64 : +64] += P V_c over the tile's keys, 8 at a
         // time in the order (0, 2, 4, 6, 1, 3, 5, 7): a0..a3 of P are c0,
-        // c2, c1, c3 of S.
-        const int N0 = (c - NC) * (CHUNK / 8);  // first n-tile of acc
+        // c2, c1, c3 of S. P is f32: three passes against f32 V, two
+        // against bf16 V.
+        auto pv = [&](const int N0) {
 #pragma unroll
-        for (int j = 0; j < KEYS8; ++j) {
-          uint32_t ah[4], al[4];
-          split_a(s[j][0], s[j][2], s[j][1], s[j][3], ah, al);
-          const int vb = vw + j * 8 * CLD;
+          for (int j = 0; j < KEYS8; ++j) {
+            uint32_t ah[4], al[4];
+            split_a(s[j][0], s[j][2], s[j][1], s[j][3], ah, al);
+            const int vb = vw + j * 8 * CLD;
 #pragma unroll
-          for (int n = 0; n < CHUNK / 8; ++n)
-            if ((N0 + n) * 8 < d)
-              mma_split(acc[N0 + n], ah, al, bh, bl, vb + n * 8,
-                        vb + CLD + n * 8);
-        }
+            for (int n = 0; n < CHUNK / 8; ++n)
+              if (fo + (N0 + n) * 8 < d) {
+                const int o0 = vb + n * 8, o1 = vb + CLD + n * 8;
+                if constexpr (is_f32<E>)
+                  mma_split(acc[N0 + n], ah, al, bh, bl, o0, o1);
+                else
+                  mma_2xtf32(acc[N0 + n], ah, al, exact_tf32(bh[o0]),
+                             exact_tf32(bh[o1]));
+              }
+          }
+        };
+        // Constant first n-tiles, so acc stays in registers.
+        if (c == nk)
+          pv(0);
+        else
+          pv(CHUNK / 8);
       }
 
       __syncthreads();  // every warp is done with this buffer
@@ -474,34 +574,57 @@ attention_mma_kernel(const int* __restrict__ ptr,
   }
   const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
   const long long row0 = (long long)i * TILE + warp * 16 + g, row1 = row0 + 8;
-  float* oh = out + (long long)h * d;
+  E* oh = out + (long long)h * d;
 #pragma unroll
   for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      const int f = n * 8 + 2 * t4 + u;
+      const int f = fo + n * 8 + 2 * t4 + u;
       if (f >= d) continue;
-      if (row0 < n_out) oh[row0 * ld + f] = l0 > 0.f ? acc[n][u] / den0 : 0.f;
+      if (row0 < n_out)
+        oh[row0 * ld + f] = from_f32<E>(l0 > 0.f ? acc[n][u] / den0 : 0.f);
       if (row1 < n_out)
-        oh[row1 * ld + f] = l1 > 0.f ? acc[n][2 + u] / den1 : 0.f;
+        oh[row1 * ld + f] =
+            from_f32<E>(l1 > 0.f ? acc[n][2 + u] / den1 : 0.f);
     }
 }
 
-template <int D>
+template <typename E, int D, bool WIDE>
 int launch_mma(const int* ptr, const int* cols, const uint8_t* mask,
-               const float* q, const float* k, const float* v, float* out,
-               int nrb, int H, int d, int n_q, int n_kv, int n_out,
-               float scale, int vec, cudaStream_t stream) {
-  auto kernel = attention_mma_kernel<D>;
-  const int smem = (int)MmaCfg<D>::SMEM;
+               const E* q, const E* k, const E* v, E* out, int nrb, int H,
+               int d, int n_q, int n_kv, int n_out, float scale, int vec,
+               cudaStream_t stream) {
+  auto kernel = attention_mma_kernel<E, D, WIDE>;
+  const int smem = (int)MmaCfg<D, WIDE>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(nrb, H);
+  dim3 grid(nrb, H, WIDE ? (d + D - 1) / D : 1);
   kernel<<<grid, MMA_THREADS, smem, stream>>>(ptr, cols, mask, q, k, v, out,
                                              d, n_q, n_kv, n_out,
                                              scale * LOG2E, vec);
   return (int)cudaGetLastError();
+}
+
+template <typename E>
+int fused_attention(const int* tile_ptr, const int* tile_cols,
+                    const uint8_t* mask, const E* q, const E* k, const E* v,
+                    E* out, int nrb, int H, int d, int n_q, int n_kv,
+                    int n_out, float scale, int vec, int device,
+                    cudaStream_t stream) {
+  cudaSetDevice(device);
+  if (d < 1) return (int)cudaErrorInvalidValue;
+  if (d <= 64)
+    return launch_mma<E, 64, false>(tile_ptr, tile_cols, mask, q, k, v, out,
+                                    nrb, H, d, n_q, n_kv, n_out, scale, vec,
+                                    stream);
+  if (d <= 128)
+    return launch_mma<E, 128, false>(tile_ptr, tile_cols, mask, q, k, v, out,
+                                     nrb, H, d, n_q, n_kv, n_out, scale, vec,
+                                     stream);
+  return launch_mma<E, WIDE_D, true>(tile_ptr, tile_cols, mask, q, k, v, out,
+                                     nrb, H, d, n_q, n_kv, n_out, scale, vec,
+                                     stream);
 }
 
 }  // namespace
@@ -510,21 +633,26 @@ extern "C" {
 
 // K4 on the tensor cores. q: (n_q, H, d), k/v: (n_kv, H, d), mask
 // (T, 128, 128), 16-byte aligned -> out: (n_out, H, d), n_out <= nrb * 128,
-// 1 <= d <= 128. vec: q, k, v are 16-byte aligned and d % 4 == 0.
+// any d >= 1. vec: q, k, v are 16-byte aligned and their rows are whole
+// 16-byte pieces.
 int fused_attention_rows_f32(const int* tile_ptr, const int* tile_cols,
                              const uint8_t* mask, const float* q,
                              const float* k, const float* v, float* out,
                              int nrb, int H, int d, int n_q, int n_kv,
                              int n_out, float scale, int vec, int device,
                              cudaStream_t stream) {
-  cudaSetDevice(device);
-  if (d >= 1 && d <= 64)
-    return launch_mma<64>(tile_ptr, tile_cols, mask, q, k, v, out, nrb, H, d,
-                          n_q, n_kv, n_out, scale, vec, stream);
-  if (d > 64 && d <= 128)
-    return launch_mma<128>(tile_ptr, tile_cols, mask, q, k, v, out, nrb, H,
-                           d, n_q, n_kv, n_out, scale, vec, stream);
-  return (int)cudaErrorInvalidValue;
+  return fused_attention(tile_ptr, tile_cols, mask, q, k, v, out, nrb, H, d,
+                         n_q, n_kv, n_out, scale, vec, device, stream);
+}
+
+int fused_attention_rows_bf16(const int* tile_ptr, const int* tile_cols,
+                              const uint8_t* mask, const bf16* q,
+                              const bf16* k, const bf16* v, bf16* out,
+                              int nrb, int H, int d, int n_q, int n_kv,
+                              int n_out, float scale, int vec, int device,
+                              cudaStream_t stream) {
+  return fused_attention(tile_ptr, tile_cols, mask, q, k, v, out, nrb, H, d,
+                         n_q, n_kv, n_out, scale, vec, device, stream);
 }
 
 // S5 on attention_rows_kernel, 1 <= d <= 256, with the exponentials

@@ -5,8 +5,17 @@
 //     y[r, :] = sum_{k < D} x[cols[r, k], :]
 //   with cols (R, D) int32, x (n_x, d), y (R, d). A slot whose column lies
 //   outside [0, n_x) adds zero, so the ELL pad column n_nodes needs no
-//   padded row of x. This is the per-bucket sweep of the ELL copy-SpMM
-//   (ops/ell.py _copy_agg_raw), forward and backward.
+//   padded row of x. This is the sweep of the ELL copy-SpMM (ops/ell.py
+//   _copy_agg_raw), forward and backward.
+//
+// One launch sums every bucket of an ELL packing (graph/ell.py
+// GatherTable): the table lists per bucket, widest first, the offset of
+// its rows' slots in cols, its width D and its first row; nodes[row] is
+// the output row a row's sum goes to, and zero_nodes the output rows with
+// nothing to sum (nodes of degree 0), which the same launch writes as 0.
+// So the per-bucket launches, the concatenation of their outputs and the
+// gather through row_pos that assembled the node rows are gone: each sum
+// is written once, straight to its node's row.
 //
 // What the TPU kernel did, and what is kept: it gathered the rows of 8
 // output rows into VMEM through a 16-deep ring of row DMAs and reduced
@@ -20,19 +29,26 @@
 // are random, so the rate is set by how many of them are in flight; x
 // itself often fits the 50 MB L2 (67 MB at n = 131,072, d = 128, mostly).
 //
-// What the design does about it: one warp owns one output row and one
-// chunk of its features (128 floats as float4 per lane when rows are
-// 16-byte aligned, else 32 floats one per lane). The warp loads 32 column
-// ids at once, coalesced, and broadcasts them with shuffles; it then issues
-// the row loads of 4 slots before it adds them, so each warp keeps 4 rows
-// in flight and an SM with 64 warps about 256. The slots are summed in
-// their order k = 0, 1, ..., D-1 in f32 registers with a compensated
-// (Kahan) sum: a plain running sum loses about sqrt(D) roundings, 4.6e-4
-// on a power-law hub row of D = 8192 against a tree-summed reference,
-// while the compensated sum stays within a few roundings of the exact sum
-// at any D; the extra adds cost nothing against the row loads. Every run
-// gives the same bits, and no atomics are used (the warp owns its
-// outputs). Any R (the TPU kernel needed R % 8 == 0) and any d >= 1.
+// What the design does about it: one warp owns one row and one chunk of
+// its features (128 floats as float4 per lane when rows are 16-byte
+// aligned, else 32 floats one per lane). Warp tasks are numbered over the
+// table's rows (times the chunks) in table order, so the long rows of the
+// widest buckets (hub rows of up to 8,192 slots) start first instead of
+// finishing last; the zero rows come after them. Each block copies the
+// table (at most 64 buckets) into shared memory, and each warp finds its
+// bucket there. The warp loads 32 column ids at once, coalesced, and
+// broadcasts them with shuffles; it then issues the row loads of 4 slots
+// before it adds them, so each warp keeps 4 rows in flight and an SM with
+// 64 warps about 256. The slots are summed in their order k = 0, 1, ...,
+// D-1 in f32 registers with a compensated (Kahan) sum: a plain running sum
+// loses about sqrt(D) roundings, 4.6e-4 on a power-law hub row of D = 8192
+// against a tree-summed reference, while the compensated sum stays within
+// a few roundings of the exact sum at any D; the extra adds cost nothing
+// against the row loads. A row's sum is the same sequence of operations as
+// in the earlier one-launch-per-bucket kernel, so the results are the same
+// bits. Every run gives the same bits, and no atomics are used (a warp
+// owns its outputs, and each output row is named once). Any R and any
+// d >= 1.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,22 +102,15 @@ struct Chunk<false> {
   static constexpr int PER_LANE = 1;
 };
 
-// One warp per (row r, feature chunk c): tasks r * n_chunks + c.
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS)
-gather_sum_kernel(const int* __restrict__ cols, const float* __restrict__ x,
-                  float* __restrict__ y, int R, int D, int d, int n_x,
-                  int n_chunks) {
-  using C = Chunk<VEC>;
-  const int lane = threadIdx.x & 31;
-  const long long task =
-      (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (task >= (long long)R * n_chunks) return;   // whole warp leaves
-  const long long r = task / n_chunks;
-  const int f = (int)(task % n_chunks) * C::WIDTH + lane * C::PER_LANE;
-  const bool active = f < d;
-  const int* row_cols = cols + r * D;
+constexpr int MAX_BUCKETS = 64;
 
+// The sum over slots 0 .. D-1 of row_cols of x's rows, at feature f of
+// this lane (active: f < d), in slot order, compensated.
+template <bool VEC>
+__device__ __forceinline__ typename Chunk<VEC>::T row_sum(
+    const int* __restrict__ row_cols, int D, const float* __restrict__ x,
+    int d, int n_x, int f, bool active, int lane) {
+  using C = Chunk<VEC>;
   typename C::T acc = C::zero(), carry = C::zero();
   for (int k0 = 0; k0 < D; k0 += 32) {
     const int kn = min(32, D - k0);
@@ -125,18 +134,57 @@ gather_sum_kernel(const int* __restrict__ cols, const float* __restrict__ x,
         C::add(acc, carry, C::load(x + (size_t)c * d + f));
     }
   }
-  if (active) C::store(y + r * d + f, acc);
+  return acc;
+}
+
+// One warp per task: (row, feature chunk) for the table's rows in order,
+// then (zero row, feature chunk).
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
+gather_sum_kernel(const int* __restrict__ table, int n_buckets,
+                  const int* __restrict__ cols, const int* __restrict__ nodes,
+                  int n_rows, const int* __restrict__ zero_nodes, int n_zero,
+                  const float* __restrict__ x, float* __restrict__ y, int d,
+                  int n_x, int n_chunks) {
+  using C = Chunk<VEC>;
+  __shared__ int tab[3 * MAX_BUCKETS];  // col offset, D, first row
+  for (int e = threadIdx.x; e < 3 * n_buckets; e += THREADS) tab[e] = table[e];
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const long long task =
+      (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const long long row_tasks = (long long)n_rows * n_chunks;
+  if (task >= row_tasks + (long long)n_zero * n_chunks) return;
+  const int f = (int)(task % n_chunks) * C::WIDTH + lane * C::PER_LANE;
+  const bool active = f < d;
+  if (task >= row_tasks) {
+    const int node = zero_nodes[(task - row_tasks) / n_chunks];
+    if (active) C::store(y + (size_t)node * d + f, C::zero());
+    return;
+  }
+  const int row = (int)(task / n_chunks);
+  int b = 0;
+  while (b + 1 < n_buckets && tab[3 * (b + 1) + 2] <= row) ++b;
+  const int D = tab[3 * b + 1];
+  const int* row_cols = cols + tab[3 * b] + (size_t)(row - tab[3 * b + 2]) * D;
+  const typename C::T acc =
+      row_sum<VEC>(row_cols, D, x, d, n_x, f, active, lane);
+  if (active) C::store(y + (size_t)nodes[row] * d + f, acc);
 }
 
 template <bool VEC>
-int launch(const int* cols, const float* x, float* y, int R, int D, int d,
-           int n_x, cudaStream_t stream) {
+int launch(const int* table, int n_buckets, const int* cols,
+           const int* nodes, int n_rows, const int* zero_nodes, int n_zero,
+           const float* x, float* y, int d, int n_x, cudaStream_t stream) {
+  if (n_buckets > MAX_BUCKETS) return (int)cudaErrorInvalidValue;
   const int n_chunks = (d + Chunk<VEC>::WIDTH - 1) / Chunk<VEC>::WIDTH;
-  const long long tasks = (long long)R * n_chunks;
+  const long long tasks = ((long long)n_rows + n_zero) * n_chunks;
   const long long blocks = (tasks + WARPS - 1) / WARPS;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  if (blocks == 0) return 0;
   gather_sum_kernel<VEC><<<(unsigned)blocks, THREADS, 0, stream>>>(
-      cols, x, y, R, D, d, n_x, n_chunks);
+      table, n_buckets, cols, nodes, n_rows, zero_nodes, n_zero, x, y, d,
+      n_x, n_chunks);
   return (int)cudaGetLastError();
 }
 
@@ -144,13 +192,19 @@ int launch(const int* cols, const float* x, float* y, int R, int D, int d,
 
 extern "C" {
 
-// cols (R, D) int32, x (n_x, d) f32 -> y (R, d) f32. vec: x and y rows are
-// 16-byte aligned (d % 4 == 0 and aligned base pointers). R > 0, d > 0.
-int gather_sum_f32(const int* cols, const float* x, float* y, int R, int D,
-                   int d, int n_x, int vec, int device, cudaStream_t stream) {
+// table (n_buckets, 3) int32, cols int32, nodes (n_rows,) int32,
+// zero_nodes (n_zero,) int32, x (n_x, d) f32 -> y (n_out, d) f32, every
+// row of y named once by nodes or zero_nodes. vec: x and y rows are
+// 16-byte aligned (d % 4 == 0 and aligned base pointers). d > 0.
+int gather_sum_f32(const int* table, int n_buckets, const int* cols,
+                   const int* nodes, int n_rows, const int* zero_nodes,
+                   int n_zero, const float* x, float* y, int d, int n_x,
+                   int vec, int device, cudaStream_t stream) {
   cudaSetDevice(device);
-  return vec ? launch<true>(cols, x, y, R, D, d, n_x, stream)
-             : launch<false>(cols, x, y, R, D, d, n_x, stream);
+  return vec ? launch<true>(table, n_buckets, cols, nodes, n_rows, zero_nodes,
+                            n_zero, x, y, d, n_x, stream)
+             : launch<false>(table, n_buckets, cols, nodes, n_rows,
+                             zero_nodes, n_zero, x, y, d, n_x, stream);
 }
 
 }  // extern "C"

@@ -2,6 +2,16 @@
 // copies into shared memory (cp.async), and f32-accurate tile products on
 // the tensor cores (mma.sync m16n8k8 TF32 in three passes, "3xTF32").
 //
+// Element types: the tile kernels take f32 or bf16 rows (one type per
+// call), accumulate in f32 and store the input's type, rounding once. A
+// bf16 value widened to f32 is exact in TF32 (8 significant bits against
+// TF32's 11, the same exponent range), so its TF32 "lo" part is zero: a
+// product of two bf16 operands takes one TF32 pass instead of three, and
+// an f32 operand times a bf16 one takes two (lo*b + hi*b). bf16 rows move
+// as bf16 (half the bytes) and are widened to f32 where f32 rows are split
+// into TF32 parts: in shared memory (widen_rows, beside split_rows) or in
+// registers (to_f32 at the fragment read).
+//
 // 3xTF32: TF32 keeps 10 mantissa bits, so one pass of f32 operands rounded
 // to TF32 is good to about 1e-3 relative, which misses the kernels' 1e-4
 // gate. Each operand x is split as hi = rna_tf32(x), lo = rna_tf32(x - hi)
@@ -21,7 +31,33 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <stdint.h>
+
+using bf16 = __nv_bfloat16;
+
+template <typename E>
+constexpr bool is_f32 = sizeof(E) == 4;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+// v rounded to E (to nearest even for bf16).
+template <typename E>
+__device__ __forceinline__ E from_f32(float v) {
+  if constexpr (is_f32<E>)
+    return v;
+  else
+    return __float2bfloat16_rn(v);
+}
+
+// p[0], p[1] = x, y (p 2-element aligned).
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
@@ -48,29 +84,56 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Rows row0 .. row0 + ROWS - 1, features f0 .. f0 + W - 1 of a row-major
-// array (row stride ld floats) into dst (row stride DLD floats), by the NT
-// threads of a block; rows at or past n and features at or past d are
-// filled with zeros by the copy. vec: 16-byte copies (W, f0, d and ld are
-// multiples of 4 and src is 16-byte aligned); else 4-byte ones.
-template <int ROWS, int W, int DLD, int NT>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
+// array of E (row stride ld elements) into dst (row stride DLD elements),
+// by the NT threads of a block; rows at or past n and features at or past
+// d are filled with zeros. vec: 16-byte cp.async copies (W, f0, d, ld and
+// DLD are multiples of 16 bytes' worth of elements and src is 16-byte
+// aligned); else element copies: 4-byte cp.async for f32, plain loads and
+// stores for bf16 (cp.async has no 2-byte size), visible after the next
+// barrier.
+template <int ROWS, int W, int DLD, int NT, typename E>
+__device__ __forceinline__ void load_rows(E* dst, const E* src,
                                           long long row0, long long n,
                                           int f0, int d, long long ld,
                                           int vec, int tid) {
+  constexpr int PER = 16 / sizeof(E);  // elements per 16-byte copy
   if (vec) {
-    for (int e = tid; e < ROWS * W / 4; e += NT) {
-      const int r = e / (W / 4), f = (e % (W / 4)) * 4;
+    for (int e = tid; e < ROWS * W / PER; e += NT) {
+      const int r = e / (W / PER), f = (e % (W / PER)) * PER;
       const bool ok = row0 + r < n && f0 + f < d;
       cp_async16(dst + r * DLD + f, ok ? src + (row0 + r) * ld + f0 + f : src,
                  ok ? 16 : 0);
     }
-  } else {
+  } else if constexpr (is_f32<E>) {
     for (int e = tid; e < ROWS * W; e += NT) {
       const int r = e / W, f = e % W;
       const bool ok = row0 + r < n && f0 + f < d;
       cp_async4(dst + r * DLD + f, ok ? src + (row0 + r) * ld + f0 + f : src,
                 ok ? 4 : 0);
     }
+  } else {
+    for (int e = tid; e < ROWS * W; e += NT) {
+      const int r = e / W, f = e % W;
+      const bool ok = row0 + r < n && f0 + f < d;
+      dst[r * DLD + f] = ok ? src[(row0 + r) * ld + f0 + f] : from_f32<E>(0.f);
+    }
+  }
+}
+
+// Widen a staged ROWS x W block of bf16 (row stride SLD elements, even)
+// into f32 (row stride DLD floats, a multiple of 4), by the NT threads of
+// a block; W is a multiple of 4.
+template <int ROWS, int W, int SLD, int DLD, int NT>
+__device__ __forceinline__ void widen_rows(float* dst, const bf16* src,
+                                           int tid) {
+  for (int e = tid; e < ROWS * W / 4; e += NT) {
+    const int r = e / (W / 4), c = (e % (W / 4)) * 4;
+    const __nv_bfloat162* s2 =
+        reinterpret_cast<const __nv_bfloat162*>(src + r * SLD + c);
+    const float2 a = __bfloat1622float2(s2[0]);
+    const float2 b = __bfloat1622float2(s2[1]);
+    *reinterpret_cast<float4*>(dst + r * DLD + c) =
+        make_float4(a.x, a.y, b.x, b.y);
   }
 }
 
@@ -109,6 +172,11 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The raw bits of an f32 value that is exact in TF32 (a widened bf16).
+__device__ __forceinline__ uint32_t exact_tf32(float x) {
+  return __float_as_uint(x);
+}
+
 // A's fragment (a0..a3 as above) split into hi and lo parts.
 __device__ __forceinline__ void split_a(float a0, float a1, float a2,
                                         float a3, uint32_t (&hi)[4],
@@ -125,6 +193,16 @@ __device__ __forceinline__ void mma_3xtf32_parts(
     uint32_t bh0, uint32_t bh1, uint32_t bl0, uint32_t bl1) {
   mma_tf32(d, alo, bh0, bh1);
   mma_tf32(d, ahi, bl0, bl1);
+  mma_tf32(d, ahi, bh0, bh1);
+}
+
+// d += a * b with A split (hi, lo) and B exact in TF32 (bh0, bh1): the two
+// passes lo*b + hi*b.
+__device__ __forceinline__ void mma_2xtf32(float (&d)[4],
+                                           const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4],
+                                           uint32_t bh0, uint32_t bh1) {
+  mma_tf32(d, alo, bh0, bh1);
   mma_tf32(d, ahi, bh0, bh1);
 }
 

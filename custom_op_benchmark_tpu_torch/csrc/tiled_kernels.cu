@@ -76,12 +76,22 @@
 // each block's exact tile range (no padding to the longest row, as the TPU
 // grid needed), and an empty row or column block writes zeros.
 //
+// bf16 (the *_bf16 entry points; mma_async.cuh): node and tile arrays of
+// bf16 move as bf16, accumulate in f32 and are stored as bf16, rounded
+// once. Every product is bf16 x bf16, exact in TF32, so it takes one TF32
+// pass instead of three. K1 stages its A and B chunks as bf16 in the room
+// of B's lo parts and widens them once into the f32 stages; K2 and K3
+// keep their bf16 stages and widen each fragment value in registers where
+// the f32 kernels split it. K1 still sums each 8-deep step apart.
+//
 // Layouts: node arrays are (n, H, d) contiguous, read in place per head
 // (row stride H*d, head offset h*d); rows at or past n read as zero, so
 // callers never pad. Tile arrays are (H, T, 128, 128) contiguous and
 // 16-byte aligned; the mask is (T, 128, 128) bytes shared by every head,
 // 16-byte aligned. Indices are int32. Node arrays move as 16-byte copies
-// when d % 4 == 0 and they are 16-byte aligned, else as 4-byte ones.
+// when a row is a whole number of 16-byte pieces (d % 4 == 0 for f32,
+// d % 8 == 0 for bf16) and they are 16-byte aligned, else element by
+// element.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -127,11 +137,12 @@ __device__ __forceinline__ unsigned live_fragments(const uint8_t* ms,
   return live;
 }
 
+template <typename E>
 __global__ void __launch_bounds__(THREADS, 2)
 sddmm_tiles_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
                    const uint8_t* __restrict__ mask,
-                   const float* __restrict__ A, const float* __restrict__ B,
-                   float* __restrict__ out, int T, int d, int nA, int nB,
+                   const E* __restrict__ A, const E* __restrict__ B,
+                   E* __restrict__ out, int T, int d, int nA, int nB,
                    int vec) {
   constexpr int NT = TILE / 8;  // fragments (8 columns each) of a warp
   extern __shared__ __align__(16) float smem[];
@@ -139,6 +150,10 @@ sddmm_tiles_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
   float* Bhi = As + TILE * SD_LD;   // B's TF32 hi parts
   float* Blo = Bhi + TILE * SD_LD;  // and lo parts
   uint8_t* Ms = reinterpret_cast<uint8_t*>(Blo + TILE * SD_LD);
+  // bf16: A's and B's chunks land here ([TILE][SD_KC] each) and are
+  // widened into As and Bhi; B has no lo part.
+  bf16* Ast = reinterpret_cast<bf16*>(Blo);
+  bf16* Bst = Ast + TILE * SD_KC;
 
   const int t = blockIdx.x, h = blockIdx.y;
   const long long ld = (long long)gridDim.y * d;
@@ -146,8 +161,8 @@ sddmm_tiles_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
   const int g = lane / 4, t4 = lane % 4;
   const long long r0 = (long long)rows[t] * TILE;
   const long long c0 = (long long)cols[t] * TILE;
-  const float* Ah = A + (long long)h * d;
-  const float* Bh = B + (long long)h * d;
+  const E* Ah = A + (long long)h * d;
+  const E* Bh = B + (long long)h * d;
   const int n_chunks = d > SD_KC ? (d + SD_KC - 1) / SD_KC : 1;
   const int kd = (d + 7) / 8;  // contraction steps; the rest is zero
 
@@ -162,15 +177,27 @@ sddmm_tiles_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
   const float* aw = As + (warp * 16 + g) * SD_LD + t4;
   const int bw = g * SD_LD + t4;
   for (int c = 0; c < n_chunks; ++c) {
-    load_rows<TILE, SD_KC, SD_LD, THREADS>(As, Ah, r0, nA, c * SD_KC, d, ld,
-                                           vec, tid);
-    load_rows<TILE, SD_KC, SD_LD, THREADS>(Bhi, Bh, c0, nB, c * SD_KC, d,
-                                           ld, vec, tid);
+    if constexpr (is_f32<E>) {
+      load_rows<TILE, SD_KC, SD_LD, THREADS>(As, Ah, r0, nA, c * SD_KC, d,
+                                             ld, vec, tid);
+      load_rows<TILE, SD_KC, SD_LD, THREADS>(Bhi, Bh, c0, nB, c * SD_KC, d,
+                                             ld, vec, tid);
+    } else {
+      load_rows<TILE, SD_KC, SD_KC, THREADS>(Ast, Ah, r0, nA, c * SD_KC, d,
+                                             ld, vec, tid);
+      load_rows<TILE, SD_KC, SD_KC, THREADS>(Bst, Bh, c0, nB, c * SD_KC, d,
+                                             ld, vec, tid);
+    }
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
     if (c == 0) live = live_fragments(Ms + warp * 16 * MASK_LD, lane);
-    split_rows<TILE, SD_KC, SD_LD, THREADS>(Bhi, Blo, tid);
+    if constexpr (is_f32<E>) {
+      split_rows<TILE, SD_KC, SD_LD, THREADS>(Bhi, Blo, tid);
+    } else {
+      widen_rows<TILE, SD_KC, SD_KC, SD_LD, THREADS>(As, Ast, tid);
+      widen_rows<TILE, SD_KC, SD_KC, SD_LD, THREADS>(Bhi, Bst, tid);
+    }
     __syncthreads();
     if (live) {
       const int kend = min(SD_KC / 8, kd - c * (SD_KC / 8));
@@ -179,14 +206,24 @@ sddmm_tiles_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
         if (kk >= kend) break;
         const float* a = aw + kk * 8;
         uint32_t ah[4], al[4];
-        split_a(a[0], a[8 * SD_LD], a[4], a[8 * SD_LD + 4], ah, al);
+        if constexpr (is_f32<E>) {
+          split_a(a[0], a[8 * SD_LD], a[4], a[8 * SD_LD + 4], ah, al);
+        } else {
+          ah[0] = exact_tf32(a[0]);
+          ah[1] = exact_tf32(a[8 * SD_LD]);
+          ah[2] = exact_tf32(a[4]);
+          ah[3] = exact_tf32(a[8 * SD_LD + 4]);
+        }
         const int kb = bw + kk * 8;
 #pragma unroll
         for (int j = 0; j < NT; ++j)
           if ((live >> j) & 1u) {
             float s[4] = {0.f, 0.f, 0.f, 0.f};
-            mma_split(s, ah, al, Bhi, Blo, kb + j * 8 * SD_LD,
-                      kb + j * 8 * SD_LD + 4);
+            const int o = kb + j * 8 * SD_LD;
+            if constexpr (is_f32<E>)
+              mma_split(s, ah, al, Bhi, Blo, o, o + 4);
+            else
+              mma_tf32(s, ah, exact_tf32(Bhi[o]), exact_tf32(Bhi[o + 4]));
 #pragma unroll
             for (int u = 0; u < 4; ++u) acc[j][u] += s[u];
           }
@@ -196,19 +233,19 @@ sddmm_tiles_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
   }
 
   // Rows g and g + 8 of the warp's 16, columns 8j + 2t4, + 1: the mask
-  // selects, two bytes per row; one float2 per row and fragment.
+  // selects, two bytes per row; one pair of values per row and fragment.
   const uint8_t* mw = Ms + (warp * 16 + g) * MASK_LD + 2 * t4;
-  float* o = out + (((long long)h * T + t) * TILE + warp * 16 + g) * TILE +
-             2 * t4;
+  E* o = out + (((long long)h * T + t) * TILE + warp * 16 + g) * TILE +
+         2 * t4;
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     const uint16_t m0 = *reinterpret_cast<const uint16_t*>(mw + 8 * j);
     const uint16_t m1 =
         *reinterpret_cast<const uint16_t*>(mw + 8 * MASK_LD + 8 * j);
-    *reinterpret_cast<float2*>(o + 8 * j) = make_float2(
-        (m0 & 0xff) ? acc[j][0] : 0.f, (m0 >> 8) ? acc[j][1] : 0.f);
-    *reinterpret_cast<float2*>(o + 8 * TILE + 8 * j) = make_float2(
-        (m1 & 0xff) ? acc[j][2] : 0.f, (m1 >> 8) ? acc[j][3] : 0.f);
+    store2(o + 8 * j, (m0 & 0xff) ? acc[j][0] : 0.f,
+           (m0 >> 8) ? acc[j][1] : 0.f);
+    store2(o + 8 * TILE + 8 * j, (m1 & 0xff) ? acc[j][2] : 0.f,
+           (m1 >> 8) ? acc[j][3] : 0.f);
   }
 }
 
@@ -218,46 +255,78 @@ sddmm_tiles_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
 
 constexpr int RS_COLS = 64;  // tile columns (rows of x) per stage
 constexpr int RS_STAGES = 3;
-constexpr int RS_VLD = RS_COLS + 4;
 
-template <int DN>
+// Stage strides in elements: vals 4 mod 32 words for f32 (68), 72 for
+// bf16 (a 16-byte multiple; the a0 reads still hit distinct words).
+template <typename E, int DN>
 struct RowCfg {
+  static constexpr int VLD = is_f32<E> ? RS_COLS + 4 : RS_COLS + 8;
   static constexpr int XLD = DN + 8;
-  static constexpr int STAGE = TILE * RS_VLD + RS_COLS * XLD;  // floats
-  static constexpr size_t SMEM = sizeof(float) * RS_STAGES * STAGE;
+  static constexpr int STAGE = TILE * VLD + RS_COLS * XLD;  // elements
+  static constexpr size_t SMEM = sizeof(E) * RS_STAGES * STAGE;
 };
+
+// A's fragment read from a stage of E: a0 at a, a1 (m + 8) at a[om], a2
+// (k + 4) at a[ok], a3 at a[om + ok]; split for f32, exact for bf16 (al
+// unused).
+template <typename E>
+__device__ __forceinline__ void frag_a(const E* a, int om, int ok,
+                                       uint32_t (&ah)[4], uint32_t (&al)[4]) {
+  if constexpr (is_f32<E>) {
+    split_a(a[0], a[om], a[ok], a[om + ok], ah, al);
+  } else {
+    ah[0] = exact_tf32(to_f32(a[0]));
+    ah[1] = exact_tf32(to_f32(a[om]));
+    ah[2] = exact_tf32(to_f32(a[ok]));
+    ah[3] = exact_tf32(to_f32(a[om + ok]));
+  }
+}
+
+// acc += a * b with B's fragment values (b0, b1) read from a stage: 3xTF32
+// for f32, one pass for bf16.
+template <typename E>
+__device__ __forceinline__ void mma_ab(float (&acc)[4],
+                                       const uint32_t (&ah)[4],
+                                       const uint32_t (&al)[4], E b0, E b1) {
+  if constexpr (is_f32<E>)
+    mma_3xtf32(acc, ah, al, b0, b1);
+  else
+    mma_tf32(acc, ah, exact_tf32(to_f32(b0)), exact_tf32(to_f32(b1)));
+}
 
 // Row sweep, one block per (row block, feature slice of DN, head), over
 // tiles ptr[i]..ptr[i+1] (row-sorted order):
 //   out row r = sum_c vals[t][r][c] * x[blk[t]*128 + c].
-// DOTONLY = true: every vals entry is 0.01; vals is not read.
-template <int DN, bool DOTONLY>
+// DOTONLY = true: every vals entry is 0.01; vals is not read (f32 only).
+template <typename E, int DN, bool DOTONLY>
 __global__ void __launch_bounds__(THREADS, 1)
 spmm_row_sweep_kernel(const int* __restrict__ ptr,
                       const int* __restrict__ blk,
-                      const float* __restrict__ vals,
-                      const float* __restrict__ x, float* __restrict__ out,
+                      const E* __restrict__ vals,
+                      const E* __restrict__ x, E* __restrict__ out,
                       int T, int d, int n_x, int n_out, int vec) {
-  constexpr int XLD = RowCfg<DN>::XLD, STAGE = RowCfg<DN>::STAGE;
+  using C = RowCfg<E, DN>;
+  constexpr int VLD = C::VLD, XLD = C::XLD, STAGE = C::STAGE;
   constexpr int NI = DN / 16, CHUNKS = TILE / RS_COLS;
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* smem = reinterpret_cast<E*>(smem_raw);
   const int i = blockIdx.x, d0 = blockIdx.y * DN, h = blockIdx.z;
   const long long ld = (long long)gridDim.z * d;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4, wm = warp / 2, wn = warp % 2;
-  const float* xh = x + (long long)h * d;
+  const E* xh = x + (long long)h * d;
   const int lo = ptr[i], n_chunks = (ptr[i + 1] - lo) * CHUNKS;
 
   // Chunk q: columns (q % CHUNKS) * RS_COLS .. + RS_COLS of tile lo + q /
   // CHUNKS and the matching rows of x, into stage q % RS_STAGES.
   auto issue = [&](int q) {
-    float* vs = smem + (q % RS_STAGES) * STAGE;
+    E* vs = smem + (q % RS_STAGES) * STAGE;
     const int t = lo + q / CHUNKS, c0 = (q % CHUNKS) * RS_COLS;
     if constexpr (!DOTONLY)
-      load_rows<TILE, RS_COLS, RS_VLD, THREADS>(
+      load_rows<TILE, RS_COLS, VLD, THREADS>(
           vs, vals + ((long long)h * T + t) * TILE * TILE, 0, TILE, c0, TILE,
           TILE, 1, tid);
-    load_rows<RS_COLS, DN, XLD, THREADS>(vs + TILE * RS_VLD, xh,
+    load_rows<RS_COLS, DN, XLD, THREADS>(vs + TILE * VLD, xh,
                                          (long long)blk[t] * TILE + c0, n_x,
                                          d0, d, ld, vec, tid);
   };
@@ -282,9 +351,9 @@ spmm_row_sweep_kernel(const int* __restrict__ ptr,
     __syncthreads();  // and every warp is done with chunk q - 1's stage
     if (q + RS_STAGES - 1 < n_chunks) issue(q + RS_STAGES - 1);
     cp_async_commit();
-    const float* vs = smem + (q % RS_STAGES) * STAGE;
-    const float* va = vs + (32 * wm + g) * RS_VLD + t4;
-    const float* xb = vs + TILE * RS_VLD + t4 * XLD + wn * (DN / 2) + g;
+    const E* vs = smem + (q % RS_STAGES) * STAGE;
+    const E* va = vs + (32 * wm + g) * VLD + t4;
+    const E* xb = vs + TILE * VLD + t4 * XLD + wn * (DN / 2) + g;
 #pragma unroll
     for (int ks = 0; ks < RS_COLS / 8; ++ks) {
       uint32_t ah[2][4], al[2][4];
@@ -297,22 +366,20 @@ spmm_row_sweep_kernel(const int* __restrict__ ptr,
             al[mi][u] = cl;
           }
         } else {
-          const float* a = va + 16 * mi * RS_VLD + ks * 8;
-          split_a(a[0], a[8 * RS_VLD], a[4], a[8 * RS_VLD + 4], ah[mi],
-                  al[mi]);
+          frag_a(va + 16 * mi * VLD + ks * 8, 8 * VLD, 4, ah[mi], al[mi]);
         }
       }
 #pragma unroll
       for (int ni = 0; ni < NI; ++ni) {
-        const float* b = xb + ks * 8 * XLD + 8 * ni;
+        const E* b = xb + ks * 8 * XLD + 8 * ni;
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi)
-          mma_3xtf32(acc[mi][ni], ah[mi], al[mi], b[0], b[4 * XLD]);
+          mma_ab(acc[mi][ni], ah[mi], al[mi], b[0], b[4 * XLD]);
       }
     }
   }
 
-  float* oh = out + (long long)h * d;
+  E* oh = out + (long long)h * d;
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -322,35 +389,35 @@ spmm_row_sweep_kernel(const int* __restrict__ ptr,
         const long long r =
             (long long)i * TILE + 32 * wm + 16 * mi + g + (u >= 2 ? 8 : 0);
         const int f = d0 + wn * (DN / 2) + 8 * ni + 2 * t4 + (u & 1);
-        if (r < n_out && f < d) oh[r * ld + f] = acc[mi][ni][u];
+        if (r < n_out && f < d) oh[r * ld + f] = from_f32<E>(acc[mi][ni][u]);
       }
 }
 
-template <int DN, bool DOTONLY>
-int launch_row_sweep(const int* ptr, const int* blk, const float* vals,
-                     const float* x, float* out, int nrb, int T, int H, int d,
+template <typename E, int DN, bool DOTONLY>
+int launch_row_sweep(const int* ptr, const int* blk, const E* vals,
+                     const E* x, E* out, int nrb, int T, int H, int d,
                      int n_x, int n_out, cudaStream_t stream) {
-  auto kernel = spmm_row_sweep_kernel<DN, DOTONLY>;
-  const int smem = (int)RowCfg<DN>::SMEM;
+  auto kernel = spmm_row_sweep_kernel<E, DN, DOTONLY>;
+  const int smem = (int)RowCfg<E, DN>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int vec = d % 4 == 0 && aligned16(x);
+  const int vec = d % (16 / (int)sizeof(E)) == 0 && aligned16(x);
   dim3 grid(nrb, (d + DN - 1) / DN, H);
   kernel<<<grid, THREADS, smem, stream>>>(ptr, blk, vals, x, out, T, d, n_x,
                                          n_out, vec);
   return (int)cudaGetLastError();
 }
 
-template <bool DOTONLY>
-int row_sweep(const int* ptr, const int* blk, const float* vals,
-              const float* x, float* out, int nrb, int T, int H, int d,
-              int n_x, int n_out, cudaStream_t stream) {
+template <typename E, bool DOTONLY>
+int row_sweep(const int* ptr, const int* blk, const E* vals, const E* x,
+              E* out, int nrb, int T, int H, int d, int n_x, int n_out,
+              cudaStream_t stream) {
   if (d <= 64)
-    return launch_row_sweep<64, DOTONLY>(ptr, blk, vals, x, out, nrb, T, H,
-                                         d, n_x, n_out, stream);
-  return launch_row_sweep<128, DOTONLY>(ptr, blk, vals, x, out, nrb, T, H, d,
-                                        n_x, n_out, stream);
+    return launch_row_sweep<E, 64, DOTONLY>(ptr, blk, vals, x, out, nrb, T,
+                                            H, d, n_x, n_out, stream);
+  return launch_row_sweep<E, 128, DOTONLY>(ptr, blk, vals, x, out, nrb, T, H,
+                                           d, n_x, n_out, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -371,60 +438,44 @@ constexpr int CS_ROWS = 64;   // contraction rows (of vals and y) per stage
 constexpr int CS_STAGES = 3;
 constexpr int CS_VLD = TILE + 8;
 
-template <int DN>
+template <typename E, int DN>
 struct ColCfg {
   static constexpr int YLD = DN + 8;
-  static constexpr int STAGE = CS_ROWS * (CS_VLD + YLD);  // floats
-  static constexpr size_t SMEM = sizeof(float) * CS_STAGES * STAGE;
+  static constexpr int STAGE = CS_ROWS * (CS_VLD + YLD);  // elements
+  static constexpr size_t SMEM = sizeof(E) * CS_STAGES * STAGE;
 };
 
-template <int DN>
+template <typename E, int DN>
 __global__ void __launch_bounds__(THREADS, 1)
 spmm_col_sweep_kernel(const int* __restrict__ ptr,
                       const int* __restrict__ perm,
                       const int* __restrict__ blk,
-                      const float* __restrict__ vals,
-                      const float* __restrict__ y, float* __restrict__ out,
+                      const E* __restrict__ vals,
+                      const E* __restrict__ y, E* __restrict__ out,
                       int T, int d, int n_y, int n_out, int vec) {
-  constexpr int YLD = ColCfg<DN>::YLD, STAGE = ColCfg<DN>::STAGE;
+  constexpr int YLD = ColCfg<E, DN>::YLD, STAGE = ColCfg<E, DN>::STAGE;
   constexpr int NI = DN / 16, CHUNKS = TILE / CS_ROWS;
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* smem = reinterpret_cast<E*>(smem_raw);
   const int j = blockIdx.x, d0 = blockIdx.y * DN, h = blockIdx.z;
   const long long ld = (long long)gridDim.z * d;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4, wm = warp / 2, wn = warp % 2;
-  const float* yh = y + (long long)h * d + d0;
+  const E* yh = y + (long long)h * d;
   const int lo = ptr[j], n_chunks = (ptr[j + 1] - lo) * CHUNKS;
 
   // Chunk q: rows (q % CHUNKS) * CS_ROWS .. + CS_ROWS of tile perm[lo + q /
   // CHUNKS] and the matching rows of y, into stage q % CS_STAGES. Rows of y
   // at or past n_y and features at or past d are filled with zeros.
   auto issue = [&](int q) {
-    float* vs = smem + (q % CS_STAGES) * STAGE;
-    float* ys = vs + CS_ROWS * CS_VLD;
+    E* vs = smem + (q % CS_STAGES) * STAGE;
     const int t = perm[lo + q / CHUNKS], r0 = (q % CHUNKS) * CS_ROWS;
-    const float* vt = vals + ((long long)h * T + t) * TILE * TILE +
-                      (long long)r0 * TILE;
-    for (int e = tid; e < CS_ROWS * TILE / 4; e += THREADS) {
-      const int r = e / (TILE / 4), c = (e % (TILE / 4)) * 4;
-      cp_async16(vs + r * CS_VLD + c, vt + r * TILE + c, 16);
-    }
-    const long long y0 = (long long)blk[t] * TILE + r0;
-    if (vec) {
-      for (int e = tid; e < CS_ROWS * DN / 4; e += THREADS) {
-        const int r = e / (DN / 4), f = (e % (DN / 4)) * 4;
-        const bool ok = y0 + r < n_y && d0 + f < d;
-        cp_async16(ys + r * YLD + f, ok ? yh + (y0 + r) * ld + f : y,
-                   ok ? 16 : 0);
-      }
-    } else {
-      for (int e = tid; e < CS_ROWS * DN; e += THREADS) {
-        const int r = e / DN, f = e % DN;
-        const bool ok = y0 + r < n_y && d0 + f < d;
-        cp_async4(ys + r * YLD + f, ok ? yh + (y0 + r) * ld + f : y,
-                  ok ? 4 : 0);
-      }
-    }
+    load_rows<CS_ROWS, TILE, CS_VLD, THREADS>(
+        vs, vals + ((long long)h * T + t) * TILE * TILE, r0, TILE, 0, TILE,
+        TILE, 1, tid);
+    load_rows<CS_ROWS, DN, YLD, THREADS>(vs + CS_ROWS * CS_VLD, yh,
+                                         (long long)blk[t] * TILE + r0, n_y,
+                                         d0, d, ld, vec, tid);
   };
 
   float acc[2][NI][4];
@@ -445,28 +496,26 @@ spmm_col_sweep_kernel(const int* __restrict__ ptr,
     __syncthreads();  // and every warp is done with chunk q - 1's stage
     if (q + CS_STAGES - 1 < n_chunks) issue(q + CS_STAGES - 1);
     cp_async_commit();
-    const float* vs = smem + (q % CS_STAGES) * STAGE;
-    const float* va = vs + t4 * CS_VLD + 32 * wm + g;
-    const float* yb = vs + CS_ROWS * CS_VLD + t4 * YLD + wn * (DN / 2) + g;
+    const E* vs = smem + (q % CS_STAGES) * STAGE;
+    const E* va = vs + t4 * CS_VLD + 32 * wm + g;
+    const E* yb = vs + CS_ROWS * CS_VLD + t4 * YLD + wn * (DN / 2) + g;
 #pragma unroll
     for (int ks = 0; ks < CS_ROWS / 8; ++ks) {
       uint32_t ah[2][4], al[2][4];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const float* a = va + ks * 8 * CS_VLD + 16 * mi;
-        split_a(a[0], a[8], a[4 * CS_VLD], a[4 * CS_VLD + 8], ah[mi], al[mi]);
-      }
+      for (int mi = 0; mi < 2; ++mi)
+        frag_a(va + ks * 8 * CS_VLD + 16 * mi, 8, 4 * CS_VLD, ah[mi], al[mi]);
 #pragma unroll
       for (int ni = 0; ni < NI; ++ni) {
-        const float* b = yb + ks * 8 * YLD + 8 * ni;
+        const E* b = yb + ks * 8 * YLD + 8 * ni;
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi)
-          mma_3xtf32(acc[mi][ni], ah[mi], al[mi], b[0], b[4 * YLD]);
+          mma_ab(acc[mi][ni], ah[mi], al[mi], b[0], b[4 * YLD]);
       }
     }
   }
 
-  float* oh = out + (long long)h * d;
+  E* oh = out + (long long)h * d;
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -476,17 +525,16 @@ spmm_col_sweep_kernel(const int* __restrict__ ptr,
         const long long r =
             (long long)j * TILE + 32 * wm + 16 * mi + g + (u >= 2 ? 8 : 0);
         const int f = d0 + wn * (DN / 2) + 8 * ni + 2 * t4 + (u & 1);
-        if (r < n_out && f < d) oh[r * ld + f] = acc[mi][ni][u];
+        if (r < n_out && f < d) oh[r * ld + f] = from_f32<E>(acc[mi][ni][u]);
       }
 }
 
-template <int DN>
+template <typename E, int DN>
 int launch_col_sweep(const int* ptr, const int* perm, const int* rows,
-                     const float* vals, const float* y, float* out, int ncb,
-                     int T, int H, int d, int n_y, int n_out, int vec,
-                     cudaStream_t stream) {
-  auto kernel = spmm_col_sweep_kernel<DN>;
-  const int smem = (int)ColCfg<DN>::SMEM;
+                     const E* vals, const E* y, E* out, int ncb, int T, int H,
+                     int d, int n_y, int n_out, int vec, cudaStream_t stream) {
+  auto kernel = spmm_col_sweep_kernel<E, DN>;
+  const int smem = (int)ColCfg<E, DN>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -494,6 +542,41 @@ int launch_col_sweep(const int* ptr, const int* perm, const int* rows,
   kernel<<<grid, THREADS, smem, stream>>>(ptr, perm, rows, vals, y, out, T, d,
                                          n_y, n_out, vec);
   return (int)cudaGetLastError();
+}
+
+template <typename E>
+int sddmm_tiles(const int* rows, const int* cols, const uint8_t* mask,
+                const E* A, const E* B, E* out, int T, int H, int d, int nA,
+                int nB, int device, cudaStream_t stream) {
+  cudaSetDevice(device);
+  auto kernel = sddmm_tiles_kernel<E>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SD_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  const int vec =
+      d % (16 / (int)sizeof(E)) == 0 && aligned16(A) && aligned16(B);
+  dim3 grid(T, H);
+  kernel<<<grid, THREADS, SD_SMEM, stream>>>(rows, cols, mask, A, B, out, T,
+                                             d, nA, nB, vec);
+  return (int)cudaGetLastError();
+}
+
+template <typename E>
+int col_sweep(const int* tile_ptr_c, const int* tile_perm_c,
+              const int* tile_rows, const E* vals, const E* y, E* out,
+              int ncb, int T, int H, int d, int n_y, int n_out, int vec,
+              int device, cudaStream_t stream) {
+  cudaSetDevice(device);
+  if (d <= 64)
+    return launch_col_sweep<E, 64>(tile_ptr_c, tile_perm_c, tile_rows, vals,
+                                   y, out, ncb, T, H, d, n_y, n_out, vec,
+                                   stream);
+  return launch_col_sweep<E, 128>(tile_ptr_c, tile_perm_c, tile_rows, vals, y,
+                                  out, ncb, T, H, d, n_y, n_out, vec, stream);
 }
 
 }  // namespace
@@ -505,20 +588,15 @@ extern "C" {
 int sddmm_tiles_f32(const int* rows, const int* cols, const uint8_t* mask,
                     const float* A, const float* B, float* out, int T, int H,
                     int d, int nA, int nB, int device, cudaStream_t stream) {
-  cudaSetDevice(device);
-  cudaError_t err = cudaFuncSetAttribute(
-      sddmm_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SD_SMEM);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(sddmm_tiles_kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return (int)err;
-  const int vec = d % 4 == 0 && aligned16(A) && aligned16(B);
-  dim3 grid(T, H);
-  sddmm_tiles_kernel<<<grid, THREADS, SD_SMEM, stream>>>(
-      rows, cols, mask, A, B, out, T, d, nA, nB, vec);
-  return (int)cudaGetLastError();
+  return sddmm_tiles(rows, cols, mask, A, B, out, T, H, d, nA, nB, device,
+                     stream);
+}
+
+int sddmm_tiles_bf16(const int* rows, const int* cols, const uint8_t* mask,
+                     const bf16* A, const bf16* B, bf16* out, int T, int H,
+                     int d, int nA, int nB, int device, cudaStream_t stream) {
+  return sddmm_tiles(rows, cols, mask, A, B, out, T, H, d, nA, nB, device,
+                     stream);
 }
 
 // vals: (H, T, 128, 128), 16-byte aligned, x: (n_x, H, d) -> out:
@@ -528,23 +606,36 @@ int spmm_row_sweep_f32(const int* tile_ptr, const int* tile_cols,
                        int T, int H, int d, int n_x, int n_out, int device,
                        cudaStream_t stream) {
   cudaSetDevice(device);
-  return row_sweep<false>(tile_ptr, tile_cols, vals, x, out, nrb, T, H, d,
-                          n_x, n_out, stream);
+  return row_sweep<float, false>(tile_ptr, tile_cols, vals, x, out, nrb, T, H,
+                                 d, n_x, n_out, stream);
+}
+
+int spmm_row_sweep_bf16(const int* tile_ptr, const int* tile_cols,
+                        const bf16* vals, const bf16* x, bf16* out, int nrb,
+                        int T, int H, int d, int n_x, int n_out, int device,
+                        cudaStream_t stream) {
+  cudaSetDevice(device);
+  return row_sweep<bf16, false>(tile_ptr, tile_cols, vals, x, out, nrb, T, H,
+                                d, n_x, n_out, stream);
 }
 
 // vals: (H, T, 128, 128), 16-byte aligned, y: (n_y, H, d) -> out:
-// (n_out, H, d), with n_out <= ncb * 128. vec: y is 16-byte aligned and
-// d % 4 == 0.
+// (n_out, H, d), with n_out <= ncb * 128. vec: y is 16-byte aligned and its
+// rows are whole 16-byte pieces.
 int spmm_col_sweep_f32(const int* tile_ptr_c, const int* tile_perm_c,
                        const int* tile_rows, const float* vals, const float* y,
                        float* out, int ncb, int T, int H, int d, int n_y,
                        int n_out, int vec, int device, cudaStream_t stream) {
-  cudaSetDevice(device);
-  if (d <= 64)
-    return launch_col_sweep<64>(tile_ptr_c, tile_perm_c, tile_rows, vals, y,
-                                out, ncb, T, H, d, n_y, n_out, vec, stream);
-  return launch_col_sweep<128>(tile_ptr_c, tile_perm_c, tile_rows, vals, y,
-                               out, ncb, T, H, d, n_y, n_out, vec, stream);
+  return col_sweep(tile_ptr_c, tile_perm_c, tile_rows, vals, y, out, ncb, T,
+                   H, d, n_y, n_out, vec, device, stream);
+}
+
+int spmm_col_sweep_bf16(const int* tile_ptr_c, const int* tile_perm_c,
+                        const int* tile_rows, const bf16* vals, const bf16* y,
+                        bf16* out, int ncb, int T, int H, int d, int n_y,
+                        int n_out, int vec, int device, cudaStream_t stream) {
+  return col_sweep(tile_ptr_c, tile_perm_c, tile_rows, vals, y, out, ncb, T,
+                   H, d, n_y, n_out, vec, device, stream);
 }
 
 // S4: x: (n_x, H, d) -> out: (n_out, H, d), n_out <= nrb * 128; the row
@@ -553,8 +644,8 @@ int spmm_dotonly_f32(const int* tile_ptr, const int* tile_cols,
                      const float* x, float* out, int nrb, int H, int d,
                      int n_x, int n_out, int device, cudaStream_t stream) {
   cudaSetDevice(device);
-  return row_sweep<true>(tile_ptr, tile_cols, nullptr, x, out, nrb, 0, H, d,
-                         n_x, n_out, stream);
+  return row_sweep<float, true>(tile_ptr, tile_cols, nullptr, x, out, nrb, 0,
+                                H, d, n_x, n_out, stream);
 }
 
 }  // extern "C"

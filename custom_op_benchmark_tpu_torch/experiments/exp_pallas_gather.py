@@ -3,12 +3,14 @@
 Counterpart of scripts/exp_pallas_gather.py, at its own shape: x (131,072,
 128) f32 and one ELL bucket of cols (125,000, 16) int32 (2M slots) from
 ``np.random.default_rng(0)``. The probe op is ``y[r] = Σ_k x[cols[r, k]]``,
-a pure gather and reduce. It checks S3 against the plain version on the
-first 64 rows (rtol/atol 1e-5), then on the first 512 rows of the full
-call, then times
+a pure gather and reduce; S3 runs it as a one-bucket table
+(``graph.ell.one_bucket_table``), the form the ELL copy-SpMM generalises to
+every bucket of a packing in one launch. It checks S3 against the plain
+version on the first 64 rows (rtol/atol 1e-5), then on the first 512 rows
+of the full call, then times
 
     xla_gather_sum   the plain version, x[cols].sum(1)
-    gather_sum       S3 (csrc/gather_sum.cu)
+    gather_sum       S3 (csrc/gather_sum.cu) over the one-bucket table
 
 by CUDA events, each in ms and in GB/s of gathered rows (R·D·d·4 bytes),
 and prints one JSON line ``{"exp_pallas_gather": {...}}``. Needs a CUDA
@@ -25,6 +27,7 @@ import sys
 import numpy as np
 import torch
 
+from custom_op_benchmark_tpu_torch.graph.ell import one_bucket_table
 from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import (
     gather_sum,
     gather_sum_plain,
@@ -57,9 +60,10 @@ def run(cols, x, *, warmup=1, iters=10, repeats=3) -> dict:
     print(f"full correctness ok: {ok_full}", flush=True)
     out = {"allclose": ok, "allclose_full": ok_full}
     gbytes = cols.numel() * x.shape[1] * 4 / 1e9
+    table = one_bucket_table(cols)
     for name, fn in (("xla_gather_sum", gather_sum_plain),
                      ("gather_sum", gather_sum)):
-        bench_ms(out, name, fn, cols, x, warmup=warmup, iters=iters,
+        bench_ms(out, name, fn, table, x, warmup=warmup, iters=iters,
                  repeats=repeats, edges=cols.numel())
         out[f"{name}_gb_s"] = gbytes / (out[name] / 1e3)
         print(f"  {name:40s} {out[f'{name}_gb_s']:9.1f} GB/s", flush=True)

@@ -13,12 +13,15 @@ graph/ell.py), held as torch tensors:
 
 Packing is host-side numpy (the JAX package's numpy path, which gives the
 same arrays as its native packer); the tensors then move to the graph's
-device.
+device. Each packing also carries, built on first use and cached, the
+table that the copy-sum kernel S3 sweeps in one launch over all buckets
+(:class:`GatherTable`) and its rows' degrees.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -55,6 +58,58 @@ class EllBucket:
         return dataclasses.replace(self, rows=self.rows.to(device),
                                    cols=self.cols.to(device),
                                    eid=self.eid.to(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherTable:
+    """The rows the copy-sum S3 sums in one launch, and where each sum goes.
+
+    buckets:    (B, 3) int32 — per bucket, widest first: the offset of its
+                rows' slots in ``cols``, its width D and its first row.
+    cols:       (S,) int32 — each bucket's rows of D slots, concatenated;
+                a slot outside [0, n_x) adds zero.
+    nodes:      (R,) int32 — the output row of each summed row.
+    zero_nodes: (Z,) int32 — output rows with nothing to sum; written 0.
+    n_out:      rows of the output; ``nodes`` and ``zero_nodes`` together
+                name each of them once.
+
+    S3's warp tasks are numbered over the rows in this order (times the
+    feature chunks), then the zero rows, so the widest rows start first.
+    """
+
+    buckets: torch.Tensor
+    cols: torch.Tensor
+    nodes: torch.Tensor
+    zero_nodes: torch.Tensor
+    n_out: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.cols.device
+
+    def bucket_rows(self):
+        """[(col offset, width, first row, rows)] per bucket (host ints)."""
+        b = self.buckets.cpu().tolist()
+        ends = [row for _, _, row in b[1:]] + [int(self.nodes.shape[0])]
+        return [(off, w, row, end - row)
+                for (off, w, row), end in zip(b, ends)]
+
+    def to(self, device) -> "GatherTable":
+        return dataclasses.replace(
+            self, buckets=self.buckets.to(device), cols=self.cols.to(device),
+            nodes=self.nodes.to(device),
+            zero_nodes=self.zero_nodes.to(device))
+
+
+def one_bucket_table(cols: torch.Tensor) -> GatherTable:
+    """The table of one bucket ``cols`` (R, D): output row r sums row r."""
+    r, w = cols.shape
+    dev = cols.device
+    return GatherTable(
+        buckets=torch.tensor([[0, w, 0]], dtype=torch.int32, device=dev),
+        cols=cols.reshape(-1),
+        nodes=torch.arange(r, dtype=torch.int32, device=dev),
+        zero_nodes=torch.zeros(0, dtype=torch.int32, device=dev), n_out=r)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +158,53 @@ class EllGraph:
             self, buckets=[b.to(device) for b in self.buckets],
             row_pos=self.row_pos.to(device), edge_pos=self.edge_pos.to(device),
             twin_slot=twin)
+
+    @functools.cached_property
+    def gather_table(self) -> GatherTable:
+        """S3's table of this packing: every bucket's real rows, widest
+        bucket first, each summed into its node's output row; nodes of
+        degree 0 are the zero rows. Built on the host once, on this
+        packing's device."""
+        order = sorted(range(len(self.buckets)),
+                       key=lambda i: -self.buckets[i].width)
+        n = self.n_nodes
+        table, cols, nodes = [], [], []
+        off = row = 0
+        for i in order:
+            b = self.buckets[i]
+            owners = _host(b.rows)
+            real = owners < n
+            c = _host(b.cols)[real]
+            table.append((off, b.width, row))
+            cols.append(c.reshape(-1))
+            nodes.append(owners[real])
+            off += c.size
+            row += int(real.sum())
+        has_row = np.zeros(n, dtype=bool)
+        if nodes:
+            has_row[np.concatenate(nodes)] = True
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+
+        empty = np.zeros(0, dtype=np.int32)
+        tab = GatherTable(
+            buckets=t(np.asarray(table, dtype=np.int32).reshape(-1, 3)),
+            cols=t(np.concatenate(cols) if cols else empty),
+            nodes=t(np.concatenate(nodes) if nodes else empty),
+            zero_nodes=t(np.flatnonzero(~has_row)), n_out=n)
+        return tab if self.device.type == "cpu" else tab.to(self.device)
+
+    @functools.cached_property
+    def row_degree(self) -> torch.Tensor:
+        """(n_nodes,) float32: the real slots of each node's row (0 for a
+        node with no row), counted once on the host; exact below 2^24."""
+        deg = np.zeros(self.n_nodes, dtype=np.float32)
+        for b in self.buckets:
+            owners = _host(b.rows)
+            real = owners < self.n_nodes
+            deg[owners[real]] = (_host(b.cols)[real] < self.n_nodes).sum(1)
+        return torch.from_numpy(deg).to(self.device)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:

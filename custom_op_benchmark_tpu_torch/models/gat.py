@@ -4,10 +4,12 @@ Counterpart of custom_op_benchmark_tpu/models/gat.py. A layer scores each
 edge with additive attention, takes the edge softmax over the in-edges of
 its dst and aggregates: on the segment path through
 ``softmax_aggregate_dst``, on the ELL path through the fused
-``ell_gat_attention`` (ops/ell.py). The ELL path is taken exactly when the
-reference takes it: ``ell`` is given and there is no dropout to apply
-(``dropout_rate == 0`` or the module is in eval mode, the reference's
-``deterministic``).
+``ell_gat_attention`` (ops/ell.py), on the dense-block path through
+``block_gat_attention`` (ops/dense_block.py), with the whole stack in the
+``(B, L, ·)`` layout (scatter once, gather once). The ELL and block paths
+are taken exactly when the reference takes them: the view is given and
+there is no dropout to apply (``dropout_rate == 0`` or the module is in
+eval mode, the reference's ``deterministic``).
 
 Parameters start as flax's defaults do (LeCun-normal ``W`` and ``W_res``,
 Glorot-uniform attention vectors), drawn from ``generator``; the flax
@@ -25,16 +27,14 @@ from torch.utils.checkpoint import checkpoint
 
 from custom_op_benchmark_tpu_torch.models.flax_init import flax_init_
 from custom_op_benchmark_tpu_torch.ops import (
+    block_gat_attention,
     ell_gat_attention,
     softmax_aggregate_dst,
 )
 
 
-def refuse_unported(block=None, dtype=None) -> None:
+def refuse_unported(dtype=None) -> None:
     """Raise for the model options the port does not have yet."""
-    if block is not None:
-        raise NotImplementedError(
-            "the dense-block strategy comes with ROADMAP M5")
     if dtype is not None:
         raise NotImplementedError(
             "compute dtypes other than float32 come with ROADMAP M9")
@@ -67,12 +67,26 @@ class GATLayer(nn.Module):
                       if residual and in_dim != h * d else None)
         flax_init_(self)
 
+    def _deterministic(self) -> bool:
+        return self.dropout_rate == 0.0 or not self.training
+
     def forward(self, g, x, *, ell=None, block=None):
-        refuse_unported(block=block)
-        n, h, d = x.shape[0], self.num_heads, self.out_dim
+        h, d = self.num_heads, self.out_dim
+        if block is not None and self._deterministic():
+            # Whole-stack layout: x arrives as (B, L, F).
+            lead = tuple(x.shape[:2])
+            z = self.W(x).reshape(lead + (h, d))
+            out = block_gat_attention(block, self.a_l, self.a_r, z,
+                                      negative_slope=self.negative_slope)
+            if self.residual:
+                res = x if self.W_res is None else self.W_res(x)
+                out = out + res.reshape(lead + (h, d))
+            if self.concat_heads:
+                return out.reshape(lead + (h * d,))
+            return out.mean(-2)
+        n = x.shape[0]
         z = self.W(x).reshape(n, h, d)
-        if ell is not None and (self.dropout_rate == 0.0
-                                or not self.training):
+        if ell is not None and self._deterministic():
             src_ell, dst_ell = ell
             out = ell_gat_attention(dst_ell, src_ell, self.a_l, self.a_r, z,
                                     negative_slope=self.negative_slope)
@@ -130,13 +144,21 @@ class GAT(nn.Module):
         flax_init_(self, generator)
 
     def forward(self, g, x, *, ell=None, block=None):
-        refuse_unported(block=block)
+        # Dense-block whole-stack layout: scatter once, run every layer in
+        # (B, L, ·), gather once.
+        block_layout = block is not None and (self.dropout_rate == 0.0
+                                              or not self.training)
+        blk = block if block_layout else None
+        if block_layout:
+            x = block.scatter_nodes(x)
         for layer in self.layers[:-1]:
             if self.remat:
-                x = checkpoint(layer, g, x, ell=ell, use_reentrant=False)
+                x = checkpoint(layer, g, x, ell=ell, block=blk,
+                               use_reentrant=False)
             else:
-                x = layer(g, x, ell=ell)
+                x = layer(g, x, ell=ell, block=blk)
             x = F.elu(x)
             if self.dropout_rate > 0.0:
                 x = F.dropout(x, self.dropout_rate, training=self.training)
-        return self.layers[-1](g, x, ell=ell)
+        out = self.layers[-1](g, x, ell=ell, block=blk)
+        return block.gather_nodes(out) if block_layout else out

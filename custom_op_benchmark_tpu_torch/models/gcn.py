@@ -1,8 +1,10 @@
 """Graph Convolutional Network (symmetric-normalised aggregation).
 
 Counterpart of custom_op_benchmark_tpu/models/gcn.py. The neighbour sum runs
-on the segment path (``gspmm`` copy_lhs) or, given ``ell``, on the ELL
-copy-SpMM, whose forward and backward are the CUDA kernel S3.
+on the segment path (``gspmm`` copy_lhs), given ``ell`` on the ELL
+copy-SpMM, whose forward and backward are the CUDA kernel S3, or given
+``block`` on ``block_copy_spmm`` with the whole stack in the ``(B, L, ·)``
+layout (degrees from the block adjacency), as in the reference.
 """
 
 from __future__ import annotations
@@ -14,8 +16,11 @@ from torch import nn
 from torch.nn import functional as F
 
 from custom_op_benchmark_tpu_torch.models.flax_init import flax_init_
-from custom_op_benchmark_tpu_torch.models.gat import refuse_unported
-from custom_op_benchmark_tpu_torch.ops import ell_copy_spmm, gspmm
+from custom_op_benchmark_tpu_torch.ops import (
+    block_copy_spmm,
+    ell_copy_spmm,
+    gspmm,
+)
 
 
 class GCNLayer(nn.Module):
@@ -29,8 +34,15 @@ class GCNLayer(nn.Module):
                   if use_bias else None)
 
     def forward(self, g, x, *, ell=None, block=None):
-        refuse_unported(block=block)
         z = self.W(x)
+        if block is not None:
+            # Whole-stack layout: x is (B, L, F).
+            deg_out = block.adj.sum(dim=2).to(z.dtype).clamp(min=1.0)
+            deg_in = block.adj.sum(dim=1).to(z.dtype).clamp(min=1.0)
+            z = z * torch.rsqrt(deg_out)[..., None]
+            out = block_copy_spmm(block, z, reduce="sum")
+            out = out * torch.rsqrt(deg_in)[..., None]
+            return out if self.b is None else out + self.b
         deg_out = g.out_degrees().to(z.dtype).clamp(min=1.0)
         deg_in = g.in_degrees().to(z.dtype).clamp(min=1.0)
         z = z * torch.rsqrt(deg_out)[:, None]
@@ -59,8 +71,11 @@ class GCN(nn.Module):
         flax_init_(self, generator)
 
     def forward(self, g, x, *, ell=None, block=None):
+        if block is not None:   # whole-stack (B, L, ·) layout
+            x = block.scatter_nodes(x)
         for layer in self.layers[:-1]:
             x = F.relu(layer(g, x, ell=ell, block=block))
             if self.dropout_rate > 0.0:
                 x = F.dropout(x, self.dropout_rate, training=self.training)
-        return self.layers[-1](g, x, ell=ell, block=block)
+        x = self.layers[-1](g, x, ell=ell, block=block)
+        return block.gather_nodes(x) if block is not None else x

@@ -1,10 +1,11 @@
 """GraphSAGE (mean aggregator).
 
 Counterpart of custom_op_benchmark_tpu/models/sage.py, full-graph: the
-neighbour mean runs on the segment path (``gspmm`` copy_lhs, mean) or, given
-``ell``, on the ELL copy-SpMM, whose forward and backward are the CUDA
-kernel S3. The sampled-minibatch path (``in_cols=``) comes with ROADMAP
-M10.
+neighbour mean runs on the segment path (``gspmm`` copy_lhs, mean), given
+``ell`` on the ELL copy-SpMM, whose forward and backward are the CUDA
+kernel S3, or given ``block`` on ``block_copy_spmm`` with the whole stack
+in the ``(B, L, ·)`` layout. The sampled-minibatch path (``in_cols=``)
+comes with ROADMAP M10.
 """
 
 from __future__ import annotations
@@ -16,8 +17,11 @@ from torch import nn
 from torch.nn import functional as F
 
 from custom_op_benchmark_tpu_torch.models.flax_init import flax_init_
-from custom_op_benchmark_tpu_torch.models.gat import refuse_unported
-from custom_op_benchmark_tpu_torch.ops import ell_copy_spmm, gspmm
+from custom_op_benchmark_tpu_torch.ops import (
+    block_copy_spmm,
+    ell_copy_spmm,
+    gspmm,
+)
 
 
 class SAGELayer(nn.Module):
@@ -29,12 +33,13 @@ class SAGELayer(nn.Module):
         self.W_neigh = nn.Linear(in_dim, out_dim, bias=False, device=device)
 
     def forward(self, g, x, *, ell=None, in_cols=None, block=None):
-        refuse_unported(block=block)
-        if in_cols is not None:
+        if block is not None:
+            neigh = block_copy_spmm(block, x, reduce="mean")
+        elif in_cols is not None:
             raise NotImplementedError(
                 "the sampled-minibatch path (in_cols=) comes with ROADMAP "
                 "M10")
-        if ell is not None:
+        elif ell is not None:
             src_ell, dst_ell = ell
             neigh = ell_copy_spmm(dst_ell, src_ell, x, reduce="mean")
         else:
@@ -58,8 +63,11 @@ class GraphSAGE(nn.Module):
         flax_init_(self, generator)
 
     def forward(self, g, x, *, ell=None, in_cols=None, block=None):
+        if block is not None:   # whole-stack (B, L, ·) layout
+            x = block.scatter_nodes(x)
         for layer in self.layers[:-1]:
             x = F.relu(layer(g, x, ell=ell, in_cols=in_cols, block=block))
             if self.dropout_rate > 0.0:
                 x = F.dropout(x, self.dropout_rate, training=self.training)
-        return self.layers[-1](g, x, ell=ell, in_cols=in_cols, block=block)
+        x = self.layers[-1](g, x, ell=ell, in_cols=in_cols, block=block)
+        return block.gather_nodes(x) if block is not None else x

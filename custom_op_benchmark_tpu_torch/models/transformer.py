@@ -37,7 +37,8 @@ def _refuse_unported(tiled, edge_feat, block) -> None:
             "segment path is not ported yet (ROADMAP M9)")
     if block is not None:
         raise NotImplementedError(
-            "the dense-block strategy comes with ROADMAP M5")
+            "the transformer's block= path and block_whole_stack are not "
+            "ported yet (ROADMAP M9)")
     if tiled is None:
         raise NotImplementedError(
             "the transformer's segment path is not ported yet (ROADMAP "

@@ -1,21 +1,22 @@
 """Execution-strategy dispatch for the public op API.
 
-Counterpart of custom_op_benchmark_tpu/ops/dispatch.py, for the strategies
-the port has so far:
+Counterpart of custom_op_benchmark_tpu/ops/dispatch.py:
 
-- ``"xla"``    — the segment oracle (ops/xla.py), any graph;
-- ``"tiled"``  — the CUDA tile kernels (ops/kernels/) on the tile-aligned
-  node order, through ops/tiled.py; ``"pallas"`` is its alias, as in the
-  reference, so it reaches the hand kernels;
-- ``"ell"``    — the degree-bucketed layout (ops/ell.py), general graphs;
-- ``"auto"``   — the segment path below :data:`AUTO_MIN_EDGES` edges, as in
-  the reference; above it the reference asks the strategy advisor
-  (``utils/summary.describe``), which is not ported yet (ROADMAP M5).
+- ``"xla"``          — the segment oracle (ops/xla.py), any graph;
+- ``"tiled"``        — the CUDA tile kernels (ops/kernels/) on the
+  tile-aligned node order, through ops/tiled.py; ``"pallas"`` is its
+  alias, as in the reference, so it reaches the hand kernels;
+- ``"dense_block"``  — the component-batched dense layout
+  (ops/dense_block.py), for graphs whose components fit a block;
+- ``"ell"``          — the degree-bucketed layout (ops/ell.py), general
+  graphs;
+- ``"auto"``         — the segment path below :data:`AUTO_MIN_EDGES` edges
+  (the one-off view build costs more than the op there); above it the
+  recommendation of ``utils.summary.describe``, computed once per graph.
 
-``"dense_block"`` raises NotImplementedError naming ROADMAP M5. The tiled
-view (reorder, tiles, edge permutations) and the dual ELL packing are
-built on the host once per :class:`Graph` object and cached by object
-identity; the entry goes when the graph is garbage-collected.
+The views (tile reorder and tiles, dual ELL packing, dense blocks, the
+summary) are built on the host once per :class:`Graph` object and cached
+by object identity; the entry goes when the graph is garbage-collected.
 """
 
 from __future__ import annotations
@@ -33,13 +34,6 @@ AUTO_MIN_EDGES = 20_000
 
 _VIEW_CACHE: dict = {}
 
-_NOT_PORTED = {
-    "dense_block": "the dense-block strategy is not ported yet (ROADMAP M5)",
-    "auto": ("impl='auto' on a graph of 20,000 edges or more needs the "
-             "strategy advisor, which is not ported yet (ROADMAP M5); pass "
-             "impl='xla', 'tiled' or 'ell'"),
-}
-
 
 def _views_for(g: Graph) -> dict:
     key = id(g)
@@ -51,21 +45,53 @@ def _views_for(g: Graph) -> dict:
 
 
 def resolve(g: Graph, impl: str) -> str:
-    """Map the user's ``impl`` to a strategy the port runs: ``"xla"``,
-    ``"tiled"`` or ``"ell"``. Raises NotImplementedError for the unported
-    ones."""
+    """Map the user's ``impl`` to a strategy: ``"xla"``, ``"tiled"``,
+    ``"dense_block"`` or ``"ell"``. ``"dense_block"`` raises ValueError on
+    a graph that is not blocky."""
     if impl == "pallas":
         impl = "tiled"
     if impl in ("xla", "tiled", "ell"):
         return impl
-    if impl == "auto":
-        if g.n_edges < AUTO_MIN_EDGES:
-            return "xla"
-        raise NotImplementedError(_NOT_PORTED["auto"])
     if impl == "dense_block":
-        raise NotImplementedError(_NOT_PORTED[impl])
-    raise ValueError("impl must be one of auto/xla/pallas/dense_block/tiled/"
-                     f"ell, got {impl!r}")
+        if get_block(g) is None:
+            raise ValueError(
+                "impl='dense_block' requires every component to fit a "
+                "dense block; this graph is not blocky (use impl='auto').")
+        return impl
+    if impl != "auto":
+        raise ValueError("impl must be one of auto/xla/pallas/dense_block/"
+                         f"tiled/ell, got {impl!r}")
+    if g.n_edges < AUTO_MIN_EDGES:
+        return "xla"
+    rec = summary(g).recommended
+    if rec == "dense_block" and get_block(g) is not None:
+        return "dense_block"
+    if rec.startswith("tiled"):
+        return "tiled"
+    if rec == "ell":
+        return "ell"
+    return "xla"
+
+
+def summary(g: Graph):
+    """``utils.summary.describe(g)``, cached per graph."""
+    views = _views_for(g)
+    if "summary" not in views:
+        from custom_op_benchmark_tpu_torch.utils.summary import describe
+
+        views["summary"] = describe(g)
+    return views["summary"]
+
+
+def get_block(g: Graph):
+    """The BlockGraph view (None if the graph is not blocky), cached per
+    graph, on the graph's device."""
+    views = _views_for(g)
+    if "block" not in views:
+        from custom_op_benchmark_tpu_torch.graph.blockdiag import block_graph
+
+        views["block"] = block_graph(g)
+    return views["block"]
 
 
 def get_ell(g: Graph):
@@ -112,11 +138,11 @@ def get_tiled(g: Graph):
 
 # ---------------------------------------------------------------------------
 # Op routing, for the strategies ``resolve`` returns other than "xla":
-# "tiled" or "ell". Each function takes the original operand shapes — (n, d)
-# or (n, h, d) nodes, (E,) or (E, h) edges — and returns results in
-# canonical edge or node order with matching rank, as the segment path
-# does. Heads are the tile kernels' own grid axis (the reference vmaps over
-# them).
+# "tiled", "dense_block" or "ell". Each function takes the original operand
+# shapes — (n, d) or (n, h, d) nodes, (E,) or (E, h) edges — and returns
+# results in canonical edge or node order with matching rank, as the
+# segment path does. Heads are the tile kernels' own grid axis (the
+# reference vmaps over them).
 # ---------------------------------------------------------------------------
 
 def _edges_to_tiles(tg, eperm, x):
@@ -134,6 +160,12 @@ def _tiles_to_edges(tg, eperm_inv, s):
 
 
 def sddmm(strategy: str, g, A, B):
+    if strategy == "dense_block":
+        from custom_op_benchmark_tpu_torch.ops.dense_block import block_sddmm
+
+        bg = get_block(g)
+        return bg.gather_edges(block_sddmm(bg, bg.scatter_nodes(A),
+                                           bg.scatter_nodes(B)))
     if strategy == "ell":
         from custom_op_benchmark_tpu_torch.ops.ell import ell_sddmm
 
@@ -146,6 +178,12 @@ def sddmm(strategy: str, g, A, B):
 
 
 def vector_spmm(strategy: str, g, edata, x):
+    if strategy == "dense_block":
+        from custom_op_benchmark_tpu_torch.ops.dense_block import block_spmm
+
+        bg = get_block(g)
+        return bg.gather_nodes(block_spmm(bg, bg.scatter_edges(edata),
+                                          bg.scatter_nodes(x)))
     if strategy == "ell":
         from custom_op_benchmark_tpu_torch.ops.ell import ell_spmm
 
@@ -159,6 +197,13 @@ def vector_spmm(strategy: str, g, edata, x):
 
 
 def edge_softmax(strategy: str, g, x, by: str):
+    if strategy == "dense_block":
+        from custom_op_benchmark_tpu_torch.ops.dense_block import (
+            block_softmax,
+        )
+
+        bg = get_block(g)
+        return bg.gather_edges(block_softmax(bg, bg.scatter_edges(x), by=by))
     if strategy == "ell":
         from custom_op_benchmark_tpu_torch.ops.ell import ell_softmax
 
@@ -172,14 +217,43 @@ def edge_softmax(strategy: str, g, x, by: str):
 
 
 def node_mul_edge(strategy: str, g, A, Be):
-    """ELL only: the tiled strategy has no kernel for it, and the caller
-    routes it here, as in the reference."""
+    """Dense blocks or ELL: the tiled strategy has no kernel for it, and the
+    caller routes it to ELL, as in the reference."""
+    if strategy == "dense_block":
+        from custom_op_benchmark_tpu_torch.ops.dense_block import (
+            block_node_mul_edge,
+        )
+
+        bg = get_block(g)
+        return bg.gather_edges(block_node_mul_edge(
+            bg, bg.scatter_nodes(A), bg.scatter_edges(Be)))
     from custom_op_benchmark_tpu_torch.ops.ell import ell_node_mul_edge
 
     return ell_node_mul_edge(*get_ell(g), A, Be)[: Be.shape[0]]
 
 
 def attention(strategy: str, g, q, k, v, scale: float, edge_bias=None):
+    if strategy == "dense_block":
+        from custom_op_benchmark_tpu_torch.ops.dense_block import (
+            block_attention,
+            block_node_mul_edge,
+            block_sddmm,
+            block_softmax,
+        )
+
+        bg = get_block(g)
+        qb, kb, vb = (bg.scatter_nodes(q), bg.scatter_nodes(k),
+                      bg.scatter_nodes(v))
+        if edge_bias is None:
+            return bg.gather_nodes(block_attention(bg, qb, kb, vb,
+                                                   scale=scale,
+                                                   normalize="dst"))
+        s = block_sddmm(bg, kb, qb)            # <k[src], q[dst]>
+        s = s + block_node_mul_edge(bg, qb, bg.scatter_edges(edge_bias))
+        alpha = block_softmax(bg, s * scale, by="dst")
+        spec = "bxy,bxd->byd" if qb.dim() == 3 else "bxyh,bxhd->byhd"
+        y = torch.einsum(spec, alpha.float(), vb.float()).to(v.dtype)
+        return bg.gather_nodes(y)
     if strategy == "ell":
         from custom_op_benchmark_tpu_torch.ops.ell import (
             ell_attention,
@@ -201,8 +275,17 @@ def attention(strategy: str, g, q, k, v, scale: float, edge_bias=None):
 
 
 def gat_attention(strategy: str, g, a_l, a_r, z, negative_slope: float):
-    """ELL only: the tiled strategy has no kernel for it, and the caller
-    routes it here, as in the reference."""
+    """Dense blocks or ELL: the tiled strategy has no kernel for it, and the
+    caller routes it to ELL, as in the reference."""
+    if strategy == "dense_block":
+        from custom_op_benchmark_tpu_torch.ops.dense_block import (
+            block_gat_attention,
+        )
+
+        bg = get_block(g)
+        return bg.gather_nodes(block_gat_attention(
+            bg, a_l, a_r, bg.scatter_nodes(z),
+            negative_slope=negative_slope))
     from custom_op_benchmark_tpu_torch.ops.ell import ell_gat_attention
 
     se, de = get_ell(g)

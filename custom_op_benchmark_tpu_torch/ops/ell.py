@@ -22,8 +22,9 @@ Heads are per-head einsums on ``(R, D, h, d)`` views: the reference's
 block-indicator matmuls, its optimisation-barrier hop and its lane tiling
 of narrow gathers change only how XLA lowers the code on a TPU, so they
 are left out. The copy-sum sweep is the CUDA kernel S3
-(ops/kernels/gather_sum.py), forward and backward; the other ops are plain
-torch, as they are plain XLA in the reference.
+(ops/kernels/gather_sum.py), forward and backward, one launch over all
+buckets of a packing; the other ops are plain torch, as they are plain
+XLA in the reference.
 
 Internally node tensors are ``(n, h, d)`` and per-edge scores and weights
 ``(E, h)``; the public functions take the reference's ranks, ``(n, d)``
@@ -586,13 +587,12 @@ def ell_edge_bias_attention(ell: EllGraph, ell_t: EllGraph, q, k, v, be, *,
 # ---------------------------------------------------------------------------
 
 def _copy_agg_raw(eg: EllGraph, x):
-    """Copy-SUM per packed row: S3 once per bucket, then the row combine.
-    Mean is sum/deg in the public op, so the VJP stays a transpose
-    copy-sum."""
-    if not eg.buckets:
-        return x.new_zeros((eg.n_nodes,) + tuple(x.shape[1:]))
-    x = x.contiguous()
-    return ell_combine_rows(eg, [gather_sum(b.cols, x) for b in eg.buckets])
+    """Copy-SUM per node: one S3 launch over every bucket of the packing's
+    cached table, each row's sum written to its node's row and nodes of
+    degree 0 zeroed in the same launch (no per-bucket outputs, no row
+    combine). Mean is sum/deg in the public op, so the VJP stays a
+    transpose copy-sum."""
+    return gather_sum(eg.gather_table, x.contiguous())
 
 
 class _EllCopySum(Function):
@@ -610,13 +610,13 @@ def ell_copy_spmm(ell: EllGraph, ell_t: EllGraph, x, *, reduce: str = "sum"):
     """``out[row] = reduce over the row's neighbours of x[col]``, the
     unweighted aggregation of GCN/GraphSAGE (gspmm copy_lhs). ``mean`` is
     ``sum`` over the degree (so the VJP stays a transpose copy-sum); the
-    degree is S3 at width 1."""
+    degree is counted once per packing and cached (``row_degree``)."""
     if reduce not in ("sum", "mean"):
         raise ValueError(f"reduce must be sum/mean, got {reduce!r}")
     y = _EllCopySum.apply(ell, ell_t, x)
     if reduce == "sum":
         return y
-    deg = _copy_agg_raw(ell, x.new_ones((ell.n_nodes, 1)))
+    deg = ell.row_degree.to(y.dtype)
     return y / deg.clamp(min=1).reshape((-1,) + (1,) * (y.dim() - 1))
 
 

@@ -11,15 +11,18 @@ head h, over I's nonzero tiles (the src direction):
              or 0 for a row with no edges.
 
 Both run the online-softmax recurrence in csrc/attention.cu, one tile at
-a time, and never store a score in device memory. K4 takes the
-tensor-core kernel for head widths 1 to 128 and the CUDA-core kernel for
-129 to 256 (:func:`kernel_route`); S5 always takes the CUDA-core kernel,
-which switches the exponentials (``use_exp``) and the mask (``use_mask``)
-off. The plain K4 materialises the masked scores and composes the
-softmax; the plain S5 runs the recurrence one tile slot at a time over
-all row blocks, since without ``exp`` it is not a softmax. Each wrapper
-runs its kernel on CUDA tensors and its plain version only on CPU
-tensors; ``<wrapper>.launches`` counts kernel launches.
+a time, and never store a score in device memory. K4 runs on the
+tensor-core kernel at every head width, in float32 or bfloat16 (f32
+accumulation, the input's dtype out): with Q resident for d ≤ 128, and
+for wider heads one block per 128 output features that recomputes the
+scores (:func:`kernel_route`). S5 takes the CUDA-core kernel (float32,
+d ≤ 256), which switches the exponentials (``use_exp``) and the mask
+(``use_mask``) off. The plain K4 materialises the masked scores and
+composes the softmax in f32; the plain S5 runs the recurrence one tile
+slot at a time over all row blocks, since without ``exp`` it is not a
+softmax. Each wrapper runs its kernel on CUDA tensors and its plain
+version only on CPU tensors; ``<wrapper>.launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -30,18 +33,20 @@ from custom_op_benchmark_tpu_torch.ops.kernels import _build
 from custom_op_benchmark_tpu_torch.ops.kernels.tiled_kernels import (
     TILE,
     _check_cuda,
+    _entry,
     _heads,
     _on_cpu,
     _p,
     _row_tiles,
     _stream,
+    _vec,
 )
 from custom_op_benchmark_tpu_torch.ops.segments import sorted_segment_reduce
 
 NEG_INF = -1e30
 M_INIT = -1e9      # the kernel's first running max
-MAX_HEAD_DIM = 256  # widest head the kernels are built for (csrc/attention.cu)
-MMA_MAX_HEAD_DIM = 128  # widest head of the tensor-core kernel
+S5_MAX_HEAD_DIM = 256  # widest head of the CUDA-core kernel (S5)
+RESIDENT_MAX_HEAD_DIM = 128  # widest head K4 runs with Q resident
 
 
 def fused_attention_rows_plain(tile_ptr, tile_cols, mask, q, k, v, scale):
@@ -50,7 +55,7 @@ def fused_attention_rows_plain(tile_ptr, tile_cols, mask, q, k, v, scale):
     ptr = tile_ptr.long()
     rows = torch.repeat_interleave(torch.arange(nrb, device=q.device),
                                    ptr[1:] - ptr[:-1])
-    qh, kh, vh = _heads(q), _heads(k), _heads(v)
+    qh, kh, vh = _heads(q).float(), _heads(k).float(), _heads(v).float()
     qt = _row_tiles(qh, rows, r)                            # (T, R, H, d)
     kt = _row_tiles(kh, tile_cols, c)                       # (T, C, H, d)
     vt = _row_tiles(vh, tile_cols, c)
@@ -65,19 +70,23 @@ def fused_attention_rows_plain(tile_ptr, tile_cols, mask, q, k, v, scale):
     l = l.permute(1, 2, 0)[..., None]                         # (NRB, R, H, 1)
     out = torch.where(l > 0, acc / l.clamp(min=1e-30), 0.0)
     out = out.reshape((nrb * r,) + tuple(out.shape[2:]))[: q.shape[0]]
+    out = out.to(q.dtype)
     return out[:, 0] if q.dim() == 2 else out
 
 
-def check_kernel_args(tile_ptr, tile_cols, mask, q, k, v):
+def check_kernel_args(tile_ptr, tile_cols, mask, q, k, v, *, s5=False):
     """The checks the CUDA kernels need of their arguments; raises
-    ValueError on anything they do not take. Returns (n_q, H, d, nrb)."""
-    _check_cuda(ints=(tile_ptr, tile_cols), floats=(q, k, v), mask=mask)
+    ValueError on anything they do not take. K4 takes float32 or bfloat16
+    and any head width d ≥ 1; S5 (``s5=True``) float32 and 1 ≤ d ≤ 256.
+    Returns (n_q, H, d, nrb)."""
+    _check_cuda(ints=(tile_ptr, tile_cols), floats=(q, k, v), mask=mask,
+                bf16=not s5)
     qh = _heads(q)
     n_q, h, d = qh.shape
     nrb = tile_ptr.shape[0] - 1
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"the attention kernel takes head widths 1 to "
-                         f"{MAX_HEAD_DIM}, got {d}")
+    top = S5_MAX_HEAD_DIM if s5 else None
+    if d < 1 or (top is not None and d > top):
+        raise ValueError(f"head width {d} outside [1, {top or '∞'}]")
     if n_q > nrb * TILE:
         raise ValueError(f"{n_q} query rows exceed {nrb} row blocks")
     if tile_cols.shape != mask.shape[:1]:
@@ -87,15 +96,20 @@ def check_kernel_args(tile_ptr, tile_cols, mask, q, k, v):
 
 
 def kernel_route(d: int) -> str:
-    """The CUDA kernel that serves K4 at head width d: ``"mma"``, the
-    tensor-core kernel (1 ≤ d ≤ 128), or ``"rows"``, the CUDA-core kernel
-    that S5 runs (128 < d ≤ 256), whose Q, K and V tiles would not fit the
-    tensor-core kernel's shared memory."""
-    return "mma" if d <= MMA_MAX_HEAD_DIM else "rows"
+    """The tensor-core kernel's form that serves K4 at head width d:
+    ``"mma"`` (1 ≤ d ≤ 128, Q resident in shared memory) or ``"wide"``
+    (d > 128: one block per 128 output features, Q staged in 64-feature
+    chunks beside K, the scores recomputed per block). Both are the one C
+    entry point ``fused_attention_rows_*``; no width takes the plain
+    version."""
+    if d < 1:
+        raise ValueError(f"head width {d} < 1")
+    return "mma" if d <= RESIDENT_MAX_HEAD_DIM else "wide"
 
 
-def _launch(entry, args, tile_ptr, tile_cols, mask, q, k, v, scale):
-    n_q, h, d, nrb = check_kernel_args(tile_ptr, tile_cols, mask, q, k, v)
+def _launch(entry, args, tile_ptr, tile_cols, mask, q, k, v, scale, s5):
+    n_q, h, d, nrb = check_kernel_args(tile_ptr, tile_cols, mask, q, k, v,
+                                       s5=s5)
     qh, kh, vh = _heads(q), _heads(k), _heads(v)
     out = torch.empty_like(qh)
     dev, stream = _stream(q)
@@ -106,30 +120,20 @@ def _launch(entry, args, tile_ptr, tile_cols, mask, q, k, v, scale):
     return out[:, 0] if q.dim() == 2 else out
 
 
-def _mma_args(mask, q, k, v):
-    """The tensor-core kernel's extra argument (``vec``: q, k and v rows
-    move as 16-byte copies); it stages the mask with 16-byte copies."""
-    if mask.data_ptr() % 16:
-        raise ValueError("mask must be 16-byte aligned")
-    d = q.shape[-1]
-    return (int(d % 4 == 0 and all(t.data_ptr() % 16 == 0
-                                   for t in (q, k, v))),)
-
-
 def fused_attention_rows(tile_ptr, tile_cols, mask, q, k, v, scale: float):
     """q: (n_q, [H,] d), k/v: (n_kv, [H,] d), mask (T, R, C) →
-    out (n_q, [H,] d), softmax over each row's tiles. n_q ≤ NRB·R; on the
-    GPU 1 ≤ d ≤ 256."""
+    out (n_q, [H,] d), softmax over each row's tiles. n_q ≤ NRB·R; float32
+    or bfloat16, any d ≥ 1."""
     if not q.shape[1:] == k.shape[1:] == v.shape[1:]:
         raise ValueError("q, k and v differ in heads or width")
     if _on_cpu(tile_ptr, tile_cols, mask, q, k, v):
         return fused_attention_rows_plain(tile_ptr, tile_cols, mask, q, k, v,
                                           scale)
-    if kernel_route(q.shape[-1]) == "mma":
-        entry, args = "fused_attention_rows_f32", _mma_args(mask, q, k, v)
-    else:
-        entry, args = "attn_variant_f32", (1, 1)
-    out = _launch(entry, args, tile_ptr, tile_cols, mask, q, k, v, scale)
+    if mask.data_ptr() % 16:
+        raise ValueError("mask must be 16-byte aligned")
+    out = _launch(_entry("fused_attention_rows", q),
+                  (_vec(q.shape[-1], q, k, v),), tile_ptr, tile_cols, mask,
+                  q, k, v, scale, s5=False)
     fused_attention_rows.launches += 1
     return out
 
@@ -190,15 +194,15 @@ def attn_variant(tile_ptr, tile_cols, mask, q, k, v, scale: float, *,
                  use_exp: bool = True, use_mask: bool = True):
     """S5: :func:`fused_attention_rows` with ``use_exp=False`` (p = s − m,
     corr = m_prev − m) and/or ``use_mask=False`` (every column of each tile
-    counts, key rows past n reading as zero). A diagnostic; with both on it
-    is K4."""
+    counts, key rows past n reading as zero). A diagnostic on the CUDA
+    cores, float32, 1 ≤ d ≤ 256; with both on it is K4's function."""
     if not q.shape[1:] == k.shape[1:] == v.shape[1:]:
         raise ValueError("q, k and v differ in heads or width")
     if _on_cpu(tile_ptr, tile_cols, mask, q, k, v):
         return attn_variant_plain(tile_ptr, tile_cols, mask, q, k, v, scale,
                                   use_exp, use_mask)
     out = _launch("attn_variant_f32", (int(use_exp), int(use_mask)),
-                  tile_ptr, tile_cols, mask, q, k, v, scale)
+                  tile_ptr, tile_cols, mask, q, k, v, scale, s5=True)
     attn_variant.launches += 1
     return out
 

@@ -2,14 +2,18 @@
 
 Counterpart of ``pallas_gather_sum`` in scripts/exp_pallas_gather.py:
 
-- :func:`gather_sum` (S3) — ``y[r] = Σ_k x[cols[r, k]]`` over one ELL
-  bucket, cols ``(R, D)`` int32 and x ``(n_x, ...)`` f32, trailing dims of
-  x flattened; y is ``(R,) + x.shape[1:]``.
+- :func:`gather_sum` (S3) — ``y[nodes[r]] = Σ_k x[cols[r, k]]`` over every
+  row of every bucket of a :class:`~custom_op_benchmark_tpu_torch.graph.ell.
+  GatherTable`, in one launch, with the table's zero rows written as 0;
+  x ``(n_x, ...)`` f32, trailing dims flattened; y ``(n_out,) +
+  x.shape[1:]``. Given one bucket's cols ``(R, D)`` int32 instead of a
+  table, it sums that bucket into rows 0..R-1 (the TPU kernel's function,
+  the shape of experiments/exp_pallas_gather.py).
 
 A slot whose column is outside ``[0, n_x)`` adds zero: the ELL pad column
 ``n_nodes`` needs no padded row of x, the convention of S1/S2. Any R is
 taken (the TPU kernel needs R % 8 == 0, its grid drops the tail), and any
-width d ≥ 1 (d = 1 is the degree count of ``ell_copy_spmm(reduce="mean")``).
+width d ≥ 1.
 
 The wrapper runs the CUDA kernel (csrc/gather_sum.cu) on CUDA tensors and
 the plain version only on CPU tensors; ``gather_sum.launches`` counts
@@ -18,8 +22,14 @@ kernel launches.
 
 from __future__ import annotations
 
+from typing import Union
+
 import torch
 
+from custom_op_benchmark_tpu_torch.graph.ell import (
+    GatherTable,
+    one_bucket_table,
+)
 from custom_op_benchmark_tpu_torch.ops.kernels import _build
 from custom_op_benchmark_tpu_torch.ops.kernels.tiled_kernels import (
     _check_cuda,
@@ -28,52 +38,66 @@ from custom_op_benchmark_tpu_torch.ops.kernels.tiled_kernels import (
     _stream,
 )
 
+MAX_BUCKETS = 64  # the kernel's table in shared memory (csrc/gather_sum.cu)
 
-def _check(cols: torch.Tensor, x: torch.Tensor) -> None:
-    if cols.dim() != 2:
-        raise ValueError(f"cols must be (R, D), got {tuple(cols.shape)}")
+
+def _table(cols: Union[torch.Tensor, GatherTable], x: torch.Tensor):
     if x.dim() < 1:
         raise ValueError("x must have a row axis")
-    if cols.dtype != torch.int32:
-        raise ValueError(f"cols must be int32, got {cols.dtype}")
     if not x.dtype.is_floating_point:
         raise ValueError(f"x must be floating point, got {x.dtype}")
+    if isinstance(cols, GatherTable):
+        return cols
+    if cols.dim() != 2:
+        raise ValueError(f"cols must be (R, D), got {tuple(cols.shape)}")
+    if cols.dtype != torch.int32:
+        raise ValueError(f"cols must be int32, got {cols.dtype}")
+    return one_bucket_table(cols)
 
 
-def gather_sum_plain(cols: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    _check(cols, x)
+def gather_sum_plain(cols, x: torch.Tensor) -> torch.Tensor:
+    table = _table(cols, x)
     n_x = x.shape[0]
-    c = cols.long()
-    valid = (c >= 0) & (c < n_x)
     xz = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
-    g = xz[torch.where(valid, c, n_x)]                     # (R, D, ...)
-    return g.sum(1)
+    parts = []
+    for off, w, _, rows in table.bucket_rows():
+        c = table.cols[off: off + rows * w].reshape(rows, w).long()
+        c = torch.where((c >= 0) & (c < n_x), c, n_x)
+        parts.append(xz[c].sum(1))                        # (rows, ...)
+    out = x.new_zeros((table.n_out,) + tuple(x.shape[1:]))
+    if parts:
+        out[table.nodes.long()] = torch.cat(parts)
+    return out
 
 
-def gather_sum(cols: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """cols: (R, D) int32, x: (n_x, ...) → y (R, ...), the sum over each
-    row of cols of the rows of x it names (out-of-range names add 0)."""
-    _check(cols, x)
-    if _on_cpu(cols, x):
-        return gather_sum_plain(cols, x)
-    _check_cuda(ints=(cols,), floats=(x,))
-    r, k = cols.shape
+def gather_sum(cols, x: torch.Tensor) -> torch.Tensor:
+    """cols: a GatherTable, or one bucket's (R, D) int32 column ids; x:
+    (n_x, ...) → y (n_out, ...): each table row's sum of the rows of x it
+    names (out-of-range names add 0) in its output row, zero rows 0."""
+    table = _table(cols, x)
+    if _on_cpu(table.cols, x):
+        return gather_sum_plain(table, x)
+    _check_cuda(ints=(table.buckets, table.cols, table.nodes,
+                      table.zero_nodes), floats=(x,))
+    nb = table.buckets.shape[0]
+    if nb > MAX_BUCKETS:
+        raise ValueError(f"{nb} buckets; the kernel takes {MAX_BUCKETS}")
     trail = tuple(x.shape[1:])
     xf = x.reshape(x.shape[0], -1)
     d = xf.shape[1]
-    out = torch.empty((r, d), device=x.device, dtype=x.dtype)
-    if r == 0 or d == 0:
-        return out.reshape((r,) + trail)
-    if k == 0 or xf.shape[0] == 0:
-        return out.zero_().reshape((r,) + trail)
+    n_rows, n_zero = table.nodes.shape[0], table.zero_nodes.shape[0]
+    out = torch.empty((table.n_out, d), device=x.device, dtype=x.dtype)
+    if d == 0 or n_rows + n_zero == 0:
+        return out.reshape((table.n_out,) + trail)
     vec = int(d % 4 == 0 and xf.data_ptr() % 16 == 0
               and out.data_ptr() % 16 == 0)
     dev, stream = _stream(x)
     _build.check(_build.library().gather_sum_f32(
-        _p(cols), _p(xf), _p(out), r, k, d, xf.shape[0], vec, dev, stream),
-        "gather_sum")
+        _p(table.buckets), nb, _p(table.cols), _p(table.nodes), n_rows,
+        _p(table.zero_nodes), n_zero, _p(xf), _p(out), d, xf.shape[0], vec,
+        dev, stream), "gather_sum")
     gather_sum.launches += 1
-    return out.reshape((r,) + trail)
+    return out.reshape((table.n_out,) + trail)
 
 
 gather_sum.launches = 0

@@ -22,6 +22,12 @@ Each wrapper runs its CUDA kernel (csrc/tiled_kernels.cu) when given CUDA
 tensors, and its plain version only when given CPU tensors; on any other
 input it raises. ``<wrapper>.launches`` counts kernel launches.
 
+K1–K3 take float32 or bfloat16 node and tile arrays (one dtype per call),
+accumulate in f32 and return the input's dtype, as the Pallas kernels do;
+their plain versions widen bf16 inputs to f32, compute in f32 and round
+once at the end, so kernel and plain version differ only in the order of
+f32 sums and that final rounding. S4 takes float32.
+
 Index arrays stay int32 everywhere, as the kernels take them; the plain
 versions convert to int64 (``.long()``) at the point where they index.
 """
@@ -78,14 +84,26 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return False
 
 
-def _check_cuda(*, ints=(), floats=(), mask=None) -> None:
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_cuda(*, ints=(), floats=(), mask=None, bf16=False) -> None:
+    """The checks every CUDA entry point needs of its arguments. ``floats``
+    must be contiguous and of one dtype: float32, or with ``bf16`` also
+    bfloat16."""
     for t in ints:
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("index arrays must be contiguous int32")
+    allowed = KERNEL_DTYPES if bf16 else (torch.float32,)
     for t in floats:
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("the kernels take contiguous float32 tensors, "
-                             f"got {t.dtype}, contiguous={t.is_contiguous()}")
+        if t.dtype not in allowed or not t.is_contiguous():
+            raise ValueError(
+                "the kernel takes contiguous tensors of "
+                f"{' or '.join(map(str, allowed))}, got {t.dtype}, "
+                f"contiguous={t.is_contiguous()}")
+    if len({t.dtype for t in floats}) > 1:
+        raise ValueError("the kernel takes one dtype per call, got "
+                         f"{sorted(str(t.dtype) for t in floats)}")
     if mask is not None:
         if mask.dtype != torch.bool or not mask.is_contiguous():
             raise ValueError("mask must be a contiguous bool tensor")
@@ -96,6 +114,20 @@ def _check_cuda(*, ints=(), floats=(), mask=None) -> None:
 
 def _p(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def _entry(name: str, t: torch.Tensor) -> str:
+    """The C entry point of ``name`` for ``t``'s dtype (``<name>_f32`` or
+    ``<name>_bf16``)."""
+    return f"{name}_{'bf16' if t.dtype == torch.bfloat16 else 'f32'}"
+
+
+def _vec(d: int, *tensors: torch.Tensor) -> int:
+    """1 when rows of width d move as 16-byte copies: d a multiple of
+    16 bytes' worth of elements and every base 16-byte aligned."""
+    per16 = 16 // tensors[0].element_size()
+    return int(d % per16 == 0 and all(t.data_ptr() % 16 == 0
+                                      for t in tensors))
 
 
 def _stream(t: torch.Tensor):
@@ -109,9 +141,10 @@ def _stream(t: torch.Tensor):
 
 def sddmm_tiles_plain(tile_rows, tile_cols, mask, A, B):
     t, r, c = mask.shape
-    a = _row_tiles(_heads(A), tile_rows, r)                 # (T, R, H, d)
-    b = _row_tiles(_heads(B), tile_cols, c)                 # (T, C, H, d)
+    a = _row_tiles(_heads(A).float(), tile_rows, r)         # (T, R, H, d)
+    b = _row_tiles(_heads(B).float(), tile_cols, c)         # (T, C, H, d)
     s = torch.where(mask, torch.einsum("trhd,tchd->htrc", a, b), 0.0)
+    s = s.to(A.dtype)
     return s[0] if A.dim() == 2 else s
 
 
@@ -123,7 +156,8 @@ def sddmm_tiles(tile_rows, tile_cols, mask, A, B):
                          "in heads or width")
     if _on_cpu(tile_rows, tile_cols, mask, A, B):
         return sddmm_tiles_plain(tile_rows, tile_cols, mask, A, B)
-    _check_cuda(ints=(tile_rows, tile_cols), floats=(A, B), mask=mask)
+    _check_cuda(ints=(tile_rows, tile_cols), floats=(A, B), mask=mask,
+                bf16=True)
     t = mask.shape[0]
     if tile_rows.shape != (t,) or tile_cols.shape != (t,):
         raise ValueError(f"tile_rows/tile_cols must have shape ({t},)")
@@ -134,9 +168,10 @@ def sddmm_tiles(tile_rows, tile_cols, mask, A, B):
     out = torch.empty((h, t, TILE, TILE), device=A.device, dtype=A.dtype)
     if t:
         dev, stream = _stream(A)
-        _build.check(_build.library().sddmm_tiles_f32(
+        entry = _entry("sddmm_tiles", A)
+        _build.check(getattr(_build.library(), entry)(
             _p(tile_rows), _p(tile_cols), _p(mask), _p(a), _p(b), _p(out),
-            t, h, d, a.shape[0], b.shape[0], dev, stream), "sddmm_tiles")
+            t, h, d, a.shape[0], b.shape[0], dev, stream), entry)
         sddmm_tiles.launches += 1
     return out[0] if A.dim() == 2 else out
 
@@ -149,14 +184,14 @@ sddmm_tiles.launches = 0
 # ---------------------------------------------------------------------------
 
 def spmm_row_sweep_plain(tile_ptr, tile_cols, vals, x, n_out=None):
-    v = _tiles4(vals)
+    v = _tiles4(vals).float()
     _, _, r, c = v.shape
     nrb = tile_ptr.shape[0] - 1
-    xt = _row_tiles(_heads(x), tile_cols, c)                # (T, C, H, d)
+    xt = _row_tiles(_heads(x).float(), tile_cols, c)        # (T, C, H, d)
     prod = torch.einsum("htrc,tchd->trhd", v, xt)           # (T, R, H, d)
     y = sorted_segment_reduce(prod, tile_ptr, "sum")        # (NRB, R, H, d)
     y = y.reshape((nrb * r,) + tuple(y.shape[2:]))
-    y = y[: nrb * r if n_out is None else n_out]
+    y = y[: nrb * r if n_out is None else n_out].to(x.dtype)
     return y[:, 0] if x.dim() == 2 else y
 
 
@@ -166,7 +201,7 @@ def spmm_row_sweep(tile_ptr, tile_cols, vals, x,
     y (n_out, [H,] d) with ``n_out`` ≤ NRB·R (default NRB·R)."""
     if _on_cpu(tile_ptr, tile_cols, vals, x):
         return spmm_row_sweep_plain(tile_ptr, tile_cols, vals, x, n_out)
-    _check_cuda(ints=(tile_ptr, tile_cols), floats=(vals, x))
+    _check_cuda(ints=(tile_ptr, tile_cols), floats=(vals, x), bf16=True)
     v, xh = _tiles4(vals), _heads(x)
     h, t = v.shape[0], v.shape[1]
     d = xh.shape[2]
@@ -177,9 +212,10 @@ def spmm_row_sweep(tile_ptr, tile_cols, vals, x,
         raise ValueError("vals must be 16-byte aligned")
     out = torch.empty((n_out, h, d), device=x.device, dtype=x.dtype)
     dev, stream = _stream(x)
-    _build.check(_build.library().spmm_row_sweep_f32(
+    entry = _entry("spmm_row_sweep", x)
+    _build.check(getattr(_build.library(), entry)(
         _p(tile_ptr), _p(tile_cols), _p(v), _p(xh), _p(out),
-        nrb, t, h, d, xh.shape[0], n_out, dev, stream), "spmm_row_sweep")
+        nrb, t, h, d, xh.shape[0], n_out, dev, stream), entry)
     spmm_row_sweep.launches += 1
     return out[:, 0] if x.dim() == 2 else out
 
@@ -248,14 +284,14 @@ def _check_sweep(v, xh, n_out, n_blocks):
 def spmm_col_sweep_plain(tile_ptr_c, tile_perm_c, tile_rows, vals, y,
                          n_out=None):
     perm = tile_perm_c.long()
-    v = _tiles4(vals)[:, perm]                              # column order
+    v = _tiles4(vals)[:, perm].float()                      # column order
     _, _, r, c = v.shape
     ncb = tile_ptr_c.shape[0] - 1
-    yt = _row_tiles(_heads(y), tile_rows[perm], r)          # (T, R, H, d)
+    yt = _row_tiles(_heads(y).float(), tile_rows[perm], r)  # (T, R, H, d)
     prod = torch.einsum("htrc,trhd->tchd", v, yt)           # (T, C, H, d)
     x = sorted_segment_reduce(prod, tile_ptr_c, "sum")      # (NCB, C, H, d)
     x = x.reshape((ncb * c,) + tuple(x.shape[2:]))
-    x = x[: ncb * c if n_out is None else n_out]
+    x = x[: ncb * c if n_out is None else n_out].to(y.dtype)
     return x[:, 0] if y.dim() == 2 else x
 
 
@@ -267,7 +303,8 @@ def spmm_col_sweep(tile_ptr_c, tile_perm_c, tile_rows, vals, y,
     if _on_cpu(tile_ptr_c, tile_perm_c, tile_rows, vals, y):
         return spmm_col_sweep_plain(tile_ptr_c, tile_perm_c, tile_rows, vals,
                                     y, n_out)
-    _check_cuda(ints=(tile_ptr_c, tile_perm_c, tile_rows), floats=(vals, y))
+    _check_cuda(ints=(tile_ptr_c, tile_perm_c, tile_rows), floats=(vals, y),
+                bf16=True)
     v, yh = _tiles4(vals), _heads(y)
     h, t = v.shape[0], v.shape[1]
     d = yh.shape[2]
@@ -276,13 +313,13 @@ def spmm_col_sweep(tile_ptr_c, tile_perm_c, tile_rows, vals, y,
     _check_sweep(v, yh, n_out, ncb)
     if v.data_ptr() % 16:
         raise ValueError("vals must be 16-byte aligned")
-    vec = int(d % 4 == 0 and yh.data_ptr() % 16 == 0)
+    vec = _vec(d, yh)
     out = torch.empty((n_out, h, d), device=y.device, dtype=y.dtype)
     dev, stream = _stream(y)
-    _build.check(_build.library().spmm_col_sweep_f32(
+    entry = _entry("spmm_col_sweep", y)
+    _build.check(getattr(_build.library(), entry)(
         _p(tile_ptr_c), _p(tile_perm_c), _p(tile_rows), _p(v), _p(yh),
-        _p(out), ncb, t, h, d, yh.shape[0], n_out, vec, dev, stream),
-        "spmm_col_sweep")
+        _p(out), ncb, t, h, d, yh.shape[0], n_out, vec, dev, stream), entry)
     spmm_col_sweep.launches += 1
     return out[:, 0] if y.dim() == 2 else out
 

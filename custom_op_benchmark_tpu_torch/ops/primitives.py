@@ -11,9 +11,10 @@ Counterpart of custom_op_benchmark_tpu/ops/primitives.py:
   ``(E, h)``;
 - ``impl`` selects the execution strategy through ops/dispatch.py:
   ``"xla"`` (the segment oracle), ``"tiled"``/``"pallas"`` (the CUDA tile
-  kernels on the tile-aligned order), ``"ell"`` (the degree-bucketed
-  layout, ops/ell.py) and ``"auto"``; the dense-block strategy is not
-  ported yet and raises.
+  kernels on the tile-aligned order), ``"dense_block"`` (the
+  component-batched dense layout, ops/dense_block.py), ``"ell"`` (the
+  degree-bucketed layout, ops/ell.py) and ``"auto"`` (the strategy
+  advisor, utils/summary.py).
 
 Shapes are checked before anything runs, as the reference checks them at
 trace time.

@@ -45,7 +45,10 @@ class _SddmmT(torch.autograd.Function):
     def backward(ctx, dS):
         tg = ctx.tg
         A, B = ctx.saved_tensors
-        dS = torch.where(tg.mask, dS, 0.0)
+        # dS may arrive strided (the public op reaches the tiles through a
+        # permute) and torch.where keeps its layout; the kernels take
+        # contiguous tiles.
+        dS = torch.where(tg.mask, dS, 0.0).contiguous()
         dA = spmm_row_sweep(tg.tile_ptr, tg.tile_cols, dS, B, A.shape[0])
         dB = spmm_col_sweep(tg.tile_ptr_c, tg.tile_perm_c, tg.tile_rows, dS,
                             A, B.shape[0])

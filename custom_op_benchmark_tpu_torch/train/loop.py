@@ -43,14 +43,20 @@ def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return (nll * m).sum() / m.sum().clamp(min=1.0)
 
 
-def make_train_step(apply_kwargs: Optional[dict] = None):
+def make_train_step(dropout: bool = False,
+                    apply_kwargs: Optional[dict] = None):
     """A full-graph train step. ``apply_kwargs`` forwards execution-strategy
     views to the model as keyword arguments (``{"tiled": tile_graph(g)}``).
+
+    ``dropout=False`` (the reference's default) runs the forward pass with
+    the model in eval mode, so its dropout layers are off and a GAT with
+    ``dropout_rate > 0`` stays on its fused ELL or dense-block path;
+    ``dropout=True`` runs it in train mode.
     """
     views = dict(apply_kwargs or {})
 
     def train_step(state: TrainState, g, x, labels, mask):
-        state.model.train()
+        state.model.train(dropout)
         state.optimizer.zero_grad(set_to_none=True)
         logits = state.model(g, x, **views)
         loss = masked_cross_entropy(logits, labels, mask)
@@ -89,31 +95,49 @@ def fit_full_graph(model: nn.Module, dataset, *, epochs: int = 100,
                    learning_rate: float = 1e-2, weight_decay: float = 5e-4,
                    seed: int = 0, log_every: int = 0,
                    target_val_acc: Optional[float] = None,
-                   strategy: Optional[str] = None):
+                   strategy: Optional[str] = None, device=None):
     """Train on the whole graph each epoch (the Cora/ogbn-arxiv configs).
 
-    ``strategy``: None (segment ops) or ``"ell"`` (the degree-bucketed
-    fused path, with the training ladder ``ell_dual(g, profile="train")``);
-    the view is built once and passed to every call of the model. Training
-    runs on the model's device. The parameters are drawn afresh from
-    ``seed`` (``model.reset_parameters``, on the host), as the reference
-    initialises them from its PRNG key. Returns ``(state, metrics)`` with
-    the final ``val_loss`` and ``val_acc`` and, every ``log_every`` epochs,
-    a history entry.
+    ``strategy``: None (segment ops), ``"ell"`` (the degree-bucketed fused
+    path, with the training ladder ``ell_dual(g, profile="train")``),
+    ``"block"`` (the component-batched dense layout, for graphs whose
+    components fit a block) or ``"auto"`` (``utils.summary.describe``
+    picks block or ELL, as in the reference); the view is built once and
+    passed to every call of the model.
+
+    Training runs on ``device``: the CUDA device unless the caller names
+    another (the CPU tests pass ``device="cpu"``); with no card and no
+    device it raises. The model moves there. The parameters are drawn
+    afresh from ``seed`` (``model.reset_parameters``, on the host), as the
+    reference initialises them from its PRNG key. Returns ``(state,
+    metrics)`` with the final ``val_loss`` and ``val_acc`` and, every
+    ``log_every`` epochs, a history entry.
     """
-    if strategy in ("auto", "block"):
-        raise NotImplementedError(
-            f"strategy={strategy!r} needs the dense-block strategy and the "
-            "strategy advisor, which come with ROADMAP M5")
-    device = next(model.parameters()).device
+    if strategy not in (None, "ell", "block", "auto"):
+        raise ValueError(f"unknown strategy {strategy!r}")
+    if device is None:
+        from custom_op_benchmark_tpu_torch.utils.device import cuda_device
+
+        device = cuda_device()
     g = dataset.graph.to(device)
     apply_kwargs = {}
+    if strategy == "auto":
+        from custom_op_benchmark_tpu_torch.utils.summary import describe
+
+        rec = describe(g).recommended
+        strategy = "block" if rec == "dense_block" else "ell"
     if strategy == "ell":
         from custom_op_benchmark_tpu_torch.ops.ell import ell_dual
 
         apply_kwargs["ell"] = ell_dual(g, profile="train")
-    elif strategy is not None:
-        raise ValueError(f"unknown strategy {strategy!r}")
+    elif strategy == "block":
+        from custom_op_benchmark_tpu_torch.graph.blockdiag import block_graph
+
+        bg = block_graph(g)
+        if bg is None:
+            raise ValueError("graph has components too large for "
+                             "strategy='block'")
+        apply_kwargs["block"] = bg
 
     def t(a):
         return torch.from_numpy(a).to(device)

@@ -12,8 +12,8 @@ custom_op_benchmark_tpu/utils/bench_suite.py:
 - **grid** (``--grid``): the 4-neighbour 2-D grid (locality-rich, no dense
   components), tile-aligned and cut into 128×128 tiles, where the tile
   strategy is meant to win: SpMM and dst-normalised attention, forward and
-  backward, on the segment oracle and the tiled strategy. Its ELL rows and
-  ``describe()`` wait for ROADMAP M5.
+  backward, on the segment oracle and the tiled strategy, with the
+  strategy ``describe()`` recommends for the graph as its first record.
 
 Each suite checks the strategies against each other with ``allclose`` at
 the reference's ``RTOL = ATOL = 2e-3`` and times each row on the CUDA
@@ -78,6 +78,7 @@ from custom_op_benchmark_tpu_torch.utils.benchlib import (
     hbm_bandwidth_bytes,
 )
 from custom_op_benchmark_tpu_torch.utils.device import cuda_device
+from custom_op_benchmark_tpu_torch.utils.summary import describe
 
 # The reference's gate (wrapper.py's allclose defaults, loosened for f32
 # sums taken in other orders over up to 5 tiles of 128 products).
@@ -488,8 +489,10 @@ def run_grid_suite(rows=1024, cols=1024, d=128, *, device=None, case=None,
     records, ok = [], True
     n, e = case.n, case.e
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev
+    rec_strategy = describe(case.g).recommended
     print(f"Grid {rows}x{cols} (n={n}, e={e}, T={case.tg.num_tiles}, "
-          f"d={case.d}) on {where}")
+          f"d={case.d}; describe → {rec_strategy!r}) on {where}")
+    records.append({"describe_recommended": rec_strategy})
     models = byte_models(case)
     bench = _timer(records, dev, warmup=warmup, iters=iters,
                    repeats=repeats, edges=e)
@@ -557,7 +560,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.powerlaw == args.grid:
         ap.error("pick one suite: --powerlaw or --grid (the clique suite "
-                 "waits for ROADMAP M5 and M13)")
+                 "waits for ROADMAP M13)")
     if args.device == "cpu" and not args.small:
         print("bench_suite: the full-size suites run on the CUDA device "
               "only", file=sys.stderr)

@@ -375,7 +375,7 @@ def test_fit_full_graph_ell_strategy():
                            seed=1)
     model = GAT(hidden_dim=16, out_dim=3, num_heads=2, in_dim=16)
     _, metrics = fit_full_graph(model, ds, epochs=40, learning_rate=1e-2,
-                                strategy="ell")
+                                strategy="ell", device="cpu")
     assert metrics["val_acc"] > 0.8, metrics
 
 

@@ -30,6 +30,7 @@ from custom_op_benchmark_tpu.train.loop import (
     masked_cross_entropy as jax_masked_ce,
 )
 from custom_op_benchmark_tpu_torch.data import synthetic
+from custom_op_benchmark_tpu_torch.graph import block_graph, clique_batch
 from custom_op_benchmark_tpu_torch.models import (
     GAT,
     GCN,
@@ -216,17 +217,26 @@ def test_gat_remat_gives_the_same_gradients(data):
 @pytest.mark.parametrize("case", ["gat_block", "gat_dtype", "gcn_block",
                                   "sage_block", "sage_in_cols"])
 def test_unported_model_options_raise(data, case):
+    """The options the port does not have yet raise and name their ROADMAP
+    item. ``block=`` (the ``*_block`` cases) is ported: the models run on
+    the dense blocks of a clique batch and agree with their segment path
+    (held to JAX in tests/test_torch_block_models.py)."""
+    if case.endswith("_block"):
+        g = clique_batch(3, 4)
+        x = torch.from_numpy(np.random.default_rng(8).normal(
+            size=(g.n_nodes, 12)).astype(np.float32))
+        cls = {"gat_block": GAT, "gcn_block": GCN,
+               "sage_block": GraphSAGE}[case]
+        model = cls(8, 3, in_dim=12,
+                    generator=torch.Generator().manual_seed(0))
+        torch.testing.assert_close(model(g, x, block=block_graph(g)),
+                                   model(g, x), **LOGITS_TOL)
+        return
     ds = data["ds"]
     x = torch.zeros(ds.graph.n_nodes, 12)
     with pytest.raises(NotImplementedError, match="ROADMAP M"):
         if case == "gat_dtype":
             GAT(8, 3, dtype=torch.bfloat16, in_dim=12)
-        elif case == "gat_block":
-            GAT(8, 3, in_dim=12)(ds.graph, x, block=object())
-        elif case == "gcn_block":
-            GCN(8, 3, in_dim=12)(ds.graph, x, block=object())
-        elif case == "sage_block":
-            GraphSAGE(8, 3, in_dim=12)(ds.graph, x, block=object())
         else:
             GraphSAGE(8, 3, in_dim=12)(ds.graph, x, in_cols=object())
 
@@ -258,7 +268,7 @@ def test_fit_full_graph_gat_reaches_val_acc():
                                      feat_dim=16, seed=2)
     model = GAT(16, 4, num_heads=2, in_dim=16)
     _, metrics = fit_full_graph(model, ds, epochs=30, learning_rate=1e-2,
-                                strategy="ell", log_every=10)
+                                strategy="ell", log_every=10, device="cpu")
     assert metrics["val_acc"] > 0.75, metrics
     assert [h["epoch"] for h in metrics["history"]] == [10, 20, 30]
 
@@ -268,19 +278,26 @@ def test_fit_full_graph_stops_at_the_target():
                                      feat_dim=16, seed=1)
     _, metrics = fit_full_graph(GCN(16, 3, in_dim=16), ds, epochs=200,
                                 strategy="ell", log_every=1,
-                                target_val_acc=0.9)
+                                target_val_acc=0.9, device="cpu")
     assert len(metrics["history"]) < 200
     assert metrics["history"][-1]["val_acc"] >= 0.9
 
 
-@pytest.mark.parametrize("strategy, err", [("auto", NotImplementedError),
-                                           ("block", NotImplementedError),
-                                           ("csr", ValueError)])
-def test_fit_full_graph_refuses_other_strategies(strategy, err):
+@pytest.mark.parametrize("strategy", ["auto", "block", "csr"])
+def test_fit_full_graph_refuses_other_strategies(strategy):
+    """An unknown strategy raises. ``auto`` and ``block`` are ported: this
+    16-node graph fits one dense block, so both train on it (held to the
+    reference in tests/test_torch_block_models.py)."""
     ds = synthetic.planted_partition(num_classes=2, nodes_per_class=8,
                                      feat_dim=4)
-    with pytest.raises(err):
-        fit_full_graph(GCN(4, 2, in_dim=4), ds, epochs=1, strategy=strategy)
+    if strategy != "csr":
+        _, metrics = fit_full_graph(GCN(4, 2, in_dim=4), ds, epochs=1,
+                                    strategy=strategy, device="cpu")
+        assert np.isfinite(metrics["val_loss"])
+        return
+    with pytest.raises(ValueError):
+        fit_full_graph(GCN(4, 2, in_dim=4), ds, epochs=1, strategy=strategy,
+                       device="cpu")
 
 
 def test_powerlaw_case_matches_the_reference_inputs():

@@ -102,4 +102,112 @@ def test_cpu_tensors_never_touch_the_build(monkeypatch):
 def test_the_build_knows_the_kernel():
     assert "gather_sum.cu" in _build.SOURCES
     assert (_build.CSRC / "gather_sum.cu").is_file()
-    assert len(_build._SIGNATURES["gather_sum_f32"]) == 10
+    assert len(_build._SIGNATURES["gather_sum_f32"]) == 14
+
+
+@pytest.fixture(scope="module")
+def powerlaw_ladders():
+    from custom_op_benchmark_tpu_torch.graph import random_graph
+    from custom_op_benchmark_tpu_torch.ops import ell_dual
+
+    g = random_graph(600, 6000, seed=2, power_law=True)
+    return g, {"pow2": ell_dual(g), "train": ell_dual(g, profile="train")}
+
+
+@pytest.mark.parametrize("ladder", ["pow2", "train"])
+@pytest.mark.parametrize("direction", [0, 1])
+def test_gather_table_in_numpy(powerlaw_ladders, ladder, direction):
+    """The table S3 sweeps in one launch: buckets widest first, each with
+    its real rows only (owner < n) in packing order, slots concatenated,
+    every node once as a summed row or a zero row; task t of the kernel
+    (rows × chunks, then zero rows) is row t // chunks."""
+    _, ladders = powerlaw_ladders
+    eg = ladders[ladder][direction]
+    tab = eg.gather_table
+    assert eg.gather_table is tab                    # built once, cached
+    n = eg.n_nodes
+    b = tab.buckets.numpy()
+    widths = b[:, 1]
+    assert (np.diff(widths) < 0).all()               # widest first
+    want_cols, want_nodes = [], []
+    for w in widths:
+        (bk,) = [x for x in eg.buckets if x.width == w]
+        real = bk.rows.numpy() < n
+        want_cols.append(bk.cols.numpy()[real].reshape(-1))
+        want_nodes.append(bk.rows.numpy()[real])
+    np.testing.assert_array_equal(tab.cols.numpy(), np.concatenate(want_cols))
+    np.testing.assert_array_equal(tab.nodes.numpy(),
+                                  np.concatenate(want_nodes))
+    rows = np.array([len(c) for c in want_nodes])
+    np.testing.assert_array_equal(b[:, 2], np.r_[0, np.cumsum(rows)[:-1]])
+    np.testing.assert_array_equal(b[:, 0],
+                                  np.r_[0, np.cumsum(rows * widths)[:-1]])
+    named = np.sort(np.r_[tab.nodes.numpy(), tab.zero_nodes.numpy()])
+    np.testing.assert_array_equal(named, np.arange(n))
+    g = powerlaw_ladders[0]
+    indptr = g.indptr_r if eg.direction == "src" else g.indptr_c
+    deg = np.diff(indptr.numpy()[: n + 1])
+    np.testing.assert_array_equal(np.sort(tab.zero_nodes.numpy()),
+                                  np.flatnonzero(deg == 0))
+    np.testing.assert_array_equal(eg.row_degree.numpy(), deg)
+    # The kernel's task → (row, bucket) lookup, in numpy.
+    chunks = 2
+    for task in (0, 1, chunks * len(tab.nodes) - 1):
+        row = task // chunks
+        bucket = np.searchsorted(b[:, 2], row, side="right") - 1
+        assert b[bucket, 2] <= row
+        assert bucket == len(b) - 1 or row < b[bucket + 1, 2]
+
+
+@pytest.mark.parametrize("ladder", ["pow2", "train"])
+def test_copy_sum_plain_path_is_unchanged(powerlaw_ladders, ladder):
+    """On the CPU the table's plain version gives the bits of the
+    per-bucket sums assembled through row_pos, both directions."""
+    from custom_op_benchmark_tpu_torch.ops.ell import (
+        _copy_agg_raw,
+        ell_combine_rows,
+    )
+
+    g, ladders = powerlaw_ladders
+    x = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(g.n_nodes, 33)).astype(np.float32))
+    for eg in ladders[ladder]:
+        old = ell_combine_rows(eg, [k_gather.gather_sum_plain(b.cols, x)
+                                    for b in eg.buckets])
+        assert torch.equal(_copy_agg_raw(eg, x), old)
+
+
+def test_copy_spmm_mean_uses_the_cached_degree(powerlaw_ladders, monkeypatch):
+    """reduce="mean" divides by the packing's cached degree: one copy-sum,
+    and the degree S3 once computed at width 1, bit for bit."""
+    from custom_op_benchmark_tpu_torch.ops import ell
+    from custom_op_benchmark_tpu_torch.ops.ell import ell_copy_spmm
+
+    g, ladders = powerlaw_ladders
+    se, de = ladders["train"]
+    x = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(g.n_nodes, 16)).astype(np.float32))
+    calls = []
+    real = ell.gather_sum
+
+    def counted(*a):
+        calls.append(1)
+        return real(*a)
+
+    monkeypatch.setattr(ell, "gather_sum", counted)
+    y = ell_copy_spmm(de, se, x, reduce="mean")
+    assert len(calls) == 1
+    deg = real(de.gather_table, torch.ones(g.n_nodes, 1))
+    want = real(de.gather_table, x) / deg.clamp(min=1)
+    assert torch.equal(y, want)
+
+
+def test_one_bucket_table_is_the_experiment_form():
+    cols, x = _inputs(9, 40, 6, 50, 12)
+    from custom_op_benchmark_tpu_torch.graph.ell import one_bucket_table
+
+    table = one_bucket_table(torch.from_numpy(cols))
+    assert table.buckets.tolist() == [[0, 6, 0]] and table.n_out == 40
+    assert torch.equal(k_gather.gather_sum(table, torch.from_numpy(x)),
+                       k_gather.gather_sum(torch.from_numpy(cols),
+                                           torch.from_numpy(x)))

@@ -194,9 +194,32 @@ def test_attention_kernel_checks_accept_widths_to_256(d, heads):
     assert (n_q, h, dd, nrb) == (300, heads or 1, d, 3)
 
 
-@pytest.mark.parametrize("bad", ["d257", "float64", "rows", "tile", "cols"])
+@pytest.mark.parametrize("d, heads", [(257, None), (300, 2), (1024, None)])
+def test_attention_kernel_checks_accept_wide_heads(d, heads):
+    """K4 takes heads wider than 256 (the reference pads any width); they
+    get the wide form of the tensor-core kernel, never the plain version.
+    S5's CUDA-core kernel still stops at 256."""
+    args = _attention_args(d, heads)
+    n_q, h, dd, nrb = k_attn.check_kernel_args(*args)
+    assert (n_q, h, dd, nrb) == (300, heads or 1, d, 3)
+    assert k_attn.kernel_route(d) == "wide"
+    with pytest.raises(ValueError):
+        k_attn.check_kernel_args(*args, s5=True)
+
+
+def test_attention_kernel_checks_take_bf16_for_k4_only():
+    ptr, cols, mask, q, k, v = _attention_args(64)
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    assert k_attn.check_kernel_args(ptr, cols, mask, q, k, v)[2] == 64
+    with pytest.raises(ValueError):
+        k_attn.check_kernel_args(ptr, cols, mask, q, k, v, s5=True)
+    with pytest.raises(ValueError, match="one dtype"):
+        k_attn.check_kernel_args(ptr, cols, mask, q, k.float(), v)
+
+
+@pytest.mark.parametrize("bad", ["d0", "float64", "rows", "tile", "cols"])
 def test_attention_kernel_checks_refuse(bad):
-    ptr, cols, mask, q, k, v = _attention_args(257 if bad == "d257" else 64)
+    ptr, cols, mask, q, k, v = _attention_args(0 if bad == "d0" else 64)
     if bad == "float64":
         q = q.double()
     elif bad == "rows":

@@ -102,3 +102,31 @@ def test_tiled_attention_rejects_bad_normalize(graphs):
         tops.tiled_attention(tg, x, x, x, normalize="both")
     with pytest.raises(ValueError):
         tops.tiled_softmax(tg, torch.zeros(tg.num_tiles, 8, 8), by="both")
+
+
+@pytest.mark.parametrize("heads", [None, 3])
+def test_public_sddmm_backward_hands_the_kernels_contiguous_tiles(
+        monkeypatch, heads):
+    """The public op reaches the tiles through a permute, whose gradient
+    is strided; the CUDA wrappers refuse non-contiguous operands, so the
+    VJP must hand them contiguous ones (checked here on the plain path)."""
+    from custom_op_benchmark_tpu_torch import ops
+    from custom_op_benchmark_tpu_torch.graph import clique_batch
+
+    seen = []
+
+    def checked(fn):
+        def run(*args, **kw):
+            seen.append(all(a.is_contiguous() for a in args
+                            if torch.is_tensor(a)))
+            return fn(*args, **kw)
+        return run
+
+    for name in ("spmm_row_sweep", "spmm_col_sweep"):
+        monkeypatch.setattr(tops, name, checked(getattr(tops, name)))
+    g = clique_batch(4, 10)
+    shape = (g.n_nodes, D) if heads is None else (g.n_nodes, heads, D)
+    a = torch.from_numpy(_normal(1, *shape)).requires_grad_()
+    b = torch.from_numpy(_normal(2, *shape)).requires_grad_()
+    ops.sddmm(g, a, b, impl="tiled").sum().backward()
+    assert seen and all(seen), seen

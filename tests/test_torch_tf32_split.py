@@ -126,11 +126,13 @@ def test_one_pass_misses_the_kernel_gate(depth):
 
 @pytest.mark.parametrize("d, route", [(1, "mma"), (33, "mma"), (40, "mma"),
                                       (64, "mma"), (128, "mma"),
-                                      (129, "rows"), (200, "rows"),
-                                      (256, "rows")])
+                                      (129, "wide"), (200, "wide"),
+                                      (256, "wide"), (257, "wide"),
+                                      (300, "wide"), (1024, "wide")])
 def test_k4_width_route(d, route):
-    """K4 runs on the tensor-core kernel up to d = 128; wider heads take the
-    CUDA-core kernel that S5 runs."""
+    """K4 runs on the tensor-core kernel at every width: Q resident up to
+    d = 128, the wide form (scores recomputed per 128 output features)
+    above; no width takes the plain version."""
     assert kernel_route(d) == route
 
 
