@@ -36,16 +36,18 @@ copy-sum over all of a packing's buckets.
    d = 1024), its bound on these inputs (bytes at 3.35 TB/s or
    f32-accurate products at 165 TFLOP/s, whichever is longer) and its
    library yardstick (one PyTorch call that computes the same function,
-   timed here and used nowhere in the port); the tensor-core K4 against
-   S5 with exp and mask (the CUDA-core K4); then one train step;
+   timed here and used nowhere in the port); then one train step;
 6. bf16: K1-K4 on bf16 inputs against their plain versions (one bf16
    rounding) at the slice's shapes and on the irregular graph (d = 64, 33,
    200); the op family and the attention through ``impl="tiled"`` in bf16
    against f32 at 2e-2, forward and backward, counted; times with bounds
    at bf16 bytes and the bf16 tensor-core peak;
-7. K4 at heads wider than 128 (d = 300 and 1024, the wide form) on the
-   irregular graph against its plain version at 1e-4, bit for bit on
-   repeat, through ``attention(impl="tiled")`` counted, and timed;
+7. K4 at heads wider than 128 (the cluster form, its layout printed) on
+   the irregular graph at d = 129, 200, 300, 1024 and 1100 (two clusters
+   a row block) against its plain version at 1e-4, bit for bit on repeat,
+   and in bf16 at d = 200 and 300 (one bf16 rounding); through
+   ``attention(impl="tiled")`` counted; d = 300 and 1024 timed on the
+   irregular graph and on the slice's tiles beside SDPA;
 8. the dense-block path: ``resolve(g, "auto") == "dense_block"``, the
    clique GAT's logits, loss and gradients on the block layout against
    the segment path on the card, three steps of
@@ -56,17 +58,19 @@ copy-sum over all of a packing's buckets.
    moved to the card;
 10. grid kernel parity: S1, S2, S4, S5 (all four switch settings), K4 at
     d = 128 and d = 40 and K1-K3 at d = 128 against their plain versions
-    at the grid's shapes, K4 and S5 also at d = 200, and S1, S2, S4, S5
-    and K4 again on the small irregular graph at d = 128, 100, 40, 33 and
-    200;
+    at the grid's shapes, K4 and S5 also at d = 200 and 300, and S1, S2,
+    S4, S5 and K4 again on the small irregular graph at d = 128, 100, 40,
+    33, 200 and 300; S5 with exp and mask equal to K4 bit for bit at
+    d = 40, 128 and 300;
 11. the grid path: S1 and S2 against the segment oracle, then the grid
     suite (its allclose gates at 2e-3 and its timed rows, with roofline
     fractions against the measured copy bandwidth) and the two
     experiments' rows, with every launch counter set to 0 before and read
     after;
 12. grid times: S1, S2, S4, S5, K4 and K1–K3 at d = 128 against their
-    plain versions, with bounds and library yardsticks as in 5, and the
-    peak memory of the grid attention backward;
+    plain versions, with bounds and library yardsticks as in 5, each S5
+    setting beside K4's time, and the peak memory of the grid attention
+    backward;
 13. power-law build: the graph and its dual ELL packing on both ladders on
     the host (seconds and padding waste), moved to the card;
 14. S3 parity against its plain version, bit-for-bit repeats: at the
@@ -165,7 +169,11 @@ ARXIV_MODELS = {"GAT": dict(hidden_dim=128, num_layers=3, num_heads=4),
 # uncut: 128-d features on the 512×30 clique batch, 10 classes.
 BLOCK_GAT = dict(hidden_dim=64, out_dim=10, num_layers=3, num_heads=8)
 BLOCK_FEAT = 128
-# K4 at heads wider than 128 (the wide form), on the irregular graph.
+# K4 at heads wider than 128 (the cluster form): the widths checked on the
+# irregular graph (1100 takes two clusters a row block), those also
+# checked in bf16, and those timed.
+K4_WIDE_CHECKED = (129, 200, 300, 1024, 1100)
+K4_WIDE_BF16 = (200, 300)
 K4_WIDE = (300, 1024)
 # The L2 gather rate: rows of a table that fits the 50 MB L2 (8 MiB), at
 # S3's row width, gathered in the experiment's pattern.
@@ -477,48 +485,11 @@ def phase_train(kern, dev, g, tg, x, labels, model):
     return launches, lambda: step(state, g, xx, yy, mm)
 
 
-def well_posed_s5(tg, n, d, device, seed):
-    """Inputs on which S5 without ``exp`` is well posed (the same design as
-    tests/test_torch_grid_kernels.py). Without ``exp`` the recurrence is
-    ``l = l·(m_prev − m) + Σ(s − m)``, a sign-changing sum, and the masked
-    −1e30 terms overflow once multiplied, so on general inputs rounding
-    decides the sign of ``l`` and whether a row reads 0. Here:
-
-    - every live row is a whole tile row (the even rows of each tile); the
-      odd rows are masked out everywhere (their m stays −1e9, so
-      m_prev − m = 0 and they read 0). Where n is not a multiple of 128,
-      the keys past n (zero) score 0 in a row's last tile and their −m
-      terms make ``l`` negative, so those rows read 0 in both variants:
-      only the grid's check (n a multiple of 128) sees non-zero outputs;
-    - q is 1 in features 0 and 1; k holds 16 × the key's column block in
-      feature 0 and ±1 in feature 1; v holds two entries of ±1; scale 1/8.
-      So every score is exact in f32, a tile's scores spread by 1/4, and
-      the row maxima rise by at least 2 from one of a row's tiles to the
-      next: |l·(m_prev − m)| outgrows |Σ(s − m)| and no rounding can flip
-      the sign of l.
-    """
-    gen = torch.Generator(device=device).manual_seed(seed)
-
-    def pm1(shape):
-        return torch.randint(0, 2, shape, device=device,
-                             generator=gen).float() * 2 - 1
-
-    q = torch.zeros(n, d, device=device)
-    q[:, :2] = 1.0
-    k = torch.zeros(n, d, device=device)
-    k[:, 0] = (torch.arange(n, device=device) // 128).float() * 16
-    k[:, 1] = pm1((n,))
-    v = torch.zeros(n, d, device=device)
-    v[:, :2] = pm1((n, 2))
-    live = torch.arange(128, device=device) % 2 == 0
-    mask = live[None, :, None].expand(tg.num_tiles, 128, 128).contiguous()
-    return mask, q, k, v, 0.125
-
-
 def grid_kernel_calls(tg, x, vals, x40, wp=None):
     """The grid kernels' arguments as the grid path gives them: ``tg`` the
     row-sorted tiling (SpMM), its transpose the attention's. ``wp`` (from
-    :func:`well_posed_s5`) feeds S5 without ``exp``; without it those two
+    ``well_posed_s5`` of ops/kernels/attention.py) feeds S5 without
+    ``exp``; without it those two
     settings take the grid's own inputs (for timing)."""
     from custom_op_benchmark_tpu_torch.ops.kernels.grid_dma import pad_layout
 
@@ -813,12 +784,10 @@ def time_row(kern, key, args, label, timing, lib=None):
 
 def phase_times(kern, slice_inputs, train_step):
     """Each slice kernel against its plain version and its library
-    yardstick at h=8 d=64 (K4 also against S5 with exp and mask, the
-    CUDA-core kernel), K2/K3 at d=1024; then one train step."""
+    yardstick at h=8 d=64, K2/K3 at d=1024; then one train step."""
     tgt, q, k, v, vals, x = slice_inputs
     times = {}
     narrow = kernel_calls(tgt, q, k, v, vals)
-    narrow["attn_variant:exp,mask"] = narrow["fused_attention_rows"]
     wide = kernel_calls(tgt, x, x, x, vals[0])
     for label, calls in (("h=8 d=64", narrow), (f"h=1 d={WIDE}", wide)):
         for key, args in calls.items():
@@ -852,23 +821,37 @@ def phase_grid_build(dev):
 
 
 def phase_grid_parity(kern, dev, case):
+    from custom_op_benchmark_tpu_torch.ops.kernels.attention import (
+        well_posed_s5,
+    )
+
     rng = np.random.default_rng(SEED + 2)
     tg = case.tg
     x40 = normal(rng, tg.n_nodes, 40, device=dev)
-    wp = well_posed_s5(tg, tg.n_nodes, GRID_D, dev, SEED + 3)
+    wp = well_posed_s5(tg, GRID_D, device=dev, seed=SEED + 3)
     errs = check_kernels(kern, grid_kernel_calls(tg, case.q_al, case.vals,
                                                  x40, wp), f"grid d={GRID_D}")
-    del wp, x40
+    del wp
     # K1-K3 as the grid attention's backward runs them.
     errs.update(check_kernels(
         kern, kernel_calls(tg, case.q_al, case.q_al, case.q_al, case.vals),
         f"grid d={GRID_D}", only=TILE_KERNELS))
-    # K4/S5's D = 256 instantiation at the grid's shapes (d = 200).
-    x200 = normal(rng, tg.n_nodes, 200, device=dev)
-    wp = well_posed_s5(tg, tg.n_nodes, 200, dev, SEED + 5)
-    check_kernels(kern, grid_kernel_calls(tg, x200, case.vals, None, wp),
-                  "grid d=200", only=("fused_attention_rows", "attn_variant"))
-    del wp, x200
+    calls = grid_kernel_calls(tg, case.q_al, case.vals, x40, None)
+    s5_is_k4(kern, calls[f"fused_attention_rows:d={GRID_D}"], "grid")
+    s5_is_k4(kern, calls["fused_attention_rows:d=40"], "grid")
+    del calls, x40
+    # K4/S5's cluster form at the grid's shapes (d = 200, 300: clusters of
+    # 4 and 5 blocks of 64 features).
+    for d in (200, 300):
+        xw = normal(rng, tg.n_nodes, d, device=dev)
+        wp = well_posed_s5(tg, d, device=dev, seed=SEED + 5)
+        calls = grid_kernel_calls(tg, xw, case.vals, None, wp)
+        check_kernels(kern, calls, f"grid d={d}",
+                      only=("fused_attention_rows", "attn_variant"))
+        if d == 300:
+            s5_is_k4(kern, calls[f"fused_attention_rows:d={d}"], "grid")
+        del wp, xw, calls
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     # The irregular graph of phase 2: an empty row and column block.
     n_small = 300
@@ -878,17 +861,29 @@ def phase_grid_parity(kern, dev, case):
     small = tile_graph(from_coo(src, dst, n_small), 128, 128, device=dev)
     # d = 33 moves x through S1/S2's and K4's 4-byte copies (rows not
     # 16-byte aligned); d = 100 leaves K4's second 64-feature chunk partly
-    # empty; d = 200 runs K4/S5's D = 256 instantiation.
-    for d in (GRID_D, 100, 40, 33, 200):
+    # empty; d = 200 and 300 run K4/S5's cluster form.
+    for d in (GRID_D, 100, 40, 33, 200, 300):
         xs = normal(rng, n_small, d, device=dev)
         sv = torch.where(small.mask, normal(rng, small.num_tiles, 128, 128,
                                             device=dev), 0.0)
-        wp = well_posed_s5(small, n_small, d, dev, SEED + 4)
+        wp = well_posed_s5(small, d, device=dev, seed=SEED + 4)
         check_kernels(kern, grid_kernel_calls(
             small, xs, sv, normal(rng, n_small, 40, device=dev), wp),
             f"irregular n=300 d={d}")
     torch.cuda.synchronize()
     return errs
+
+
+def s5_is_k4(kern, args, label):
+    """S5 with exp and mask against K4 on the same inputs: the same kernel
+    instantiation and launch, so the same bits."""
+    k4 = kern.table["fused_attention_rows"][0](*args)
+    s5 = kern.table["attn_variant"][0](*args)
+    torch.cuda.synchronize()
+    same = torch.equal(k4, s5)
+    log(f"[parity] {label:28s} S5(exp, mask) == K4 at d={args[3].shape[-1]}"
+        f": {'same bits' if same else 'DIFFERENT'}")
+    assert same, f"S5 with exp and mask differs from K4 ({label})"
 
 
 def phase_grid_path(kern, case):
@@ -944,8 +939,8 @@ def phase_grid_path(kern, case):
 
 def phase_grid_times(kern, case):
     """The grid kernels against their plain versions and library
-    yardsticks at d = 128: S1, S2, S4, K4 (new, and old as S5 with exp and
-    mask), every S5 setting, and K1-K3 at the grid's shapes."""
+    yardsticks at d = 128: S1, S2, S4, K4, every S5 setting (each beside
+    K4's time), and K1-K3 at the grid's shapes."""
     from custom_op_benchmark_tpu_torch.utils.bench_suite import (
         tiled_grid_attention,
     )
@@ -968,6 +963,10 @@ def phase_grid_times(kern, case):
             ("spmm_col_sweep", sweep["spmm_col_sweep"], True)):
         times[key] = time_row(kern, key, args, label, GRID_TIMING, lib=lib)
         torch.cuda.empty_cache()
+    k4_ms = times[f"fused_attention_rows:d={GRID_D}"]["ms"]
+    for key in S5_SETTINGS:
+        log(f"[time] {key:30s} {label:11s} {times[key]['ms']:.4f} ms = "
+            f"{times[key]['ms'] / k4_ms:.3f} x K4's {k4_ms:.4f} ms")
     del bsr, sweep
     del calls
     torch.cuda.synchronize()
@@ -1157,13 +1156,17 @@ def phase_bf16(kern, dev, g, slice_inputs):
 
 
 def phase_wide_k4(kern, dev, tg):
-    """K4 at heads wider than 128 (the wide form): against its plain
-    version at 1e-4, bit for bit on repeat, on the irregular graph; the
-    attention op through ``impl="tiled"`` counted; times. Then the same
-    widths, one head, on the slice's tiles (n = 15,360), checked and timed
-    beside SDPA: the irregular graph is small enough for a dense mask to
-    win, the slice shows the kernel where the graph is real."""
+    """K4 at heads wider than 128 (the cluster form): against its plain
+    version at 1e-4, bit for bit on repeat, on the irregular graph at
+    every width of K4_WIDE_CHECKED, and in bf16 within one rounding; the
+    attention op through ``impl="tiled"`` counted; times at K4_WIDE. Then
+    the same widths, one head, on the slice's tiles (n = 15,360), checked
+    and timed beside SDPA: the irregular graph is small enough for a dense
+    mask to win, the slice shows the kernel where the graph is real."""
     from custom_op_benchmark_tpu_torch import ops
+    from custom_op_benchmark_tpu_torch.ops.kernels.attention import (
+        kernel_route,
+    )
 
     rng = np.random.default_rng(SEED + 9)
     g, small = irregular_graph(rng, dev)
@@ -1177,13 +1180,23 @@ def phase_wide_k4(kern, dev, tg):
         time_row(kern, key, args, f"slice d={d}", {}, lib=True)
         del args
         torch.cuda.empty_cache()
-    for d in K4_WIDE:
+    for d in K4_WIDE_CHECKED:
+        form, blocks, clusters, width = kernel_route(d)
+        log(f"[wide] d={d}: kernel_route {form!r}, {blocks} blocks of "
+            f"{width} features a cluster, {clusters} cluster(s) a row block "
+            f"and head")
+        assert form == "wide", form
         qs, ks, vs = (normal(rng, small.n_nodes, d, device=dev)
                       for _ in range(3))
         key = f"fused_attention_rows:d={d}"
         call = {key: (small.tile_ptr, small.tile_cols, small.mask, qs, ks,
                       vs, d ** -0.5)}
         errs.update(check_kernels(kern, call, "irregular n=300 wide K4"))
+        if d in K4_WIDE_BF16:
+            b16 = [t.bfloat16() for t in (qs, ks, vs)]
+            check_kernels(kern, {f"{key} bf16": (
+                small.tile_ptr, small.tile_cols, small.mask, *b16,
+                d ** -0.5)}, "irregular n=300 wide K4 bf16")
         kern.reset()
         y = ops.attention(g, qs, ks, vs, impl="tiled")
         torch.cuda.synchronize()
@@ -1192,8 +1205,12 @@ def phase_wide_k4(kern, dev, tg):
         log(f"[wide] attention(impl='tiled') at d={d}: K4 launches "
             f"{launches[key]}")
         assert launches[key] == 1, launches
-        times[key] = time_row(kern, key, call[key], f"n=300 d={d}", {},
-                              lib=True)
+        if d in K4_WIDE:
+            times[key] = time_row(kern, key, call[key], f"n=300 d={d}", {},
+                                  lib=True)
+            ms, lib = times[key]["ms"], times[key]["library_ms"]
+            log(f"[wide] d={d} n=300: K4 {ms:.4f} ms against SDPA "
+                f"{lib} ms: {'below' if lib and ms < lib else 'NOT below'}")
     return errs, launches, times
 
 

@@ -1,11 +1,11 @@
-"""Tile-kernel A/B: the committed K1–K3 against older builds of them.
+"""Tile-kernel A/B: the committed K1–K4 and S5 against older builds of them.
 
     python -m custom_op_benchmark_tpu_torch.experiments.ab_tiled \\
-        [--k1k2 OLD.cu] [--k3 OLD_K3.cu]
+        [--k1k2 OLD.cu] [--k3 OLD_K3.cu] [--k4 OLD_ATTENTION.cu]
 
-Each option names an older ``csrc/tiled_kernels.cu``, copied out of git
-under ``build/`` (the chip machine's copy of the repository has no
-``.git``):
+``--k1k2`` and ``--k3`` name an older ``csrc/tiled_kernels.cu``, ``--k4``
+an older ``csrc/attention.cu``, each copied out of git under ``build/``
+(the chip machine's copy of the repository has no ``.git``):
 
 - ``--k1k2``: a file whose ``sddmm_tiles_f32`` and ``spmm_row_sweep_f32``
   have the committed signatures; its K1 and K2 are timed against the
@@ -15,15 +15,26 @@ under ``build/`` (the chip machine's copy of the repository has no
   argument, as the CUDA-core K3 of
   ``git show 11ccb10:custom_op_benchmark_tpu_torch/csrc/tiled_kernels.cu``
   does; its K3 is timed against the committed one.
+- ``--k4``: a file whose ``fused_attention_rows_f32`` takes no launch
+  layout and whose ``attn_variant_f32`` takes no ``vec``, as those of
+  ``git show faa5f85:custom_op_benchmark_tpu_torch/csrc/attention.cu`` do
+  (K4 with one block per 128 output features recomputing the scores above
+  d = 128, and S5 on the CUDA cores, d ≤ 256).
 
 Each file is built with the port's nvcc flags (and ``csrc/`` on the
-include path) into ``build/``. At the slice's shapes (the 512×30 clique
-batch's transposed tile view, h = 8, d = 64, and h = 1, d = 1024) and on
-the 1024×1024 grid at d = 128, both builds of each kernel are checked
+include path) into ``build/``. Both builds of each kernel are checked
 against its plain version (rtol = atol = 1e-4) and timed by CUDA events in
-turns (old, new, new, old; each time a median of repeats). Prints one JSON
-line ``{"ab_tiled": {...}}`` with the card's name and power limit. Needs a
-CUDA device.
+turns (old, new, new, old; each time a median of repeats): K1–K3 at the
+slice's shapes (the 512×30 clique batch's transposed tile view, h = 8,
+d = 64, and h = 1, d = 1024) and on the 1024×1024 grid at d = 128; K4 at
+the slice's shapes (h = 8, d = 64; one head at d = 300 and 1024), on the
+300-node irregular graph of ``chip_smoke.py`` (d = 300 and 1024, where
+each build's host time to enqueue a call is also set beside its device
+time), and on the grid at d = 128; S5 on the grid in its four switch
+settings (timed on the grid's own inputs and checked there with ``exp``;
+without it, checked on inputs where it is well posed). Prints one JSON
+line ``{"ab_tiled": {...}}`` with the card's name and power limit. Needs
+a CUDA device.
 """
 
 from __future__ import annotations
@@ -34,26 +45,41 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from custom_op_benchmark_tpu_torch.graph import clique_batch, tile_graph
+from custom_op_benchmark_tpu_torch.graph import (
+    clique_batch,
+    from_coo,
+    tile_graph,
+)
 from custom_op_benchmark_tpu_torch.ops.kernels import _build
+from custom_op_benchmark_tpu_torch.ops.kernels import attention as ka
 from custom_op_benchmark_tpu_torch.ops.kernels import tiled_kernels as kt
 from custom_op_benchmark_tpu_torch.utils import cuda_device
 from custom_op_benchmark_tpu_torch.utils.bench_suite import grid_case
 from custom_op_benchmark_tpu_torch.utils.benchlib import time_cuda
 
 RTOL = ATOL = 1e-4
+GRID_TIMING = dict(warmup=1, iters=3, repeats=3)
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# The older entry points' argument types (K3 without ``vec``).
+# The older entry points' argument types (K3 without ``vec``; K4 without
+# a launch layout, S5 without ``vec``).
 OLD_SIGNATURES = {
     "k1k2": {"sddmm_tiles_f32": [_P] * 6 + [_I] * 6 + [_P],
              "spmm_row_sweep_f32": [_P] * 5 + [_I] * 7 + [_P]},
     "k3": {"spmm_col_sweep_f32": [_P] * 6 + [_I] * 7 + [_P]},
+    "k4": {"fused_attention_rows_f32": [_P] * 7 + [_I] * 6
+           + [ctypes.c_float, _I, _I, _P],
+           "attn_variant_f32": [_P] * 7 + [_I] * 6 + [ctypes.c_float]
+           + [_I] * 3 + [_P]},
 }
+S5_SETTINGS = {f"{'exp' if e else 'noexp'},{'mask' if m else 'nomask'}":
+               dict(use_exp=e, use_mask=m) for e in (True, False)
+               for m in (True, False)}
 
 
 def load_old(source: Path, role: str) -> ctypes.CDLL:
@@ -106,26 +132,83 @@ def old_col_sweep(lib, ptr_c, perm, rows, vals, y, n_out):
     return out[:, 0] if y.dim() == 2 else out
 
 
-def compare(old, new, plain, args, timing):
-    """Both builds against the plain version, then timed in turns."""
-    want = plain(*args)
-    res = {}
+def old_attention(lib, ptr, cols, mask, q, k, v, scale, use_exp=None,
+                  use_mask=None):
+    """The older K4 (``use_exp`` None) or S5 on the same arguments."""
+    qh, kh, vh = kt._heads(q), kt._heads(k), kt._heads(v)
+    n_q, h, d = qh.shape
+    out = torch.empty_like(qh)
+    dev, stream = kt._stream(q)
+    head = (kt._p(ptr), kt._p(cols), kt._p(mask), kt._p(qh), kt._p(kh),
+            kt._p(vh), kt._p(out), ptr.numel() - 1, h, d, n_q, kh.shape[0],
+            n_q, float(scale))
+    if use_exp is None:
+        status = lib.fused_attention_rows_f32(
+            *head, kt._vec(d, qh, kh, vh), dev, stream)
+    else:
+        status = lib.attn_variant_f32(*head, int(use_exp), int(use_mask),
+                                      dev, stream)
+    _build.check(status, "old attention")
+    return out[:, 0] if q.dim() == 2 else out
+
+
+def compare(old, new, plain, args, timing, kwargs=None, check_args=None):
+    """Both builds against the plain version on ``check_args`` (``args``
+    when None), then timed in turns on ``args``."""
+    kwargs = kwargs or {}
+    check = args if check_args is None else check_args
+    want = plain(*check, **kwargs)
+    res, got = {}, {}
     for name, fn in (("old", old), ("new", new)):
-        got = fn(*args)
-        res[f"{name}_max_abs_err"] = float((got - want).abs().max())
-        res[f"{name}_ok"] = bool(torch.allclose(got, want, rtol=RTOL,
+        got[name] = fn(*check, **kwargs)
+        res[f"{name}_max_abs_err"] = float((got[name] - want).abs().max())
+        res[f"{name}_ok"] = bool(torch.allclose(got[name], want, rtol=RTOL,
                                                 atol=ATOL))
-        del got
-    del want
+    res["same_bits"] = bool(torch.equal(got["old"], got["new"]))
+    del got, want
 
     def ms(fn):
-        return statistics.median(time_cuda(lambda: fn(*args), **timing)) * 1e3
+        return statistics.median(time_cuda(
+            lambda: fn(*args, **kwargs), **timing)) * 1e3
 
     o1, n1, n2, o2 = ms(old), ms(new), ms(new), ms(old)
     res.update(old_ms=(o1 + o2) / 2, new_ms=(n1 + n2) / 2,
-               old_ms_each=[o1, o2], new_ms_each=[n1, n2])
+               old_ms_each=[o1, o2], new_ms_each=[n1, n2],
+               new_over_old=(n1 + n2) / (o1 + o2))
     torch.cuda.empty_cache()
     return res
+
+
+def host_and_device_ms(fn, calls=20):
+    """Where a small call's time goes: the host's ms per call to enqueue it
+    (no synchronisation between calls), and the device's ms per call with
+    the host out of the way (``calls`` calls captured in a CUDA graph,
+    replayed, timed by CUDA events; median of 5)."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    device = []
+    for _ in range(5):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        device.append(start.elapsed_time(end) / calls)
+    del graph
+    return dict(host_ms=host, device_ms=statistics.median(device))
 
 
 def kernel_args(tg, a, b, vals):
@@ -138,13 +221,61 @@ def kernel_args(tg, a, b, vals):
     }
 
 
+def attention_slice(lib, tgt, rng, normal, out):
+    """K4 at the slice's shapes and on the 300-node irregular graph."""
+    def old(*a):
+        return old_attention(lib, *a)
+
+    def k4(label, tg, d, heads=None, enqueue=False):
+        shape = (tg.n_nodes, d) if heads is None else (tg.n_nodes, heads, d)
+        call = (tg.tile_ptr, tg.tile_cols, tg.mask,
+                *(normal(*shape) for _ in range(3)), d ** -0.5)
+        res = dict(layout=ka.kernel_route(d), **compare(
+            old, ka.fused_attention_rows, ka.fused_attention_rows_plain,
+            call, {}))
+        if enqueue:
+            for name, fn in (("old", old), ("new", ka.fused_attention_rows)):
+                res[f"{name}_enqueue"] = host_and_device_ms(lambda: fn(*call))
+        out[f"fused_attention_rows {label}"] = res
+
+    k4("slice h=8 d=64", tgt, 64, heads=8)
+    n_small = 300
+    src = rng.choice(np.r_[0:128, 256:n_small], size=4000)
+    dst = rng.choice(np.r_[0:256], size=4000)
+    small = tile_graph(from_coo(src, dst, n_small), 128, 128,
+                       device=tgt.tile_ptr.device)
+    for d in (300, 1024):
+        k4(f"n=300 d={d}", small, d, enqueue=True)
+        k4(f"slice h=1 d={d}", tgt, d)
+
+
+def attention_grid(lib, case, out):
+    """K4 and S5's four settings on the grid at d = 128."""
+    tg = case.tg.transpose()
+    att = (tg.tile_ptr, tg.tile_cols, tg.mask, case.q_al, case.q_al,
+           case.q_al, case.d ** -0.5)
+    out["fused_attention_rows grid d=128"] = dict(
+        layout=ka.kernel_route(case.d), **compare(
+            lambda *a: old_attention(lib, *a), ka.fused_attention_rows,
+            ka.fused_attention_rows_plain, att, GRID_TIMING))
+    wp = (tg.tile_ptr, tg.tile_cols) + ka.well_posed_s5(
+        tg, case.d, device=case.q_al.device, seed=3)
+    for key, kw in S5_SETTINGS.items():
+        out[f"attn_variant {key} grid d=128"] = compare(
+            lambda *a, **k: old_attention(lib, *a, **k), ka.attn_variant,
+            ka.attn_variant_plain, att, GRID_TIMING, kw,
+            None if kw["use_exp"] else wp)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k1k2", type=Path, help="older file for K1 and K2")
     ap.add_argument("--k3", type=Path, help="older file for K3 (no vec)")
+    ap.add_argument("--k4", type=Path,
+                    help="older attention.cu for K4 and S5")
     args = ap.parse_args(argv)
-    if args.k1k2 is None and args.k3 is None:
-        ap.error("name at least one older file: --k1k2 or --k3")
+    if args.k1k2 is None and args.k3 is None and args.k4 is None:
+        ap.error("name at least one older file: --k1k2, --k3 or --k4")
     dev = cuda_device()
     kernels = {}
     if args.k1k2 is not None:
@@ -160,6 +291,7 @@ def main(argv=None) -> int:
         kernels["spmm_col_sweep"] = (
             lambda *a: old_col_sweep(lib3, *a), kt.spmm_col_sweep,
             kt.spmm_col_sweep_plain)
+    lib4 = load_old(args.k4, "k4") if args.k4 is not None else None
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -172,26 +304,32 @@ def main(argv=None) -> int:
             rng.standard_normal(shape, dtype=np.float32)).to(dev)
 
     tgt = tile_graph(clique_batch(512, 30), 128, 128, device=dev).transpose()
-    n = tgt.n_nodes
-    vals = torch.where(tgt.mask, normal(8, tgt.num_tiles, 128, 128), 0.0)
-    x, y = normal(n, 1024), normal(n, 1024)
-    cases = [("slice h=8 d=64", tgt, normal(n, 8, 64), normal(n, 8, 64),
-              vals, {}),
-             ("slice h=1 d=1024", tgt, x, y, vals[0].contiguous(), {})]
-    for label, tg, a, b, v, timing in cases:
-        for name, call in kernel_args(tg, a, b, v).items():
-            if name in kernels:
-                out[f"{name} {label}"] = compare(*kernels[name], call, timing)
-    del cases, vals, x, y
+    if kernels:
+        n = tgt.n_nodes
+        vals = torch.where(tgt.mask, normal(8, tgt.num_tiles, 128, 128), 0.0)
+        x, y = normal(n, 1024), normal(n, 1024)
+        cases = [("slice h=8 d=64", tgt, normal(n, 8, 64), normal(n, 8, 64),
+                  vals), ("slice h=1 d=1024", tgt, x, y, vals[0].contiguous())]
+        for label, tg, a, b, v in cases:
+            for name, call in kernel_args(tg, a, b, v).items():
+                if name in kernels:
+                    out[f"{name} {label}"] = compare(*kernels[name], call, {})
+        del cases, vals, x, y
+    if lib4 is not None:
+        attention_slice(lib4, tgt, rng, normal, out)
+    del tgt
     torch.cuda.empty_cache()
     case = grid_case(1024, 1024, 128, device=dev)
     grid = kernel_args(case.tg, case.q_al, case.q_al, case.vals)
     for name, call in grid.items():
         if name in kernels:
-            out[f"{name} grid d=128"] = compare(
-                *kernels[name], call, dict(warmup=1, iters=3, repeats=3))
+            out[f"{name} grid d=128"] = compare(*kernels[name], call,
+                                                GRID_TIMING)
+    del grid
+    if lib4 is not None:
+        attention_grid(lib4, case, out)
     print(json.dumps({"ab_tiled": out}), flush=True)
-    return 0 if all(r["old_ok"] and r["new_ok"] for k, r in out.items()
+    return 0 if all(r["old_ok"] and r["new_ok"] for r in out.values()
                     if isinstance(r, dict)) else 1
 
 

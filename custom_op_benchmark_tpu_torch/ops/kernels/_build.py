@@ -38,10 +38,10 @@ _SIGNATURES = {
     "sddmm_tiles_f32": [_P] * 6 + [_I] * 6 + [_P],
     "spmm_row_sweep_f32": [_P] * 5 + [_I] * 7 + [_P],
     "spmm_col_sweep_f32": [_P] * 6 + [_I] * 8 + [_P],
-    "fused_attention_rows_f32": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I,
-                                                       _I, _P],
+    "fused_attention_rows_f32": [_P] * 7 + [_I] * 6 + [ctypes.c_float]
+    + [_I] * 5 + [_P],
     "spmm_dotonly_f32": [_P] * 4 + [_I] * 6 + [_P],
-    "attn_variant_f32": [_P] * 7 + [_I] * 6 + [ctypes.c_float] + [_I] * 3
+    "attn_variant_f32": [_P] * 7 + [_I] * 6 + [ctypes.c_float] + [_I] * 7
     + [_P],
     "spmm_row_sweep_dma_f32": [_P] * 4 + [_I] * 7 + [_P],
     "spmm_row_sweep_dma_v2_f32": [_P] * 5 + [_I] * 6 + [_P],

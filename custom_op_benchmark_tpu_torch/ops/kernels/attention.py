@@ -11,18 +11,19 @@ head h, over I's nonzero tiles (the src direction):
              or 0 for a row with no edges.
 
 Both run the online-softmax recurrence in csrc/attention.cu, one tile at
-a time, and never store a score in device memory. K4 runs on the
-tensor-core kernel at every head width, in float32 or bfloat16 (f32
-accumulation, the input's dtype out): with Q resident for d ≤ 128, and
-for wider heads one block per 128 output features that recomputes the
-scores (:func:`kernel_route`). S5 takes the CUDA-core kernel (float32,
-d ≤ 256), which switches the exponentials (``use_exp``) and the mask
-(``use_mask``) off. The plain K4 materialises the masked scores and
-composes the softmax in f32; the plain S5 runs the recurrence one tile
-slot at a time over all row blocks, since without ``exp`` it is not a
-softmax. Each wrapper runs its kernel on CUDA tensors and its plain
-version only on CPU tensors; ``<wrapper>.launches`` counts kernel
-launches.
+a time, and never store a score in device memory, on one tensor-core
+kernel: with Q resident for d ≤ 128, and for wider heads a thread block
+cluster per row block whose blocks each own 64 or 128 features and sum
+their shares of each tile's scores through distributed shared memory, so
+the scores are computed once (:func:`kernel_route` states the layout). K4
+takes float32 or bfloat16 (f32 accumulation, the input's dtype out); S5 is
+the same kernel in float32 with the exponentials (``use_exp``) and the
+mask (``use_mask``) switched off, at any head width. The plain K4
+materialises the masked scores and composes the softmax in f32; the plain
+S5 runs the recurrence one tile slot at a time over all row blocks, since
+without ``exp`` it is not a softmax. Each wrapper runs its kernel on CUDA
+tensors and its plain version only on CPU tensors;
+``<wrapper>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -36,7 +37,6 @@ from custom_op_benchmark_tpu_torch.ops.kernels.tiled_kernels import (
     _entry,
     _heads,
     _on_cpu,
-    _p,
     _row_tiles,
     _stream,
     _vec,
@@ -45,8 +45,8 @@ from custom_op_benchmark_tpu_torch.ops.segments import sorted_segment_reduce
 
 NEG_INF = -1e30
 M_INIT = -1e9      # the kernel's first running max
-S5_MAX_HEAD_DIM = 256  # widest head of the CUDA-core kernel (S5)
 RESIDENT_MAX_HEAD_DIM = 128  # widest head K4 runs with Q resident
+MAX_CLUSTER = 8      # blocks a cluster holds at most (the portable size)
 
 
 def fused_attention_rows_plain(tile_ptr, tile_cols, mask, q, k, v, scale):
@@ -75,18 +75,16 @@ def fused_attention_rows_plain(tile_ptr, tile_cols, mask, q, k, v, scale):
 
 
 def check_kernel_args(tile_ptr, tile_cols, mask, q, k, v, *, s5=False):
-    """The checks the CUDA kernels need of their arguments; raises
-    ValueError on anything they do not take. K4 takes float32 or bfloat16
-    and any head width d ≥ 1; S5 (``s5=True``) float32 and 1 ≤ d ≤ 256.
-    Returns (n_q, H, d, nrb)."""
+    """The checks the CUDA kernel needs of its arguments; raises ValueError
+    on anything it does not take. K4 takes float32 or bfloat16, S5
+    (``s5=True``) float32; both any head width d ≥ 1. Returns
+    (n_q, H, d, nrb)."""
     _check_cuda(ints=(tile_ptr, tile_cols), floats=(q, k, v), mask=mask,
                 bf16=not s5)
-    qh = _heads(q)
-    n_q, h, d = qh.shape
+    n_q, h, d = (q.shape[0], 1, q.shape[1]) if q.dim() == 2 else q.shape
     nrb = tile_ptr.shape[0] - 1
-    top = S5_MAX_HEAD_DIM if s5 else None
-    if d < 1 or (top is not None and d > top):
-        raise ValueError(f"head width {d} outside [1, {top or '∞'}]")
+    if d < 1:
+        raise ValueError(f"head width {d} < 1")
     if n_q > nrb * TILE:
         raise ValueError(f"{n_q} query rows exceed {nrb} row blocks")
     if tile_cols.shape != mask.shape[:1]:
@@ -95,29 +93,51 @@ def check_kernel_args(tile_ptr, tile_cols, mask, q, k, v, *, s5=False):
     return n_q, h, d, nrb
 
 
-def kernel_route(d: int) -> str:
-    """The tensor-core kernel's form that serves K4 at head width d:
-    ``"mma"`` (1 ≤ d ≤ 128, Q resident in shared memory) or ``"wide"``
-    (d > 128: one block per 128 output features, Q staged in 64-feature
-    chunks beside K, the scores recomputed per block). Both are the one C
-    entry point ``fused_attention_rows_*``; no width takes the plain
+def kernel_route(d: int) -> tuple[str, int, int, int]:
+    """The launch layout of the tensor-core kernel at head width d, as
+    ``(form, blocks_per_cluster, clusters, width)`` per row block and head,
+    ``width`` the features a block holds:
+
+    - ``("mma", 1, 1, 64 or 128)`` for 1 ≤ d ≤ 128: one block, Q resident
+      in shared memory;
+    - ``("wide", C, Z, W)`` for d > 128: Z thread block clusters of C
+      blocks, each block owning W features: W = 64 up to d = 512 (C =
+      ceil(d / 64), a short chain of steps per block), else W = 128, C =
+      min(8, ceil(d / 128)) and Z = ceil(d / 1024). Block b of cluster z
+      writes output features [W·(C·z + b), +W) and contracts over the
+      slices b, b + C, ... of d; the cluster sums the blocks' shares of
+      each tile's scores, so each cluster computes them once.
+
+    The C entry points take this layout as it is; no width takes the plain
     version."""
     if d < 1:
         raise ValueError(f"head width {d} < 1")
-    return "mma" if d <= RESIDENT_MAX_HEAD_DIM else "wide"
+    if d <= RESIDENT_MAX_HEAD_DIM:
+        return "mma", 1, 1, 64 if d <= 64 else 128
+    width = 64 if d <= MAX_CLUSTER * 64 else 128
+    slices = -(-d // width)
+    blocks = min(MAX_CLUSTER, slices)
+    return "wide", blocks, -(-slices // blocks), width
 
 
 def _launch(entry, args, tile_ptr, tile_cols, mask, q, k, v, scale, s5):
     n_q, h, d, nrb = check_kernel_args(tile_ptr, tile_cols, mask, q, k, v,
                                        s5=s5)
-    qh, kh, vh = _heads(q), _heads(k), _heads(v)
-    out = torch.empty_like(qh)
+    if mask.data_ptr() % 16:
+        raise ValueError("mask must be 16-byte aligned")
+    # (n, d) and (n, 1, d) have the same layout: the kernel takes the
+    # tensors as they are. Pointers go as ints (argtypes c_void_p): a
+    # launch on the small graphs costs about as much host time as device
+    # time, so the wrapper makes no views or ctypes objects.
+    out = torch.empty_like(q)
     dev, stream = _stream(q)
+    _, blocks, clusters, width = kernel_route(d)
     _build.check(getattr(_build.library(), entry)(
-        _p(tile_ptr), _p(tile_cols), _p(mask), _p(qh), _p(kh), _p(vh),
-        _p(out), nrb, h, d, n_q, kh.shape[0], n_q, float(scale), *args, dev,
-        stream), entry)
-    return out[:, 0] if q.dim() == 2 else out
+        tile_ptr.data_ptr(), tile_cols.data_ptr(), mask.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), nrb, h, d,
+        n_q, k.shape[0], n_q, float(scale), _vec(d, q, k, v), blocks,
+        clusters, width, *args, dev, stream), entry)
+    return out
 
 
 def fused_attention_rows(tile_ptr, tile_cols, mask, q, k, v, scale: float):
@@ -129,11 +149,8 @@ def fused_attention_rows(tile_ptr, tile_cols, mask, q, k, v, scale: float):
     if _on_cpu(tile_ptr, tile_cols, mask, q, k, v):
         return fused_attention_rows_plain(tile_ptr, tile_cols, mask, q, k, v,
                                           scale)
-    if mask.data_ptr() % 16:
-        raise ValueError("mask must be 16-byte aligned")
-    out = _launch(_entry("fused_attention_rows", q),
-                  (_vec(q.shape[-1], q, k, v),), tile_ptr, tile_cols, mask,
-                  q, k, v, scale, s5=False)
+    out = _launch(_entry("fused_attention_rows", q), (), tile_ptr,
+                  tile_cols, mask, q, k, v, scale, s5=False)
     fused_attention_rows.launches += 1
     return out
 
@@ -194,8 +211,9 @@ def attn_variant(tile_ptr, tile_cols, mask, q, k, v, scale: float, *,
                  use_exp: bool = True, use_mask: bool = True):
     """S5: :func:`fused_attention_rows` with ``use_exp=False`` (p = s − m,
     corr = m_prev − m) and/or ``use_mask=False`` (every column of each tile
-    counts, key rows past n reading as zero). A diagnostic on the CUDA
-    cores, float32, 1 ≤ d ≤ 256; with both on it is K4's function."""
+    counts, key rows past n reading as zero). A diagnostic: K4's kernel
+    with its switches, float32, any d ≥ 1; with both on it is K4's
+    launch, bit for bit."""
     if not q.shape[1:] == k.shape[1:] == v.shape[1:]:
         raise ValueError("q, k and v differ in heads or width")
     if _on_cpu(tile_ptr, tile_cols, mask, q, k, v):
@@ -208,3 +226,43 @@ def attn_variant(tile_ptr, tile_cols, mask, q, k, v, scale: float, *,
 
 
 attn_variant.launches = 0
+
+
+def well_posed_s5(tg, d: int, *, device=None, seed: int = 0):
+    """Inputs on which S5 without ``exp`` is well posed, for ``tg``'s tiling
+    at width d: ``(mask, q, k, v, scale)``.
+
+    Without ``exp`` the recurrence is ``l = l·(m_prev − m) + Σ(s − m)``, a
+    sum whose terms change sign, and a masked score (−1e30) multiplied by a
+    jump of the running max overflows, so on general inputs rounding
+    decides the sign of ``l`` and whether a row reads 0. Here:
+
+    - every live row is a whole tile row (the even rows of each tile); the
+      odd rows are masked out everywhere (their m stays −1e9, so
+      m_prev − m = 0 and they read 0). Where n is not a multiple of 128,
+      the keys past n (zero) score 0 in a row's last tile and their −m
+      terms make ``l`` negative, so those rows read 0 in every version;
+    - q is 1 in features 0 and 1; k holds 16 × the key's column block in
+      feature 0 and ±1 in feature 1; v holds two entries of ±1; scale 1/8.
+      So every score is exact in f32 (and in 3xTF32), a tile's scores
+      spread by 1/4, and the row maxima rise by at least 2 from one of a
+      row's tiles to the next: |l·(m_prev − m)| outgrows |Σ(s − m)| and no
+      rounding can flip the sign of l.
+    """
+    n = tg.n_nodes
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def pm1(shape):
+        return torch.randint(0, 2, shape, device=device,
+                             generator=gen).float() * 2 - 1
+
+    q = torch.zeros(n, d, device=device)
+    q[:, :2] = 1.0
+    k = torch.zeros(n, d, device=device)
+    k[:, 0] = (torch.arange(n, device=device) // TILE).float() * 16
+    k[:, 1] = pm1((n,))
+    v = torch.zeros(n, d, device=device)
+    v[:, :2] = pm1((n, 2))
+    live = torch.arange(TILE, device=device) % 2 == 0
+    mask = live[None, :, None].expand(tg.num_tiles, TILE, TILE).contiguous()
+    return mask, q, k, v, 0.125

@@ -143,35 +143,32 @@ def test_spmm_dotonly_matches_pallas(grids):
 
 
 def _well_posed(tg, d):
-    """Inputs on which S5 without ``exp`` is a well-posed comparison.
+    """S5's well-posed inputs (``k_attn.well_posed_s5``: the comparison
+    does not depend on summation order) as numpy arrays."""
+    *arrays, scale = k_attn.well_posed_s5(tg, d, seed=11)
+    return (*(a.numpy() for a in arrays), scale)
 
-    Without ``exp`` the recurrence is ``l = l·(m_prev − m) + Σ(s − m)``, a
-    sum whose terms change sign, and a masked score (−1e30) multiplied by
-    a jump of the running max overflows, so on general inputs rounding
-    decides the sign of ``l`` and whether a row reads 0. These inputs avoid
-    that, and so the comparison does not depend on summation order:
 
-    - each live row is a whole tile row (the even rows of each tile); the
-      odd rows are masked out everywhere, keep m = −1e9, m_prev − m = 0,
-      and read 0;
-    - q is 1 in features 0 and 1; k holds 16 × the key's column block in
-      feature 0 and ±1 in feature 1; v two entries of ±1; scale 1/8. Every
-      score is exact in f32, a tile's scores spread by 1/4, and a row's
-      maxima rise by at least 2 from tile to tile, so |l·(m_prev − m)|
-      outgrows |Σ(s − m)| and the sign of l is robust.
-    """
-    rng = np.random.default_rng(11)
-    n = tg.n_nodes
-    q = np.zeros((n, d), np.float32)
-    q[:, :2] = 1.0
-    k = np.zeros((n, d), np.float32)
-    k[:, 0] = (np.arange(n) // 128) * 16
-    k[:, 1] = rng.choice([-1.0, 1.0], size=n)
-    v = np.zeros((n, d), np.float32)
-    v[:, :2] = rng.choice([-1.0, 1.0], size=(n, 2))
-    mask = np.zeros((tg.num_tiles, 128, 128), bool)
-    mask[:, ::2, :] = True
-    return mask, q, k, v, 0.125
+def test_well_posed_s5_inputs(grids):
+    """The properties S5's comparisons without ``exp`` rest on: the even
+    rows of every tile live and the odd rows masked out; every score exact
+    in f32; a column block's scores within 1/4 of each other; each
+    block's largest score at least 1.75 above the block before."""
+    _, tg = grids
+    tgt = tg.transpose()
+    n, d = tgt.n_nodes, 40
+    mask, q, k, v, scale = k_attn.well_posed_s5(tgt, d, seed=11)
+    assert mask.shape == (tgt.num_tiles, 128, 128)
+    assert mask[:, ::2].all() and not mask[:, 1::2].any()
+    assert q.shape == k.shape == v.shape == (n, d)
+    assert not v[:, 2:].any() and set(v[:, :2].unique().tolist()) == {-1, 1}
+    s = (q @ k.T) * scale
+    torch.testing.assert_close(s.double(), (q.double() @ k.double().T) * scale,
+                               rtol=0, atol=0)
+    blocks = s.reshape(n, n // 128, 128)
+    top, bottom = blocks.amax(-1), blocks.amin(-1)
+    assert (top - bottom).max() <= 0.25
+    assert (top[:, 1:] - top[:, :-1]).min() >= 1.75
 
 
 @pytest.mark.parametrize("use_exp, use_mask", [
@@ -200,6 +197,39 @@ def test_attn_variant_matches_pallas(grids, use_exp, use_mask):
     assert np.abs(got.numpy()).max() > 0.1     # not all rows read 0
     if not use_exp and use_mask:
         assert not got.numpy()[1::2].any()     # the masked-out rows
+
+
+@pytest.mark.parametrize("use_exp, use_mask", [
+    (True, True), (True, False), (False, True), (False, False)])
+def test_attn_variant_wide_head_matches_pallas(grids, use_exp, use_mask):
+    """S5 at d = 300, the cluster form's width on the card: JAX gets q, k
+    and v zero-padded to 384 features, as its callers pad to the lane
+    width; the port gets d = 300 and its output is compared unpadded."""
+    jt, tg = grids
+    jtt, tgt = jt.transpose(), tg.transpose()
+    d, wide = 300, 384
+    mask, q, k, v, scale = _well_posed(tgt, d)
+
+    def padded(x, rows):
+        out = np.zeros((rows, wide), np.float32)
+        out[: x.shape[0], :d] = x
+        return jnp.asarray(out)
+
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_bisect.attn_variant(
+            jtt.tile_ptr, jtt.tile_cols, jnp.asarray(mask),
+            padded(q, jtt.n_rows_padded), padded(k, jtt.n_cols_padded),
+            padded(v, jtt.n_cols_padded), jtt.max_tiles_per_row, scale,
+            use_exp=use_exp, use_mask=use_mask)
+    got = k_attn.attn_variant(tgt.tile_ptr, tgt.tile_cols,
+                              torch.from_numpy(mask),
+                              *(torch.from_numpy(a) for a in (q, k, v)),
+                              scale, use_exp=use_exp, use_mask=use_mask)
+    assert got.shape == (tg.n_nodes, d)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(want)[: tg.n_nodes, :d], **TOL)
+    assert not np.asarray(want)[:, d:].any()
+    assert np.abs(got.numpy()).max() > 0.1     # not all rows read 0
 
 
 def test_attn_variant_with_both_switches_on_is_k4(grids):

@@ -196,15 +196,14 @@ def test_attention_kernel_checks_accept_widths_to_256(d, heads):
 
 @pytest.mark.parametrize("d, heads", [(257, None), (300, 2), (1024, None)])
 def test_attention_kernel_checks_accept_wide_heads(d, heads):
-    """K4 takes heads wider than 256 (the reference pads any width); they
-    get the wide form of the tensor-core kernel, never the plain version.
-    S5's CUDA-core kernel still stops at 256."""
+    """K4 and S5 take heads wider than 256 (the reference pads any width);
+    they get the cluster form of the tensor-core kernel, never the plain
+    version."""
     args = _attention_args(d, heads)
-    n_q, h, dd, nrb = k_attn.check_kernel_args(*args)
-    assert (n_q, h, dd, nrb) == (300, heads or 1, d, 3)
-    assert k_attn.kernel_route(d) == "wide"
-    with pytest.raises(ValueError):
-        k_attn.check_kernel_args(*args, s5=True)
+    want = (300, heads or 1, d, 3)
+    assert k_attn.check_kernel_args(*args) == want
+    assert k_attn.check_kernel_args(*args, s5=True) == want
+    assert k_attn.kernel_route(d)[0] == "wide"
 
 
 def test_attention_kernel_checks_take_bf16_for_k4_only():

@@ -1,6 +1,6 @@
 """The 3xTF32 arithmetic of the tensor-core kernels, emulated on the CPU.
 
-K1–K4 (K4 for d ≤ 128) run their tile products as ``mma.sync`` m16n8k8
+K1–K4 run their tile products as ``mma.sync`` m16n8k8
 TF32 in three passes (csrc/mma_async.cuh): each f32 operand x is split as
 ``hi = rna_tf32(x)``, ``lo = rna_tf32(x − hi)``, and each 8-deep step adds
 ``lo·hi``, then ``hi·lo``, then ``hi·hi`` to f32 accumulators; K1 takes
@@ -131,9 +131,59 @@ def test_one_pass_misses_the_kernel_gate(depth):
                                       (300, "wide"), (1024, "wide")])
 def test_k4_width_route(d, route):
     """K4 runs on the tensor-core kernel at every width: Q resident up to
-    d = 128, the wide form (scores recomputed per 128 output features)
-    above; no width takes the plain version."""
-    assert kernel_route(d) == route
+    d = 128, the cluster form above; no width takes the plain version."""
+    assert kernel_route(d)[0] == route
+
+
+@pytest.mark.parametrize("d, layout", [
+    (1, ("mma", 1, 1, 64)), (64, ("mma", 1, 1, 64)),
+    (128, ("mma", 1, 1, 128)), (129, ("wide", 3, 1, 64)),
+    (256, ("wide", 4, 1, 64)), (300, ("wide", 5, 1, 64)),
+    (1024, ("wide", 8, 1, 128)), (1025, ("wide", 8, 2, 128)),
+    (2048, ("wide", 8, 2, 128))])
+def test_k4_cluster_layout(d, layout):
+    """The layout the kernel is launched with: blocks per cluster, one per
+    slice of 64 features up to d = 512 and of 128 above, at most the
+    portable 8; clusters per row block (heads wider than 1024 take one
+    cluster per 1024 output features); the features a block holds."""
+    assert kernel_route(d) == layout
+    form, blocks, clusters, width = layout
+    if form == "mma":
+        assert d <= width
+        return
+    slices = -(-d // width)
+    # Each block contracts over the slices b, b + C, ... and writes slice
+    # C·z + b: every slice is contracted once per cluster, written once.
+    contracted = sorted(s for b in range(blocks)
+                        for s in range(b, slices, blocks))
+    assert contracted == list(range(slices))
+    written = sorted(blocks * z + b for z in range(clusters)
+                     for b in range(blocks) if blocks * z + b < slices)
+    assert written == list(range(slices))
+    assert 2 <= blocks <= 8 and blocks * (clusters - 1) < slices
+
+
+@pytest.mark.parametrize("d", [129, 300, 1024, 1100])
+def test_cluster_scores_stay_within_1e6_of_float64(d):
+    """K4's cluster form: each block takes its slices' share of QKᵀ in
+    three passes, each 8-deep step summed apart; the cluster adds
+    the shares in f32 in order of rank. That stays within 1e-6 of float64,
+    as the resident form does."""
+    _, blocks, _, width = kernel_route(d)
+    a, b = _operands(d, seed=d)
+    shares = []
+    for rank in range(blocks):
+        share = np.zeros((a.shape[0], b.shape[1]), np.float32)
+        for s0 in range(rank * width, d, blocks * width):
+            part = three_pass(a[:, s0:s0 + width], b[s0:s0 + width],
+                              apart=True)
+            share = (share + part).astype(np.float32)
+        shares.append(share)
+    got = shares[0]
+    for share in shares[1:]:
+        got = (got + share).astype(np.float32)
+    want = a.astype(np.float64) @ b
+    assert np.abs(got - want).max() / np.abs(want).max() <= 1e-6
 
 
 def live_fragments(mask: np.ndarray) -> np.ndarray:
