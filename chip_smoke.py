@@ -58,19 +58,21 @@ copy-sum over all of a packing's buckets.
    moved to the card;
 10. grid kernel parity: S1, S2, S4, S5 (all four switch settings), K4 at
     d = 128 and d = 40 and K1-K3 at d = 128 against their plain versions
-    at the grid's shapes, K4 and S5 also at d = 200 and 300, and S1, S2,
+    at the grid's shapes, S1 and S2 also in bf16, K4 and S5 also at d = 200
+    and 300, and S1, S2 (f32 and bf16, with the copy path each d takes),
     S4, S5 and K4 again on the small irregular graph at d = 128, 100, 40,
-    33, 200 and 300; S5 with exp and mask equal to K4 bit for bit at
-    d = 40, 128 and 300;
+    33, 200 and 300; S2 equal to K2 bit for bit at one head at every d in
+    f32 and bf16, and S1 equal to S2 on the grid; S5 with exp and mask
+    equal to K4 bit for bit at d = 40, 128 and 300;
 11. the grid path: S1 and S2 against the segment oracle, then the grid
     suite (its allclose gates at 2e-3 and its timed rows, with roofline
     fractions against the measured copy bandwidth) and the two
     experiments' rows, with every launch counter set to 0 before and read
-    after;
-12. grid times: S1, S2, S4, S5, K4 and K1–K3 at d = 128 against their
-    plain versions, with bounds and library yardsticks as in 5, each S5
-    setting beside K4's time, and the peak memory of the grid attention
-    backward;
+    after (and the experiment's bf16 S1/S2 rows counted alone);
+12. grid times: S1, S2 (also in bf16), S4, S5, K4 and K1–K3 at d = 128
+    against their plain versions, with bounds and library yardsticks as in
+    5, each S5 setting beside K4's time, and the peak memory of the grid
+    attention backward;
 13. power-law build: the graph and its dual ELL packing on both ladders on
     the host (seconds and padding waste), moved to the card;
 14. S3 parity against its plain version, bit-for-bit repeats: at the
@@ -95,7 +97,8 @@ copy-sum over all of a packing's buckets.
     card's L2 gather rate, measured on a table that fits the 50 MB L2.
 
 The line before the last is the ``kernels`` JSON: for each of the nine
-kernels, and for K1-K4 in bf16 and K4 at d = 300 and 1024, its source,
+kernels, and for K1-K4, S1 and S2 in bf16 and K4 at d = 300 and 1024, its
+source,
 the TPU kernel it replaces, its launches on its path, its error, time,
 plain time, bound and library time.
 
@@ -514,6 +517,40 @@ def grid_kernel_calls(tg, x, vals, x40, wp=None):
     return calls
 
 
+def dma_bf16_calls(tg, x, vals):
+    """S1 and S2 on bf16 vals and x, keyed ``<name>:bf16``."""
+    from custom_op_benchmark_tpu_torch.ops.kernels.grid_dma import pad_layout
+
+    x16, v16 = x.bfloat16(), vals.bfloat16()
+    return {"spmm_row_sweep_dma:bf16": (*pad_layout(tg, v16), x16),
+            "spmm_row_sweep_dma_v2:bf16": (tg.tile_ptr, tg.tile_cols, v16,
+                                           x16)}
+
+
+def s2_is_k2(kern, tg, vals, x, label, s1_args=None):
+    """S2 against K2 at one head on the same inputs: the same arithmetic,
+    stage layout and order of sums, so the same bits; with ``s1_args``, S1
+    against S2 as values (its padding tiles add exact zeros)."""
+    from custom_op_benchmark_tpu_torch.ops.kernels.grid_dma import copy_path
+
+    args = (tg.tile_ptr, tg.tile_cols, vals, x)
+    s2 = kern.table["spmm_row_sweep_dma_v2"][0](*args)
+    k2 = kern.table["spmm_row_sweep"][0](*args)
+    torch.cuda.synchronize()
+    same = torch.equal(s2, k2)
+    msg = (f"[parity] {label:28s} S2 == K2 at d={x.shape[-1]} {x.dtype} "
+           f"(copies: {copy_path(x)}): "
+           f"{'same bits' if same else 'DIFFERENT'}")
+    if s1_args is not None:
+        s1 = kern.table["spmm_row_sweep_dma"][0](*s1_args)
+        torch.cuda.synchronize()
+        s1_same = torch.equal(s1.float(), s2.float())
+        msg += f"; S1 == S2: {'same values' if s1_same else 'DIFFERENT'}"
+        assert s1_same, f"S1 differs from S2 ({label})"
+    log(msg)
+    assert same, f"S2 differs from K2 ({label}, d={x.shape[-1]})"
+
+
 def time_ms(fn, warmup=3, iters=10, repeats=5):
     """Median over ``repeats`` of the mean time of ``iters`` back-to-back
     calls, by CUDA events, after ``warmup`` calls."""
@@ -836,6 +873,15 @@ def phase_grid_parity(kern, dev, case):
     errs.update(check_kernels(
         kern, kernel_calls(tg, case.q_al, case.q_al, case.q_al, case.vals),
         f"grid d={GRID_D}", only=TILE_KERNELS))
+    b16 = dma_bf16_calls(tg, case.q_al, case.vals)
+    errs.update(check_kernels(kern, b16, f"grid d={GRID_D} bf16"))
+    calls = grid_kernel_calls(tg, case.q_al, case.vals, None, None)
+    s2_is_k2(kern, tg, case.vals, case.q_al, "grid",
+             calls["spmm_row_sweep_dma"])
+    s2_is_k2(kern, tg, *b16["spmm_row_sweep_dma_v2:bf16"][2:], "grid",
+             b16["spmm_row_sweep_dma:bf16"])
+    del b16, calls
+    torch.cuda.empty_cache()
     calls = grid_kernel_calls(tg, case.q_al, case.vals, x40, None)
     s5_is_k4(kern, calls[f"fused_attention_rows:d={GRID_D}"], "grid")
     s5_is_k4(kern, calls["fused_attention_rows:d=40"], "grid")
@@ -870,6 +916,10 @@ def phase_grid_parity(kern, dev, case):
         check_kernels(kern, grid_kernel_calls(
             small, xs, sv, normal(rng, n_small, 40, device=dev), wp),
             f"irregular n=300 d={d}")
+        check_kernels(kern, dma_bf16_calls(small, xs, sv),
+                      f"irregular n=300 d={d} bf16")
+        s2_is_k2(kern, small, sv, xs, "irregular n=300")
+        s2_is_k2(kern, small, sv.bfloat16(), xs.bfloat16(), "irregular n=300")
     torch.cuda.synchronize()
     return errs
 
@@ -934,7 +984,16 @@ def phase_grid_path(kern, case):
     assert dma["allclose"] and dma["allclose_v2"], dma
     assert all(launches[k] > 0 for k in SLICE_KERNELS + GRID_KERNELS), \
         launches
-    return launches
+    # The experiment's bf16 S1/S2 rows again, counted alone: the bf16 rows'
+    # launches in the kernels line.
+    kern.reset()
+    exp_grid_dma.bf16_rows(case, {}, *pad_layout(tg, case.vals),
+                           **GRID_TIMING)
+    torch.cuda.synchronize()
+    bf16 = {k: v for k, v in kern.launches().items() if v}
+    log(f"[grid] launches of the experiment's bf16 S1/S2 rows: {bf16}")
+    assert set(bf16) == {"spmm_row_sweep_dma", "spmm_row_sweep_dma_v2"}, bf16
+    return launches, bf16
 
 
 def phase_grid_times(kern, case):
@@ -949,11 +1008,15 @@ def phase_grid_times(kern, case):
     calls = grid_kernel_calls(case.tg, case.q_al, case.vals, None)
     sweep = kernel_calls(case.tg, case.q_al, case.q_al, case.q_al, case.vals)
     bsr = yardstick("spmm_row_sweep_dma_v2", calls["spmm_row_sweep_dma_v2"])
+    b16 = dma_bf16_calls(case.tg, case.q_al, case.vals)
+    bsr16 = yardstick("spmm_row_sweep_dma_v2",
+                      b16["spmm_row_sweep_dma_v2:bf16"])
     no_sdpa = ("n/a (dense mask of 1.1 TB)", None, None)
     label = f"grid d={GRID_D}"
     for key, args, lib in (
             ("spmm_row_sweep_dma", calls["spmm_row_sweep_dma"], bsr),
             ("spmm_row_sweep_dma_v2", calls["spmm_row_sweep_dma_v2"], bsr),
+            *((k, b16[k], bsr16) for k in b16),
             ("spmm_dotonly", calls["spmm_dotonly"], True),
             (f"fused_attention_rows:d={GRID_D}",
              calls[f"fused_attention_rows:d={GRID_D}"], no_sdpa),
@@ -967,7 +1030,7 @@ def phase_grid_times(kern, case):
     for key in S5_SETTINGS:
         log(f"[time] {key:30s} {label:11s} {times[key]['ms']:.4f} ms = "
             f"{times[key]['ms'] / k4_ms:.3f} x K4's {k4_ms:.4f} ms")
-    del bsr, sweep
+    del bsr, bsr16, b16, sweep
     del calls
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1552,7 +1615,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     case = phase_grid_build(dev)
     grid_errs = phase_grid_parity(kern, dev, case)
-    grid_launches = phase_grid_path(kern, case)
+    grid_launches, grid_bf16_launches = phase_grid_path(kern, case)
     grid_times = phase_grid_times(kern, case)
     torch.cuda.synchronize()
     del case
@@ -1596,6 +1659,13 @@ def main() -> int:
             bf16_errs[name], bf16_times[name],
             "slice h=8 d=64, bf16; launches: the bf16 op family and "
             "attention through impl='tiled', forward and backward"))
+    for name in ("spmm_row_sweep_dma", "spmm_row_sweep_dma_v2"):
+        _, _, source, replaces = kern.table[name]
+        key = f"{name}:bf16"
+        report.append(kernel_row(
+            key, source, replaces, grid_bf16_launches[name], grid_errs[key],
+            grid_times[key], f"grid 1024x1024, d={GRID_D}, bf16; launches: "
+            "the grid experiment's bf16 rows"))
     _, _, source, replaces = kern.table["fused_attention_rows"]
     for key, row in wide_times.items():
         report.append(kernel_row(

@@ -1,6 +1,7 @@
 // Building blocks shared by the kernels for Hopper (sm_90a): asynchronous
-// copies into shared memory (cp.async), and f32-accurate tile products on
-// the tensor cores (mma.sync m16n8k8 TF32 in three passes, "3xTF32").
+// copies into shared memory (cp.async), f32-accurate tile products on the
+// tensor cores (mma.sync m16n8k8 TF32 in three passes, "3xTF32"), and the
+// row sweep's stage layout and fragment code (K2, S4, S1, S2).
 //
 // Element types: the tile kernels take f32 or bf16 rows (one type per
 // call), accumulate in f32 and store the input's type, rounding once. A
@@ -238,6 +239,54 @@ __device__ __forceinline__ void split_rows(float* x, float* lo, int tid) {
         make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
                     __uint_as_float(l[2]), __uint_as_float(l[3]));
   }
+}
+
+// ---------------------------------------------------------------------------
+// The row sweep's stage layout and fragment arithmetic: K2 and S4
+// (tiled_kernels.cu) and S1/S2 (grid_dma.cu) run the same code, so S2 at
+// one head gives K2's bits.
+// ---------------------------------------------------------------------------
+
+constexpr int RS_ROWS = 128;   // tile rows
+constexpr int RS_COLS = 64;    // tile columns (rows of x) per stage
+constexpr int RS_STAGES = 3;
+
+// Stage strides in elements: vals 4 mod 32 words for f32 (68), 72 for
+// bf16 (a 16-byte multiple; the a0 reads still hit distinct words).
+template <typename E, int DN>
+struct RowCfg {
+  static constexpr int VLD = is_f32<E> ? RS_COLS + 4 : RS_COLS + 8;
+  static constexpr int XLD = DN + 8;
+  static constexpr int STAGE = RS_ROWS * VLD + RS_COLS * XLD;  // elements
+  static constexpr size_t SMEM = sizeof(E) * RS_STAGES * STAGE;
+};
+
+// A's fragment read from a stage of E: a0 at a, a1 (m + 8) at a[om], a2
+// (k + 4) at a[ok], a3 at a[om + ok]; split for f32, exact for bf16 (al
+// unused).
+template <typename E>
+__device__ __forceinline__ void frag_a(const E* a, int om, int ok,
+                                       uint32_t (&ah)[4], uint32_t (&al)[4]) {
+  if constexpr (is_f32<E>) {
+    split_a(a[0], a[om], a[ok], a[om + ok], ah, al);
+  } else {
+    ah[0] = exact_tf32(to_f32(a[0]));
+    ah[1] = exact_tf32(to_f32(a[om]));
+    ah[2] = exact_tf32(to_f32(a[ok]));
+    ah[3] = exact_tf32(to_f32(a[om + ok]));
+  }
+}
+
+// acc += a * b with B's fragment values (b0, b1) read from a stage: 3xTF32
+// for f32, one pass for bf16.
+template <typename E>
+__device__ __forceinline__ void mma_ab(float (&acc)[4],
+                                       const uint32_t (&ah)[4],
+                                       const uint32_t (&al)[4], E b0, E b1) {
+  if constexpr (is_f32<E>)
+    mma_3xtf32(acc, ah, al, b0, b1);
+  else
+    mma_tf32(acc, ah, exact_tf32(to_f32(b0)), exact_tf32(to_f32(b1)));
 }
 
 // d += a * b with B's fragment at offsets o0, o1 of a split block (hi, lo).

@@ -253,46 +253,8 @@ sddmm_tiles_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
 // K2 and S4: SpMM row sweep
 // ---------------------------------------------------------------------------
 
-constexpr int RS_COLS = 64;  // tile columns (rows of x) per stage
-constexpr int RS_STAGES = 3;
-
-// Stage strides in elements: vals 4 mod 32 words for f32 (68), 72 for
-// bf16 (a 16-byte multiple; the a0 reads still hit distinct words).
-template <typename E, int DN>
-struct RowCfg {
-  static constexpr int VLD = is_f32<E> ? RS_COLS + 4 : RS_COLS + 8;
-  static constexpr int XLD = DN + 8;
-  static constexpr int STAGE = TILE * VLD + RS_COLS * XLD;  // elements
-  static constexpr size_t SMEM = sizeof(E) * RS_STAGES * STAGE;
-};
-
-// A's fragment read from a stage of E: a0 at a, a1 (m + 8) at a[om], a2
-// (k + 4) at a[ok], a3 at a[om + ok]; split for f32, exact for bf16 (al
-// unused).
-template <typename E>
-__device__ __forceinline__ void frag_a(const E* a, int om, int ok,
-                                       uint32_t (&ah)[4], uint32_t (&al)[4]) {
-  if constexpr (is_f32<E>) {
-    split_a(a[0], a[om], a[ok], a[om + ok], ah, al);
-  } else {
-    ah[0] = exact_tf32(to_f32(a[0]));
-    ah[1] = exact_tf32(to_f32(a[om]));
-    ah[2] = exact_tf32(to_f32(a[ok]));
-    ah[3] = exact_tf32(to_f32(a[om + ok]));
-  }
-}
-
-// acc += a * b with B's fragment values (b0, b1) read from a stage: 3xTF32
-// for f32, one pass for bf16.
-template <typename E>
-__device__ __forceinline__ void mma_ab(float (&acc)[4],
-                                       const uint32_t (&ah)[4],
-                                       const uint32_t (&al)[4], E b0, E b1) {
-  if constexpr (is_f32<E>)
-    mma_3xtf32(acc, ah, al, b0, b1);
-  else
-    mma_tf32(acc, ah, exact_tf32(to_f32(b0)), exact_tf32(to_f32(b1)));
-}
+// RowCfg, frag_a and mma_ab (the stage layout and fragment arithmetic)
+// are in mma_async.cuh, shared with S1 and S2 (grid_dma.cu).
 
 // Row sweep, one block per (row block, feature slice of DN, head), over
 // tiles ptr[i]..ptr[i+1] (row-sorted order):

@@ -1,11 +1,13 @@
-"""Tile-kernel A/B: the committed K1–K4 and S5 against older builds of them.
+"""Tile-kernel A/B: the committed K1–K4, S5, S1 and S2 against older builds.
 
     python -m custom_op_benchmark_tpu_torch.experiments.ab_tiled \\
-        [--k1k2 OLD.cu] [--k3 OLD_K3.cu] [--k4 OLD_ATTENTION.cu]
+        [--k1k2 OLD.cu] [--k3 OLD_K3.cu] [--k4 OLD_ATTENTION.cu] \\
+        [--dma OLD_GRID_DMA.cu ...]
 
 ``--k1k2`` and ``--k3`` name an older ``csrc/tiled_kernels.cu``, ``--k4``
-an older ``csrc/attention.cu``, each copied out of git under ``build/``
-(the chip machine's copy of the repository has no ``.git``):
+an older ``csrc/attention.cu``, ``--dma`` an older or edited
+``csrc/grid_dma.cu``, each copied out of git under ``build/`` (the chip
+machine's copy of the repository has no ``.git``):
 
 - ``--k1k2``: a file whose ``sddmm_tiles_f32`` and ``spmm_row_sweep_f32``
   have the committed signatures; its K1 and K2 are timed against the
@@ -20,6 +22,13 @@ an older ``csrc/attention.cu``, each copied out of git under ``build/``
   ``git show faa5f85:custom_op_benchmark_tpu_torch/csrc/attention.cu`` do
   (K4 with one block per 128 output features recomputing the scores above
   d = 128, and S5 on the CUDA cores, d ≤ 256).
+- ``--dma`` (repeatable): a file whose ``spmm_row_sweep_dma_f32`` and
+  ``spmm_row_sweep_dma_v2_f32`` have the committed signatures, as those of
+  ``git show d5e31ae:custom_op_benchmark_tpu_torch/csrc/grid_dma.cu`` (S1
+  and S2 on the CUDA cores) do, or an edited copy of the committed file;
+  its S1 and S2 are timed against the committed ones on the grid, with
+  the committed K2 on the same inputs timed in the same call and S2 held
+  equal to it bit for bit.
 
 Each file is built with the port's nvcc flags (and ``csrc/`` on the
 include path) into ``build/``. Both builds of each kernel are checked
@@ -76,6 +85,8 @@ OLD_SIGNATURES = {
            + [ctypes.c_float, _I, _I, _P],
            "attn_variant_f32": [_P] * 7 + [_I] * 6 + [ctypes.c_float]
            + [_I] * 3 + [_P]},
+    "dma": {"spmm_row_sweep_dma_f32": [_P] * 4 + [_I] * 7 + [_P],
+            "spmm_row_sweep_dma_v2_f32": [_P] * 5 + [_I] * 6 + [_P]},
 }
 S5_SETTINGS = {f"{'exp' if e else 'noexp'},{'mask' if m else 'nomask'}":
                dict(use_exp=e, use_mask=m) for e in (True, False)
@@ -150,6 +161,57 @@ def old_attention(lib, ptr, cols, mask, q, k, v, scale, use_exp=None,
                                       dev, stream)
     _build.check(status, "old attention")
     return out[:, 0] if q.dim() == 2 else out
+
+
+def old_dma(lib, cols_pad, vals_pad, x, n_out=None):
+    """The older S1 on the same arguments."""
+    nrb, mt = vals_pad.shape[:2]
+    n_out = nrb * kt.TILE if n_out is None else n_out
+    out = torch.empty((n_out, x.shape[1]), device=x.device)
+    dev, stream = kt._stream(x)
+    _build.check(lib.spmm_row_sweep_dma_f32(
+        kt._p(cols_pad), kt._p(vals_pad), kt._p(x), kt._p(out), nrb, mt,
+        x.shape[1], x.shape[0], n_out, kt._vec(x.shape[1], x), dev, stream),
+        "old spmm_row_sweep_dma")
+    return out
+
+
+def old_dma_v2(lib, ptr, cols, vals, x, n_out=None):
+    """The older S2 on the same arguments."""
+    nrb = ptr.numel() - 1
+    n_out = nrb * kt.TILE if n_out is None else n_out
+    out = torch.empty((n_out, x.shape[1]), device=x.device)
+    dev, stream = kt._stream(x)
+    _build.check(lib.spmm_row_sweep_dma_v2_f32(
+        kt._p(ptr), kt._p(cols), kt._p(vals), kt._p(x), kt._p(out), nrb,
+        x.shape[1], x.shape[0], n_out, kt._vec(x.shape[1], x), dev, stream),
+        "old spmm_row_sweep_dma_v2")
+    return out
+
+
+def dma_grid(libs, case, out):
+    """S1 and S2 of each older build against the committed ones on the
+    grid at d = 128, and the committed K2 on S2's inputs in the same call."""
+    from custom_op_benchmark_tpu_torch.ops.kernels import grid_dma as kg
+
+    tg, x = case.tg, case.q_al
+    s2 = (tg.tile_ptr, tg.tile_cols, case.vals, x)
+    k2 = kt.spmm_row_sweep(*s2)
+    same = bool(torch.equal(kg.spmm_row_sweep_dma_v2(*s2), k2))
+    del k2
+    out["spmm_row_sweep (K2) grid d=128"] = dict(
+        s2_equals_k2=same, ms=statistics.median(time_cuda(
+            lambda: kt.spmm_row_sweep(*s2), **GRID_TIMING)) * 1e3)
+    s1 = kg.pad_layout(tg, case.vals) + (x,)
+    for source, lib in libs:
+        out[f"spmm_row_sweep_dma grid d=128 vs {source.name}"] = compare(
+            lambda *a: old_dma(lib, *a), kg.spmm_row_sweep_dma,
+            kg.spmm_row_sweep_dma_plain, s1, GRID_TIMING)
+        out[f"spmm_row_sweep_dma_v2 grid d=128 vs {source.name}"] = compare(
+            lambda *a: old_dma_v2(lib, *a), kg.spmm_row_sweep_dma_v2,
+            kt.spmm_row_sweep_plain, s2, GRID_TIMING)
+    out["spmm_row_sweep (K2) grid d=128"]["ms_after"] = statistics.median(
+        time_cuda(lambda: kt.spmm_row_sweep(*s2), **GRID_TIMING)) * 1e3
 
 
 def compare(old, new, plain, args, timing, kwargs=None, check_args=None):
@@ -273,9 +335,13 @@ def main(argv=None) -> int:
     ap.add_argument("--k3", type=Path, help="older file for K3 (no vec)")
     ap.add_argument("--k4", type=Path,
                     help="older attention.cu for K4 and S5")
+    ap.add_argument("--dma", type=Path, action="append", default=[],
+                    help="older or edited grid_dma.cu for S1 and S2 "
+                    "(repeatable)")
     args = ap.parse_args(argv)
-    if args.k1k2 is None and args.k3 is None and args.k4 is None:
-        ap.error("name at least one older file: --k1k2, --k3 or --k4")
+    if (args.k1k2 is None and args.k3 is None and args.k4 is None
+            and not args.dma):
+        ap.error("name at least one older file: --k1k2, --k3, --k4 or --dma")
     dev = cuda_device()
     kernels = {}
     if args.k1k2 is not None:
@@ -292,6 +358,7 @@ def main(argv=None) -> int:
             lambda *a: old_col_sweep(lib3, *a), kt.spmm_col_sweep,
             kt.spmm_col_sweep_plain)
     lib4 = load_old(args.k4, "k4") if args.k4 is not None else None
+    dma_libs = [(f, load_old(f, "dma")) for f in args.dma]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -328,8 +395,11 @@ def main(argv=None) -> int:
     del grid
     if lib4 is not None:
         attention_grid(lib4, case, out)
+    if dma_libs:
+        dma_grid(dma_libs, case, out)
     print(json.dumps({"ab_tiled": out}), flush=True)
-    return 0 if all(r["old_ok"] and r["new_ok"] for r in out.values()
+    return 0 if all(r.get("old_ok", True) and r.get("new_ok", True)
+                    and r.get("s2_equals_k2", True) for r in out.values()
                     if isinstance(r, dict)) else 1
 
 

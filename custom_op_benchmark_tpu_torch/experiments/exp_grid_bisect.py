@@ -1,22 +1,24 @@
 """Bisect the grid regime's SpMM and attention time into their parts.
 
-Counterpart of the f32 rows of scripts/exp_grid_bisect.py, on the
-tile-aligned 1024×1024 grid at d = 128, each timed by CUDA events:
+Counterpart of scripts/exp_grid_bisect.py, on the tile-aligned 1024×1024
+grid at d = 128, each timed by CUDA events:
 
 SpMM (vals tile-dense (T, 128, 128)):
   vals_stream       a pure read of the vals array (the layout's stream floor)
   spmm_f32          tiled_spmm (K2)
   spmm_dotonly_f32  S4: K2 with the vals load replaced by a constant
+  spmm_bf16         K2 on bf16 vals and x
 Attention forward (dst-normalised):
   attn_fwd_f32      tiled_attention (K4)
   attn_fwd_noexp    S5 with exp() replaced by the identity
   attn_fwd_nomask   S5 with the mask dropped
+  attn_fwd_bf16     S5 at its default switches on bf16 q, k and v (K4's
+                    bf16 kernel)
 Attention backward and its parts:
   attn_bwd_f32      the gradient of Σ out² with respect to q
   sddmm_alone, softmax_scan_alone, row_sweep_alone, col_sweep_alone
 
-Prints one JSON line ``{"grid_bisect": {...}}``. Needs a CUDA device. The
-bf16 rows wait for the port's dtype policy (ROADMAP M9).
+Prints one JSON line ``{"grid_bisect": {...}}``. Needs a CUDA device.
 
 Run:  python -m custom_op_benchmark_tpu_torch.experiments.exp_grid_bisect
 """
@@ -70,6 +72,9 @@ def run(case, *, warmup=1, iters=5, repeats=3) -> dict:
              **timing)
     bench_ms(out, "spmm_dotonly_f32",
              lambda x: spmm_dotonly(tg.tile_ptr, tg.tile_cols, x), x, **timing)
+    x16 = x.bfloat16()
+    bench_ms(out, "spmm_bf16", lambda v, x: spmm_row_sweep(
+        tg.tile_ptr, tg.tile_cols, v, x), vals.bfloat16(), x16, **timing)
     # ---- attention forward ----
     bench_ms(out, "attn_fwd_f32", lambda x: tiled_grid_attention(case, x), x,
              **timing)
@@ -79,6 +84,10 @@ def run(case, *, warmup=1, iters=5, repeats=3) -> dict:
     bench_ms(out, "attn_fwd_nomask",
              lambda x: attn_variant(tgT.tile_ptr, tgT.tile_cols, tgT.mask, x,
                                     x, x, scale, use_mask=False), x, **timing)
+    bench_ms(out, "attn_fwd_bf16",
+             lambda x: attn_variant(tgT.tile_ptr, tgT.tile_cols, tgT.mask, x,
+                                    x, x, scale), x16, **timing)
+    del x16
     # ---- attention backward: the composition and its parts ----
     bench_ms(out, "attn_bwd_f32", attn_grad, x, **timing)
     bench_ms(out, "sddmm_alone", lambda a, b: sddmm_tiles(

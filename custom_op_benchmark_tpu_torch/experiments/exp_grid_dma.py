@@ -1,16 +1,18 @@
 """Row-block-owned SpMM sweeps with prefetch (S1, S2) against K2 on the grid.
 
-Counterpart of the f32 rows of scripts/exp_grid_dma.py: on the tile-aligned
-1024×1024 grid at d = 128, checks S1 (over the dense-padded layout of
-:func:`pad_layout`) and S2 (over K2's tile list) against the tiled SpMM
-with ``allclose`` at 2e-3, then times
+Counterpart of scripts/exp_grid_dma.py: on the tile-aligned 1024×1024 grid
+at d = 128, checks S1 (over the dense-padded layout of :func:`pad_layout`)
+and S2 (over K2's tile list) against the tiled SpMM with ``allclose`` at
+2e-3, then times
 
-    spmm_shipped   tiled_spmm (K2)
-    spmm_dma_f32   S1, spmm_row_sweep_dma
-    spmm_dma_v2    S2, spmm_row_sweep_dma_v2
+    spmm_shipped      tiled_spmm (K2)
+    spmm_dma_f32      S1, spmm_row_sweep_dma
+    spmm_dma_v2       S2, spmm_row_sweep_dma_v2
+    spmm_dma_bf16     S1 on bf16 vals and x (the script's bf16 row)
+    spmm_dma_v2_bf16  S2 on bf16 vals and x
 
 by CUDA events, and prints one JSON line ``{"grid_dma": {...}}``. Needs a
-CUDA device. The bf16 row waits for the port's dtype policy (ROADMAP M9).
+CUDA device.
 
 Run:  python -m custom_op_benchmark_tpu_torch.experiments.exp_grid_dma
 """
@@ -59,8 +61,18 @@ def run(case, *, warmup=1, iters=5, repeats=3) -> dict:
              **timing)
     bench_ms(out, "spmm_dma_v2", spmm_row_sweep_dma_v2, tg.tile_ptr,
              tg.tile_cols, case.vals, x, **timing)
+    bf16_rows(case, out, cols_pad, vals_pad, **timing)
     out["device"] = torch.cuda.get_device_name(x.device)
     return out
+
+
+def bf16_rows(case, out, cols_pad, vals_pad, **timing) -> None:
+    """S1 and S2 on the grid's vals and x in bf16, timed into ``out``."""
+    tg, x16 = case.tg, case.q_al.bfloat16()
+    bench_ms(out, "spmm_dma_bf16", spmm_row_sweep_dma, cols_pad,
+             vals_pad.bfloat16(), x16, **timing)
+    bench_ms(out, "spmm_dma_v2_bf16", spmm_row_sweep_dma_v2, tg.tile_ptr,
+             tg.tile_cols, case.vals.bfloat16(), x16, **timing)
 
 
 def main() -> int:

@@ -32,8 +32,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # Argument types of every C entry point; pointers and the stream are
 # c_void_p so ctypes does not cut them to 32 bits.
-# The _bf16 entry points of K1–K4 take the same arguments as their _f32
-# ones.
+# The _bf16 entry points of K1–K4, S1 and S2 take the same arguments as
+# their _f32 ones.
 _SIGNATURES = {
     "sddmm_tiles_f32": [_P] * 6 + [_I] * 6 + [_P],
     "spmm_row_sweep_f32": [_P] * 5 + [_I] * 7 + [_P],
@@ -51,7 +51,9 @@ _SIGNATURES = {
 _SIGNATURES.update({name.replace("_f32", "_bf16"): _SIGNATURES[name]
                     for name in ("sddmm_tiles_f32", "spmm_row_sweep_f32",
                                  "spmm_col_sweep_f32",
-                                 "fused_attention_rows_f32")})
+                                 "fused_attention_rows_f32",
+                                 "spmm_row_sweep_dma_f32",
+                                 "spmm_row_sweep_dma_v2_f32")})
 
 
 def _nvcc() -> str:

@@ -18,7 +18,8 @@ their shares of each tile's scores through distributed shared memory, so
 the scores are computed once (:func:`kernel_route` states the layout). K4
 takes float32 or bfloat16 (f32 accumulation, the input's dtype out); S5 is
 the same kernel in float32 with the exponentials (``use_exp``) and the
-mask (``use_mask``) switched off, at any head width. The plain K4
+mask (``use_mask``) switched off, at any head width (in bfloat16 only
+with both on, where it is K4's bf16 launch). The plain K4
 materialises the masked scores and composes the softmax in f32; the plain
 S5 runs the recurrence one tile slot at a time over all row blocks, since
 without ``exp`` it is not a softmax. Each wrapper runs its kernel on CUDA
@@ -213,14 +214,27 @@ def attn_variant(tile_ptr, tile_cols, mask, q, k, v, scale: float, *,
     corr = m_prev − m) and/or ``use_mask=False`` (every column of each tile
     counts, key rows past n reading as zero). A diagnostic: K4's kernel
     with its switches, float32, any d ≥ 1; with both on it is K4's
-    launch, bit for bit."""
+    launch, bit for bit. In bfloat16 it takes only both switches on, where
+    it is K4's bf16 launch (and K4's plain version on the CPU)."""
     if not q.shape[1:] == k.shape[1:] == v.shape[1:]:
         raise ValueError("q, k and v differ in heads or width")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and not (use_exp and use_mask):
+        raise ValueError("attn_variant takes bfloat16 only with use_exp and "
+                         "use_mask on (K4's bf16 kernel); got use_exp="
+                         f"{use_exp}, use_mask={use_mask}")
     if _on_cpu(tile_ptr, tile_cols, mask, q, k, v):
+        if bf16:
+            return fused_attention_rows_plain(tile_ptr, tile_cols, mask, q, k,
+                                              v, scale)
         return attn_variant_plain(tile_ptr, tile_cols, mask, q, k, v, scale,
                                   use_exp, use_mask)
-    out = _launch("attn_variant_f32", (int(use_exp), int(use_mask)),
-                  tile_ptr, tile_cols, mask, q, k, v, scale, s5=True)
+    if bf16:
+        out = _launch("fused_attention_rows_bf16", (), tile_ptr, tile_cols,
+                      mask, q, k, v, scale, s5=False)
+    else:
+        out = _launch("attn_variant_f32", (int(use_exp), int(use_mask)),
+                      tile_ptr, tile_cols, mask, q, k, v, scale, s5=True)
     attn_variant.launches += 1
     return out
 

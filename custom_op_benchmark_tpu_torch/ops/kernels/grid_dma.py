@@ -9,11 +9,13 @@ Counterparts of the two manual-DMA kernels of scripts/exp_grid_dma.py:
   ``Y[i] = Σ_{t ∈ ptr[i]..ptr[i+1]} vals[t] @ X[cols[t]·128 : +128]``.
 
 Both are single-head (x is ``(n, d)``) and take 128×128 tiles; rows of x at
-or past n count as zero, so callers never pad. The CUDA kernels
-(csrc/grid_dma.cu) prefetch the next operands with ``cp.async`` while the
-current tile product runs. Each wrapper runs its kernel on CUDA tensors
-and its plain version only on CPU tensors; ``<wrapper>.launches`` counts
-kernel launches.
+or past n count as zero, so callers never pad. They take float32 or
+bfloat16 (one dtype per call), accumulate in f32 and return the input's
+dtype, rounded once; the plain versions compute in f32 and round once.
+The CUDA kernel (csrc/grid_dma.cu) runs K2's tensor-core arithmetic in
+persistent blocks whose TMA copy ring runs across row blocks, so S2 gives
+K2's bits. Each wrapper runs its kernel on CUDA tensors and its plain
+version only on CPU tensors; ``<wrapper>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -26,10 +28,12 @@ from custom_op_benchmark_tpu_torch.ops.kernels import _build
 from custom_op_benchmark_tpu_torch.ops.kernels.tiled_kernels import (
     TILE,
     _check_cuda,
+    _entry,
     _on_cpu,
     _p,
     _row_tiles,
     _stream,
+    _vec,
     spmm_row_sweep_plain,
 )
 
@@ -72,9 +76,11 @@ def _check_dma(vals, x, n_out, nrb):
         raise ValueError("vals must be 16-byte aligned")
 
 
-def _vec(x: torch.Tensor) -> int:
-    """1 when x's rows can move as float4 (16-byte aligned rows)."""
-    return int(x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0)
+def copy_path(x: torch.Tensor) -> str:
+    """How the kernels move x's rows: ``"tma"`` (2-D TMA box copies; rows
+    of whole 16-byte pieces and x 16-byte aligned) or ``"element"`` (4-byte
+    cp.async for float32, loads and stores for bfloat16)."""
+    return "tma" if _vec(x.shape[1], x) else "element"
 
 
 # ---------------------------------------------------------------------------
@@ -84,17 +90,19 @@ def _vec(x: torch.Tensor) -> int:
 def spmm_row_sweep_dma_plain(cols_pad, vals_pad, x, n_out=None):
     nrb, mt, r, c = vals_pad.shape
     xt = _row_tiles(x[:, None], cols_pad.reshape(-1), c)    # (nrb·mt, C, 1, d)
-    xt = xt[:, :, 0].reshape(nrb, mt, c, -1)
-    y = torch.einsum("bsrc,bscd->brd", vals_pad, xt).reshape(nrb * r, -1)
-    return y[: nrb * r if n_out is None else n_out]
+    xt = xt[:, :, 0].reshape(nrb, mt, c, -1).float()
+    y = torch.einsum("bsrc,bscd->brd", vals_pad.float(), xt)
+    y = y.reshape(nrb * r, -1)[: nrb * r if n_out is None else n_out]
+    return y.to(x.dtype)
 
 
 def spmm_row_sweep_dma(cols_pad, vals_pad, x, n_out: Optional[int] = None):
     """cols_pad: (nrb, max_tpr) int32, vals_pad: (nrb, max_tpr, R, C), x:
-    (n_x, d) → y (n_out, d) with ``n_out`` ≤ nrb·R (default nrb·R)."""
+    (n_x, d) → y (n_out, d) with ``n_out`` ≤ nrb·R (default nrb·R);
+    float32 or bfloat16."""
     if _on_cpu(cols_pad, vals_pad, x):
         return spmm_row_sweep_dma_plain(cols_pad, vals_pad, x, n_out)
-    _check_cuda(ints=(cols_pad,), floats=(vals_pad, x))
+    _check_cuda(ints=(cols_pad,), floats=(vals_pad, x), bf16=True)
     nrb, mt = vals_pad.shape[:2]
     if tuple(cols_pad.shape) != (nrb, mt):
         raise ValueError(f"cols_pad {tuple(cols_pad.shape)} does not match "
@@ -104,9 +112,10 @@ def spmm_row_sweep_dma(cols_pad, vals_pad, x, n_out: Optional[int] = None):
     d = x.shape[1]
     out = torch.empty((n_out, d), device=x.device, dtype=x.dtype)
     dev, stream = _stream(x)
-    _build.check(_build.library().spmm_row_sweep_dma_f32(
+    entry = _entry("spmm_row_sweep_dma", x)
+    _build.check(getattr(_build.library(), entry)(
         _p(cols_pad), _p(vals_pad), _p(x), _p(out), nrb, mt, d, x.shape[0],
-        n_out, _vec(x), dev, stream), "spmm_row_sweep_dma")
+        n_out, _vec(d, x), dev, stream), entry)
     spmm_row_sweep_dma.launches += 1
     return out
 
@@ -115,17 +124,17 @@ spmm_row_sweep_dma.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# S2: row sweep over the tile list, with prefetch
+# S2: row sweep over the tile list
 # ---------------------------------------------------------------------------
 
 def spmm_row_sweep_dma_v2(tile_ptr, tile_cols, vals, x,
                           n_out: Optional[int] = None):
     """vals: (T, R, C), x: (n_x, d) → y (n_out, d) with ``n_out`` ≤ NRB·R
-    (default NRB·R). S2 computes K2's function, so its plain version is
-    K2's, :func:`spmm_row_sweep_plain`."""
+    (default NRB·R); float32 or bfloat16. S2 computes K2's function, so its
+    plain version is K2's, :func:`spmm_row_sweep_plain`."""
     if _on_cpu(tile_ptr, tile_cols, vals, x):
         return spmm_row_sweep_plain(tile_ptr, tile_cols, vals, x, n_out)
-    _check_cuda(ints=(tile_ptr, tile_cols), floats=(vals, x))
+    _check_cuda(ints=(tile_ptr, tile_cols), floats=(vals, x), bf16=True)
     nrb = tile_ptr.shape[0] - 1
     if vals.dim() != 3 or tile_cols.shape != vals.shape[:1]:
         raise ValueError(f"vals must be (T, R, C) with T = {tile_cols.shape[0]}"
@@ -135,9 +144,10 @@ def spmm_row_sweep_dma_v2(tile_ptr, tile_cols, vals, x,
     d = x.shape[1]
     out = torch.empty((n_out, d), device=x.device, dtype=x.dtype)
     dev, stream = _stream(x)
-    _build.check(_build.library().spmm_row_sweep_dma_v2_f32(
+    entry = _entry("spmm_row_sweep_dma_v2", x)
+    _build.check(getattr(_build.library(), entry)(
         _p(tile_ptr), _p(tile_cols), _p(vals), _p(x), _p(out), nrb, d,
-        x.shape[0], n_out, _vec(x), dev, stream), "spmm_row_sweep_dma_v2")
+        x.shape[0], n_out, _vec(d, x), dev, stream), entry)
     spmm_row_sweep_dma_v2.launches += 1
     return out
 

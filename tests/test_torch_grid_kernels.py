@@ -8,7 +8,9 @@ neither interpreter (exp_grid_dma.py:152 slices a loaded value with
 ``pl.ds``), so the port's S2 is held against JAX's K2 on the same inputs,
 the check the script itself makes (exp_grid_dma.py:246-252). Same numpy
 inputs for both packages, on the tile-aligned 32×32 grid in 128×128 tiles,
-f32, rtol/atol 1e-5.
+f32, rtol/atol 1e-5; in bf16, one bf16 rounding. A numpy model of S1/S2's
+persistent schedule (csrc/grid_dma.cu) runs its mbarrier ring under random
+interleavings of the producer warp, the copies and the consumers.
 """
 
 import sys
@@ -52,6 +54,11 @@ from custom_op_benchmark_tpu_torch.ops.kernels import (  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SIDE, D = 32, 16
+# bf16 port vs bf16 JAX: both sum in f32 and round once to bf16, so they
+# differ by one bf16 rounding: |port − jax| ≤ 2⁻⁷·|jax| + 1e-4.
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-4
+# csrc/grid_dma.cu's ring: RS_STAGES stages, a tile in TILE / RS_COLS chunks.
+STAGES, CHUNKS = 3, 2
 
 
 @pytest.fixture(scope="module")
@@ -274,3 +281,247 @@ def test_grid_wrappers_raise_off_cpu_without_a_kernel(grids, device):
     with pytest.raises(ValueError):
         k_attn.attn_variant(tgm.tile_ptr, tgm.tile_cols, tgm.mask, x, y, y,
                             1.0)
+
+
+def _bf16_close(got: torch.Tensor, want) -> None:
+    want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    diff = np.abs(got.float().numpy() - want)
+    assert (diff <= BF16_RTOL * np.abs(want) + BF16_ATOL).all(), diff.max()
+
+
+def test_spmm_row_sweep_dma_bf16_matches_pallas(grids):
+    jt, tg = grids
+    vals, x = _tile_vals(tg, 21), _normal(22, tg.n_nodes, D)
+    jcols, jvals = jax_dma.pad_layout(jt, jnp.asarray(vals))
+    want = jax_dma.spmm_row_sweep_dma(
+        jcols, jvals.astype(jnp.bfloat16),
+        _pad(x, jt.n_cols_padded).astype(jnp.bfloat16), interpret=True)
+    assert want.dtype == jnp.bfloat16
+    cols, vp = k_dma.pad_layout(tg, torch.from_numpy(vals))
+    got = k_dma.spmm_row_sweep_dma(cols, vp.bfloat16(),
+                                   torch.from_numpy(x).bfloat16())
+    assert got.dtype == torch.bfloat16 and got.shape == (tg.n_rows_padded, D)
+    _bf16_close(got, want)
+
+
+def test_spmm_row_sweep_dma_v2_bf16_matches_k2(grids):
+    """JAX's K2 in bf16 rounds its sum to bf16 after every tile
+    (ops/pallas/tiled_kernels.py:103-105); the S2 it stands in for sums in
+    f32 and rounds once (exp_grid_dma.py:149-156), as the port does. So
+    JAX's K2 runs on the bf16 values widened to f32, rounded once."""
+    jt, tg = grids
+    vals, x = _tile_vals(tg, 23), _normal(24, tg.n_nodes, D)
+    v16 = jnp.asarray(vals).astype(jnp.bfloat16)
+    x16 = _pad(x, jt.n_cols_padded).astype(jnp.bfloat16)
+    want = spmm_row_sweep_kernel(
+        jt.tile_ptr, jt.tile_cols, v16.astype(jnp.float32),
+        x16.astype(jnp.float32), jt.max_tiles_per_row).astype(jnp.bfloat16)
+    got = k_dma.spmm_row_sweep_dma_v2(tg.tile_ptr, tg.tile_cols,
+                                      torch.from_numpy(vals).bfloat16(),
+                                      torch.from_numpy(x).bfloat16())
+    assert got.dtype == torch.bfloat16
+    _bf16_close(got, want)
+
+
+def test_bf16_wrappers_run_plain_on_cpu(grids):
+    """On CPU tensors the bf16 S1, S2 and S5 (both switches on) run their
+    plain versions, launch nothing and return bf16; S5 in bf16 is K4's
+    plain version."""
+    _, tg = grids
+    wrappers = (k_dma.spmm_row_sweep_dma, k_dma.spmm_row_sweep_dma_v2,
+                k_attn.attn_variant)
+    before = [w.launches for w in wrappers]
+    x = torch.from_numpy(_normal(25, tg.n_nodes, D)).bfloat16()
+    vals = torch.from_numpy(_tile_vals(tg, 26)).bfloat16()
+    cols, vp = k_dma.pad_layout(tg, vals)
+    y1 = k_dma.spmm_row_sweep_dma(cols, vp, x)
+    y2 = k_dma.spmm_row_sweep_dma_v2(tg.tile_ptr, tg.tile_cols, vals, x)
+    torch.testing.assert_close(y1, y2, rtol=0, atol=0)   # padding adds 0
+    tgt = tg.transpose()
+    args = (tgt.tile_ptr, tgt.tile_cols, tgt.mask, x, x, x, D ** -0.5)
+    y5 = k_attn.attn_variant(*args)
+    assert all(y.dtype == torch.bfloat16 for y in (y1, y2, y5))
+    assert torch.equal(y5, k_attn.fused_attention_rows_plain(*args))
+    assert [w.launches for w in wrappers] == before
+
+
+@pytest.mark.parametrize("use_exp, use_mask", [
+    (True, False), (False, True), (False, False)])
+def test_attn_variant_bf16_takes_only_exp_and_mask(grids, use_exp, use_mask):
+    _, tg = grids
+    x = torch.zeros(tg.n_nodes, D, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        k_attn.attn_variant(tg.tile_ptr, tg.tile_cols, tg.mask, x, x, x, 1.0,
+                            use_exp=use_exp, use_mask=use_mask)
+
+
+# ---------------------------------------------------------------------------
+# S1/S2's persistent schedule (csrc/grid_dma.cu), in numpy
+# ---------------------------------------------------------------------------
+
+def persistent_schedule(counts, slices, blocks):
+    """The chunks each persistent block takes, in order, as (item, tile
+    slot, chunk, stage, pass parity): block b takes the items (row block
+    w // slices, feature slice w % slices) w = b, b + blocks, ...; chunk q
+    of its sequence sits in stage q % STAGES, pass q // STAGES."""
+    out = []
+    for b in range(blocks):
+        seq, q = [], 0
+        for w in range(b, len(counts) * slices, blocks):
+            for c in range(counts[w // slices] * CHUNKS):
+                seq.append((w, c // CHUNKS, c % CHUNKS, q % STAGES,
+                            (q // STAGES) & 1))
+                q += 1
+        out.append(seq)
+    return out
+
+
+def run_ring(seq, rng):
+    """One block's ring under a random interleaving of the producer warp
+    (waits on a stage's empty barrier with parity ^ 1, issues the copies),
+    the copies (land in any order; the full barrier completes) and the
+    consumers (wait on the full barrier with the pass parity, read,
+    release). A wait on parity P passes once the barrier's completed phases
+    are odd for P = 0, even for P = 1, as ``mbarrier.try_wait.parity``
+    does. Asserts that no copy overwrites a stage before it is released,
+    that each consumer wait passes only on its own chunk, and that nothing
+    deadlocks; returns the chunks in the order the consumers took them."""
+    full, empty = [0] * STAGES, [0] * STAGES   # completed phases
+    held = [None] * STAGES                      # the chunk a stage holds
+    flying, taken, issued = [], [], 0
+    while len(taken) < len(seq):
+        moves = []
+        if issued < len(seq):
+            s, par = seq[issued][3:]
+            if empty[s] % 2 != par ^ 1:
+                moves.append("issue")
+        if flying:
+            moves.append("land")
+        s, par = seq[len(taken)][3:]
+        if full[s] % 2 != par:
+            moves.append("take")
+        assert moves, "the ring deadlocked"
+        move = moves[rng.integers(len(moves))]
+        if move == "issue":
+            s = seq[issued][3]
+            assert held[s] is None and all(seq[q][3] != s for q in flying)
+            flying.append(issued)
+            issued += 1
+        elif move == "land":
+            q = flying.pop(rng.integers(len(flying)))
+            held[seq[q][3]] = q
+            full[seq[q][3]] += 1
+        else:
+            q = len(taken)
+            assert held[s] == q, (q, held[s])
+            taken.append(seq[q])
+            held[s] = None
+            empty[s] += 1
+    return taken
+
+
+def test_ring_wraps_across_row_blocks():
+    """One block over row blocks of 2, 1, 0 and 3 tiles: passes of the ring
+    hold chunks of two row blocks, the empty one takes no chunk, and the
+    ring still hands each chunk to the consumers in order."""
+    (seq,) = persistent_schedule([2, 1, 0, 3], 1, 1)
+    passes = [{w for w, *_ in seq[k:k + STAGES]}
+              for k in range(0, len(seq), STAGES)]
+    assert any(len(p) > 1 for p in passes)
+    assert 2 not in {w for w, *_ in seq}
+    assert [q[3:] for q in seq[:7]] == [(0, 0), (1, 0), (2, 0), (0, 1),
+                                        (1, 1), (2, 1), (0, 0)]
+    rng = np.random.default_rng(3)
+    for _ in range(200):
+        assert run_ring(seq, rng) == seq
+
+
+def test_ring_with_a_wrong_parity_deadlocks_or_misreads():
+    """The model catches the fault it is there for: consumers that wait on
+    the phase of the item (flipping per row block) instead of the ring's
+    pass either read a stage too early or deadlock."""
+    (seq,) = persistent_schedule([2, 1, 3], 1, 1)
+    wrong = [(w, s, c, st, w & 1) for w, s, c, st, _ in seq]
+    rng = np.random.default_rng(5)
+    caught = 0
+    for _ in range(50):
+        try:
+            run_ring(wrong, rng)
+        except AssertionError:
+            caught += 1
+    assert caught == 50
+
+
+def _irregular_counts():
+    """Tiles per row block of a 300-node graph whose row block 1 is empty."""
+    from custom_op_benchmark_tpu_torch.graph import from_coo
+
+    rng = np.random.default_rng(0)
+    src = rng.choice(np.r_[0:128, 256:300], size=4000)
+    dst = rng.choice(np.r_[0:256], size=4000)
+    return tile_graph(from_coo(src, dst, 300), 128, 128)
+
+
+@pytest.mark.parametrize("graph, d, dn, blocks, padded", [
+    ("grid", 16, 64, 3, False),        # the ring wraps inside row blocks
+    ("grid", 16, 64, 3, True),         # S1: every row block max_tpr slots
+    ("grid", 200, 128, 5, False),      # two feature slices an item
+    ("irregular", 40, 64, 5, False),   # 3 items: two blocks get none
+    ("irregular", 300, 128, 4, True),  # empty row block, 3 slices
+])
+def test_persistent_schedule_sums_each_row_block_once_in_k2_order(
+        grids, graph, d, dn, blocks, padded):
+    tg = grids[1] if graph == "grid" else _irregular_counts()
+    ptr = tg.tile_ptr.numpy().astype(np.int64)
+    nrb, mt = tg.num_row_blocks, tg.max_tiles_per_row
+    counts = [mt] * nrb if padded else list(np.diff(ptr))
+    slices = -(-d // dn)
+    sched = persistent_schedule(counts, slices, blocks)
+    assert sum(map(len, sched)) == sum(counts) * CHUNKS * slices
+    if blocks > nrb * slices:
+        assert not sched[-1]            # a block with no item
+    rng = np.random.default_rng(7)
+    for seq in sched:
+        for _ in range(20):
+            assert run_ring(seq, rng) == seq
+    assert max(counts) * CHUNKS > STAGES    # the ring wraps inside an item
+
+    # The sums, in the kernel's order: each item's chunks, then its store.
+    vals = _tile_vals(tg, 31)
+    if padded:
+        _, vp = k_dma.pad_layout(tg, torch.from_numpy(vals))
+        tv = vp.reshape(-1, 128, 128).numpy()
+        _cols = k_dma.pad_layout(tg, torch.from_numpy(vals))[0].reshape(-1)
+        tcols, lo = _cols.numpy(), [i * mt for i in range(nrb)]
+    else:
+        tv, tcols, lo = vals, tg.tile_cols.numpy(), ptr[:-1]
+    x = _normal(32, tg.n_nodes, d)
+    xz = np.zeros((-(-tg.n_nodes // 128) * 128 + 128, d), np.float32)
+    xz[: tg.n_nodes] = x
+    y = np.full((nrb * 128, d), np.nan, np.float32)
+    stores = np.zeros((nrb, slices), int)
+    for b, seq in enumerate(sched):
+        items = {}
+        for w, slot, c, *_ in seq:
+            items.setdefault(w, []).append((slot, c))
+        for w in range(b, nrb * slices, blocks):
+            rb, f0 = w // slices, (w % slices) * dn
+            order = items.get(w, [])
+            assert order == [(s, c) for s in range(counts[rb])
+                             for c in range(CHUNKS)]   # K2's order
+            acc = np.zeros((128, min(dn, d - f0)), np.float32)
+            for slot, c in order:
+                t = lo[rb] + slot
+                r0 = int(tcols[t]) * 128 + c * 64
+                acc += tv[t][:, c * 64:(c + 1) * 64] @ xz[r0:r0 + 64,
+                                                          f0:f0 + dn]
+            y[rb * 128:(rb + 1) * 128, f0:f0 + dn] = acc
+            stores[rb, w % slices] += 1
+    assert (stores == 1).all()          # every row block once, per slice
+    for rb in np.flatnonzero(np.diff(ptr) == 0):
+        assert not y[rb * 128:(rb + 1) * 128].any()   # empty: zeros
+    want = k_tiled.spmm_row_sweep_plain(tg.tile_ptr, tg.tile_cols,
+                                        torch.from_numpy(vals),
+                                        torch.from_numpy(x))
+    np.testing.assert_allclose(y, want.numpy(), rtol=1e-4, atol=1e-4)
+

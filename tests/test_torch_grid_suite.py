@@ -195,6 +195,37 @@ def test_experiments_need_a_cuda_device(module):
         mod.main()
 
 
+@pytest.mark.parametrize("module, rows", [
+    ("exp_grid_dma", {"spmm_shipped", "spmm_dma_f32", "spmm_dma_v2",
+                      "spmm_dma_bf16", "spmm_dma_v2_bf16"}),
+    ("exp_grid_bisect", {"spmm_f32", "spmm_dotonly_f32", "spmm_bf16",
+                         "attn_fwd_f32", "attn_fwd_noexp", "attn_fwd_nomask",
+                         "attn_fwd_bf16", "attn_bwd_f32"})])
+def test_experiment_rows_run_their_calls(module, rows, monkeypatch):
+    """Each experiment's rows, f32 and bf16, on a small grid on the CPU
+    (plain versions; bench_fn replaced by one call, since a CPU run has no
+    device time): every row's call runs and a bf16 row returns bf16."""
+    import importlib
+
+    mod = importlib.import_module(
+        f"custom_op_benchmark_tpu_torch.experiments.{module}")
+    dtypes = {}
+
+    def one_call(fn, args, *, name, **kw):
+        y = fn(*args)
+        dtypes[name] = (y[0] if isinstance(y, tuple) else y).dtype
+        return benchlib.BenchRecord(name=name, time_s=0.001, times=[0.001],
+                                    edges=kw.get("edges"))
+
+    monkeypatch.setattr(benchlib, "bench_fn", one_call)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "cpu")
+    out = mod.run(bench_suite.grid_case(32, 32, 16, device="cpu"))
+    assert rows <= set(out)
+    assert all(dtypes[r] == (torch.bfloat16 if r.endswith("bf16")
+                             else torch.float32) for r in rows)
+    assert out.get("allclose", True) and out.get("allclose_v2", True)
+
+
 def test_bench_ms_stores_ms_and_roofline_fractions(monkeypatch, capsys):
     """The one row helper of the suite and the experiments: the median ms
     goes into the caller's dict and each byte model's fraction of the peak
