@@ -61,14 +61,15 @@ copy-sum over all of a packing's buckets.
     at the grid's shapes, S1 and S2 also in bf16, K4 and S5 also at d = 200
     and 300, and S1, S2 (f32 and bf16, with the copy path each d takes),
     S4, S5 and K4 again on the small irregular graph at d = 128, 100, 40,
-    33, 200 and 300; S2 equal to K2 bit for bit at one head at every d in
+    33, 200 and 300 (at 128 and 33 also with no tile at all and with x of
+    no rows: zeros); S2 equal to K2 bit for bit at one head at every d in
     f32 and bf16, and S1 equal to S2 on the grid; S5 with exp and mask
     equal to K4 bit for bit at d = 40, 128 and 300;
 11. the grid path: S1 and S2 against the segment oracle, then the grid
     suite (its allclose gates at 2e-3 and its timed rows, with roofline
     fractions against the measured copy bandwidth) and the two
     experiments' rows, with every launch counter set to 0 before and read
-    after (and the experiment's bf16 S1/S2 rows counted alone);
+    after, float32 and bfloat16 launches apart;
 12. grid times: S1, S2 (also in bf16), S4, S5, K4 and K1–K3 at d = 128
     against their plain versions, with bounds and library yardsticks as in
     5, each S5 setting beside K4's time, and the peak memory of the grid
@@ -274,15 +275,21 @@ class Kernels:
     def reset(self):
         for fn, *_ in self.table.values():
             fn.launches = 0
+            if hasattr(fn, "launches_bf16"):
+                fn.launches_bf16 = 0
 
-    def launches(self):
-        return {name: fn.launches for name, (fn, *_) in self.table.items()}
+    def launches(self, bf16=False):
+        """Each kernel's launches in float32, or with ``bf16`` in bfloat16,
+        since the last reset."""
+        attr = "launches_bf16" if bf16 else "launches"
+        return {name: getattr(fn, attr, 0)
+                for name, (fn, *_) in self.table.items()}
 
 
 TILE_KERNELS = ("sddmm_tiles", "spmm_row_sweep", "spmm_col_sweep")
 SLICE_KERNELS = TILE_KERNELS + ("fused_attention_rows",)
-GRID_KERNELS = ("spmm_row_sweep_dma", "spmm_row_sweep_dma_v2",
-                "spmm_dotonly", "attn_variant")
+DMA_KERNELS = ("spmm_row_sweep_dma", "spmm_row_sweep_dma_v2")
+GRID_KERNELS = DMA_KERNELS + ("spmm_dotonly", "attn_variant")
 S5_SETTINGS = {f"attn_variant:{'exp' if e else 'noexp'},"
                f"{'mask' if m else 'nomask'}": dict(use_exp=e, use_mask=m)
                for e in (True, False) for m in (True, False)}
@@ -525,6 +532,29 @@ def dma_bf16_calls(tg, x, vals):
     return {"spmm_row_sweep_dma:bf16": (*pad_layout(tg, v16), x16),
             "spmm_row_sweep_dma_v2:bf16": (tg.tile_ptr, tg.tile_cols, v16,
                                            x16)}
+
+
+def dma_empty_calls(tg, vals, x):
+    """S1 and S2 where no tile reaches the products, in x's dtype: no tile
+    at all over ``tg``'s row blocks (S1 with max_tpr = 0, S2 with an empty
+    tile list, which write zeros), and ``tg``'s tiles with an x of no
+    rows."""
+    from custom_op_benchmark_tpu_torch.ops.kernels.grid_dma import pad_layout
+
+    nrb, dev = tg.num_row_blocks, x.device
+    vals = vals.to(x.dtype)
+    none = vals.new_zeros((0, 128, 128))
+    return {
+        "spmm_row_sweep_dma:no tiles": (
+            torch.zeros((nrb, 0), dtype=torch.int32, device=dev),
+            none.reshape(nrb, 0, 128, 128), x),
+        "spmm_row_sweep_dma_v2:no tiles": (
+            torch.zeros(nrb + 1, dtype=torch.int32, device=dev),
+            torch.zeros(0, dtype=torch.int32, device=dev), none, x),
+        "spmm_row_sweep_dma:n_x=0": (*pad_layout(tg, vals), x[:0]),
+        "spmm_row_sweep_dma_v2:n_x=0": (tg.tile_ptr, tg.tile_cols, vals,
+                                        x[:0]),
+    }
 
 
 def s2_is_k2(kern, tg, vals, x, label, s1_args=None):
@@ -920,6 +950,10 @@ def phase_grid_parity(kern, dev, case):
                       f"irregular n=300 d={d} bf16")
         s2_is_k2(kern, small, sv, xs, "irregular n=300")
         s2_is_k2(kern, small, sv.bfloat16(), xs.bfloat16(), "irregular n=300")
+        if d in (GRID_D, 33):
+            for x_in in (xs, xs.bfloat16()):
+                check_kernels(kern, dma_empty_calls(small, sv, x_in),
+                              f"irregular n=300 d={d} {x_in.dtype}")
     torch.cuda.synchronize()
     return errs
 
@@ -975,8 +1009,9 @@ def phase_grid_path(kern, case):
     dma = exp_grid_dma.run(case, **GRID_TIMING)
     bisect = exp_grid_bisect.run(case, **GRID_TIMING)
     torch.cuda.synchronize()
-    launches = kern.launches()
-    log(f"[grid] launches on the grid path: {launches}")
+    launches, bf16 = kern.launches(), kern.launches(bf16=True)
+    log(f"[grid] launches on the grid path, float32: {launches}; bfloat16: "
+        f"{bf16}")
     log(json.dumps({"grid_suite": records}))
     log(json.dumps({"grid_dma": dma}))
     log(json.dumps({"grid_bisect": bisect}))
@@ -984,15 +1019,7 @@ def phase_grid_path(kern, case):
     assert dma["allclose"] and dma["allclose_v2"], dma
     assert all(launches[k] > 0 for k in SLICE_KERNELS + GRID_KERNELS), \
         launches
-    # The experiment's bf16 S1/S2 rows again, counted alone: the bf16 rows'
-    # launches in the kernels line.
-    kern.reset()
-    exp_grid_dma.bf16_rows(case, {}, *pad_layout(tg, case.vals),
-                           **GRID_TIMING)
-    torch.cuda.synchronize()
-    bf16 = {k: v for k, v in kern.launches().items() if v}
-    log(f"[grid] launches of the experiment's bf16 S1/S2 rows: {bf16}")
-    assert set(bf16) == {"spmm_row_sweep_dma", "spmm_row_sweep_dma_v2"}, bf16
+    assert all(bf16[k] > 0 for k in DMA_KERNELS), bf16
     return launches, bf16
 
 
@@ -1192,7 +1219,7 @@ def phase_bf16(kern, dev, g, slice_inputs):
     kern.reset()
     got = family(a32.bfloat16(), b32.bfloat16())
     torch.cuda.synchronize()
-    launches = kern.launches()
+    launches = kern.launches(bf16=True)
     names = ("scores", "alpha", "spmm", "attention", "grad a", "grad b")
     for i, (name, lo, hi) in enumerate(zip(names, got, want)):
         assert lo.dtype == torch.bfloat16, (name, lo.dtype)
@@ -1659,13 +1686,13 @@ def main() -> int:
             bf16_errs[name], bf16_times[name],
             "slice h=8 d=64, bf16; launches: the bf16 op family and "
             "attention through impl='tiled', forward and backward"))
-    for name in ("spmm_row_sweep_dma", "spmm_row_sweep_dma_v2"):
+    for name in DMA_KERNELS:
         _, _, source, replaces = kern.table[name]
         key = f"{name}:bf16"
         report.append(kernel_row(
             key, source, replaces, grid_bf16_launches[name], grid_errs[key],
             grid_times[key], f"grid 1024x1024, d={GRID_D}, bf16; launches: "
-            "the grid experiment's bf16 rows"))
+            "the grid path's bf16 launches"))
     _, _, source, replaces = kern.table["fused_attention_rows"]
     for key, row in wide_times.items():
         report.append(kernel_row(

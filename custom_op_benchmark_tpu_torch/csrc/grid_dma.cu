@@ -63,7 +63,8 @@
 // bf16), wait for them, then arrive; vals always moves by TMA. The
 // barriers' phases flip each time the ring wraps (parity = pass & 1), not
 // at item boundaries. No atomics: outputs repeat bit for bit; an empty row
-// block writes zeros.
+// block writes zeros, and where there is no tile at all the launch only
+// clears the output.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -320,11 +321,17 @@ int launch(const int* ptr, const int* cols, const E* vals, long long tiles,
   if (err != cudaSuccess) return (int)err;
   const int items = nrb * ((d + DN - 1) / DN);
   if (items == 0) return 0;  // no row block: n_out is 0
-  CUtensorMap vmap, xmap;
-  // Without vec x moves element by element and its map is not read.
+  // No tile at all (S1 with max_tpr = 0, or S2 given an empty vals, whose
+  // pointer is null): every row block is empty and writes zeros. A tensor
+  // map takes no empty or null array.
+  if (tiles == 0 || vals == nullptr)
+    return (int)cudaMemsetAsync(out, 0, sizeof(E) * n_out * d, stream);
+  // x with no rows reads as zero through the element path. Without vec x's
+  // map is not read and stays zero.
+  vec = vec && n_x > 0;
+  CUtensorMap vmap, xmap = {};
   if (!tensor_map(&vmap, vals, tiles * TILE, TILE, C::VLD, TILE) ||
-      !tensor_map(&xmap, vec ? x : vals, vec ? n_x : TILE, vec ? d : TILE,
-                  C::XLD, RS_COLS))
+      (vec && !tensor_map(&xmap, x, n_x, d, C::XLD, RS_COLS)))
     return (int)cudaErrorInvalidValue;
   kernel<<<min(items, sms), THREADS, smem, stream>>>(
       vmap, xmap, ptr, cols, x, out, nrb, max_tpr, d, n_x, n_out, vec);

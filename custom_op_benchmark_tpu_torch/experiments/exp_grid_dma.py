@@ -61,18 +61,13 @@ def run(case, *, warmup=1, iters=5, repeats=3) -> dict:
              **timing)
     bench_ms(out, "spmm_dma_v2", spmm_row_sweep_dma_v2, tg.tile_ptr,
              tg.tile_cols, case.vals, x, **timing)
-    bf16_rows(case, out, cols_pad, vals_pad, **timing)
-    out["device"] = torch.cuda.get_device_name(x.device)
-    return out
-
-
-def bf16_rows(case, out, cols_pad, vals_pad, **timing) -> None:
-    """S1 and S2 on the grid's vals and x in bf16, timed into ``out``."""
-    tg, x16 = case.tg, case.q_al.bfloat16()
+    x16 = x.bfloat16()
     bench_ms(out, "spmm_dma_bf16", spmm_row_sweep_dma, cols_pad,
              vals_pad.bfloat16(), x16, **timing)
     bench_ms(out, "spmm_dma_v2_bf16", spmm_row_sweep_dma_v2, tg.tile_ptr,
              tg.tile_cols, case.vals.bfloat16(), x16, **timing)
+    out["device"] = torch.cuda.get_device_name(x.device)
+    return out
 
 
 def main() -> int:

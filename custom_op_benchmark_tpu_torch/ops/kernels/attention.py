@@ -24,7 +24,8 @@ materialises the masked scores and composes the softmax in f32; the plain
 S5 runs the recurrence one tile slot at a time over all row blocks, since
 without ``exp`` it is not a softmax. Each wrapper runs its kernel on CUDA
 tensors and its plain version only on CPU tensors;
-``<wrapper>.launches`` counts kernel launches.
+``<wrapper>.launches`` counts kernel launches in float32,
+``<wrapper>.launches_bf16`` those in bfloat16.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from custom_op_benchmark_tpu_torch.ops.kernels import _build
 from custom_op_benchmark_tpu_torch.ops.kernels.tiled_kernels import (
     TILE,
     _check_cuda,
+    _count,
     _entry,
     _heads,
     _on_cpu,
@@ -152,11 +154,11 @@ def fused_attention_rows(tile_ptr, tile_cols, mask, q, k, v, scale: float):
                                           scale)
     out = _launch(_entry("fused_attention_rows", q), (), tile_ptr,
                   tile_cols, mask, q, k, v, scale, s5=False)
-    fused_attention_rows.launches += 1
+    _count(fused_attention_rows, q)
     return out
 
 
-fused_attention_rows.launches = 0
+fused_attention_rows.launches = fused_attention_rows.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -235,11 +237,11 @@ def attn_variant(tile_ptr, tile_cols, mask, q, k, v, scale: float, *,
     else:
         out = _launch("attn_variant_f32", (int(use_exp), int(use_mask)),
                       tile_ptr, tile_cols, mask, q, k, v, scale, s5=True)
-    attn_variant.launches += 1
+    _count(attn_variant, q)
     return out
 
 
-attn_variant.launches = 0
+attn_variant.launches = attn_variant.launches_bf16 = 0
 
 
 def well_posed_s5(tg, d: int, *, device=None, seed: int = 0):

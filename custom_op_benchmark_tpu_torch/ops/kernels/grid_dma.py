@@ -15,7 +15,8 @@ dtype, rounded once; the plain versions compute in f32 and round once.
 The CUDA kernel (csrc/grid_dma.cu) runs K2's tensor-core arithmetic in
 persistent blocks whose TMA copy ring runs across row blocks, so S2 gives
 K2's bits. Each wrapper runs its kernel on CUDA tensors and its plain
-version only on CPU tensors; ``<wrapper>.launches`` counts kernel launches.
+version only on CPU tensors; ``<wrapper>.launches`` counts kernel launches
+in float32, ``<wrapper>.launches_bf16`` those in bfloat16.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from custom_op_benchmark_tpu_torch.ops.kernels import _build
 from custom_op_benchmark_tpu_torch.ops.kernels.tiled_kernels import (
     TILE,
     _check_cuda,
+    _count,
     _entry,
     _on_cpu,
     _p,
@@ -90,7 +92,7 @@ def copy_path(x: torch.Tensor) -> str:
 def spmm_row_sweep_dma_plain(cols_pad, vals_pad, x, n_out=None):
     nrb, mt, r, c = vals_pad.shape
     xt = _row_tiles(x[:, None], cols_pad.reshape(-1), c)    # (nrb·mt, C, 1, d)
-    xt = xt[:, :, 0].reshape(nrb, mt, c, -1).float()
+    xt = xt[:, :, 0].reshape(nrb, mt, c, x.shape[1]).float()
     y = torch.einsum("bsrc,bscd->brd", vals_pad.float(), xt)
     y = y.reshape(nrb * r, -1)[: nrb * r if n_out is None else n_out]
     return y.to(x.dtype)
@@ -116,11 +118,11 @@ def spmm_row_sweep_dma(cols_pad, vals_pad, x, n_out: Optional[int] = None):
     _build.check(getattr(_build.library(), entry)(
         _p(cols_pad), _p(vals_pad), _p(x), _p(out), nrb, mt, d, x.shape[0],
         n_out, _vec(d, x), dev, stream), entry)
-    spmm_row_sweep_dma.launches += 1
+    _count(spmm_row_sweep_dma, x)
     return out
 
 
-spmm_row_sweep_dma.launches = 0
+spmm_row_sweep_dma.launches = spmm_row_sweep_dma.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -148,8 +150,8 @@ def spmm_row_sweep_dma_v2(tile_ptr, tile_cols, vals, x,
     _build.check(getattr(_build.library(), entry)(
         _p(tile_ptr), _p(tile_cols), _p(vals), _p(x), _p(out), nrb, d,
         x.shape[0], n_out, _vec(d, x), dev, stream), entry)
-    spmm_row_sweep_dma_v2.launches += 1
+    _count(spmm_row_sweep_dma_v2, x)
     return out
 
 
-spmm_row_sweep_dma_v2.launches = 0
+spmm_row_sweep_dma_v2.launches = spmm_row_sweep_dma_v2.launches_bf16 = 0

@@ -20,7 +20,9 @@ past ``n`` count as zero, so callers never pad rows or features.
 
 Each wrapper runs its CUDA kernel (csrc/tiled_kernels.cu) when given CUDA
 tensors, and its plain version only when given CPU tensors; on any other
-input it raises. ``<wrapper>.launches`` counts kernel launches.
+input it raises. ``<wrapper>.launches`` counts kernel launches in float32
+and, for the wrappers that take bfloat16, ``<wrapper>.launches_bf16``
+those in bfloat16.
 
 K1–K3 take float32 or bfloat16 node and tile arrays (one dtype per call),
 accumulate in f32 and return the input's dtype, as the Pallas kernels do;
@@ -130,6 +132,14 @@ def _vec(d: int, *tensors: torch.Tensor) -> int:
                                       for t in tensors))
 
 
+def _count(fn, t: torch.Tensor) -> None:
+    """One launch of ``fn``'s kernel in ``t``'s dtype."""
+    if t.dtype == torch.bfloat16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
+
+
 def _stream(t: torch.Tensor):
     return (t.device.index,
             ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream))
@@ -172,11 +182,11 @@ def sddmm_tiles(tile_rows, tile_cols, mask, A, B):
         _build.check(getattr(_build.library(), entry)(
             _p(tile_rows), _p(tile_cols), _p(mask), _p(a), _p(b), _p(out),
             t, h, d, a.shape[0], b.shape[0], dev, stream), entry)
-        sddmm_tiles.launches += 1
+        _count(sddmm_tiles, A)
     return out[0] if A.dim() == 2 else out
 
 
-sddmm_tiles.launches = 0
+sddmm_tiles.launches = sddmm_tiles.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -216,11 +226,11 @@ def spmm_row_sweep(tile_ptr, tile_cols, vals, x,
     _build.check(getattr(_build.library(), entry)(
         _p(tile_ptr), _p(tile_cols), _p(v), _p(xh), _p(out),
         nrb, t, h, d, xh.shape[0], n_out, dev, stream), entry)
-    spmm_row_sweep.launches += 1
+    _count(spmm_row_sweep, x)
     return out[:, 0] if x.dim() == 2 else out
 
 
-spmm_row_sweep.launches = 0
+spmm_row_sweep.launches = spmm_row_sweep.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -320,8 +330,8 @@ def spmm_col_sweep(tile_ptr_c, tile_perm_c, tile_rows, vals, y,
     _build.check(getattr(_build.library(), entry)(
         _p(tile_ptr_c), _p(tile_perm_c), _p(tile_rows), _p(v), _p(yh),
         _p(out), ncb, t, h, d, yh.shape[0], n_out, vec, dev, stream), entry)
-    spmm_col_sweep.launches += 1
+    _count(spmm_col_sweep, y)
     return out[:, 0] if y.dim() == 2 else out
 
 
-spmm_col_sweep.launches = 0
+spmm_col_sweep.launches = spmm_col_sweep.launches_bf16 = 0

@@ -330,7 +330,7 @@ def test_bf16_wrappers_run_plain_on_cpu(grids):
     _, tg = grids
     wrappers = (k_dma.spmm_row_sweep_dma, k_dma.spmm_row_sweep_dma_v2,
                 k_attn.attn_variant)
-    before = [w.launches for w in wrappers]
+    before = [(w.launches, w.launches_bf16) for w in wrappers]
     x = torch.from_numpy(_normal(25, tg.n_nodes, D)).bfloat16()
     vals = torch.from_numpy(_tile_vals(tg, 26)).bfloat16()
     cols, vp = k_dma.pad_layout(tg, vals)
@@ -342,7 +342,48 @@ def test_bf16_wrappers_run_plain_on_cpu(grids):
     y5 = k_attn.attn_variant(*args)
     assert all(y.dtype == torch.bfloat16 for y in (y1, y2, y5))
     assert torch.equal(y5, k_attn.fused_attention_rows_plain(*args))
-    assert [w.launches for w in wrappers] == before
+    assert [(w.launches, w.launches_bf16) for w in wrappers] == before
+
+
+def test_launches_are_counted_by_dtype():
+    """A launch counts under its dtype only, so a float32 row's launches
+    hold no bfloat16 ones."""
+    def fn():
+        pass
+
+    fn.launches = fn.launches_bf16 = 0
+    k_tiled._count(fn, torch.zeros(1))
+    k_tiled._count(fn, torch.zeros(1, dtype=torch.bfloat16))
+    k_tiled._count(fn, torch.zeros(1, dtype=torch.bfloat16))
+    assert (fn.launches, fn.launches_bf16) == (1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["no tiles", "no x rows"])
+def test_dma_with_nothing_to_multiply_writes_zeros(grids, case, dtype):
+    """S1 and S2 where no tile reaches the products: no tile at all over the
+    grid's row blocks (S1 with max_tpr = 0, S2 with an empty tile list), or
+    the grid's tiles with an x of no rows. Every output row is zero, as in
+    K2's plain version."""
+    _, tg = grids
+    nrb = tg.num_row_blocks
+    vals = torch.from_numpy(_tile_vals(tg, 27)).to(dtype)
+    x = torch.from_numpy(_normal(28, tg.n_nodes, D)).to(dtype)
+    if case == "no tiles":
+        ptr = torch.zeros(nrb + 1, dtype=torch.int32)
+        cols = torch.zeros(0, dtype=torch.int32)
+        vals = vals[:0]
+        s1 = (torch.zeros((nrb, 0), dtype=torch.int32),
+              vals.reshape(nrb, 0, 128, 128), x)
+    else:
+        ptr, cols, x = tg.tile_ptr, tg.tile_cols, x[:0]
+        s1 = (*k_dma.pad_layout(tg, vals), x)
+    y1 = k_dma.spmm_row_sweep_dma(*s1)
+    y2 = k_dma.spmm_row_sweep_dma_v2(ptr, cols, vals, x)
+    want = k_tiled.spmm_row_sweep_plain(ptr, cols, vals, x)
+    for y in (y1, y2):
+        assert y.dtype == dtype and y.shape == (nrb * 128, D)
+        assert torch.equal(y, torch.zeros_like(y)) and torch.equal(y, want)
 
 
 @pytest.mark.parametrize("use_exp, use_mask", [
