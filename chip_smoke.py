@@ -17,7 +17,11 @@ power-law suite (n = 131,072, 2M edges, d = 128) through that suite and
 the S3 experiment, and the arxiv configuration (160,000 nodes, 40
 classes) trained full-graph on the ELL path by GAT (3 layers, 4 heads of
 128), GCN and GraphSAGE (hidden 128), the last two on S3, one launch per
-copy-sum over all of a packing's buckets.
+copy-sum over all of a packing's buckets. The fifth: the repo's own
+entry points at full size — the headline bench (``bench.run``), the clique
+suite (``bench_suite.run_suite``), ``experiments/bench_models.py`` and the
+command line (``train/run.py``) on cora_gat, arxiv_gat and
+arxiv_transformer — and GIN on the arxiv configuration.
 
 1. device: a CUDA device is present; print its name and power limit, then
    build the CUDA kernels from ``custom_op_benchmark_tpu_torch/csrc`` (one
@@ -32,10 +36,9 @@ copy-sum over all of a packing's buckets.
    wrappers run the plain versions;
 4. train: three AdamW steps with finite losses, each step launching K4
    3 times, K1 and K3 6 times and K2 3 times (3 layers);
-5. times: each kernel against its plain version (K1-K3 also at
-   d = 1024), its bound on these inputs (bytes at 3.35 TB/s or
-   f32-accurate products at 165 TFLOP/s, whichever is longer) and its
-   library yardstick (one PyTorch call that computes the same function,
+5. times: each kernel against its plain version, its bound on these
+   inputs (bytes at 3.35 TB/s or f32-accurate products at 165 TFLOP/s,
+   whichever is longer) and its library yardstick (one PyTorch call that computes the same function,
    timed here and used nowhere in the port); then one train step;
 6. bf16: K1-K4 on bf16 inputs against their plain versions (one bf16
    rounding) at the slice's shapes and on the irregular graph (d = 64, 33,
@@ -51,9 +54,17 @@ copy-sum over all of a packing's buckets.
 8. the dense-block path: ``resolve(g, "auto") == "dense_block"``, the
    clique GAT's logits, loss and gradients on the block layout against
    the segment path on the card, three steps of
-   ``fit_full_graph(strategy="auto")``, the block step's time and peak
-   memory, and ``vector_spmm`` at d = 1024 through auto (dense blocks),
-   tiled (K2) and xla, agreeing at 2e-3;
+   ``fit_full_graph(strategy="auto")``, and ``vector_spmm`` at d = 1024
+   through auto (dense blocks), tiled (K2) and xla, agreeing at 2e-3;
+   then the entry points on the clique batch, each with the launch
+   counters set to 0 before it and read after: the headline bench (its
+   JSON line, ``auto_impl == "dense_block"``, ``kernel_parity_ok``, the
+   clique GAT step, the power-law ELL attention over the L2 gather rate),
+   the clique suite (every gate and row; its K1-K4 launches are the
+   suite rows' counts), K1-K4 at the suite's new shapes (K1-K3 one head
+   at d = 1024, K4 one head at d = 128) against their plain versions,
+   timed beside bounds and library calls, and ``bench_models`` (every
+   row timed, the GAT's block and ELL outputs within 2e-3 of segment);
 9. grid build: the graph, its tile-aligned order and tiling on the host,
    moved to the card;
 10. grid kernel parity: S1, S2, S4, S5 (all four switch settings), K4 at
@@ -92,13 +103,18 @@ copy-sum over all of a packing's buckets.
     forward and the backward of GCN and SAGE, then three AdamW steps
     through ``fit_full_graph(strategy="ell")`` with finite losses, the
     step time, the S3 launches of a step (one per copy-sum) and the peak
-    memory of each path;
-17. S3 times: S3 against its plain version and ``F.embedding_bag`` at the
+    memory of each path; one epoch of GIN (width 128) on the ELL path
+    with its S3 launches;
+17. the command line on cora_gat (with ``layer_allclose_ok``), arxiv_gat
+    and arxiv_transformer at ``--scale 1``, ``--epochs 2``: finite
+    losses, launches counted;
+18. S3 times: S3 against its plain version and ``F.embedding_bag`` at the
     experiment's shape, and a second bound: its gathered bytes at the
     card's L2 gather rate, measured on a table that fits the 50 MB L2.
 
-The line before the last is the ``kernels`` JSON: for each of the nine
-kernels, and for K1-K4, S1 and S2 in bf16 and K4 at d = 300 and 1024, its
+Each phase's seconds are printed. The line before the last is the
+``kernels`` JSON: for each of the nine kernels, for K1-K4, S1 and S2 in
+bf16, K4 at d = 300 and 1024, and K1-K4 at the clique suite's shapes, its
 source,
 the TPU kernel it replaces, its launches on its path, its error, time,
 plain time, bound and library time.
@@ -179,9 +195,16 @@ BLOCK_FEAT = 128
 K4_WIDE_CHECKED = (129, 200, 300, 1024, 1100)
 K4_WIDE_BF16 = (200, 300)
 K4_WIDE = (300, 1024)
-# The L2 gather rate: rows of a table that fits the 50 MB L2 (8 MiB), at
-# S3's row width, gathered in the experiment's pattern.
-L2_TABLE_ROWS = 16384
+# The clique suite's new kernel shapes (utils/bench_suite.run_suite): K1-K3
+# at one head of 1024, K4 at one head of 128.
+SUITE_D = 1024
+SUITE_ATTN_D = 128
+# The command line's ported configurations, run at --scale 1 with their
+# depth cut to two epochs.
+CLI_CONFIGS = ("cora_gat", "arxiv_gat", "arxiv_transformer")
+CLI_EPOCHS = 2
+# GIN on the arxiv configuration: width 128, one epoch on the ELL path.
+GIN_MODEL = dict(hidden_dim=128, num_layers=2)
 
 
 def log(msg: str) -> None:
@@ -851,19 +874,14 @@ def time_row(kern, key, args, label, timing, lib=None):
 
 def phase_times(kern, slice_inputs, train_step):
     """Each slice kernel against its plain version and its library
-    yardstick at h=8 d=64, K2/K3 at d=1024; then one train step."""
-    tgt, q, k, v, vals, x = slice_inputs
+    yardstick at h=8 d=64 (K1-K3 at d=1024 are the clique suite's rows,
+    timed in phase_suite_kernels); then one train step."""
+    tgt, q, k, v, vals, _ = slice_inputs
     times = {}
-    narrow = kernel_calls(tgt, q, k, v, vals)
-    wide = kernel_calls(tgt, x, x, x, vals[0])
-    for label, calls in (("h=8 d=64", narrow), (f"h=1 d={WIDE}", wide)):
-        for key, args in calls.items():
-            if label != "h=8 d=64" and key == "fused_attention_rows":
-                continue
-            times[(key, label)] = time_row(
-                kern, key, args, label, {},
-                lib=label == "h=8 d=64" and key in SLICE_KERNELS)
-            torch.cuda.empty_cache()
+    for key, args in kernel_calls(tgt, q, k, v, vals).items():
+        times[(key, "h=8 d=64")] = time_row(kern, key, args, "h=8 d=64", {},
+                                            lib=True)
+        torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     step_ms = time_ms(train_step, warmup=1, iters=3, repeats=3)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1306,20 +1324,18 @@ def phase_wide_k4(kern, dev, tg):
 
 def phase_block(kern, dev, g):
     """The dense-block path at full width: ``impl="auto"`` resolves to the
-    dense blocks; the clique GAT step (3 layers, 8 heads of 64) on the
-    block layout against the segment path on the card; three steps of
-    ``fit_full_graph(strategy="auto")``; the step time and peak memory;
-    ``vector_spmm`` at d = 1024 through auto, tiled (K2) and xla."""
-    from custom_op_benchmark_tpu_torch import ops
+    dense blocks; the clique GAT (3 layers, 8 heads of 64) on the block
+    layout against the segment path on the card; three steps of
+    ``fit_full_graph(strategy="auto")``; ``vector_spmm`` at d = 1024 on the
+    headline bench's inputs through auto, tiled (K2) and xla."""
+    from custom_op_benchmark_tpu_torch import bench, ops
     from custom_op_benchmark_tpu_torch.data.synthetic import (
         NodeClassificationDataset,
     )
     from custom_op_benchmark_tpu_torch.models import GAT
     from custom_op_benchmark_tpu_torch.ops import dispatch
     from custom_op_benchmark_tpu_torch.train import (
-        create_train_state,
         fit_full_graph,
-        make_train_step,
         masked_cross_entropy,
     )
 
@@ -1374,21 +1390,11 @@ def phase_block(kern, dev, g):
         f"val_acc {metrics['val_acc']:.4f}; kernel launches "
         f"{kern.launches()}")
     assert len(losses) == 3 and all(np.isfinite(losses)), losses
-    state = create_train_state(model)
-    step = make_train_step(apply_kwargs={"block": bg})
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    step_ms = time_ms(lambda: step(state, gd, x, labels, mask), warmup=1,
-                      iters=3, repeats=3)
-    peak = sync_peak_gib()
-    log(f"[time] clique GAT train step (block, 3 layers, 8x64, AdamW) "
-        f"{step_ms:.3f} ms, peak memory {peak:.2f} GiB")
-    del state, step, model
+    del model
 
-    # The headline bench's workload and gate (bench.py:51-145).
-    xw = normal(rng, n, WIDE, device=dev)
-    ed = torch.rand(gd.num_edges_padded, device=dev,
-                    generator=torch.Generator(device=dev).manual_seed(SEED))
+    # The headline bench's workload through every impl (its timing and the
+    # clique GAT step's are the bench phase's).
+    _, ed, xw = bench.spmm_workload(*CLIQUES, WIDE, dev)
     kern.reset()
     ys = {impl: ops.vector_spmm(gd, ed, xw, impl=impl)
           for impl in ("auto", "tiled", "xla")}
@@ -1402,34 +1408,128 @@ def phase_block(kern, dev, g):
             f"{'ok' if ok else 'FAIL'}")
         assert ok, impl
     assert k2 == 1, k2
-    spmm_ms = {impl: time_ms(lambda: ops.vector_spmm(gd, ed, xw, impl=impl))
-               for impl in ("auto", "tiled")}
-    log(f"[time] vector_spmm d={WIDE} on 512x30 cliques: dense_block "
-        f"{spmm_ms['auto']:.4f} ms, tiled (K2) {spmm_ms['tiled']:.4f} ms")
-    return dict(step_ms=step_ms, peak=peak, spmm_ms=spmm_ms)
 
 
-def l2_gather_rate(dev):
-    """Bytes per second that S3 gathers from a table resident in the 50 MB
-    L2 (8 MiB: L2_TABLE_ROWS rows of 128 floats), in the experiment's
-    pattern (125,000 rows of 16 random slots): the rate that bounds a
-    gather whose rows mostly hit L2."""
-    from custom_op_benchmark_tpu_torch.graph.ell import one_bucket_table
-    from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import (
-        gather_sum,
-    )
+def phase_bench(kern, dev):
+    """The headline bench (``custom_op_benchmark_tpu_torch.bench.run``) at
+    full size: its JSON line, ``auto_impl == "dense_block"`` and
+    ``kernel_parity_ok``, the launches of its one run."""
+    from custom_op_benchmark_tpu_torch import bench
 
-    rng = np.random.default_rng(SEED + 11)
-    x = normal(rng, L2_TABLE_ROWS, POWERLAW[2], device=dev)
-    cols = torch.from_numpy(rng.integers(
-        0, L2_TABLE_ROWS, size=(125_000, 16)).astype(np.int32)).to(dev)
-    table = one_bucket_table(cols)
-    ms = time_ms(lambda: gather_sum(table, x))
-    rate = cols.numel() * x.shape[1] * 4 / (ms / 1e3)
-    log(f"[s3] L2 gather rate: {cols.numel()} rows of {x.shape[1]} floats "
-        f"from an {x.numel() * 4 / 2**20:.0f} MiB table in {ms:.4f} ms: "
-        f"{rate / 1e12:.3f} TB/s")
-    return rate
+    kern.reset()
+    rec = bench.run(dev)
+    torch.cuda.synchronize()
+    launches = kern.launches()
+    log(f"[bench] {json.dumps(rec)}")
+    log(f"[bench] kernel launches {launches}")
+    assert rec["auto_impl"] == "dense_block", rec["auto_impl"]
+    assert rec["kernel_parity_ok"] is True, rec["kernel_parity_ok"]
+    assert launches["sddmm_tiles"] > 0, launches
+    assert all(np.isfinite(rec[k]) for k in (
+        "value", "time_s", "clique_gat_step_ms",
+        "powerlaw_fused_attention_ms", "powerlaw_gather_ceiling_gb_s"))
+    return rec
+
+
+def phase_clique_suite(kern, dev):
+    """The clique suite (``bench_suite.run_suite``, the default suite) at
+    full size: every row timed, every gate passed; the launches of K1-K4
+    in the run (the suite kernel rows' counts)."""
+    from custom_op_benchmark_tpu_torch.utils import bench_suite
+
+    kern.reset()
+    records, ok = bench_suite.run_suite(device=dev)
+    torch.cuda.synchronize()
+    launches = kern.launches()
+    failed = [r["check"] for r in records if r.get("ok") is False]
+    log(f"[suite] clique suite: suite_ok {ok}, "
+        f"{sum('check' in r for r in records)} checks (worst "
+        f"{max(r['max_diff'] for r in records if 'check' in r):.3e}), "
+        f"{sum('bench' in r for r in records)} rows; kernel launches "
+        f"{launches}")
+    assert ok and not failed, failed
+    assert all(launches[k] > 0 for k in SLICE_KERNELS), launches
+    return launches
+
+
+def suite_kernel_calls(tg, rng, dev):
+    """K1-K4 at the clique suite's new shapes on its unaligned tiling:
+    K1 (maskedmm/pallas_tiled) and K2/K3 (maskedmm_bwd/pallas_tiled: dA and
+    dB of the masked product) at one head, d = 1024; K4
+    (attention_fused/pallas) at one head, d = 128, normalize="src"."""
+    n = tg.n_nodes
+    a, b = (normal(rng, n, SUITE_D, device=dev) for _ in range(2))
+    ds = torch.where(tg.mask, normal(rng, tg.num_tiles, 128, 128,
+                                     device=dev), 0.0)
+    wide = kernel_calls(tg, a, b, b, ds)
+    q, k, v = (normal(rng, n, SUITE_ATTN_D, device=dev) for _ in range(3))
+    calls = {f"{name}:suite d={SUITE_D}": wide[name] for name in TILE_KERNELS}
+    calls[f"fused_attention_rows:suite d={SUITE_ATTN_D}"] = kernel_calls(
+        tg, q, k, v, ds)["fused_attention_rows"]
+    return calls
+
+
+def phase_suite_kernels(kern, dev, tg):
+    """K1-K4 at the clique suite's shapes on its tiling (the slice's
+    ``tg``) against their plain versions (the gates of check_kernels),
+    timed beside their bounds and library calls."""
+    log(f"[suite] unaligned clique tiling: T={tg.num_tiles} live 16x8 "
+        f"fragments {live_share(tg.mask):.4f}")
+    calls = suite_kernel_calls(tg, np.random.default_rng(SEED + 12), dev)
+    errs = check_kernels(kern, calls, "clique suite")
+    times = {}
+    for key, args in calls.items():
+        times[key] = time_row(kern, key, args, "clique suite", {}, lib=True)
+        torch.cuda.empty_cache()
+    return errs, times
+
+
+def phase_bench_models(kern, dev):
+    """``experiments/bench_models.py`` at full size: every row's forward
+    and train step timed, the GAT's block and ELL paths within 2e-3 of its
+    segment path."""
+    from custom_op_benchmark_tpu_torch.experiments import bench_models
+
+    kern.reset()
+    rec = bench_models.run(dev)
+    torch.cuda.synchronize()
+    log(f"[bench_models] {json.dumps(rec)}")
+    log(f"[bench_models] kernel launches {kern.launches()}")
+    assert rec["ok"], rec
+    assert all(np.isfinite(r["fwd_ms"]) and np.isfinite(r["step_ms"])
+               for r in rec["rows"].values()), rec["rows"]
+    assert kern.launches()["fused_attention_rows"] > 0
+    return rec
+
+
+def phase_cli(kern, dev):
+    """The command line (``train/run.py``) on each ported configuration at
+    full width (``--scale 1``), ``--epochs 2`` (depth cut for time): its
+    JSON line, ``layer_allclose_ok`` for cora_gat, a finite validation
+    loss, the launches of each run."""
+    import contextlib
+    import io
+
+    from custom_op_benchmark_tpu_torch.train import run
+
+    results = {}
+    for config in CLI_CONFIGS:
+        out = io.StringIO()
+        kern.reset()
+        with contextlib.redirect_stdout(out):
+            rc = run.main(["--config", config, "--scale", "1", "--epochs",
+                           str(CLI_EPOCHS)])
+        torch.cuda.synchronize()
+        line = out.getvalue().strip().splitlines()[-1]
+        log(f"[cli] {line}")
+        log(f"[cli] {config} kernel launches {kern.launches()}")
+        rec = json.loads(line)
+        assert rc == 0 and rec["config"] == config, (rc, rec)
+        assert np.isfinite(rec["val_loss"]), rec
+        if config == "cora_gat":
+            assert rec["layer_allclose_ok"] is True, rec
+        results[config] = rec
+    return results
 
 
 def s3_table_checks(kern, label, packings, x):
@@ -1489,8 +1589,10 @@ def arxiv_model(name, num_classes, in_dim):
 def phase_arxiv(kern, dev):
     """The arxiv configuration on the ELL path: parity against the segment
     path, S3 counted in the forward and the backward, three AdamW steps
-    through fit_full_graph, step times and peak memory."""
+    through fit_full_graph, step times and peak memory; then one epoch of
+    GIN through fit_full_graph with its S3 launches."""
     from custom_op_benchmark_tpu_torch.data import planted_partition
+    from custom_op_benchmark_tpu_torch.models import GIN
     from custom_op_benchmark_tpu_torch.ops import ell as ell_ops
     from custom_op_benchmark_tpu_torch.ops import ell_dual
     from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import (
@@ -1586,6 +1688,21 @@ def phase_arxiv(kern, dev):
             assert launches == sums, (name, path, launches, sums)
             del state, step
         del model
+
+    # GIN (width 128) through fit_full_graph on the ELL path: S3 does every
+    # neighbour sum, forward and backward.
+    gin = GIN(**GIN_MODEL, out_dim=ds.num_classes, in_dim=x.shape[1],
+              generator=torch.Generator().manual_seed(SEED))
+    kern.reset()
+    _, metrics = fit_full_graph(gin, ds, epochs=1, log_every=1,
+                                learning_rate=2e-3, strategy="ell")
+    torch.cuda.synchronize()
+    results["gin_s3_launches"] = gather_sum.launches
+    log(f"[arxiv] GIN fit_full_graph(strategy='ell'), 1 epoch: loss "
+        f"{metrics['history'][0]['loss']:.6f} val_acc "
+        f"{metrics['val_acc']:.4f}; kernel launches {kern.launches()}")
+    assert np.isfinite(metrics["history"][0]["loss"]), metrics
+    assert results["gin_s3_launches"] > 0, results["gin_s3_launches"]
     return results
 
 
@@ -1617,48 +1734,79 @@ def kernel_row(name, source, replaces, n, err, row, shape):
     return out
 
 
+class Phases:
+    """Runs each phase and logs its seconds."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    def __call__(self, name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        self.seconds[name] = time.perf_counter() - t0
+        log(f"[phase] {name}: {self.seconds[name]:.1f} s")
+        return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    dev = phase_device()
+    from custom_op_benchmark_tpu_torch.utils.benchlib import l2_gather_rate
+
+    run = Phases()
+    dev = run("device", phase_device)
     kern = Kernels()
     g, tg_cpu, tg, x, labels, model_cpu = build_slice(dev)
-    errs, slice_inputs = phase_parity(kern, dev, tg)
-    model = phase_slice(dev, g, tg_cpu, tg, x, labels, model_cpu)
-    torch.cuda.synchronize()
-    launches, train_step = phase_train(kern, dev, g, tg, x, labels, model)
-    times = phase_times(kern, slice_inputs, train_step)
-    torch.cuda.synchronize()
+    errs, slice_inputs = run("parity", phase_parity, kern, dev, tg)
+    model = run("slice", phase_slice, dev, g, tg_cpu, tg, x, labels,
+                model_cpu)
+    launches, train_step = run("train", phase_train, kern, dev, g, tg, x,
+                               labels, model)
+    times = run("times", phase_times, kern, slice_inputs, train_step)
     del train_step, model
     torch.cuda.empty_cache()
-    bf16_errs, bf16_launches, bf16_times = phase_bf16(kern, dev, g,
-                                                      slice_inputs)
+    bf16_errs, bf16_launches, bf16_times = run("bf16", phase_bf16, kern, dev,
+                                               g, slice_inputs)
     del slice_inputs
     torch.cuda.empty_cache()
-    wide_errs, wide_launches, wide_times = phase_wide_k4(kern, dev, tg)
-    phase_block(kern, dev, g)
+    wide_errs, wide_launches, wide_times = run("wide K4", phase_wide_k4, kern,
+                                               dev, tg)
+    run("block", phase_block, kern, dev, g)
     gc.collect()
     torch.cuda.empty_cache()
-    case = phase_grid_build(dev)
-    grid_errs = phase_grid_parity(kern, dev, case)
-    grid_launches, grid_bf16_launches = phase_grid_path(kern, case)
-    grid_times = phase_grid_times(kern, case)
-    torch.cuda.synchronize()
+    run("bench", phase_bench, kern, dev)
+    suite_launches = run("clique suite", phase_clique_suite, kern, dev)
+    suite_errs, suite_times = run("suite kernels", phase_suite_kernels, kern,
+                                  dev, tg)
+    run("bench_models", phase_bench_models, kern, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    case = run("grid build", phase_grid_build, dev)
+    grid_errs = run("grid parity", phase_grid_parity, kern, dev, case)
+    grid_launches, grid_bf16_launches = run("grid path", phase_grid_path,
+                                            kern, case)
+    grid_times = run("grid times", phase_grid_times, kern, case)
     del case
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[grid] device memory still allocated after the grid: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    pl_case, train = phase_powerlaw_build(dev)
-    s3_errs, s3_inputs = phase_s3_parity(kern, dev, pl_case, train)
+    pl_case, train = run("power-law build", phase_powerlaw_build, dev)
+    s3_errs, s3_inputs = run("S3 parity", phase_s3_parity, kern, dev,
+                             pl_case, train)
     del train
-    phase_powerlaw_path(kern, pl_case, s3_inputs)
+    run("power-law path", phase_powerlaw_path, kern, pl_case, s3_inputs)
     del pl_case
     torch.cuda.empty_cache()
-    arxiv = phase_arxiv(kern, dev)
-    s3_times = phase_s3_times(kern, s3_inputs, l2_gather_rate(dev))
-    torch.cuda.synchronize()
+    arxiv = run("arxiv", phase_arxiv, kern, dev)
+    run("cli", phase_cli, kern, dev)
+    l2_rate = l2_gather_rate(dev)
+    log(f"[s3] L2 gather rate (benchlib.l2_gather_rate): "
+        f"{l2_rate / 1e12:.3f} TB/s")
+    s3_times = run("S3 times", phase_s3_times, kern, s3_inputs, l2_rate)
+    log(f"[phase] all: {sum(run.seconds.values()):.1f} s")
     report = []
     for name, (_, _, source, replaces) in kern.table.items():
         if name in SLICE_KERNELS:
@@ -1698,6 +1846,14 @@ def main() -> int:
         report.append(kernel_row(
             key, source, replaces, wide_launches[key], wide_errs[key], row,
             "irregular n=300, one head; launches: attention(impl='tiled')"))
+    for key, row in suite_times.items():
+        name = key.partition(":")[0]
+        _, _, source, replaces = kern.table[name]
+        report.append(kernel_row(
+            key, source, replaces, suite_launches[name], suite_errs[key], row,
+            f"clique suite 512x30, unaligned tiling, one head, "
+            f"{key.partition(' ')[2]}; launches: one clique suite run "
+            f"(every shape of the suite)"))
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""Convert a flax parameter tree (GraphTransformer, GAT, GCN, GraphSAGE)
-into the port's ``state_dict``.
+"""Convert a flax parameter tree (GraphTransformer, GAT, GCN, GIN,
+GraphSAGE) into the port's ``state_dict``.
 
 The tree is the JAX package's ``params`` as nested dicts of numpy arrays
 (``jax.tree_util.tree_map(np.asarray, params)``). Name and layout changes:
@@ -10,7 +10,8 @@ The tree is the JAX package's ``params`` as nested dicts of numpy arrays
 - flax ``LayerNorm`` ``scale`` becomes ``weight``.
 - the flax submodule ``layer{i}`` becomes ``layers.{i}``.
 - plain parameters keep name and layout: GAT's attention vectors ``a_l``
-  and ``a_r`` (h, d), GCN's bias ``b``.
+  and ``a_r`` (h, d), GCN's bias ``b``, GIN's scalar ``eps`` (with its
+  ``mlp1``/``mlp2`` Dense layers converting as above).
 
 Both frameworks must also agree on two defaults the port sets explicitly
 (models/transformer.py): flax's LayerNorm uses eps 1e-6 (torch: 1e-5) and

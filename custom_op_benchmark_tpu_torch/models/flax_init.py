@@ -3,10 +3,10 @@
 Every model starts its parameters as the flax module it mirrors does:
 ``Dense`` kernels LeCun-normal (a normal truncated to ±2 standard
 deviations, variance 1/fan_in) and zero biases, ``LayerNorm`` scales one
-and biases zero, GAT's attention vectors ``a_l``/``a_r`` Glorot-uniform
-and GCN's bias ``b`` zero. Draws come from ``generator``, so a seed gives
-the same weights each time (not JAX's: its PRNG differs; tests load JAX's
-weights through ``convert.flax_to_state_dict`` instead).
+and biases zero, GAT's attention vectors ``a_l``/``a_r`` Glorot-uniform,
+GCN's bias ``b`` and GIN's ``eps`` zero. Draws come from ``generator``, so
+a seed gives the same weights each time (not JAX's: its PRNG differs;
+tests load JAX's weights through ``convert.flax_to_state_dict`` instead).
 """
 
 from __future__ import annotations
@@ -46,5 +46,6 @@ def flax_init_(model: nn.Module, generator=None) -> None:
         for name in ("a_l", "a_r"):
             if isinstance(getattr(m, name, None), nn.Parameter):
                 glorot_uniform_(getattr(m, name), generator)
-        if isinstance(getattr(m, "b", None), nn.Parameter):
-            m.b.zero_()
+        for name in ("b", "eps"):
+            if isinstance(getattr(m, name, None), nn.Parameter):
+                getattr(m, name).zero_()

@@ -1,5 +1,5 @@
 """Utilities."""
 
-from custom_op_benchmark_tpu_torch.utils.device import cuda_device
+from custom_op_benchmark_tpu_torch.utils.device import cuda_device, exact_f32
 
-__all__ = ["cuda_device"]
+__all__ = ["cuda_device", "exact_f32"]

@@ -1,8 +1,15 @@
-"""The benchmark and validation suite: its power-law and grid regimes.
+"""The benchmark and validation suite: its clique, power-law and grid
+regimes.
 
-Counterparts of ``run_powerlaw_suite`` and ``run_grid_suite`` in
-custom_op_benchmark_tpu/utils/bench_suite.py:
+Counterparts of ``run_suite``, ``run_powerlaw_suite`` and
+``run_grid_suite`` in custom_op_benchmark_tpu/utils/bench_suite.py:
 
+- **cliques** (the default): the reference workload, 512 disjoint
+  30-cliques, where every op of the family runs through the dense bmm
+  view, the segment oracle, the tile kernels (K1–K4, also on the
+  tile-aligned order) and the dense blocks, forward and backward, single
+  head at d = 1024 and 8 heads of 64, under the reference's row and check
+  names;
 - **power law** (``--powerlaw``): a random graph with Zipf-skewed sources
   and no locality, the general-graph regime, packed into degree buckets
   (ELL). Every op of the family runs on the segment oracle and on the ELL
@@ -16,8 +23,10 @@ custom_op_benchmark_tpu/utils/bench_suite.py:
   strategy ``describe()`` recommends for the graph as its first record.
 
 Each suite checks the strategies against each other with ``allclose`` at
-the reference's ``RTOL = ATOL = 2e-3`` and times each row on the CUDA
-device, with the roofline fractions of two byte models against the
+the reference's ``RTOL = ATOL = 2e-3`` (dense oracles with TF32 off, the
+reference's ``"highest"`` precision) and times each row on the CUDA device
+(``benchlib.bench_fn``: CUDA events, median of repeats). The power-law and
+grid rows add the roofline fractions of two byte models against the
 measured copy bandwidth. The byte models are bounds computed from shapes
 (``unique``: every node row and edge value moved once; ``refetch``: one
 neighbour row per edge), not measured traffic.
@@ -29,7 +38,8 @@ case built there, and ``--device cpu`` on the command line, for the
 versions stand in) and the rows are recorded as not measured: a CPU run
 gives no device time.
 
-Run:  python -m custom_op_benchmark_tpu_torch.utils.bench_suite --powerlaw [--small]
+Run:  python -m custom_op_benchmark_tpu_torch.utils.bench_suite [--small]
+      python -m custom_op_benchmark_tpu_torch.utils.bench_suite --powerlaw [--small]
       python -m custom_op_benchmark_tpu_torch.utils.bench_suite --grid [--small]
       (add --device cpu to run a --small suite on the CPU)
 """
@@ -51,6 +61,8 @@ from custom_op_benchmark_tpu_torch.graph import (
     Graph,
     Reordering,
     TiledGraph,
+    block_graph,
+    clique_batch,
     grid_graph,
     random_graph,
     reorder_graph,
@@ -58,6 +70,10 @@ from custom_op_benchmark_tpu_torch.graph import (
     tile_graph,
 )
 from custom_op_benchmark_tpu_torch.ops import (
+    block_attention,
+    block_sddmm,
+    block_softmax,
+    block_spmm,
     edge_softmax,
     ell_attention,
     ell_copy_spmm,
@@ -66,10 +82,13 @@ from custom_op_benchmark_tpu_torch.ops import (
     ell_gat_attention,
     ell_pack_weights,
     ell_spmm,
+    gat_attention,
     gspmm,
     node_mul_edge,
     sddmm,
     tiled_attention,
+    tiled_sddmm,
+    tiled_softmax,
     tiled_spmm,
     vector_spmm,
 )
@@ -77,12 +96,15 @@ from custom_op_benchmark_tpu_torch.utils.benchlib import (
     bench_ms,
     hbm_bandwidth_bytes,
 )
-from custom_op_benchmark_tpu_torch.utils.device import cuda_device
+from custom_op_benchmark_tpu_torch.utils.device import cuda_device, exact_f32
 from custom_op_benchmark_tpu_torch.utils.summary import describe
 
 # The reference's gate (wrapper.py's allclose defaults, loosened for f32
 # sums taken in other orders over up to 5 tiles of 128 products).
 RTOL, ATOL = 2e-3, 2e-3
+# The clique suite's --small size (the reference's): batch, length,
+# single-head width, heads, multi-head width.
+SMALL_CLIQUES = (8, 16, 128, 2, 64)
 
 
 def _check(name, a, b, records):
@@ -97,8 +119,8 @@ def _check(name, a, b, records):
     return ok
 
 
-def _grad_of_square_sum(fn):
-    """``args → ∂(Σ fn(args)²)/∂args`` for tensor arguments, or for a
+def _grad_of(loss):
+    """``args → ∂loss(args)/∂args`` for tensor arguments, or for a
     :class:`PackedEdgeWeights` argument its two lists of tensors."""
     from custom_op_benchmark_tpu_torch.ops import PackedEdgeWeights
 
@@ -114,9 +136,14 @@ def _grad_of_square_sum(fn):
                 t = a.detach().requires_grad_()
                 leaves.append(t)
                 call.append(t)
-        return torch.autograd.grad((fn(*call) ** 2).sum(), leaves)
+        return torch.autograd.grad(loss(*call), leaves)
 
     return grad
+
+
+def _grad_of_square_sum(fn):
+    """``args → ∂(Σ fn(args)²)/∂args``."""
+    return _grad_of(lambda *args: (fn(*args) ** 2).sum())
 
 
 def _timer(records, dev, *, warmup, iters, repeats, edges):
@@ -127,7 +154,7 @@ def _timer(records, dev, *, warmup, iters, repeats, edges):
     if timed:
         records.append({"copy_bandwidth_bytes_per_s": peak})
 
-    def bench(name, fn, *args, bytes_model):
+    def bench(name, fn, *args, bytes_model=None):
         if not timed:
             records.append({"bench": name, "time_s": None})
             print(f"  {name:40s} not measured (no CUDA device)")
@@ -140,6 +167,338 @@ def _timer(records, dev, *, warmup, iters, repeats, edges):
                         **rec.extra})
 
     return bench
+
+
+# ---------------------------------------------------------------------------
+# Clique regime (the default suite)
+# ---------------------------------------------------------------------------
+
+def run_suite(batch_size=512, length=30, d_single=1024, heads=8, d_multi=64,
+              *, device=None, warmup=1, iters=5, repeats=3):
+    """The reference's clique suite (its ``run_suite``): every op of the
+    family on ``batch_size`` disjoint ``length``-cliques through the dense
+    bmm view, the segment oracle, the tile kernels and the dense blocks,
+    forward and backward, single-head at ``d_single`` and multi-head at
+    ``heads`` × ``d_multi``, with the reference's rows and gates. Runs on
+    ``device`` (default: the CUDA device); times the rows only there.
+    Returns (records, all_ok)."""
+    device = cuda_device() if device is None else torch.device(device)
+    on_card = device.type == "cuda"
+    records, ok = [], True
+    b, l = batch_size, length
+    g_host = clique_batch(b, l)
+    n, e = g_host.n_nodes, g_host.n_edges
+    g = g_host.to(device)
+    tg = tile_graph(g_host, 128, 128, device=device)
+    bg = block_graph(g, max_block=max(128, l))
+    # The tile-aligned order: no component straddles a 128-row tile.
+    ro = tile_aligned_order(g_host, block=128)
+    g_al, eperm_al = reorder_graph(g_host, ro)
+    tg_al = tile_graph(g_al, 128, 128, device=device)
+    eperm_al = torch.from_numpy(eperm_al.astype(np.int64)).to(device)
+    where = torch.cuda.get_device_name(device) if on_card else device
+    bench = _timer(records, device, warmup=warmup, iters=iters,
+                   repeats=repeats, edges=e)
+    rng = np.random.default_rng(0)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(device)
+
+    def uniform(*shape):
+        return torch.from_numpy(rng.uniform(size=shape).astype(
+            np.float32)).to(device)
+
+    def check(name, got, want):
+        return _check(name, got[: want.shape[0]], want, records)
+
+    # ---------------- single head ----------------
+    print(f"Single head (batch={b}, length={l}, dim={d_single}, tiles "
+          f"{tg.num_tiles} / aligned {tg_al.num_tiles}) on {where}")
+    A, B = normal(n, d_single), normal(n, d_single)
+    dy_e = normal(e)
+    Ab, Bb = bg.scatter_nodes(A), bg.scatter_nodes(B)
+
+    def f_bmm(A, B):
+        return torch.einsum("bxd,byd->bxy", A.reshape(b, l, -1),
+                            B.reshape(b, l, -1)).reshape(-1)
+
+    def f_seg(A, B):
+        return sddmm(g, A, B, impl="xla")
+
+    def f_til(A, B):
+        return tg.gather_edges(tiled_sddmm(tg, A, B))
+
+    def f_blk(Ab, Bb):
+        return block_sddmm(bg, Ab, Bb)
+
+    bench("maskedmm/dense_bmm", f_bmm, A, B)
+    bench("maskedmm/xla_segment", f_seg, A, B)
+    bench("maskedmm/pallas_tiled", f_til, A, B)
+    bench("maskedmm/dense_block", f_blk, Ab, Bb)
+    with exact_f32():
+        y0 = f_bmm(A, B)
+        ok &= check("maskedmm fwd xla vs bmm", f_seg(A, B), y0)
+        ok &= check("maskedmm fwd tiled vs bmm", f_til(A, B), y0)
+        ok &= check("maskedmm fwd block vs bmm",
+                    bg.gather_edges(f_blk(Ab, Bb)), y0)
+        if on_card:
+            ok &= _compiled_attention_check(l, device, normal, records)
+    del y0
+
+    def loss_seg(A, B):
+        return (f_seg(A, B)[:e] * dy_e).sum()
+
+    def loss_til(A, B):
+        return (f_til(A, B)[:e] * dy_e).sum()
+
+    def loss_bmm(A, B):
+        return (f_bmm(A, B) * dy_e).sum()
+
+    bench("maskedmm_bwd/dense_bmm", _grad_of(loss_bmm), A, B)
+    bench("maskedmm_bwd/xla_segment", _grad_of(loss_seg), A, B)
+    bench("maskedmm_bwd/pallas_tiled", _grad_of(loss_til), A, B)
+    with exact_f32():
+        g_bmm = _grad_of(loss_bmm)(A, B)
+        for lf, tag in ((loss_seg, "xla"), (loss_til, "tiled")):
+            ga, gb = _grad_of(lf)(A, B)
+            ok &= check(f"maskedmm dA {tag} vs bmm", ga, g_bmm[0])
+            ok &= check(f"maskedmm dB {tag} vs bmm", gb, g_bmm[1])
+    del g_bmm, ga, gb, A, B, Ab, Bb
+
+    # Edge softmax, both directions.
+    x_e = normal(e)
+    xe_blk = bg.scatter_edges(x_e)
+
+    def f_soft_ref(x):
+        return torch.softmax(x.reshape(b, l, l), -1).reshape(-1)
+
+    def f_soft_seg(x):
+        return edge_softmax(g, x, by="src", impl="xla")
+
+    def f_soft_til(x):
+        return tg.gather_edges(tiled_softmax(
+            tg, tg.scatter_edges(x)[: tg.num_tiles], by="src"))
+
+    def f_soft_blk(xb):
+        return block_softmax(bg, xb, by="src")
+
+    def f_gather_seg(x):
+        return edge_softmax(g, x, by="dst", impl="xla")
+
+    bench("softmax_scatter/dense_view", f_soft_ref, x_e)
+    bench("softmax_scatter/xla_segment", f_soft_seg, x_e)
+    bench("softmax_scatter/pallas_tiled", f_soft_til, x_e)
+    bench("softmax_scatter/dense_block", f_soft_blk, xe_blk)
+    y0 = f_soft_ref(x_e)
+    ok &= check("softmax scatter xla", f_soft_seg(x_e), y0)
+    ok &= check("softmax scatter tiled", f_soft_til(x_e), y0)
+    ok &= check("softmax scatter block",
+                bg.gather_edges(f_soft_blk(xe_blk)), y0)
+    ok &= check("softmax gather xla", f_gather_seg(x_e),
+                torch.softmax(x_e.reshape(b, l, l), -2).reshape(-1))
+    bench("softmax_gather/xla_segment", f_gather_seg, x_e)
+
+    dy_soft = normal(e)
+
+    def loss_soft_til(x):
+        return (f_soft_til(x)[:e] * dy_soft).sum()
+
+    def loss_soft_seg(x):
+        return (f_soft_seg(x)[:e] * dy_soft).sum()
+
+    bench("softmax_bwd/pallas_tiled", _grad_of(loss_soft_til), x_e)
+    bench("softmax_bwd/xla_segment", _grad_of(loss_soft_seg), x_e)
+    ok &= check("softmax bwd tiled vs segment",
+                _grad_of(loss_soft_til)(x_e)[0],
+                _grad_of(loss_soft_seg)(x_e)[0])
+
+    # Vector SpMM.
+    edata, xn = uniform(e), normal(n, d_single)
+    vals = tg.scatter_edges(edata)[: tg.num_tiles]
+    ed_blk, xn_blk = bg.scatter_edges(edata), bg.scatter_nodes(xn)
+
+    def f_spmm_bmm(ed, x):
+        return torch.einsum("bxy,byd->bxd", ed.reshape(b, l, l),
+                            x.reshape(b, l, -1)).reshape(n, -1)
+
+    def f_spmm_seg(ed, x):
+        return vector_spmm(g, ed, x, impl="xla")
+
+    def f_spmm_til(v, x):
+        return tiled_spmm(tg, v, x)
+
+    def f_spmm_al(v, x):
+        return tiled_spmm(tg_al, v, x)
+
+    def f_spmm_blk(ed, x):
+        return block_spmm(bg, ed, x)
+
+    bench("spmm/dense_bmm", f_spmm_bmm, edata, xn)
+    bench("spmm/xla_segment", f_spmm_seg, edata, xn)
+    bench("spmm/pallas_tiled", f_spmm_til, vals, xn)
+    vals_al = tg_al.scatter_edges(edata[eperm_al])[: tg_al.num_tiles]
+    xn_al = ro.scatter_nodes(xn)
+    bench("spmm/pallas_tiled_aligned", f_spmm_al, vals_al, xn_al)
+    with exact_f32():
+        y0 = f_spmm_bmm(edata, xn)
+        ok &= check("spmm fwd tiled_aligned vs bmm",
+                    ro.gather_nodes(f_spmm_al(vals_al, xn_al)), y0)
+    bench("spmm/dense_block", f_spmm_blk, ed_blk, xn_blk)
+    with exact_f32():
+        ok &= check("spmm fwd xla vs bmm", f_spmm_seg(edata, xn), y0)
+        ok &= check("spmm fwd tiled vs bmm", f_spmm_til(vals, xn), y0)
+        ok &= check("spmm fwd block vs bmm",
+                    bg.gather_nodes(f_spmm_blk(ed_blk, xn_blk)), y0)
+    del y0, vals_al, xn_al
+
+    dy_sm = normal(e)
+
+    def sm_loss_seg(x):
+        return (f_soft_seg(x)[:e] * dy_sm).sum()
+
+    def sm_loss_ref(x):
+        return (f_soft_ref(x) * dy_sm).sum()
+
+    bench("softmax_bwd/dense_view", _grad_of(sm_loss_ref), x_e)
+    bench("softmax_bwd/xla_segment", _grad_of(sm_loss_seg), x_e)
+    ok &= check("softmax grad xla vs dense", _grad_of(sm_loss_seg)(x_e)[0],
+                _grad_of(sm_loss_ref)(x_e)[0])
+
+    dy_n = normal(n, d_single)
+
+    def spmm_loss_seg(ed, x):
+        return (f_spmm_seg(ed, x) * dy_n).sum()
+
+    def spmm_loss_bmm(ed, x):
+        return (f_spmm_bmm(ed, x) * dy_n).sum()
+
+    def spmm_loss_blk(ed, x):
+        y = block_spmm(bg, bg.scatter_edges(ed), bg.scatter_nodes(x))
+        return (bg.gather_nodes(y) * dy_n).sum()
+
+    bench("spmm_bwd/dense_bmm", _grad_of(spmm_loss_bmm), edata, xn)
+    bench("spmm_bwd/xla_segment", _grad_of(spmm_loss_seg), edata, xn)
+    bench("spmm_bwd/dense_block", _grad_of(spmm_loss_blk), edata, xn)
+    with exact_f32():
+        g_bmm = _grad_of(spmm_loss_bmm)(edata, xn)
+        for lf, tag in ((spmm_loss_seg, "xla"), (spmm_loss_blk, "block")):
+            ga, gb = _grad_of(lf)(edata, xn)
+            ok &= check(f"spmm dedata {tag} vs bmm", ga, g_bmm[0])
+            ok &= check(f"spmm dx {tag} vs bmm", gb, g_bmm[1])
+    del g_bmm, ga, gb, edata, xn, vals, ed_blk, xn_blk, dy_n
+
+    # Fused attention: one K4 launch on the tiles against the composed
+    # segment pipeline.
+    q, kk, vv = normal(n, 128), normal(n, 128), normal(n, 128)
+
+    def attn_ref(q, k, v):
+        s = sddmm(g, q, k, impl="xla") / math.sqrt(128.0)
+        a = edge_softmax(g, s, by="src", impl="xla")
+        return vector_spmm(g, a, v, impl="xla")
+
+    def attn_til(q, k, v):
+        return tiled_attention(tg, q, k, v, normalize="src")
+
+    bench("attention_fused/pallas", attn_til, q, kk, vv)
+    bench("attention_composed/xla", attn_ref, q, kk, vv)
+    with exact_f32():
+        ok &= check("fused attention vs composed", attn_til(q, kk, vv),
+                    attn_ref(q, kk, vv))
+    del q, kk, vv
+
+    # ---------------- multi head ----------------
+    print(f"Multi head (batch={b}, length={l}, heads={heads}, "
+          f"dim={d_multi})")
+    Ah, Bh = normal(n, heads, d_multi), normal(n, heads, d_multi)
+    Be = normal(e, d_multi)
+
+    def nme_seg(A, B):
+        return node_mul_edge(g, A, B, impl="xla")
+
+    bench("node_mul_edge/xla_segment", nme_seg, Ah, Be)
+    src = g.src.long()[:e].clamp(max=n - 1)
+    with exact_f32():
+        ok &= check("node_mul_edge fwd", nme_seg(Ah, Be),
+                    torch.einsum("ehd,ed->eh", Ah[src], Be))
+
+    def mh_seg(A, B):
+        return sddmm(g, A, B, impl="xla")
+
+    bench("maskedmm_multihead/xla_segment", mh_seg, Ah, Bh)
+    with exact_f32():
+        ok &= check("maskedmm multihead fwd", mh_seg(Ah, Bh), torch.einsum(
+            "bxhd,byhd->bxyh", Ah.reshape(b, l, heads, d_multi),
+            Bh.reshape(b, l, heads, d_multi)).reshape(e, heads))
+
+    xh = normal(e, heads)
+
+    def sm_mh(x):
+        return edge_softmax(g, x, by="src", impl="xla")
+
+    bench("softmax_multihead/xla_segment", sm_mh, xh)
+    ok &= check("softmax multihead", sm_mh(xh), torch.softmax(
+        xh.reshape(b, l, l, heads), -2).reshape(e, heads))
+
+    edh = uniform(e, heads)
+
+    def spmm_mh_seg(ed, x):
+        return vector_spmm(g, ed, x, impl="xla")
+
+    bench("spmm_multihead/xla_segment", spmm_mh_seg, edh, Ah)
+    bench("spmm_multihead/dense_block", f_spmm_blk, bg.scatter_edges(edh),
+          bg.scatter_nodes(Ah))
+    with exact_f32():
+        y0 = torch.einsum("bxyh,byhd->bxhd", edh.reshape(b, l, l, heads),
+                          Ah.reshape(b, l, heads, d_multi)).reshape(
+                              n, heads, d_multi)
+        ok &= check("spmm multihead fwd", spmm_mh_seg(edh, Ah), y0)
+        ok &= check("spmm multihead block", bg.gather_nodes(f_spmm_blk(
+            bg.scatter_edges(edh), bg.scatter_nodes(Ah))), y0)
+
+    def attn_blk(q, k, v):
+        return block_attention(bg, q, k, v, normalize="src")
+
+    bench("attention_fused_multihead/pallas", attn_til, Ah, Bh, Ah)
+    qb, kb = bg.scatter_nodes(Ah), bg.scatter_nodes(Bh)
+    bench("attention_multihead/dense_block", attn_blk, qb, kb, qb)
+    with exact_f32():
+        ok &= check("attention multihead block vs tiled",
+                    bg.gather_nodes(attn_blk(qb, kb, qb)),
+                    attn_til(Ah, Bh, Ah))
+
+    # Additive (GAT) attention through the one-call dispatch op.
+    a_l, a_r = normal(heads, d_multi) * 0.1, normal(heads, d_multi) * 0.1
+
+    def gat_blk(a, c, z):
+        return gat_attention(g, a, c, z, impl="dense_block")
+
+    def gat_seg(a, c, z):
+        return gat_attention(g, a, c, z, impl="xla")
+
+    bench("gat_fused/dense_block", gat_blk, a_l, a_r, Ah)
+    bench("gat_composed/xla", gat_seg, a_l, a_r, Ah)
+    with exact_f32():
+        ok &= check("gat fused block vs composed", gat_blk(a_l, a_r, Ah),
+                    gat_seg(a_l, a_r, Ah))
+    return records, ok
+
+
+def _compiled_attention_check(length, device, normal, records):
+    """K4 compiled on the card (``tiled_attention``, normalize="dst", d =
+    128) on ``clique_batch(8, length)`` against a dense masked-softmax
+    oracle: the reference's TPU-only check of its compiled Pallas kernel."""
+    gs = clique_batch(8, length)
+    tgs = tile_graph(gs, 128, 128, device=device)
+    qs = normal(gs.n_nodes, 128)
+    y_kernel = tiled_attention(tgs, qs, qs, qs, normalize="dst")
+    adj = torch.zeros(gs.n_nodes, gs.n_nodes, dtype=torch.bool,
+                      device=device)
+    adj[gs.src.long()[: gs.n_edges], gs.dst.long()[: gs.n_edges]] = True
+    sd = torch.where(adj, qs @ qs.T / math.sqrt(128.0), -1e30)
+    alpha = torch.where(adj, torch.softmax(sd, dim=0), 0.0)
+    return _check("fused attention kernel (compiled) vs dense", y_kernel,
+                  alpha.T @ qs, records)
 
 
 # ---------------------------------------------------------------------------
@@ -545,11 +904,12 @@ def run_grid_suite(rows=1024, cols=1024, d=128, *, device=None, case=None,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--powerlaw", action="store_true",
-                    help="run the power-law (general-graph) suite")
+                    help="run the power-law (general-graph) suite instead")
     ap.add_argument("--grid", action="store_true",
-                    help="run the grid (locality-rich) suite")
+                    help="run the grid (locality-rich) suite instead")
     ap.add_argument("--small", action="store_true",
-                    help="the power-law suite at n=2048, e=16384, d=32, or "
+                    help="the clique suite at 8x16 cliques, d=128, 2 heads "
+                    "of 64; the power-law suite at n=2048, e=16384, d=32; "
                     "a 48x48 grid at d=32")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where to run (default: the CUDA device, and fail "
@@ -558,9 +918,8 @@ def main(argv=None):
     ap.add_argument("--json", type=str, default=None,
                     help="write the records to this file")
     args = ap.parse_args(argv)
-    if args.powerlaw == args.grid:
-        ap.error("pick one suite: --powerlaw or --grid (the clique suite "
-                 "waits for ROADMAP M13)")
+    if args.powerlaw and args.grid:
+        ap.error("pick one suite: --powerlaw, --grid or neither (cliques)")
     if args.device == "cpu" and not args.small:
         print("bench_suite: the full-size suites run on the CUDA device "
               "only", file=sys.stderr)
@@ -575,9 +934,12 @@ def main(argv=None):
     if args.powerlaw:
         size = (2048, 16384, 32) if args.small else ()
         records, ok = run_powerlaw_suite(*size, device=device)
-    else:
+    elif args.grid:
         size = (48, 48, 32) if args.small else ()
         records, ok = run_grid_suite(*size, device=device)
+    else:
+        size = SMALL_CLIQUES if args.small else ()
+        records, ok = run_suite(*size, device=device)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(records, f, indent=1)

@@ -2,7 +2,8 @@
 
 Counterpart of the interface of custom_op_benchmark_tpu/utils/benchlib.py
 (:class:`BenchRecord`, :func:`bench_fn`, :func:`hbm_bandwidth_bytes`) for a
-CUDA card. Timing is by CUDA events around ``iters`` back-to-back calls
+CUDA card, plus :func:`l2_gather_rate`, the card's ceiling for row
+gathers that hit L2. Timing is by CUDA events around ``iters`` back-to-back calls
 after warm-up, and the median of ``repeats`` such runs; a host clock would
 time only the enqueue. The peak memory bandwidth is measured on the device
 with a large copy, not read from a table. On a CPU tensor there is no
@@ -152,3 +153,34 @@ def hbm_bandwidth_bytes(device=None, nbytes: int = 1 << 30) -> float:
     dev = torch.device("cuda") if device is None else torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     return _copy_bandwidth(index, int(nbytes))
+
+
+def l2_gather_rate(device=None, *, table_rows: int = 16384, d: int = 128,
+                   rows: int = 125_000, slots: int = 16,
+                   seed: int = 11) -> float:
+    """Bytes per second that the ELL gather-sum kernel S3 gathers from a
+    table resident in the 50 MB L2 (``table_rows`` rows of ``d`` floats: 8
+    MiB by default), in the pattern of the S3 experiment (``rows`` rows of
+    ``slots`` random slots): the rate that bounds a gather whose rows
+    mostly hit L2. Measured on the CUDA device; raises where there is none.
+    """
+    import numpy as np
+
+    from custom_op_benchmark_tpu_torch.graph.ell import one_bucket_table
+    from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import (
+        gather_sum,
+    )
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("l2_gather_rate measures a CUDA device; none is "
+                           "present")
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(
+        (table_rows, d), dtype=np.float32)).to(dev)
+    cols = torch.from_numpy(rng.integers(
+        0, table_rows, size=(rows, slots)).astype(np.int32)).to(dev)
+    table = one_bucket_table(cols)
+    t = statistics.median(time_cuda(lambda: gather_sum(table, x),
+                                    device=dev))
+    return cols.numel() * d * 4 / t

@@ -33,6 +33,10 @@ def test_import_pulls_in_no_jax():
         "import custom_op_benchmark_tpu_torch.experiments.ab_gather\n"
         "import custom_op_benchmark_tpu_torch.data\n"
         "import custom_op_benchmark_tpu_torch.ops.ell\n"
+        "import custom_op_benchmark_tpu_torch.bench\n"
+        "import custom_op_benchmark_tpu_torch.train.run\n"
+        "import custom_op_benchmark_tpu_torch.experiments.bench_models\n"
+        "import custom_op_benchmark_tpu_torch.models.gin\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "assert not bad, bad\n"
@@ -40,6 +44,22 @@ def test_import_pulls_in_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=PKG.parent, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _imported_names(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module or ""
+
+
+def test_chip_smoke_imports_no_jax():
+    """The card's smoke run imports the port only."""
+    tree = ast.parse((PKG.parent / "chip_smoke.py").read_text())
+    names = list(_imported_names(tree))
+    assert "custom_op_benchmark_tpu_torch.utils.benchlib" in names
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names
 
 
 @pytest.mark.parametrize("path", sorted(

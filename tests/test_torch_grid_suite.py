@@ -138,11 +138,6 @@ def test_main_small_prints_suite_ok():
     assert '"suite_ok": true' in proc.stdout.splitlines()[-1]
 
 
-def test_main_refuses_the_unported_suites():
-    with pytest.raises(SystemExit):
-        bench_suite.main(["--small"])
-
-
 @pytest.mark.parametrize("suite", ["--grid", "--powerlaw"])
 def test_main_needs_a_cuda_device_unless_asked_for_the_cpu(suite, capsys):
     """With no card the suites stop, naming the missing device, instead of

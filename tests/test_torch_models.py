@@ -175,17 +175,3 @@ def test_generator_makes_initialisation_repeatable():
         assert torch.equal(p, q), n
     assert not torch.equal(a.layers[0].attn.Wq.weight,
                            c.layers[0].attn.Wq.weight)
-
-
-@pytest.mark.parametrize("view", ["segment", "block", "edge_feat"])
-def test_unported_paths_raise(workload, view):
-    """Without ``ell=`` the transformer has only its tile path; the ELL
-    path is held to JAX in tests/test_torch_ell_models.py."""
-    g, _, tg, _, _, _ = workload
-    model = GraphTransformer(DIM, HEADS, 1)
-    x = torch.zeros(g.n_nodes, DIM)
-    kwargs = {"segment": {}, "block": {"block": object()},
-              "edge_feat": {"tiled": tg}}[view]
-    ef = torch.zeros(g.num_edges_padded, 4) if view == "edge_feat" else None
-    with pytest.raises(NotImplementedError, match="ROADMAP M"):
-        model(g, x, ef, **kwargs)
