@@ -21,7 +21,10 @@ copy-sum over all of a packing's buckets. The fifth: the repo's own
 entry points at full size — the headline bench (``bench.run``), the clique
 suite (``bench_suite.run_suite``), ``experiments/bench_models.py`` and the
 command line (``train/run.py``) on cora_gat, arxiv_gat and
-arxiv_transformer — and GIN on the arxiv configuration.
+arxiv_transformer — and GIN on the arxiv configuration. The sixth: the
+dtype policy (the transformer slice and the arxiv GAT in bf16, GraphSAGE
+on bf16 features with S3 in bf16), the flagship ``entry()`` and the
+native graphcore library.
 
 1. device: a CUDA device is present; print its name and power limit, then
    build the CUDA kernels from ``custom_op_benchmark_tpu_torch/csrc`` (one
@@ -92,7 +95,9 @@ arxiv_transformer — and GIN on the arxiv configuration.
     at d = 128 and on each packing's whole table, at d = 1, 33 and 200,
     at an R that is not a multiple of 8 and on a bucket of padding only;
     the one-launch copy-sum against the per-bucket result, bit for bit,
-    one launch each;
+    one launch each; S3 in bf16 (one rounding of f32 sums) at the
+    experiment's shape, on every pow-2 bucket, every table and at d = 33
+    and 200, and ``ell_copy_spmm`` on bf16 features as one bf16 launch;
 15. the power-law path: the suite's gates at 2e-3 and its timed rows, and
     the S3 experiment's rows, with the counters set to 0 before and read
     after;
@@ -109,12 +114,26 @@ arxiv_transformer — and GIN on the arxiv configuration.
     and arxiv_transformer at ``--scale 1``, ``--epochs 2``: finite
     losses, launches counted;
 18. S3 times: S3 against its plain version and ``F.embedding_bag`` at the
-    experiment's shape, and a second bound: its gathered bytes at the
-    card's L2 gather rate, measured on a table that fits the 50 MB L2.
+    experiment's shape, in f32 and in bf16, and a second bound: its
+    gathered bytes at the card's L2 gather rate, measured on a table that
+    fits the 50 MB L2;
+19. dtype (after 16, with its arxiv data): the transformer slice in bf16
+    on its tiles (K1-K4 in bf16 only), the arxiv GAT in bf16 on the ELL
+    path and GraphSAGE on bf16 features (S3 in bf16), each against the f32
+    model from the same weights at rtol 0.1 / atol 0.15, one counted bf16
+    AdamW step, f32 and bf16 step times in turns and peak memory;
+20. native: the graphcore library built from the port's own source and
+    called by the graph builds so far; the dual CSR and both ELL packings
+    of the power-law graph (2M edges) and of the arxiv graph, native
+    against numpy, identical arrays, each timed on the host;
+21. entry: ``entry()`` at its own size (32,768 nodes, 250,000 edges),
+    logits and the packed edge-bias attention against a CPU copy (bf16
+    tolerance, 1e-4), the forward timed, one backward through the remat'd
+    bf16 GAT with finite gradients. 17 (the command line) runs after it.
 
 Each phase's seconds are printed. The line before the last is the
-``kernels`` JSON: for each of the nine kernels, for K1-K4, S1 and S2 in
-bf16, K4 at d = 300 and 1024, and K1-K4 at the clique suite's shapes, its
+``kernels`` JSON: for each of the nine kernels, for K1-K4, S1, S2 and S3
+in bf16, K4 at d = 300 and 1024, and K1-K4 at the clique suite's shapes, its
 source,
 the TPU kernel it replaces, its launches on its path, its error, time,
 plain time, bound and library time.
@@ -149,6 +168,10 @@ KERNEL_RTOL = KERNEL_ATOL = 1e-4
 BF16_RTOL = 2.0 ** -7
 # The op family in bf16 against f32 (tests/test_dtypes.py:54-57).
 DTYPE_RTOL = DTYPE_ATOL = 2e-2
+# A bf16 model's f32 logits against the f32 model from the same weights
+# (tests/test_dtypes.py:100-101): the activations carry bf16 roundings
+# through every layer.
+DTYPE_MODEL_TOL = dict(rtol=0.1, atol=0.15)
 # Strategies against each other (the suites' and bench.py's gate).
 SUITE_TOL = 2e-3
 # Whole model, card vs CPU: three layers of f32 matmuls (cuBLAS vs the
@@ -1123,6 +1146,7 @@ def phase_powerlaw_build(dev):
 def phase_s3_parity(kern, dev, case, train):
     from custom_op_benchmark_tpu_torch.experiments import exp_pallas_gather
     from custom_op_benchmark_tpu_torch.graph.ell import one_bucket_table
+    from custom_op_benchmark_tpu_torch.ops import ell as ell_ops
 
     rng = np.random.default_rng(SEED + 6)
     cols, x = exp_pallas_gather.inputs(dev)
@@ -1147,6 +1171,33 @@ def phase_s3_parity(kern, dev, case, train):
     errs = check_kernels(kern, calls, "power law / S3")
     torch.cuda.synchronize()
     s3_table_checks(kern, "power law", packings, case.q)
+
+    # S3 in bf16 (one rounding of f32 sums): the experiment's shape, every
+    # bucket of the pow-2 packings, every packing's table, the scalar path
+    # (d = 33) and two feature chunks (d = 200).
+    qb = case.q.bfloat16()
+    calls16 = {"gather_sum:experiment,bf16": (cols, x.bfloat16())}
+    for eg in (case.se, case.de):
+        for b in eg.buckets:
+            calls16[f"gather_sum:pow2,{eg.direction},D={b.width},bf16"] = (
+                b.cols, qb)
+    for name, eg in packings:
+        calls16[f"gather_sum:{name},table,bf16"] = (eg.gather_table, qb)
+    for d in (33, 200):
+        calls16[f"gather_sum:d={d},bf16"] = (
+            widest.cols, normal(rng, case.n, d, device=dev).bfloat16())
+    errs.update(check_kernels(kern, calls16, "power law / S3 bf16"))
+    # The ELL copy-SpMM on bf16 features takes the bf16 S3 itself: one
+    # bf16 launch, no f32 one (no copy of the features to f32).
+    kern.reset()
+    y = ell_ops.ell_copy_spmm(case.de, case.se, qb)
+    torch.cuda.synchronize()
+    n16, n32 = (kern.launches(bf16=True)["gather_sum"],
+                kern.launches()["gather_sum"])
+    log(f"[s3] ell_copy_spmm on bf16 features: output {y.dtype}, S3 "
+        f"launches bf16 {n16} f32 {n32}")
+    assert y.dtype == torch.bfloat16 and (n16, n32) == (1, 0), (y.dtype, n16,
+                                                                 n32)
     return errs, (one_bucket_table(cols), x)
 
 
@@ -1578,32 +1629,19 @@ def counted_copy_sums(ell_module, fn):
     return len(calls)
 
 
-def arxiv_model(name, num_classes, in_dim):
+def arxiv_model(name, num_classes, in_dim, **kw):
     from custom_op_benchmark_tpu_torch import models
 
     return getattr(models, name)(
-        out_dim=num_classes, in_dim=in_dim, **ARXIV_MODELS[name],
+        out_dim=num_classes, in_dim=in_dim, **ARXIV_MODELS[name], **kw,
         generator=torch.Generator().manual_seed(SEED))
 
 
-def phase_arxiv(kern, dev):
-    """The arxiv configuration on the ELL path: parity against the segment
-    path, S3 counted in the forward and the backward, three AdamW steps
-    through fit_full_graph, step times and peak memory; then one epoch of
-    GIN through fit_full_graph with its S3 launches."""
+def arxiv_data(dev):
+    """The arxiv configuration on the card: the dataset, its graph and
+    training-ladder ELL packing, features, labels and train mask."""
     from custom_op_benchmark_tpu_torch.data import planted_partition
-    from custom_op_benchmark_tpu_torch.models import GIN
-    from custom_op_benchmark_tpu_torch.ops import ell as ell_ops
     from custom_op_benchmark_tpu_torch.ops import ell_dual
-    from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import (
-        gather_sum,
-    )
-    from custom_op_benchmark_tpu_torch.train import (
-        create_train_state,
-        fit_full_graph,
-        make_train_step,
-        masked_cross_entropy,
-    )
 
     t0 = time.perf_counter()
     ds = planted_partition(**ARXIV)
@@ -1614,9 +1652,32 @@ def phase_arxiv(kern, dev):
     log(f"[arxiv] n={g.n_nodes} e={g.n_edges} classes={ds.num_classes}; "
         f"train-ladder waste src {se.padding_waste:.3f} dst "
         f"{de.padding_waste:.3f}; host build {time.perf_counter() - t0:.2f} s")
-    x = torch.from_numpy(ds.features).to(dev)
-    labels = torch.from_numpy(ds.labels).to(dev)
-    mask = torch.from_numpy(ds.train_mask).to(dev)
+    return dict(ds=ds, g=g, ell=ell, x=torch.from_numpy(ds.features).to(dev),
+                labels=torch.from_numpy(ds.labels).to(dev),
+                mask=torch.from_numpy(ds.train_mask).to(dev))
+
+
+def phase_arxiv(kern, data):
+    """The arxiv configuration on the ELL path: parity against the segment
+    path, S3 counted in the forward and the backward, three AdamW steps
+    through fit_full_graph, step times and peak memory; then one epoch of
+    GIN through fit_full_graph with its S3 launches."""
+    from custom_op_benchmark_tpu_torch.models import GIN
+    from custom_op_benchmark_tpu_torch.ops import ell as ell_ops
+    from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import (
+        gather_sum,
+    )
+    from custom_op_benchmark_tpu_torch.train import (
+        create_train_state,
+        fit_full_graph,
+        make_train_step,
+        masked_cross_entropy,
+    )
+
+    ds, g, ell, x, labels, mask = (data[k] for k in (
+        "ds", "g", "ell", "x", "labels", "mask"))
+    se, de = ell
+    dev = g.device
     s3_table_checks(kern, "arxiv train", [("src", se), ("dst", de)], x)
     results = {"s3_launches": 0}
 
@@ -1708,18 +1769,240 @@ def phase_arxiv(kern, dev):
 
 def phase_s3_times(kern, s3_inputs, l2_rate):
     """S3 at the experiment's shape (a one-bucket table) against its plain
-    version and embedding_bag, with a second bound: the gathered bytes at
-    the card's L2 gather rate."""
-    row = time_row(kern, "gather_sum", s3_inputs, "125000x16 d=128", {},
-                   lib=True)
+    version and embedding_bag, in f32 and in bf16, with a second bound:
+    the gathered bytes at the card's L2 gather rate."""
     table, x = s3_inputs
-    gathered = table.cols.numel() * x.shape[1] * 4
-    row["bound_l2_ms"] = gathered / l2_rate * 1e3
-    log(f"[time] gather_sum gathers {gathered / 1e9:.3f} GB: at the L2 "
-        f"gather rate {l2_rate / 1e12:.3f} TB/s that takes "
-        f"{row['bound_l2_ms']:.4f} ms (share "
-        f"{row['bound_l2_ms'] / row['ms']:.3f})")
-    return row
+    rows = {}
+    for key, xx in (("gather_sum", x), ("gather_sum:bf16", x.bfloat16())):
+        row = time_row(kern, key, (table, xx), "125000x16 d=128", {},
+                       lib=True)
+        gathered = table.cols.numel() * xx.shape[1] * xx.element_size()
+        row["bound_l2_ms"] = gathered / l2_rate * 1e3
+        log(f"[time] {key} gathers {gathered / 1e9:.3f} GB: at the L2 "
+            f"gather rate {l2_rate / 1e12:.3f} TB/s that takes "
+            f"{row['bound_l2_ms']:.4f} ms (share "
+            f"{row['bound_l2_ms'] / row['ms']:.3f})")
+        rows[key] = row
+        torch.cuda.empty_cache()
+    return rows
+
+
+def dtype_case(kern, label, make, g, xs, labels, mask, views):
+    """One model in f32 and in bf16 from the same weights (``make(None)``,
+    ``make(torch.bfloat16)``), each on its features (``xs`` by dtype): the
+    bf16 forward's f32 logits against the f32 forward (DTYPE_MODEL_TOL),
+    one counted bf16 AdamW step, then both steps timed in turns (f32,
+    bf16, bf16, f32) with their peak memory. Returns the bf16 step's
+    kernel launches (f32, bf16) and the times."""
+    from custom_op_benchmark_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+    )
+
+    models = {dt: make(dt).to(g.device) for dt in (None, torch.bfloat16)}
+    models[torch.bfloat16].load_state_dict(models[None].state_dict())
+    with torch.no_grad():
+        want = models[None](g, xs[None], **views)
+        got = models[torch.bfloat16](g, xs[torch.bfloat16], **views)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.isfinite(got).all(), label
+    ok = torch.allclose(got, want, **DTYPE_MODEL_TOL)
+    log(f"[dtype] {label}: bf16 forward (f32 logits) vs f32 from the same "
+        f"weights: max abs diff {float((got - want).abs().max()):.3e} "
+        f"(max|f32| {float(want.abs().max()):.3e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    assert ok, f"{label}: bf16 disagrees with f32"
+    del got, want
+    steps = {}
+    for dt, model in models.items():
+        state = create_train_state(model)
+        step = make_train_step(apply_kwargs=views)
+        steps[dt] = (lambda st=state, sp=step, x=xs[dt]: sp(st, g, x,
+                                                            labels, mask))
+    kern.reset()
+    loss, _ = steps[torch.bfloat16]()
+    torch.cuda.synchronize()
+    launches = (kern.launches(), kern.launches(bf16=True))
+    assert np.isfinite(float(loss)), label
+    log(f"[dtype] {label}: one bf16 AdamW step, loss {float(loss):.6f}; "
+        f"launches f32 {launches[0]} bf16 {launches[1]}")
+    times = {None: [], torch.bfloat16: []}
+    peaks = {}
+    for dt in (None, torch.bfloat16, torch.bfloat16, None):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times[dt].append(time_ms(steps[dt], warmup=1, iters=3, repeats=3))
+        peaks[dt] = sync_peak_gib()
+    out = {}
+    for dt, name in ((None, "f32"), (torch.bfloat16, "bf16")):
+        out[name] = (sum(times[dt]) / 2, peaks[dt])
+        log(f"[time] {label} train step {name}: "
+            f"{times[dt][0]:.3f}/{times[dt][1]:.3f} ms, peak memory "
+            f"{peaks[dt]:.2f} GiB")
+    return launches, out
+
+
+def phase_dtype(kern, dev, g, tg, arxiv):
+    """The dtype policy at full width: the transformer slice in bf16 on its
+    tiles (K1-K4 in bf16), the arxiv GAT in bf16 on the ELL path, and
+    GraphSAGE on bf16 features of the arxiv configuration (S3 in bf16 on
+    its first layer's neighbour mean): each against f32 from the same
+    weights, one counted AdamW step, step times and peak memory."""
+    from custom_op_benchmark_tpu_torch.models import GraphTransformer
+
+    rng = np.random.default_rng(SEED + 14)
+    gd = g.to(dev)
+    x = torch.from_numpy(rng.standard_normal(
+        (g.n_nodes, MODEL["dim"]), dtype=np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, MODEL["out_dim"],
+                                           size=g.n_nodes)).to(dev)
+    mask = torch.ones(g.n_nodes, dtype=torch.bool, device=dev)
+    slice_launches, slice_times = dtype_case(
+        kern, "transformer slice (tiled)",
+        lambda dt: GraphTransformer(
+            **MODEL, dtype=dt, generator=torch.Generator().manual_seed(SEED)),
+        gd, {None: x, torch.bfloat16: x}, labels, mask, {"tiled": tg})
+    n32, n16 = slice_launches
+    assert all(n16[k] > 0 for k in SLICE_KERNELS), n16
+    assert all(n32[k] == 0 for k in SLICE_KERNELS), n32
+    del x, labels, mask
+    torch.cuda.empty_cache()
+
+    ds = arxiv["ds"]
+    views = {"ell": arxiv["ell"]}
+    gat_launches, gat_times = dtype_case(
+        kern, "arxiv GAT (ELL)",
+        lambda dt: arxiv_model("GAT", ds.num_classes, ds.features.shape[1],
+                               dtype=dt),
+        arxiv["g"], {None: arxiv["x"], torch.bfloat16: arxiv["x"]},
+        arxiv["labels"], arxiv["mask"], views)
+    torch.cuda.empty_cache()
+    # GraphSAGE takes no dtype: it follows its features (f32 weights), so
+    # its "bf16" model is the f32 one on bf16 features.
+    sage_launches, sage_times = dtype_case(
+        kern, "arxiv GraphSAGE (ELL), bf16 features",
+        lambda dt: arxiv_model("GraphSAGE", ds.num_classes,
+                               ds.features.shape[1]),
+        arxiv["g"], {None: arxiv["x"], torch.bfloat16: arxiv["x"].bfloat16()},
+        arxiv["labels"], arxiv["mask"], views)
+    assert sage_launches[1]["gather_sum"] > 0, sage_launches
+    return dict(slice_bf16_launches=n16, slice=slice_times, gat=gat_times,
+                gat_launches=gat_launches, sage=sage_times,
+                s3_bf16_launches=sage_launches[1]["gather_sum"])
+
+
+def phase_entry(kern, dev):
+    """``entry()`` at its own size on the card: logits (bf16 GAT, f32) and
+    the packed edge-bias attention (f32) against the same ``fn`` on a CPU
+    copy, the forward timed, then one backward of the logits' sum through
+    the remat'd bf16 GAT with finite gradients."""
+    from custom_op_benchmark_tpu_torch.entry import entry
+
+    t0 = time.perf_counter()
+    fn, args = entry()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    kern.reset()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        logits, attn = fn(*args)
+    peak = sync_peak_gib()
+    assert logits.dtype == attn.dtype == torch.float32
+    assert torch.isfinite(logits).all() and torch.isfinite(attn).all()
+    with torch.no_grad():
+        ms = time_ms(lambda: fn(*args), warmup=1, iters=3, repeats=3)
+    t0 = time.perf_counter()
+    fn_c, args_c = entry(device="cpu")
+    with torch.no_grad():
+        want_l, want_a = fn_c(*args_c)
+    cpu_s = time.perf_counter() - t0
+    lc, ac = logits.cpu(), attn.cpu()
+    tol = 2.0 ** -6 * want_l.abs() + 2e-2 * want_l.abs().max()
+    ok_l = bool(((lc - want_l).abs() <= tol).all())
+    ok_a = torch.allclose(ac, want_a, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+    log(f"[entry] graph n={args[1].shape[0]}, logits {tuple(lc.shape)} "
+        f"{lc.dtype}, attn {tuple(ac.shape)}; host build {build_s:.2f} s, "
+        f"CPU copy {cpu_s:.1f} s; forward {ms:.3f} ms, peak memory "
+        f"{peak:.2f} GiB; kernel launches {kern.launches()}")
+    log(f"[entry] card vs CPU: logits max abs diff "
+        f"{float((lc - want_l).abs().max()):.3e} (bf16 tolerance) "
+        f"{'ok' if ok_l else 'FAIL'}; attn max abs diff "
+        f"{float((ac - want_a).abs().max()):.3e} {'ok' if ok_a else 'FAIL'}")
+    assert ok_l and ok_a, (ok_l, ok_a)
+    del fn_c, args_c, want_l, want_a, logits, attn
+    logits, _ = fn(*args)
+    logits.sum().backward()
+    torch.cuda.synchronize()
+    bad = [k for k, p in args[0].items()
+           if p.grad is None or not torch.isfinite(p.grad).all()]
+    log(f"[entry] backward of the logits' sum through the remat'd bf16 "
+        f"GAT: {len(args[0])} parameter gradients, non-finite or missing: "
+        f"{bad}")
+    assert not bad, bad
+    return dict(forward_ms=ms, peak_gib=peak)
+
+
+def phase_native(arxiv):
+    """The port's graphcore library: it built and ran (the counts of its
+    calls so far), and its dual-CSR and ELL host builds of the power-law
+    graph (2M edges) and the arxiv graph give the numpy path's arrays,
+    each path timed on the host."""
+    from custom_op_benchmark_tpu_torch.graph import ell_pack, from_coo
+    from custom_op_benchmark_tpu_torch.graph import native
+
+    so = native.build()
+    assert native.available(), "the graphcore library did not load"
+    calls = {fn.__name__: fn.calls for fn in native.ENTRY_POINTS}
+    log(f"[native] {so}; native calls so far in this run: {calls}")
+    assert calls["build_dual_csr"] > 0 and calls["ell_pack_native"] > 0, calls
+    rng = np.random.default_rng(SEED + 15)
+    n, e, _ = POWERLAW
+    w = 1.0 / np.arange(1, n + 1) ** 0.75
+    loops = np.arange(n)
+    graphs = {"power law": (
+        np.concatenate([rng.choice(n, size=e, p=w / w.sum()), loops]),
+        np.concatenate([rng.integers(0, n, size=e), loops]), n)}
+    ga = arxiv["ds"].graph
+    perm = rng.permutation(ga.n_edges)      # the edges in no sorted order
+    graphs["arxiv"] = (ga.src.numpy()[: ga.n_edges][perm],
+                       ga.dst.numpy()[: ga.n_edges][perm], ga.n_nodes)
+    real = native._load
+    out = {}
+    for name, (src, dst, nn) in graphs.items():
+        built, secs = {}, {}
+        for path in ("native", "numpy", "numpy", "native"):
+            if path == "numpy":
+                native._load = lambda: None
+            try:
+                t0 = time.perf_counter()
+                g = from_coo(src, dst, nn)
+                t1 = time.perf_counter()
+                packs = [ell_pack(g, direction=d) for d in ("src", "dst")]
+                t2 = time.perf_counter()
+            finally:
+                native._load = real
+            built[path] = (g, packs)
+            secs.setdefault(path, []).append((t1 - t0, t2 - t1))
+        (gn, pn), (gp, pp) = built["native"], built["numpy"]
+        for f in ("src", "dst", "indptr_r", "csc_perm", "csc_perm_inv",
+                  "indptr_c"):
+            assert torch.equal(getattr(gn, f), getattr(gp, f)), (name, f)
+        for a, b in zip(pn, pp):
+            assert len(a.buckets) == len(b.buckets), name
+            assert torch.equal(a.row_pos, b.row_pos) and torch.equal(
+                a.edge_pos, b.edge_pos), name
+            for ba, bb in zip(a.buckets, b.buckets):
+                assert all(torch.equal(getattr(ba, f), getattr(bb, f))
+                           for f in ("rows", "cols", "eid")), name
+        best = {p: [min(t[i] for t in secs[p]) for i in (0, 1)]
+               for p in secs}
+        log(f"[native] {name} (n={nn}, e={len(src)}): dual CSR native "
+            f"{best['native'][0]:.3f} s vs numpy {best['numpy'][0]:.3f} s; "
+            f"ELL packing (src and dst, pow-2 ladder) native "
+            f"{best['native'][1]:.3f} s vs numpy {best['numpy'][1]:.3f} s; "
+            f"identical arrays (the faster of two runs each)")
+        out[name] = best
+    return out
 
 
 def kernel_row(name, source, replaces, n, err, row, shape):
@@ -1800,7 +2083,20 @@ def main() -> int:
     run("power-law path", phase_powerlaw_path, kern, pl_case, s3_inputs)
     del pl_case
     torch.cuda.empty_cache()
-    arxiv = run("arxiv", phase_arxiv, kern, dev)
+    arxiv_in = run("arxiv build", arxiv_data, dev)
+    arxiv = run("arxiv", phase_arxiv, kern, arxiv_in)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dtype = run("dtype", phase_dtype, kern, dev, g, tg, arxiv_in)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run("native", phase_native, arxiv_in)
+    del arxiv_in
+    gc.collect()
+    torch.cuda.empty_cache()
+    run("entry", phase_entry, kern, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     run("cli", phase_cli, kern, dev)
     l2_rate = l2_gather_rate(dev)
     log(f"[s3] L2 gather rate (benchlib.l2_gather_rate): "
@@ -1813,7 +2109,7 @@ def main() -> int:
             row, err = times[(name, "h=8 d=64")], errs[name]
             n, shape = launches[name], "GraphTransformer slice, h=8 d=64"
         elif name == "gather_sum":
-            row, err = s3_times, s3_errs["gather_sum:experiment"]
+            row, err = s3_times["gather_sum"], s3_errs["gather_sum:experiment"]
             n = arxiv["s3_launches"]
             shape = ("ELL bucket 125000x16, d=128 (exp_pallas_gather, a "
                      "one-bucket table); launches: GCN and GraphSAGE "
@@ -1841,6 +2137,13 @@ def main() -> int:
             key, source, replaces, grid_bf16_launches[name], grid_errs[key],
             grid_times[key], f"grid 1024x1024, d={GRID_D}, bf16; launches: "
             "the grid path's bf16 launches"))
+    _, _, source, replaces = kern.table["gather_sum"]
+    report.append(kernel_row(
+        "gather_sum:bf16", source, replaces, dtype["s3_bf16_launches"],
+        s3_errs["gather_sum:experiment,bf16"], s3_times["gather_sum:bf16"],
+        "ELL bucket 125000x16, d=128, bf16 (exp_pallas_gather's shape, a "
+        "one-bucket table); launches: one bf16 AdamW step of GraphSAGE on "
+        "bf16 features of the arxiv configuration"))
     _, _, source, replaces = kern.table["fused_attention_rows"]
     for key, row in wide_times.items():
         report.append(kernel_row(

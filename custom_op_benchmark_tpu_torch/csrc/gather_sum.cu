@@ -1,4 +1,4 @@
-// ELL copy-sum (row gather and sum) for Hopper (sm_90a), f32.
+// ELL copy-sum (row gather and sum) for Hopper (sm_90a), f32 and bf16.
 //
 // Replaces the Pallas TPU kernel S3 of scripts/exp_pallas_gather.py:
 //   gather_sum  <- pallas_gather_sum
@@ -49,7 +49,17 @@
 // bits. Every run gives the same bits, and no atomics are used (a warp
 // owns its outputs, and each output row is named once). Any R and any
 // d >= 1.
+//
+// bf16 (gather_sum_bf16): x and y are bf16, as the TPU kernel runs in
+// x.dtype. Rows are read as bf16 (half the bytes of f32: the bound halves)
+// and widened to f32, which is exact; the Kahan sum runs in f32 exactly as
+// above, and each sum is rounded to bf16 once, at the store (to nearest
+// even). The vector path moves 4 bf16 a lane as one 8-byte load, so a
+// warp's 32 lanes still cover 128 features; it needs d % 4 == 0 and
+// 8-byte aligned rows, else one bf16 a lane. The f32 path is unchanged
+// (same operations, same bits).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -68,49 +78,90 @@ __device__ __forceinline__ void kahan_add(float& s, float& c, float v) {
   s = t;
 }
 
-template <bool VEC>
-struct Chunk;
+using bf16 = __nv_bfloat16;
 
-template <>
-struct Chunk<true> {
-  static constexpr int WIDTH = 128;   // 32 lanes x float4
+// A bf16 value's bits widened to f32 (exact): they are the high half.
+__device__ __forceinline__ float widen(unsigned short bits) {
+  return __uint_as_float(static_cast<unsigned>(bits) << 16);
+}
+
+// Four f32 sums a lane (vector path) or one (scalar path); E is the
+// element type of x and y, the sums are f32 either way.
+struct Vec4 {
+  static constexpr int WIDTH = 128;   // 32 lanes x 4 elements
+  static constexpr int PER_LANE = 4;
   using T = float4;
   __device__ static T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-  __device__ static T load(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  }
   __device__ static void add(T& s, T& c, const T& v) {
     kahan_add(s.x, c.x, v.x);
     kahan_add(s.y, c.y, v.y);
     kahan_add(s.z, c.z, v.z);
     kahan_add(s.w, c.w, v.w);
   }
+};
+
+struct Vec1 {
+  static constexpr int WIDTH = 32;    // 32 lanes x 1 element
+  static constexpr int PER_LANE = 1;
+  using T = float;
+  __device__ static T zero() { return 0.f; }
+  __device__ static void add(T& s, T& c, const T& v) { kahan_add(s, c, v); }
+};
+
+template <typename E, bool VEC>
+struct Chunk;
+
+template <>
+struct Chunk<float, true> : Vec4 {
+  __device__ static T load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
   __device__ static void store(float* p, const T& v) {
     *reinterpret_cast<float4*>(p) = v;
   }
-  static constexpr int PER_LANE = 4;
 };
 
 template <>
-struct Chunk<false> {
-  static constexpr int WIDTH = 32;    // 32 lanes x 1 float
-  using T = float;
-  __device__ static T zero() { return 0.f; }
+struct Chunk<float, false> : Vec1 {
   __device__ static T load(const float* p) { return __ldg(p); }
-  __device__ static void add(T& s, T& c, const T& v) { kahan_add(s, c, v); }
   __device__ static void store(float* p, const T& v) { *p = v; }
-  static constexpr int PER_LANE = 1;
+};
+
+template <>
+struct Chunk<bf16, true> : Vec4 {
+  __device__ static T load(const bf16* p) {   // one 8-byte load
+    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+    return make_float4(__uint_as_float(raw.x << 16),
+                       __uint_as_float(raw.x & 0xffff0000u),
+                       __uint_as_float(raw.y << 16),
+                       __uint_as_float(raw.y & 0xffff0000u));
+  }
+  __device__ static void store(bf16* p, const T& v) {
+    __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
+    q[0] = __floats2bfloat162_rn(v.x, v.y);
+    q[1] = __floats2bfloat162_rn(v.z, v.w);
+  }
+};
+
+template <>
+struct Chunk<bf16, false> : Vec1 {
+  __device__ static T load(const bf16* p) {
+    return widen(__ldg(reinterpret_cast<const unsigned short*>(p)));
+  }
+  __device__ static void store(bf16* p, const T& v) {
+    *p = __float2bfloat16_rn(v);
+  }
 };
 
 constexpr int MAX_BUCKETS = 64;
 
 // The sum over slots 0 .. D-1 of row_cols of x's rows, at feature f of
-// this lane (active: f < d), in slot order, compensated.
-template <bool VEC>
-__device__ __forceinline__ typename Chunk<VEC>::T row_sum(
-    const int* __restrict__ row_cols, int D, const float* __restrict__ x,
+// this lane (active: f < d), in slot order, compensated, in f32.
+template <typename E, bool VEC>
+__device__ __forceinline__ typename Chunk<E, VEC>::T row_sum(
+    const int* __restrict__ row_cols, int D, const E* __restrict__ x,
     int d, int n_x, int f, bool active, int lane) {
-  using C = Chunk<VEC>;
+  using C = Chunk<E, VEC>;
   typename C::T acc = C::zero(), carry = C::zero();
   for (int k0 = 0; k0 < D; k0 += 32) {
     const int kn = min(32, D - k0);
@@ -139,14 +190,14 @@ __device__ __forceinline__ typename Chunk<VEC>::T row_sum(
 
 // One warp per task: (row, feature chunk) for the table's rows in order,
 // then (zero row, feature chunk).
-template <bool VEC>
+template <typename E, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 gather_sum_kernel(const int* __restrict__ table, int n_buckets,
                   const int* __restrict__ cols, const int* __restrict__ nodes,
                   int n_rows, const int* __restrict__ zero_nodes, int n_zero,
-                  const float* __restrict__ x, float* __restrict__ y, int d,
+                  const E* __restrict__ x, E* __restrict__ y, int d,
                   int n_x, int n_chunks) {
-  using C = Chunk<VEC>;
+  using C = Chunk<E, VEC>;
   __shared__ int tab[3 * MAX_BUCKETS];  // col offset, D, first row
   for (int e = threadIdx.x; e < 3 * n_buckets; e += THREADS) tab[e] = table[e];
   __syncthreads();
@@ -168,24 +219,37 @@ gather_sum_kernel(const int* __restrict__ table, int n_buckets,
   const int D = tab[3 * b + 1];
   const int* row_cols = cols + tab[3 * b] + (size_t)(row - tab[3 * b + 2]) * D;
   const typename C::T acc =
-      row_sum<VEC>(row_cols, D, x, d, n_x, f, active, lane);
+      row_sum<E, VEC>(row_cols, D, x, d, n_x, f, active, lane);
   if (active) C::store(y + (size_t)nodes[row] * d + f, acc);
 }
 
-template <bool VEC>
+template <typename E, bool VEC>
 int launch(const int* table, int n_buckets, const int* cols,
            const int* nodes, int n_rows, const int* zero_nodes, int n_zero,
-           const float* x, float* y, int d, int n_x, cudaStream_t stream) {
+           const E* x, E* y, int d, int n_x, cudaStream_t stream) {
   if (n_buckets > MAX_BUCKETS) return (int)cudaErrorInvalidValue;
-  const int n_chunks = (d + Chunk<VEC>::WIDTH - 1) / Chunk<VEC>::WIDTH;
+  const int n_chunks =
+      (d + Chunk<E, VEC>::WIDTH - 1) / Chunk<E, VEC>::WIDTH;
   const long long tasks = ((long long)n_rows + n_zero) * n_chunks;
   const long long blocks = (tasks + WARPS - 1) / WARPS;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   if (blocks == 0) return 0;
-  gather_sum_kernel<VEC><<<(unsigned)blocks, THREADS, 0, stream>>>(
+  gather_sum_kernel<E, VEC><<<(unsigned)blocks, THREADS, 0, stream>>>(
       table, n_buckets, cols, nodes, n_rows, zero_nodes, n_zero, x, y, d,
       n_x, n_chunks);
   return (int)cudaGetLastError();
+}
+
+template <typename E>
+int dispatch(const int* table, int n_buckets, const int* cols,
+             const int* nodes, int n_rows, const int* zero_nodes, int n_zero,
+             const E* x, E* y, int d, int n_x, int vec, int device,
+             cudaStream_t stream) {
+  cudaSetDevice(device);
+  return vec ? launch<E, true>(table, n_buckets, cols, nodes, n_rows,
+                               zero_nodes, n_zero, x, y, d, n_x, stream)
+             : launch<E, false>(table, n_buckets, cols, nodes, n_rows,
+                                zero_nodes, n_zero, x, y, d, n_x, stream);
 }
 
 }  // namespace
@@ -200,11 +264,18 @@ int gather_sum_f32(const int* table, int n_buckets, const int* cols,
                    const int* nodes, int n_rows, const int* zero_nodes,
                    int n_zero, const float* x, float* y, int d, int n_x,
                    int vec, int device, cudaStream_t stream) {
-  cudaSetDevice(device);
-  return vec ? launch<true>(table, n_buckets, cols, nodes, n_rows, zero_nodes,
-                            n_zero, x, y, d, n_x, stream)
-             : launch<false>(table, n_buckets, cols, nodes, n_rows,
-                             zero_nodes, n_zero, x, y, d, n_x, stream);
+  return dispatch<float>(table, n_buckets, cols, nodes, n_rows, zero_nodes,
+                         n_zero, x, y, d, n_x, vec, device, stream);
+}
+
+// The same in bf16: x (n_x, d) bf16 -> y (n_out, d) bf16, sums in f32,
+// rounded once. vec: d % 4 == 0 and 8-byte aligned base pointers.
+int gather_sum_bf16(const int* table, int n_buckets, const int* cols,
+                    const int* nodes, int n_rows, const int* zero_nodes,
+                    int n_zero, const bf16* x, bf16* y, int d, int n_x,
+                    int vec, int device, cudaStream_t stream) {
+  return dispatch<bf16>(table, n_buckets, cols, nodes, n_rows, zero_nodes,
+                        n_zero, x, y, d, n_x, vec, device, stream);
 }
 
 }  // extern "C"

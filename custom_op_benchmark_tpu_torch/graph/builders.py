@@ -57,3 +57,32 @@ def grid_graph(rows: int, cols: int, **kw) -> Graph:
     src = np.concatenate([a for a, _ in edges])
     dst = np.concatenate([b for _, b in edges])
     return from_coo(src, dst, n_nodes=rows * cols, **kw)
+
+
+def _edges(g: Graph):
+    """The real (unpadded) edges of ``g`` as int64 host arrays."""
+    src = g.src.cpu().numpy()[: g.n_edges].astype(np.int64)
+    dst = g.dst.cpu().numpy()[: g.n_edges].astype(np.int64)
+    return src, dst
+
+
+def add_self_loops(g: Graph, **kw) -> Graph:
+    """``g`` with one self-loop at every node that has none (Â = A + I for
+    GCN-style models; existing loops are not doubled). ``kw`` goes to
+    :func:`from_coo`."""
+    src, dst = _edges(g)
+    has_loop = np.zeros(g.n_nodes, dtype=bool)
+    has_loop[src[src == dst]] = True
+    need = np.flatnonzero(~has_loop)
+    return from_coo(np.concatenate([src, need]), np.concatenate([dst, need]),
+                    n_nodes=g.n_nodes, **kw)
+
+
+def remove_duplicate_edges(g: Graph, **kw) -> Graph:
+    """``g`` with its multi-edges collapsed to one (simple-graph
+    semantics, which the dense-block view needs; the segment and ELL paths
+    keep multigraph semantics). ``kw`` goes to :func:`from_coo`."""
+    src, dst = _edges(g)
+    uniq = np.unique(src * g.n_nodes + dst)
+    return from_coo(uniq // g.n_nodes, uniq % g.n_nodes, n_nodes=g.n_nodes,
+                    **kw)

@@ -11,9 +11,10 @@ graph/ell.py), held as torch tensors:
   results with a gather through ``edge_pos``: no scatter, no atomics;
 - the backward passes run the forward sweeps over the transpose packing.
 
-Packing is host-side numpy (the JAX package's numpy path, which gives the
-same arrays as its native packer); the tensors then move to the graph's
-device. Each packing also carries, built on first use and cached, the
+Packing runs on the host, in the native graphcore library where it builds
+(graph/native.py ``ell_pack_native``) and in numpy otherwise; both give the
+same arrays, as the JAX package's two packers do. The tensors then move to
+the graph's device. Each packing also carries, built on first use and cached, the
 table that the copy-sum kernel S3 sweeps in one launch over all buckets
 (:class:`GatherTable`) and its rows' degrees.
 """
@@ -27,6 +28,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from custom_op_benchmark_tpu_torch.graph import native
 from custom_op_benchmark_tpu_torch.graph.graph import Graph
 
 # Power-of-two bucket widths; ell_pack extends the list by doubling to cover
@@ -211,6 +213,29 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def _ell_from_native(packed, widths, n, e, e_pad, direction) -> EllGraph:
+    """An EllGraph from ``ell_pack_native``'s flat outputs."""
+    bucket_rows, rows_flat, cols_flat, eid_flat, row_pos, edge_pos = packed
+    buckets = []
+    row_off = slot_off = 0
+    for w, r_pad in zip(widths, bucket_rows.tolist()):
+        if r_pad == 0:
+            continue
+        slots = slice(slot_off, slot_off + r_pad * w)
+        buckets.append(EllBucket(
+            rows=torch.from_numpy(rows_flat[row_off: row_off + r_pad]),
+            cols=torch.from_numpy(cols_flat[slots].reshape(r_pad, w)),
+            eid=torch.from_numpy(eid_flat[slots].reshape(r_pad, w)),
+            width=int(w), num_rows=int(r_pad)))
+        row_off += r_pad
+        slot_off += r_pad * w
+    return EllGraph(
+        buckets=buckets, row_pos=torch.from_numpy(row_pos),
+        edge_pos=torch.from_numpy(edge_pos.astype(np.int32)),
+        n_nodes=n, n_edges=e, num_edges_padded=e_pad, direction=direction,
+        total_rows=int(row_off), total_slots=int(slot_off))
+
+
 def ell_pack(g: Graph, *, direction: str = "src",
              widths: Tuple[int, ...] = DEFAULT_WIDTHS,
              row_pad: int = 8) -> EllGraph:
@@ -240,6 +265,12 @@ def ell_pack(g: Graph, *, direction: str = "src",
     max_deg = int(deg.max()) if len(deg) else 0
     while widths[-1] < max_deg:
         widths.append(widths[-1] * 2)
+
+    packed = (native.ell_pack_native(indptr, cols_all, eids_all, n, e_pad,
+                                     widths, row_pad) if e > 0 else None)
+    if packed is not None:
+        eg = _ell_from_native(packed, widths, n, e, e_pad, direction)
+        return eg if g.device.type == "cpu" else eg.to(g.device)
 
     buckets = []
     row_pos = np.full(n, -1, dtype=np.int64)

@@ -10,7 +10,9 @@ graph.py), held as torch tensors:
 - edge arrays may be padded; padded edges point at the dummy node
   ``n_nodes``, so ``indptr_r``/``indptr_c`` have ``n_nodes + 2`` entries.
 
-Everything is built on the host with numpy and then moved to ``device``.
+Everything is built on the host, by the native graphcore library where it
+builds (graph/native.py) and by numpy otherwise (the same arrays), and then
+moved to ``device``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from custom_op_benchmark_tpu_torch.graph import native
 
 
 def _round_up(x: int, m: int) -> int:
@@ -132,24 +136,39 @@ def from_coo(src, dst, n_nodes: int, *, pad_multiple: Optional[int] = None,
     if pad_multiple is not None:
         e_pad = _round_up(max(e_pad, 1), pad_multiple)
 
-    order = np.lexsort((dst, src))
-    src_c = src[order].astype(np.int32)
-    dst_c = dst[order].astype(np.int32)
-    if e_pad != e:
-        fill = np.full(e_pad - e, n_nodes, dtype=np.int32)
-        src_c = np.concatenate([src_c, fill])
-        dst_c = np.concatenate([dst_c, fill])
+    built = native.build_dual_csr(src, dst, n_nodes) if e > 0 else None
+    if built is not None:
+        src_c, dst_c, indptr_r, csc_perm, csc_perm_inv, indptr_c = built
+        if e_pad != e:
+            # Pad edges (src = dst = n_nodes) sort to the tail of both
+            # orders, so every array extends without re-sorting and the
+            # dummy segment [n_nodes, n_nodes + 1] takes them.
+            fill = np.full(e_pad - e, n_nodes, dtype=np.int32)
+            tail = np.arange(e, e_pad, dtype=np.int32)
+            src_c, dst_c = (np.concatenate([a, fill]) for a in (src_c, dst_c))
+            csc_perm, csc_perm_inv = (np.concatenate([a, tail])
+                                      for a in (csc_perm, csc_perm_inv))
+            indptr_r[n_nodes + 1] = indptr_c[n_nodes + 1] = e_pad
+    else:
+        order = np.lexsort((dst, src))
+        src_c = src[order].astype(np.int32)
+        dst_c = dst[order].astype(np.int32)
+        if e_pad != e:
+            fill = np.full(e_pad - e, n_nodes, dtype=np.int32)
+            src_c = np.concatenate([src_c, fill])
+            dst_c = np.concatenate([dst_c, fill])
 
-    # Stable sort by dst: padding (dst == n_nodes) stays at the tail.
-    csc_perm = np.argsort(dst_c, kind="stable").astype(np.int32)
-    csc_perm_inv = np.empty_like(csc_perm)
-    csc_perm_inv[csc_perm] = np.arange(e_pad, dtype=np.int32)
+        # Stable sort by dst: padding (dst == n_nodes) stays at the tail.
+        csc_perm = np.argsort(dst_c, kind="stable").astype(np.int32)
+        csc_perm_inv = np.empty_like(csc_perm)
+        csc_perm_inv[csc_perm] = np.arange(e_pad, dtype=np.int32)
 
-    indptr_r = np.zeros(n_nodes + 2, dtype=np.int32)
-    np.cumsum(np.bincount(src_c, minlength=n_nodes + 1), out=indptr_r[1:])
-    indptr_c = np.zeros(n_nodes + 2, dtype=np.int32)
-    np.cumsum(np.bincount(dst_c[csc_perm], minlength=n_nodes + 1),
-              out=indptr_c[1:])
+        indptr_r = np.zeros(n_nodes + 2, dtype=np.int32)
+        np.cumsum(np.bincount(src_c, minlength=n_nodes + 1),
+                  out=indptr_r[1:])
+        indptr_c = np.zeros(n_nodes + 2, dtype=np.int32)
+        np.cumsum(np.bincount(dst_c[csc_perm], minlength=n_nodes + 1),
+                  out=indptr_c[1:])
 
     def t(a):
         return torch.from_numpy(a).to(device)

@@ -1,0 +1,204 @@
+"""ctypes binding of the port's graphcore library, with numpy equivalents.
+
+Counterpart of custom_op_benchmark_tpu/graph/native.py for the entry
+points the port uses so far: the dual-CSR build (``from_coo``), the row
+chunking (``partition_csr``), union-find components (``reorder``) and the
+ELL packer (``ell_pack``). The samplers come with ROADMAP M10, the halo
+plans with M12.
+
+The library is the port's own copy of the C++ source
+(``custom_op_benchmark_tpu_torch/csrc/graphcore.cpp``). ``g++`` builds it
+at first use into ``build/graphcore/`` at the repository root, under a
+name keyed on a hash of the source and the flags, so a changed source
+builds anew and a stale library never shadows it. The build writes a
+temporary file and renames it into place, so processes that build at
+once (test workers) never load a half-written library.
+
+Every entry point has an exact numpy equivalent in its caller, which runs
+when the library cannot be built (no compiler): each function here
+returns None then, and :func:`available` says which path runs. Each
+counts its native calls in ``<function>.calls``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCE = _PKG / "csrc" / "graphcore.cpp"
+BUILD_DIR = _PKG.parent / "build" / "graphcore"
+CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-pthread", "-shared")
+
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_I64P = ctypes.POINTER(ctypes.c_int64)
+_I64 = ctypes.c_int64
+_SIGNATURES = {
+    "graphcore_build_dual_csr": (ctypes.c_int32, [
+        _I64P, _I64P, _I64, _I64, _I32P, _I32P, _I32P, _I32P, _I32P, _I32P]),
+    "graphcore_partition_csr": (_I64, [
+        _I32P, _I64, ctypes.c_int32, _I32P, _I32P]),
+    "graphcore_connected_components": (_I64, [
+        _I32P, _I32P, _I64, _I64, _I32P]),
+    "graphcore_ell_pack": (_I64, [
+        _I32P, _I64, _I32P, _I64P, _I64, _I64P, _I64, _I64, _I64P,
+        _I32P, _I32P, _I32P, _I32P, _I64P]),
+}
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update(SOURCE.read_bytes())
+    return BUILD_DIR / f"libgraphcore_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the library unless one for this source exists; returns its
+    path. Raises with the compiler's output if the build fails."""
+    so = library_path()
+    if so.exists():
+        return so
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("cannot build graphcore: no g++ or c++ on PATH")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed on {SOURCE}:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> Optional[ctypes.CDLL]:
+    """The loaded library, or None when it cannot be built here."""
+    try:
+        lib = ctypes.CDLL(str(build()))
+    except (RuntimeError, OSError):
+        return None
+    for name, (restype, argtypes) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = restype, argtypes
+    return lib
+
+
+def available() -> bool:
+    """True when the native library runs, False when the numpy
+    equivalents do."""
+    return _load() is not None
+
+
+def _p32(a: np.ndarray):
+    return a.ctypes.data_as(_I32P)
+
+
+def _p64(a: np.ndarray):
+    return a.ctypes.data_as(_I64P)
+
+
+def build_dual_csr(src, dst, n_nodes: int):
+    """Canonical (src, dst) sort and the dual CSR. Returns (src_c, dst_c,
+    indptr_r, csc_perm, csc_perm_inv, indptr_c) as int32 (the indptrs
+    n_nodes + 2 long), or None without the library."""
+    lib = _load()
+    if lib is None:
+        return None
+    src = np.ascontiguousarray(src, np.int64)
+    dst = np.ascontiguousarray(dst, np.int64)
+    e = len(src)
+    src_c, dst_c, csc_perm, csc_perm_inv = (np.empty(e, np.int32)
+                                            for _ in range(4))
+    indptr_r, indptr_c = (np.empty(n_nodes + 2, np.int32) for _ in range(2))
+    rc = lib.graphcore_build_dual_csr(
+        _p64(src), _p64(dst), e, n_nodes, _p32(src_c), _p32(dst_c),
+        _p32(indptr_r), _p32(csc_perm), _p32(csc_perm_inv), _p32(indptr_c))
+    if rc != 0:
+        raise ValueError(f"graphcore_build_dual_csr failed: rc={rc}")
+    build_dual_csr.calls += 1
+    return src_c, dst_c, indptr_r, csc_perm, csc_perm_inv, indptr_c
+
+
+def partition_csr_native(indptr, chunk_size: int):
+    """``partition_csr``'s (row, chunk_indptr), or None."""
+    lib = _load()
+    if lib is None:
+        return None
+    indptr = np.ascontiguousarray(indptr, np.int32)
+    n_rows = len(indptr) - 1
+    total = lib.graphcore_partition_csr(_p32(indptr), n_rows, chunk_size,
+                                        None, None)
+    row = np.empty(total, np.int32)
+    cptr = np.empty(total + 1, np.int32)
+    lib.graphcore_partition_csr(_p32(indptr), n_rows, chunk_size, _p32(row),
+                                _p32(cptr))
+    partition_csr_native.calls += 1
+    return row, cptr
+
+
+def connected_components_native(src, dst, n_nodes: int):
+    """Union-find component labels, the root id the union by size picks
+    per node (int32), or None."""
+    lib = _load()
+    if lib is None:
+        return None
+    src = np.ascontiguousarray(src, np.int32)
+    dst = np.ascontiguousarray(dst, np.int32)
+    labels = np.empty(n_nodes, np.int32)
+    lib.graphcore_connected_components(_p32(src), _p32(dst), len(src),
+                                       n_nodes, _p32(labels))
+    connected_components_native.calls += 1
+    return labels
+
+
+def ell_pack_native(indptr, cols_all, eids_all, n_nodes: int, e_pad: int,
+                    widths, row_pad: int):
+    """The degree-bucketed ELL packing of one direction (graph/ell.py's
+    contract): (bucket_rows, rows_flat, cols_flat, eid_flat, row_pos,
+    edge_pos) with the buckets' arrays concatenated in width order, or
+    None without the library or where the packing needs more than int32
+    indices. ``widths`` must cover the largest degree."""
+    lib = _load()
+    if lib is None:
+        return None
+    indptr = np.ascontiguousarray(indptr, np.int32)
+    cols_all = np.ascontiguousarray(cols_all, np.int32)
+    eids_all = np.ascontiguousarray(eids_all, np.int64)
+    widths = np.ascontiguousarray(widths, np.int64)
+    nw = len(widths)
+    bucket_rows = np.zeros(nw, np.int64)
+    null32, null64 = _I32P(), _I64P()
+    args = (_p32(indptr), n_nodes, _p32(cols_all), _p64(eids_all), e_pad,
+            _p64(widths), nw, row_pad, _p64(bucket_rows))
+    if lib.graphcore_ell_pack(*args, null32, null32, null32, null32,
+                              null64) < 0:
+        return None
+    rows_flat = np.empty(int(bucket_rows.sum()), np.int32)
+    n_slots = int((bucket_rows * widths).sum())
+    cols_flat, eid_flat = np.empty(n_slots, np.int32), np.empty(n_slots,
+                                                                np.int32)
+    row_pos = np.empty(n_nodes, np.int32)
+    edge_pos = np.empty(e_pad, np.int64)
+    if lib.graphcore_ell_pack(*args, _p32(rows_flat), _p32(cols_flat),
+                              _p32(eid_flat), _p32(row_pos),
+                              _p64(edge_pos)) < 0:
+        return None
+    ell_pack_native.calls += 1
+    return bucket_rows, rows_flat, cols_flat, eid_flat, row_pos, edge_pos
+
+
+ENTRY_POINTS = (build_dual_csr, partition_csr_native,
+                connected_components_native, ell_pack_native)
+for _fn in ENTRY_POINTS:
+    _fn.calls = 0

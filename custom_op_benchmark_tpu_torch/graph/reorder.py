@@ -17,6 +17,7 @@ import scipy.sparse
 import scipy.sparse.csgraph
 import torch
 
+from custom_op_benchmark_tpu_torch.graph import native
 from custom_op_benchmark_tpu_torch.graph.graph import Graph, from_coo
 
 
@@ -30,11 +31,20 @@ def connected_components(src, dst, n_nodes: int) -> np.ndarray:
     """Weakly connected component label per node (int64): the smallest node
     id of the node's component.
 
-    The labels are those of the JAX package's union-find fallback, whose
-    root is the smallest id (scipy finds the components; each is then
-    labelled by its minimum), so :func:`tile_aligned_order` orders the
-    groups as that fallback does.
+    The native union-find (graphcore) finds the components where the
+    library builds, scipy otherwise; either way each component is labelled
+    by its smallest id, the label of the JAX package's union-find fallback,
+    so :func:`tile_aligned_order` orders the groups as that fallback does
+    whichever path runs. (The JAX package's native path labels by the root
+    its union by size picks, so its order depends on its build.)
     """
+    roots = native.connected_components_native(src, dst, n_nodes)
+    if roots is not None:
+        # The first node of each root's component in id order is its
+        # smallest.
+        _, first, inverse = np.unique(roots, return_index=True,
+                                      return_inverse=True)
+        return first[inverse].astype(np.int64)
     src = np.asarray(src, dtype=np.int64)
     dst = np.asarray(dst, dtype=np.int64)
     adj = scipy.sparse.coo_matrix(

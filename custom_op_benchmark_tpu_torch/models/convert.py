@@ -16,6 +16,11 @@ The tree is the JAX package's ``params`` as nested dicts of numpy arrays
 Both frameworks must also agree on two defaults the port sets explicitly
 (models/transformer.py): flax's LayerNorm uses eps 1e-6 (torch: 1e-5) and
 flax's ``gelu`` is the tanh approximation (torch: exact).
+
+The compute ``dtype`` of GAT and GraphTransformer changes nothing here:
+parameters stay float32 under it (flax's ``param_dtype``, the port's
+``precision.dense``/``layer_norm`` cast them where they are used), so the
+same tree loads into an f32 or a bf16 model.
 """
 
 from __future__ import annotations

@@ -14,6 +14,12 @@ eval mode, the reference's ``deterministic``).
 Parameters start as flax's defaults do (LeCun-normal ``W`` and ``W_res``,
 Glorot-uniform attention vectors), drawn from ``generator``; the flax
 parameter tree converts with ``models.convert.flax_to_state_dict``.
+
+``dtype`` is the reference's mixed precision: parameters stay
+``param_dtype`` (f32), while ``W``'s product, the attention vectors and the
+z tensor (and so every gathered tile of the fused ops) run at ``dtype``,
+with f32 sums inside the ops; the stack returns its logits in f32. It
+holds on all three paths.
 """
 
 from __future__ import annotations
@@ -26,18 +32,12 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from custom_op_benchmark_tpu_torch.models.flax_init import flax_init_
+from custom_op_benchmark_tpu_torch.models.precision import dense
 from custom_op_benchmark_tpu_torch.ops import (
     block_gat_attention,
     ell_gat_attention,
     softmax_aggregate_dst,
 )
-
-
-def refuse_unported(dtype=None) -> None:
-    """Raise for the model options the port does not have yet."""
-    if dtype is not None:
-        raise NotImplementedError(
-            "compute dtypes other than float32 come with ROADMAP M9")
 
 
 class GATLayer(nn.Module):
@@ -50,49 +50,56 @@ class GATLayer(nn.Module):
     def __init__(self, in_dim: int, out_dim: int, num_heads: int = 1,
                  negative_slope: float = 0.2, concat_heads: bool = True,
                  residual: bool = False, dropout_rate: float = 0.0,
-                 dtype=None, *, device=None):
+                 param_dtype: torch.dtype = torch.float32,
+                 dtype: Optional[torch.dtype] = None, *, device=None):
         super().__init__()
-        refuse_unported(dtype=dtype)
         h, d = num_heads, out_dim
         self.num_heads, self.out_dim = h, d
         self.negative_slope = negative_slope
         self.concat_heads = concat_heads
         self.residual = residual
         self.dropout_rate = dropout_rate
-        self.W = nn.Linear(in_dim, h * d, bias=False, device=device)
-        self.a_l = nn.Parameter(torch.empty(h, d, device=device))
-        self.a_r = nn.Parameter(torch.empty(h, d, device=device))
+        self.dtype = dtype
+        pk = dict(device=device, dtype=param_dtype)
+        self.W = nn.Linear(in_dim, h * d, bias=False, **pk)
+        self.a_l = nn.Parameter(torch.empty(h, d, **pk))
+        self.a_r = nn.Parameter(torch.empty(h, d, **pk))
         # flax creates W_res only when the widths differ.
-        self.W_res = (nn.Linear(in_dim, h * d, bias=False, device=device)
+        self.W_res = (nn.Linear(in_dim, h * d, bias=False, **pk)
                       if residual and in_dim != h * d else None)
         flax_init_(self)
 
     def _deterministic(self) -> bool:
         return self.dropout_rate == 0.0 or not self.training
 
+    def _residual(self, x):
+        return x if self.W_res is None else dense(self.W_res, x, self.dtype)
+
     def forward(self, g, x, *, ell=None, block=None):
         h, d = self.num_heads, self.out_dim
+        a_l, a_r = self.a_l, self.a_r
+        if self.dtype is not None:
+            a_l, a_r = a_l.to(self.dtype), a_r.to(self.dtype)
         if block is not None and self._deterministic():
             # Whole-stack layout: x arrives as (B, L, F).
             lead = tuple(x.shape[:2])
-            z = self.W(x).reshape(lead + (h, d))
-            out = block_gat_attention(block, self.a_l, self.a_r, z,
+            z = dense(self.W, x, self.dtype).reshape(lead + (h, d))
+            out = block_gat_attention(block, a_l, a_r, z,
                                       negative_slope=self.negative_slope)
             if self.residual:
-                res = x if self.W_res is None else self.W_res(x)
-                out = out + res.reshape(lead + (h, d))
+                out = out + self._residual(x).reshape(lead + (h, d))
             if self.concat_heads:
                 return out.reshape(lead + (h * d,))
             return out.mean(-2)
         n = x.shape[0]
-        z = self.W(x).reshape(n, h, d)
+        z = dense(self.W, x, self.dtype).reshape(n, h, d)
         if ell is not None and self._deterministic():
             src_ell, dst_ell = ell
-            out = ell_gat_attention(dst_ell, src_ell, self.a_l, self.a_r, z,
+            out = ell_gat_attention(dst_ell, src_ell, a_l, a_r, z,
                                     negative_slope=self.negative_slope)
         else:
-            el = torch.einsum("nhd,hd->nh", z, self.a_l)
-            er = torch.einsum("nhd,hd->nh", z, self.a_r)
+            el = torch.einsum("nhd,hd->nh", z, a_l)
+            er = torch.einsum("nhd,hd->nh", z, a_r)
             # Padded edge endpoints clamp; their scores are masked.
             scores = (el[g.src.long().clamp(max=n - 1)]
                       + er[g.dst.long().clamp(max=n - 1)])
@@ -105,8 +112,7 @@ class GATLayer(nn.Module):
                     return F.dropout(a, p, training=True)
             out = softmax_aggregate_dst(g, scores, z, dropout_fn=dropout_fn)
         if self.residual:
-            res = x if self.W_res is None else self.W_res(x)
-            out = out + res.reshape(n, h, d)
+            out = out + self._residual(x).reshape(n, h, d)
         if self.concat_heads:
             return out.reshape(n, h * d)
         return out.mean(1)
@@ -118,26 +124,29 @@ class GAT(nn.Module):
     ``remat=True`` checkpoints each hidden layer
     (``torch.utils.checkpoint``, non-reentrant): its activations are
     recomputed in the backward instead of living until it. ``in_dim`` is
-    the width of the node features.
+    the width of the node features. ``dtype`` (e.g. ``torch.bfloat16``)
+    runs every layer at that width with f32 parameters and returns f32
+    logits.
     """
 
     def __init__(self, hidden_dim: int, out_dim: int, num_layers: int = 2,
                  num_heads: int = 8, dropout_rate: float = 0.0,
-                 remat: bool = False, dtype=None, *, in_dim: int,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 remat: bool = False, dtype: Optional[torch.dtype] = None, *,
+                 in_dim: int, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
-        refuse_unported(dtype=dtype)
         self.dropout_rate = dropout_rate
         self.remat = remat
+        self.dtype = dtype
         width = hidden_dim * num_heads
         self.layers = nn.ModuleList(
             GATLayer(in_dim if i == 0 else width, hidden_dim, num_heads,
-                     dropout_rate=dropout_rate, residual=i > 0,
+                     dropout_rate=dropout_rate, residual=i > 0, dtype=dtype,
                      device=device)
             for i in range(num_layers - 1))
         self.layers.append(GATLayer(in_dim if num_layers == 1 else width,
                                     out_dim, num_heads=1, concat_heads=False,
-                                    device=device))
+                                    dtype=dtype, device=device))
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -161,4 +170,6 @@ class GAT(nn.Module):
             if self.dropout_rate > 0.0:
                 x = F.dropout(x, self.dropout_rate, training=self.training)
         out = self.layers[-1](g, x, ell=ell, block=blk)
-        return block.gather_nodes(out) if block_layout else out
+        if block_layout:
+            out = block.gather_nodes(out)
+        return out.float() if self.dtype is not None else out

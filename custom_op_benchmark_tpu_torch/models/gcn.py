@@ -4,7 +4,10 @@ Counterpart of custom_op_benchmark_tpu/models/gcn.py. The neighbour sum runs
 on the segment path (``gspmm`` copy_lhs), given ``ell`` on the ELL
 copy-SpMM, whose forward and backward are the CUDA kernel S3, or given
 ``block`` on ``block_copy_spmm`` with the whole stack in the ``(B, L, ·)``
-layout (degrees from the block adjacency), as in the reference.
+layout (degrees from the block adjacency), as in the reference. The model
+follows its input's dtype as flax does (no ``dtype`` field): ``W``
+computes in the promoted type of x and its f32 weight, so bf16 features
+give f32 activations.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from custom_op_benchmark_tpu_torch.models.flax_init import flax_init_
+from custom_op_benchmark_tpu_torch.models.precision import dense
 from custom_op_benchmark_tpu_torch.ops import (
     block_copy_spmm,
     ell_copy_spmm,
@@ -34,7 +38,7 @@ class GCNLayer(nn.Module):
                   if use_bias else None)
 
     def forward(self, g, x, *, ell=None, block=None):
-        z = self.W(x)
+        z = dense(self.W, x)
         if block is not None:
             # Whole-stack layout: x is (B, L, F).
             deg_out = block.adj.sum(dim=2).to(z.dtype).clamp(min=1.0)

@@ -18,6 +18,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from custom_op_benchmark_tpu_torch.models.flax_init import flax_init_
+from custom_op_benchmark_tpu_torch.models.precision import dense
 from custom_op_benchmark_tpu_torch.ops import (
     block_copy_spmm,
     ell_copy_spmm,
@@ -46,8 +47,10 @@ class GINLayer(nn.Module):
         else:
             neigh = gspmm(g, "copy_lhs", "sum", lhs=x, lhs_target="u",
                           to="dst")
-        h = (1.0 + self.eps) * x + neigh
-        return self.mlp2(F.relu(self.mlp1(h)))
+        # flax promotes: bf16 features times the f32 eps give f32.
+        dt = torch.promote_types(x.dtype, self.eps.dtype)
+        h = (1.0 + self.eps) * x.to(dt) + neigh
+        return dense(self.mlp2, F.relu(dense(self.mlp1, h)))
 
 
 class GIN(nn.Module):

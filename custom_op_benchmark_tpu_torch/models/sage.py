@@ -17,6 +17,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from custom_op_benchmark_tpu_torch.models.flax_init import flax_init_
+from custom_op_benchmark_tpu_torch.models.precision import dense
 from custom_op_benchmark_tpu_torch.ops import (
     block_copy_spmm,
     ell_copy_spmm,
@@ -45,7 +46,7 @@ class SAGELayer(nn.Module):
         else:
             neigh = gspmm(g, "copy_lhs", "mean", lhs=x, lhs_target="u",
                           to="dst")
-        return self.W_self(x) + self.W_neigh(neigh)
+        return dense(self.W_self, x) + dense(self.W_neigh, neigh)
 
 
 class GraphSAGE(nn.Module):

@@ -11,6 +11,12 @@ kernel K4, and its gradient the K1–K3 recompute; else the segment path
 ``softmax_aggregate_dst``). Layer for layer it matches the flax module,
 including flax's defaults: LayerNorm with eps 1e-6 and GELU in its tanh
 approximation (torch defaults to eps 1e-5 and the exact GELU).
+
+``dtype`` is the reference's mixed precision on every path: parameters
+stay f32; every dense layer computes at ``dtype``, each layer norm in f32
+with its output rounded to ``dtype`` (flax's rules, models/precision.py),
+the attention ops take ``dtype`` operands (bf16 K1–K4 on ``tiled=``, the
+ELL ops' f32 sums on ``ell=``), and the logits return in f32.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from custom_op_benchmark_tpu_torch.models.flax_init import flax_init_
-from custom_op_benchmark_tpu_torch.models.gat import refuse_unported
+from custom_op_benchmark_tpu_torch.models.precision import dense, layer_norm
 from custom_op_benchmark_tpu_torch.ops import (
     block_attention,
     node_mul_edge,
@@ -50,10 +56,11 @@ class GraphMultiHeadAttention(nn.Module):
     ``(B, L, D)`` block layout (the whole-stack pass) and stays there.
     """
 
-    def __init__(self, dim: int, num_heads: int, head_dim: int, *,
-                 device=None):
+    def __init__(self, dim: int, num_heads: int, head_dim: int,
+                 dtype: Optional[torch.dtype] = None, *, device=None):
         super().__init__()
         self.num_heads, self.head_dim = num_heads, head_dim
+        self.dtype = dtype
         inner = num_heads * head_dim
         self.Wq = nn.Linear(dim, inner, bias=False, device=device)
         self.Wk = nn.Linear(dim, inner, bias=False, device=device)
@@ -62,11 +69,11 @@ class GraphMultiHeadAttention(nn.Module):
 
     def forward(self, g, x, edge_feat=None, *, tiled=None, block=None,
                 ell=None, block_layout: bool = False):
-        h, d = self.num_heads, self.head_dim
+        h, d, dt = self.num_heads, self.head_dim, self.dtype
         lead = tuple(x.shape[:-1])     # (n,) or, in the block layout, (B, L)
-        q = self.Wq(x).reshape(lead + (h, d))
-        k = self.Wk(x).reshape(lead + (h, d))
-        v = self.Wv(x).reshape(lead + (h, d))
+        q = dense(self.Wq, x, dt).reshape(lead + (h, d))
+        k = dense(self.Wk, x, dt).reshape(lead + (h, d))
+        v = dense(self.Wv, x, dt).reshape(lead + (h, d))
         if block_layout:
             if block is None or edge_feat is not None:
                 raise ValueError("block_layout needs block= and no edge "
@@ -91,16 +98,18 @@ class GraphMultiHeadAttention(nn.Module):
             if edge_feat is not None:
                 scores = scores + node_mul_edge(g, q, edge_feat)
             out = softmax_aggregate_dst(g, scores / math.sqrt(d), v)
-        return self.Wo(out.reshape(lead + (h * d,)))
+        return dense(self.Wo, out.reshape(lead + (h * d,)), dt)
 
 
 class GraphTransformerLayer(nn.Module):
     def __init__(self, dim: int, num_heads: int, head_dim: int, mlp_dim: int,
-                 dropout_rate: float = 0.0, *, device=None):
+                 dropout_rate: float = 0.0,
+                 dtype: Optional[torch.dtype] = None, *, device=None):
         super().__init__()
         self.dropout_rate = dropout_rate
+        self.dtype = dtype
         self.ln1 = nn.LayerNorm(dim, eps=LN_EPS, device=device)
-        self.attn = GraphMultiHeadAttention(dim, num_heads, head_dim,
+        self.attn = GraphMultiHeadAttention(dim, num_heads, head_dim, dtype,
                                             device=device)
         self.ln2 = nn.LayerNorm(dim, eps=LN_EPS, device=device)
         self.mlp1 = nn.Linear(dim, mlp_dim, device=device)
@@ -113,10 +122,12 @@ class GraphTransformerLayer(nn.Module):
 
     def forward(self, g, x, edge_feat=None, *, tiled=None, block=None,
                 ell=None, block_layout: bool = False):
-        y = self.attn(g, self.ln1(x), edge_feat, tiled=tiled, block=block,
-                      ell=ell, block_layout=block_layout)
+        dt = self.dtype
+        y = self.attn(g, layer_norm(self.ln1, x, dt), edge_feat, tiled=tiled,
+                      block=block, ell=ell, block_layout=block_layout)
         x = x + self._dropout(y)
-        y = self.mlp2(F.gelu(self.mlp1(self.ln2(x)), approximate=GELU_APPROX))
+        y = dense(self.mlp1, layer_norm(self.ln2, x, dt), dt)
+        y = dense(self.mlp2, F.gelu(y, approximate=GELU_APPROX), dt)
         return x + self._dropout(y)
 
 
@@ -136,7 +147,9 @@ class GraphTransformer(nn.Module):
     features) scatters once to the ``(B, L, D)`` layout at the stack's
     entry and gathers once before ``ln_out``; padded slots carry finite
     values that the adjacency mask and the final gather discard. False
-    scatters and gathers at every layer's attention, as an A/B.
+    scatters and gathers at every layer's attention, as an A/B. ``dtype``
+    (e.g. ``torch.bfloat16``) runs the activations at that width with f32
+    parameters and returns f32 logits.
     """
 
     def __init__(self, dim: int, num_heads: int, num_layers: int,
@@ -146,8 +159,8 @@ class GraphTransformer(nn.Module):
                  in_dim: Optional[int] = None,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        refuse_unported(dtype=dtype)
         self.dim = dim
+        self.dtype = dtype
         self.remat = remat
         self.block_whole_stack = block_whole_stack
         self.proj_in = (nn.Linear(in_dim, dim, device=device)
@@ -155,7 +168,7 @@ class GraphTransformer(nn.Module):
         head_dim = dim // num_heads
         self.layers = nn.ModuleList(
             GraphTransformerLayer(dim, num_heads, head_dim, mlp_dim or 4 * dim,
-                                  dropout_rate, device=device)
+                                  dropout_rate, dtype, device=device)
             for _ in range(num_layers))
         self.ln_out = nn.LayerNorm(dim, eps=LN_EPS, device=device)
         self.proj_out = (nn.Linear(dim, out_dim, device=device)
@@ -172,7 +185,7 @@ class GraphTransformer(nn.Module):
         if block_layout:
             x = block.scatter_nodes(x)
         if self.proj_in is not None:
-            x = self.proj_in(x)
+            x = dense(self.proj_in, x, self.dtype)
         elif x.shape[-1] != self.dim:
             raise ValueError(f"features are {x.shape[-1]} wide; build the "
                              f"model with in_dim={x.shape[-1]}")
@@ -186,7 +199,7 @@ class GraphTransformer(nn.Module):
                 x = layer(g, x, edge_feat, **views)
         if block_layout:
             x = block.gather_nodes(x)
-        x = self.ln_out(x)
+        x = layer_norm(self.ln_out, x, self.dtype)
         if self.proj_out is not None:
-            x = self.proj_out(x)
-        return x
+            x = dense(self.proj_out, x, self.dtype)
+        return x.float() if self.dtype is not None else x

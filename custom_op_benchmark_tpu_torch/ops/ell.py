@@ -29,6 +29,18 @@ XLA in the reference.
 Internally node tensors are ``(n, h, d)`` and per-edge scores and weights
 ``(E, h)``; the public functions take the reference's ranks, ``(n, d)``
 with ``(E,)`` for one head, and return them.
+
+Dtypes follow the reference's ``preferred_element_type=float32``: every op
+takes bfloat16 (or float32) operands, forms its products and sums in f32
+(the operands are widened with ``.float()``, which is exact, so a product
+of two bf16 values is exact) and rounds to the input's dtype only where
+the reference calls ``.astype``: at each op's outputs, and inside the GAT
+backward where its ``dz`` terms are rounded before they are added. The
+fused attentions' α, scores and per-slot cotangents stay f32 between
+their sweeps, as in the reference; S3 reads bf16 and sums in f32. The
+standalone ``ell_softmax`` is the exception, as in the reference, whose
+code for it promotes nothing: forward and backward run in the input's
+dtype.
 """
 
 from __future__ import annotations
@@ -168,6 +180,11 @@ def _edges2(x: torch.Tensor, e_slot: int) -> torch.Tensor:
     return _pad_rows(x, e_slot)
 
 
+def _f32(*ts: torch.Tensor):
+    """The tensors widened to float32 (no copy for float32 ones)."""
+    return tuple(t.float() for t in ts)
+
+
 def _masked_softmax(s: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Softmax of s (R, D, h) over the slots where ``valid`` (R, D) holds;
     a row with no valid slot gives zeros."""
@@ -180,19 +197,20 @@ def _masked_softmax(s: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # Raw bucket sweeps (shared by forwards and backwards); x is (n, h, d),
-# per-slot weights and scores (R, D, h).
+# per-slot weights and scores (R, D, h). The packed sweeps compute and
+# return f32; the raw ones round to their node input's dtype.
 # ---------------------------------------------------------------------------
 
 def _spmm_packed(eg: EllGraph, w_packed, x3):
-    """contrib[r] = Σ_k w[r, k] · x[cols[r, k]] per bucket, (R, h, d)."""
-    xp = _pad_nodes(x3, eg.n_nodes)
-    return [torch.einsum("rkh,rkhd->rhd", w, xp[b.cols.long()])
+    """contrib[r] = Σ_k w[r, k] · x[cols[r, k]] per bucket, (R, h, d), f32."""
+    xp = _pad_nodes(x3.float(), eg.n_nodes)
+    return [torch.einsum("rkh,rkhd->rhd", w.float(), xp[b.cols.long()])
             for b, w in zip(eg.buckets, w_packed)]
 
 
 def _sddmm_packed(eg: EllGraph, A3, B3):
-    """s[r, k] = <A[rows[r]], B[cols[r, k]]> per bucket and head."""
-    Ap, Bp = _pad_nodes(A3, eg.n_nodes), _pad_nodes(B3, eg.n_nodes)
+    """s[r, k] = <A[rows[r]], B[cols[r, k]]> per bucket and head, f32."""
+    Ap, Bp = (_pad_nodes(t, eg.n_nodes) for t in _f32(A3, B3))
     return [torch.einsum("rhd,rkhd->rkh", Ap[b.rows.long()],
                          Bp[b.cols.long()]) for b in eg.buckets]
 
@@ -201,13 +219,13 @@ def _spmm_raw(eg: EllGraph, e2, x3):
     if not eg.buckets:           # edgeless graph: the oracle's zeros
         return x3.new_zeros((eg.n_nodes,) + tuple(x3.shape[1:]))
     return ell_combine_rows(eg, _spmm_packed(eg, ell_scatter_edges(eg, e2),
-                                             x3))
+                                             x3)).to(x3.dtype)
 
 
 def _sddmm_raw(eg: EllGraph, A3, B3):
     if not eg.buckets:
         return A3.new_zeros((eg.num_edges_padded, A3.shape[1]))
-    return ell_gather_edges(eg, _sddmm_packed(eg, A3, B3))
+    return ell_gather_edges(eg, _sddmm_packed(eg, A3, B3)).to(A3.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -227,9 +245,9 @@ class _EllSpmm(Function):
         e2, x3 = ctx.saved_tensors
         de2 = dx = None
         if ctx.needs_input_grad[2]:
-            de2 = _sddmm_raw(se, dy, x3)[: e2.shape[0]]
+            de2 = _sddmm_raw(se, dy, x3)[: e2.shape[0]].to(e2.dtype)
         if ctx.needs_input_grad[3]:
-            dx = _spmm_raw(de, e2, dy)[: x3.shape[0]]
+            dx = _spmm_raw(de, e2, dy)[: x3.shape[0]].to(x3.dtype)
         return None, None, de2, dx
 
 
@@ -246,9 +264,9 @@ class _EllSddmm(Function):
         A3, B3 = ctx.saved_tensors
         dA = dB = None
         if ctx.needs_input_grad[2]:
-            dA = _spmm_raw(se, dy, B3)[: A3.shape[0]]
+            dA = _spmm_raw(se, dy, B3)[: A3.shape[0]].to(A3.dtype)
         if ctx.needs_input_grad[3]:
-            dB = _spmm_raw(de, dy, A3)[: B3.shape[0]]
+            dB = _spmm_raw(de, dy, A3)[: B3.shape[0]].to(B3.dtype)
         return None, None, dA, dB
 
 
@@ -358,13 +376,13 @@ def _w3(w: torch.Tensor) -> torch.Tensor:
 def _spmm_sddmm_fused(eg: EllGraph, w_packed, a3, b3, want_spmm: bool):
     """Per bucket, with one gather of ``b`` through cols:
     ``spmm[r] = Σ_k w[r,k]·b[cols[r,k]]`` (when ``want_spmm``) and
-    ``score[r,k] = <a[rows[r]], b[cols[r,k]]>``."""
-    ap, bp = _pad_nodes(a3, eg.n_nodes), _pad_nodes(b3, eg.n_nodes)
+    ``score[r,k] = <a[rows[r]], b[cols[r,k]]>``, both f32."""
+    ap, bp = (_pad_nodes(t, eg.n_nodes) for t in _f32(a3, b3))
     spmms, scores = [], []
     for b, w in zip(eg.buckets, w_packed):
         bg = bp[b.cols.long()]                     # (R, D, h, d)
         if want_spmm:
-            spmms.append(torch.einsum("rkh,rkhd->rhd", w, bg))
+            spmms.append(torch.einsum("rkh,rkhd->rhd", w.float(), bg))
         scores.append(torch.einsum("rhd,rkhd->rkh", ap[b.rows.long()], bg))
     return spmms, scores
 
@@ -377,7 +395,7 @@ class _EllSpmmPacked(Function):
         if not se.buckets:
             return x3.new_zeros((se.n_nodes,) + tuple(x3.shape[1:]))
         w3 = [_w3(w) for w in ws[:n_src]]
-        return ell_combine_rows(se, _spmm_packed(se, w3, x3))
+        return ell_combine_rows(se, _spmm_packed(se, w3, x3)).to(x3.dtype)
 
     @staticmethod
     def backward(ctx, dy):
@@ -394,9 +412,10 @@ class _EllSpmmPacked(Function):
         w_src = [_w3(w) for w in ws[:n_src]]
         w_dst = [_w3(w) for w in ws[n_src:]]
         dx_c, dw_dst = _spmm_sddmm_fused(de, w_dst, x3, dy, True)
-        dx = ell_combine_rows(de, dx_c)[: x3.shape[0]]
+        dx = ell_combine_rows(de, dx_c)[: x3.shape[0]].to(x3.dtype)
         _, dw_src = _spmm_sddmm_fused(se, w_src, dy, x3, False)
-        dws = [g.reshape(w.shape) for g, w in zip(dw_src + dw_dst, ws)]
+        dws = [g.reshape(w.shape).to(w.dtype)
+               for g, w in zip(dw_src + dw_dst, ws)]
         return (None, None, None, dx, *dws)
 
 
@@ -415,16 +434,17 @@ def _ell_spmm_packed(se, de, w: PackedEdgeWeights, x):
 def _attn_fwd(ell, q3, k3, v3, scale, be_packed=None):
     """One sweep over the normalisation-direction packing ``ell``:
     ``score = (<q[row], k[col]> [+ <q[col], be[slot]>])·scale``, α the
-    masked softmax over the row, ``out[row] = Σ α·v[col]``. Returns
-    (out (n_nodes, h, d), per-bucket α (R, D, h))."""
+    masked softmax over the row, ``out[row] = Σ α·v[col]``, all in f32.
+    Returns (out (n_nodes, h, d), per-bucket α (R, D, h)), both f32."""
     n = ell.n_nodes
-    qp, kp, vp = (_pad_nodes(t, n) for t in (q3, k3, v3))
+    qp, kp, vp = (_pad_nodes(t, n) for t in _f32(q3, k3, v3))
     outs, alphas = [], []
     for i, b in enumerate(ell.buckets):
         cols = b.cols.long()
         s = torch.einsum("rhd,rkhd->rkh", qp[b.rows.long()], kp[cols])
         if be_packed is not None:
-            s = s + torch.einsum("rkhd,rkd->rkh", qp[cols], be_packed[i])
+            s = s + torch.einsum("rkhd,rkd->rkh", qp[cols],
+                                 be_packed[i].float())
         alpha = _masked_softmax(s * scale, b.cols < n)
         outs.append(torch.einsum("rkh,rkhd->rhd", alpha, vp[cols]))
         alphas.append(alpha)
@@ -438,10 +458,10 @@ def _attn_bwd(ell, ell_t, q3, k3, v3, scale, alphas, dy, be_t=None):
     on ``ell_t``: ``dk[row] = Σ dS·q[col]``, ``dv[row] = Σ α·dy[col]``,
     and with edge bias ``dq[row] += Σ dS·be`` and ``dbe[slot] = Σ_h
     dS·q[row]`` (``be_t``: the bias in ``ell_t``'s layout). Returns (dq,
-    dk, dv, dbe per ``ell_t`` bucket or None)."""
+    dk, dv, dbe per ``ell_t`` bucket or None), all f32."""
     n = ell.n_nodes
     h = alphas[0].shape[-1]
-    qp, kp, vp, dyp = (_pad_nodes(t, n) for t in (q3, k3, v3, dy))
+    qp, kp, vp, dyp = (_pad_nodes(t, n) for t in _f32(q3, k3, v3, dy))
     dq_c, both = [], []
     for b, alpha in zip(ell.buckets, alphas):
         cols = b.cols.long()
@@ -461,7 +481,8 @@ def _attn_bwd(ell, ell_t, q3, k3, v3, scale, alphas, dy, be_t=None):
         dk_c.append(torch.einsum("rkh,rkhd->rhd", dS_t, qp[cols]))
         dv_c.append(torch.einsum("rkh,rkhd->rhd", alpha_t, dyp[cols]))
         if be_t is not None:
-            dqs_c.append(torch.einsum("rkh,rkd->rhd", dS_t, be_t[i]))
+            dqs_c.append(torch.einsum("rkh,rkd->rhd", dS_t,
+                                      be_t[i].float()))
             dbe.append(torch.einsum("rkh,rhd->rkd", dS_t,
                                     qp[b.rows.long()]))
     dk = ell_combine_rows(ell_t, dk_c)[: k3.shape[0]]
@@ -480,7 +501,7 @@ class _EllAttention(Function):
             return torch.zeros_like(q3)
         y, alphas = _attn_fwd(ell, q3, k3, v3, scale)
         ctx.save_for_backward(q3, k3, v3, *alphas)
-        return y[: q3.shape[0]]
+        return y[: q3.shape[0]].to(q3.dtype)
 
     @staticmethod
     def backward(ctx, dy):
@@ -491,7 +512,8 @@ class _EllAttention(Function):
                     torch.zeros_like(v3), None)
         dq, dk, dv, _ = _attn_bwd(ell, ell_t, q3, k3, v3, ctx.scale, alphas,
                                   dy)
-        return None, None, dq, dk, dv, None
+        return (None, None, dq.to(q3.dtype), dk.to(k3.dtype),
+                dv.to(v3.dtype), None)
 
 
 class _EllEdgeBiasAttention(Function):
@@ -510,7 +532,7 @@ class _EllEdgeBiasAttention(Function):
         y, alphas = _attn_fwd(ell, q3, k3, v3, scale, be_dst)
         ctx.n_alpha = len(alphas)
         ctx.save_for_backward(q3, k3, v3, *bes, *alphas)
-        return y[: q3.shape[0]]
+        return y[: q3.shape[0]].to(q3.dtype)
 
     @staticmethod
     def backward(ctx, dy):
@@ -531,7 +553,9 @@ class _EllEdgeBiasAttention(Function):
             dbes = dbe + ell_cross_packed(ell_t, ell, dbe)
         else:
             dbes = [ell_gather_edges(ell_t, dbe)[: bes[0].shape[0]]]
-        return (None, None, dq, dk, dv, None, None, None, *dbes)
+        dbes = [g.to(b.dtype) for g, b in zip(dbes, bes)]
+        return (None, None, dq.to(q3.dtype), dk.to(k3.dtype),
+                dv.to(v3.dtype), None, None, None, *dbes)
 
 
 def _scale(q, scale):
@@ -631,10 +655,11 @@ class _EllNodeMulEdge(Function):
         ctx.save_for_backward(A3, Be)
         if not ell.buckets:
             return A3.new_zeros((ell.num_edges_padded, A3.shape[1]))
-        Ap = _pad_nodes(A3, ell.n_nodes)
+        Ap = _pad_nodes(A3.float(), ell.n_nodes)
         return ell_gather_edges(ell, [
-            torch.einsum("rhd,rkd->rkh", Ap[b.rows.long()], beb)
-            for b, beb in zip(ell.buckets, ell_scatter_edges(ell, Be))])
+            torch.einsum("rhd,rkd->rkh", Ap[b.rows.long()], beb.float())
+            for b, beb in zip(ell.buckets, ell_scatter_edges(ell, Be))
+        ]).to(A3.dtype)
 
     @staticmethod
     def backward(ctx, dy):
@@ -645,14 +670,16 @@ class _EllNodeMulEdge(Function):
         A3, Be = ctx.saved_tensors
         if not ell.buckets:
             return None, torch.zeros_like(A3), torch.zeros_like(Be)
-        Ap = _pad_nodes(A3, ell.n_nodes)
+        Ap = _pad_nodes(A3.float(), ell.n_nodes)
         dA_c, dbe = [], []
         for b, beb, dyb in zip(ell.buckets, ell_scatter_edges(ell, Be),
                                ell_scatter_edges(ell, dy)):
+            beb, dyb = _f32(beb, dyb)
             dA_c.append(torch.einsum("rkh,rkd->rhd", dyb, beb))
             dbe.append(torch.einsum("rkh,rhd->rkd", dyb, Ap[b.rows.long()]))
-        dA = ell_combine_rows(ell, dA_c)[: A3.shape[0]]
-        return None, dA, ell_gather_edges(ell, dbe)[: Be.shape[0]]
+        dA = ell_combine_rows(ell, dA_c)[: A3.shape[0]].to(A3.dtype)
+        dBe = ell_gather_edges(ell, dbe)[: Be.shape[0]].to(Be.dtype)
+        return None, dA, dBe
 
 
 def ell_node_mul_edge(ell: EllGraph, ell_t: EllGraph, A, Be):
@@ -682,9 +709,10 @@ class _EllGat(Function):
             ctx.save_for_backward(a_l, a_r, z)
             return torch.zeros_like(z)
         n = z.shape[0]
-        zp = _pad_nodes(z, ell.n_nodes)
-        el = torch.einsum("nhd,hd->nh", zp, a_l)         # (n+1, h)
-        er = torch.einsum("nhd,hd->nh", zp, a_r)
+        zf, a_lf, a_rf = _f32(z, a_l, a_r)
+        zp = _pad_nodes(zf, ell.n_nodes)
+        el = torch.einsum("nhd,hd->nh", zp, a_lf)        # (n+1, h)
+        er = torch.einsum("nhd,hd->nh", zp, a_rf)
         outs, alphas, signs = [], [], []
         for b in ell.buckets:
             cols = b.cols.long()
@@ -696,7 +724,7 @@ class _EllGat(Function):
             signs.append(pre > 0)
         ctx.n_alpha = len(alphas)
         ctx.save_for_backward(a_l, a_r, z, *alphas, *signs)
-        return ell_combine_rows(ell, outs)[:n]
+        return ell_combine_rows(ell, outs)[:n].to(z.dtype)
 
     @staticmethod
     def backward(ctx, dy):
@@ -705,7 +733,9 @@ class _EllGat(Function):
         (the er cotangent) and the (α, dpre) stack for the twin hop. Pass 2
         (src packing): ``dz[u] += Σ α·dy[v]`` and the row sums of dpre (the
         el cotangent). The attention vectors' cotangents are node-scale
-        contractions of those with z."""
+        contractions of those with z. Sums are f32; as in the reference,
+        dz's er term and its src-packing term (α·dy plus the el chain) are
+        each rounded to z's dtype before they are added."""
         ell, ell_t = ctx.graphs
         a_l, a_r, z, *rest = ctx.saved_tensors
         if not ell.buckets:
@@ -714,8 +744,9 @@ class _EllGat(Function):
         alphas, signs = rest[: ctx.n_alpha], rest[ctx.n_alpha:]
         slope = ctx.slope
         n, h = z.shape[0], z.shape[1]
-        zp = _pad_nodes(z, ell.n_nodes)
-        dyp = _pad_nodes(dy, ell.n_nodes)
+        zf, a_lf, a_rf = _f32(z, a_l, a_r)
+        zp = _pad_nodes(zf, ell.n_nodes)
+        dyp = _pad_nodes(dy.float(), ell.n_nodes)
         der_c, both = [], []
         for b, alpha, sign in zip(ell.buckets, alphas, signs):
             dalpha = torch.einsum("rhd,rkhd->rkh", dyp[b.rows.long()],
@@ -734,10 +765,11 @@ class _EllGat(Function):
                                      dyp[b.cols.long()]))
             del_c.append(bt[..., h:].sum(1))
         d_el = ell_combine_rows(ell_t, del_c)[:n]           # (n, h)
-        dz = (ell_combine_rows(ell_t, dz_c)[:n]
-              + d_el[..., None] * a_l + der[..., None] * a_r)
-        d_a_l = torch.einsum("nh,nhd->hd", d_el, z)
-        d_a_r = torch.einsum("nh,nhd->hd", der, z)
+        dz_src = (ell_combine_rows(ell_t, dz_c)[:n]
+                  + d_el[..., None] * a_lf).to(z.dtype)
+        dz = (der[..., None] * a_rf).to(z.dtype) + dz_src
+        d_a_l = torch.einsum("nh,nhd->hd", d_el, zf).to(a_l.dtype)
+        d_a_r = torch.einsum("nh,nhd->hd", der, zf).to(a_r.dtype)
         return None, None, d_a_l, d_a_r, dz, None
 
 

@@ -5,8 +5,8 @@ Counterpart of ``pallas_gather_sum`` in scripts/exp_pallas_gather.py:
 - :func:`gather_sum` (S3) — ``y[nodes[r]] = Σ_k x[cols[r, k]]`` over every
   row of every bucket of a :class:`~custom_op_benchmark_tpu_torch.graph.ell.
   GatherTable`, in one launch, with the table's zero rows written as 0;
-  x ``(n_x, ...)`` f32, trailing dims flattened; y ``(n_out,) +
-  x.shape[1:]``. Given one bucket's cols ``(R, D)`` int32 instead of a
+  x ``(n_x, ...)`` float32 or bfloat16, trailing dims flattened; y
+  ``(n_out,) + x.shape[1:]`` in x's dtype. Given one bucket's cols ``(R, D)`` int32 instead of a
   table, it sums that bucket into rows 0..R-1 (the TPU kernel's function,
   the shape of experiments/exp_pallas_gather.py).
 
@@ -15,9 +15,13 @@ A slot whose column is outside ``[0, n_x)`` adds zero: the ELL pad column
 taken (the TPU kernel needs R % 8 == 0, its grid drops the tail), and any
 width d ≥ 1.
 
+Sums are f32 in both dtypes and rounded once to x's dtype, as the TPU
+kernel sums in ``x.dtype`` with f32 accumulation: bf16 rows are widened
+where they are added, never copied to f32 as a whole.
+
 The wrapper runs the CUDA kernel (csrc/gather_sum.cu) on CUDA tensors and
 the plain version only on CPU tensors; ``gather_sum.launches`` counts
-kernel launches.
+float32 kernel launches and ``gather_sum.launches_bf16`` bfloat16 ones.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ from custom_op_benchmark_tpu_torch.graph.ell import (
 from custom_op_benchmark_tpu_torch.ops.kernels import _build
 from custom_op_benchmark_tpu_torch.ops.kernels.tiled_kernels import (
     _check_cuda,
+    _count,
+    _entry,
     _on_cpu,
     _p,
     _stream,
@@ -63,10 +69,10 @@ def gather_sum_plain(cols, x: torch.Tensor) -> torch.Tensor:
     for off, w, _, rows in table.bucket_rows():
         c = table.cols[off: off + rows * w].reshape(rows, w).long()
         c = torch.where((c >= 0) & (c < n_x), c, n_x)
-        parts.append(xz[c].sum(1))                        # (rows, ...)
+        parts.append(xz[c].sum(1, dtype=torch.float32))   # (rows, ...)
     out = x.new_zeros((table.n_out,) + tuple(x.shape[1:]))
     if parts:
-        out[table.nodes.long()] = torch.cat(parts)
+        out[table.nodes.long()] = torch.cat(parts).to(x.dtype)
     return out
 
 
@@ -78,7 +84,7 @@ def gather_sum(cols, x: torch.Tensor) -> torch.Tensor:
     if _on_cpu(table.cols, x):
         return gather_sum_plain(table, x)
     _check_cuda(ints=(table.buckets, table.cols, table.nodes,
-                      table.zero_nodes), floats=(x,))
+                      table.zero_nodes), floats=(x,), bf16=True)
     nb = table.buckets.shape[0]
     if nb > MAX_BUCKETS:
         raise ValueError(f"{nb} buckets; the kernel takes {MAX_BUCKETS}")
@@ -89,15 +95,19 @@ def gather_sum(cols, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((table.n_out, d), device=x.device, dtype=x.dtype)
     if d == 0 or n_rows + n_zero == 0:
         return out.reshape((table.n_out,) + trail)
-    vec = int(d % 4 == 0 and xf.data_ptr() % 16 == 0
-              and out.data_ptr() % 16 == 0)
+    # The vector path moves 4 elements a lane: 16-byte f32, 8-byte bf16.
+    align = 4 * x.element_size()
+    vec = int(d % 4 == 0 and xf.data_ptr() % align == 0
+              and out.data_ptr() % align == 0)
     dev, stream = _stream(x)
-    _build.check(_build.library().gather_sum_f32(
+    name = _entry("gather_sum", x)
+    _build.check(getattr(_build.library(), name)(
         _p(table.buckets), nb, _p(table.cols), _p(table.nodes), n_rows,
         _p(table.zero_nodes), n_zero, _p(xf), _p(out), d, xf.shape[0], vec,
-        dev, stream), "gather_sum")
-    gather_sum.launches += 1
+        dev, stream), name)
+    _count(gather_sum, x)
     return out.reshape((table.n_out,) + trail)
 
 
 gather_sum.launches = 0
+gather_sum.launches_bf16 = 0

@@ -36,7 +36,10 @@ def create_train_state(model: nn.Module, *, learning_rate: float = 1e-2,
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                          mask: torch.Tensor) -> torch.Tensor:
-    """Mean negative log-likelihood over the nodes where ``mask`` is set."""
+    """Mean negative log-likelihood over the nodes where ``mask`` is set,
+    in the logits' dtype: the models return f32 logits also under a bf16
+    compute ``dtype``, so the loss and the accuracy are f32, as in the
+    reference."""
     logp = F.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, labels.long()[:, None])[:, 0]
     m = mask.to(logits.dtype)

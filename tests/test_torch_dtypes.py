@@ -5,7 +5,7 @@ bf16 and returns bf16 (segment oracle, and the tile strategy, whose
 kernels K1–K3 run their plain versions on the CPU: f32 arithmetic on the
 widened inputs, one rounding at the end); bf16 agrees with f32 at the
 reference's rtol = atol = 2e-2; the dense-block ops take bf16. The
-model-level dtype case waits for ROADMAP M9.
+model-level cases are in tests/test_torch_model_dtypes.py.
 """
 
 import jax.numpy as jnp

@@ -220,7 +220,11 @@ def test_unported_model_options_raise(data, case):
     """The options the port does not have yet raise and name their ROADMAP
     item. ``block=`` (the ``*_block`` cases) is ported: the models run on
     the dense blocks of a clique batch and agree with their segment path
-    (held to JAX in tests/test_torch_block_models.py)."""
+    (held to JAX in tests/test_torch_block_models.py). So is the compute
+    dtype (``gat_dtype``): a bf16 GAT returns f32 logits within bf16
+    tolerance (tests/test_dtypes.py's rtol 0.1, atol 0.15) of the f32
+    model from the same weights (held to JAX in
+    tests/test_torch_model_dtypes.py)."""
     if case.endswith("_block"):
         g = clique_batch(3, 4)
         x = torch.from_numpy(np.random.default_rng(8).normal(
@@ -233,12 +237,20 @@ def test_unported_model_options_raise(data, case):
                                    model(g, x), **LOGITS_TOL)
         return
     ds = data["ds"]
+    if case == "gat_dtype":
+        x = torch.from_numpy(ds.features)
+        f32, b16 = (GAT(8, 3, num_heads=2, dtype=dt, in_dim=12,
+                        generator=torch.Generator().manual_seed(0))
+                    for dt in (None, torch.bfloat16))
+        assert all(p.dtype == torch.float32 for p in b16.parameters())
+        got = b16(ds.graph, x, ell=data["ell"])
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, f32(ds.graph, x, ell=data["ell"]),
+                                   rtol=0.1, atol=0.15)
+        return
     x = torch.zeros(ds.graph.n_nodes, 12)
     with pytest.raises(NotImplementedError, match="ROADMAP M"):
-        if case == "gat_dtype":
-            GAT(8, 3, dtype=torch.bfloat16, in_dim=12)
-        else:
-            GraphSAGE(8, 3, in_dim=12)(ds.graph, x, in_cols=object())
+        GraphSAGE(8, 3, in_dim=12)(ds.graph, x, in_cols=object())
 
 
 @pytest.mark.parametrize("maker", ["planted_partition", "cora_like",

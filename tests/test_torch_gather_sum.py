@@ -105,6 +105,39 @@ def test_the_build_knows_the_kernel():
     assert len(_build._SIGNATURES["gather_sum_f32"]) == 14
 
 
+@pytest.mark.parametrize("r, k, n, d", [(16, 16, 100, 128), (24, 5, 70, 33),
+                                        (8, 40, 60, 4)])
+def test_bf16_plain_matches_the_pallas_kernel(r, k, n, d):
+    """S3 in bf16, as the TPU kernel runs in x.dtype: the plain version
+    sums the bf16 rows in f32 and rounds once, within one bf16 rounding
+    (2⁻⁷ of the value, over a floor of 1e-3 of the largest) of
+    ``pallas_gather_sum(interpret=True)`` on bf16 x; no launch counted."""
+    cols, x = _inputs(d + 7, r, k, n, d)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    want = np.asarray(jax_gather.pallas_gather_sum(
+        jnp.asarray(cols), xb, interpret=True).astype(jnp.float32))
+    before = (k_gather.gather_sum.launches, k_gather.gather_sum.launches_bf16)
+    got = k_gather.gather_sum(torch.from_numpy(cols),
+                              torch.from_numpy(x).bfloat16())
+    assert got.dtype == torch.bfloat16
+    assert (k_gather.gather_sum.launches,
+            k_gather.gather_sum.launches_bf16) == before
+    got = got.float().numpy()
+    tol = 2.0 ** -7 * np.abs(want) + 1e-3 * np.abs(want).max()
+    assert (np.abs(got - want) <= tol).all()
+    # One rounding: the f32 sum of the bf16 rows, rounded to bf16.
+    exact = np.asarray(xb.astype(jnp.float32))[cols].sum(1)
+    np.testing.assert_array_equal(
+        got, torch.from_numpy(exact).bfloat16().float().numpy())
+
+
+def test_the_build_knows_the_bf16_kernel():
+    assert (_build._SIGNATURES["gather_sum_bf16"]
+            == _build._SIGNATURES["gather_sum_f32"])
+    assert "gather_sum_bf16" in (_build.CSRC / "gather_sum.cu").read_text()
+    assert k_gather.gather_sum.launches_bf16 >= 0
+
+
 @pytest.fixture(scope="module")
 def powerlaw_ladders():
     from custom_op_benchmark_tpu_torch.graph import random_graph

@@ -230,6 +230,19 @@ def test_dropout_keeps_one_minus_p_scaled_by_its_inverse(where):
     assert torch.equal(layer(g, x), torch.ones(n, dim))
 
 
-def test_dtype_waits_for_the_dtype_policy():
-    with pytest.raises(NotImplementedError, match="ROADMAP M9"):
-        GraphTransformer(DIM, HEADS, 1, dtype=torch.bfloat16)
+def test_dtype_waits_for_the_dtype_policy(graphs):
+    """The dtype policy is ported: a bf16 transformer keeps f32 parameters
+    and returns f32 logits within bf16 tolerance (tests/test_dtypes.py's
+    rtol 0.1, atol 0.15) of the f32 model from the same weights, here on
+    the segment path (every path against JAX:
+    tests/test_torch_model_dtypes.py)."""
+    c = graphs
+    x = torch.from_numpy(c["x"])
+    f32, b16 = (GraphTransformer(DIM, HEADS, 1, out_dim=OUT, dtype=dt,
+                                 in_dim=x.shape[1],
+                                 generator=torch.Generator().manual_seed(0))
+                for dt in (None, torch.bfloat16))
+    assert all(p.dtype == torch.float32 for p in b16.parameters())
+    got = b16(c["g"], x)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, f32(c["g"], x), rtol=0.1, atol=0.15)
