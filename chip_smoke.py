@@ -24,7 +24,10 @@ command line (``train/run.py``) on cora_gat, arxiv_gat and
 arxiv_transformer — and GIN on the arxiv configuration. The sixth: the
 dtype policy (the transformer slice and the arxiv GAT in bf16, GraphSAGE
 on bf16 features with S3 in bf16), the flagship ``entry()`` and the
-native graphcore library.
+native graphcore library. The seventh: the segment path's sums on S3's
+CSR entry, repeated bit for bit, and reddit_sage (GraphSAGE on fanout
+25/10 neighbour samples) through the command line, with checkpoints and
+resilient steps.
 
 1. device: a CUDA device is present; print its name and power limit, then
    build the CUDA kernels from ``custom_op_benchmark_tpu_torch/csrc`` (one
@@ -129,12 +132,38 @@ native graphcore library.
 21. entry: ``entry()`` at its own size (32,768 nodes, 250,000 edges),
     logits and the packed edge-bias attention against a CPU copy (bf16
     tolerance, 1e-4), the forward timed, one backward through the remat'd
-    bf16 GAT with finite gradients. 17 (the command line) runs after it.
+    bf16 GAT with finite gradients. 17 (the command line) runs after it;
+22. csr (after 16, with its arxiv data): S3's CSR entry (``csr_sum``, the
+    sorted segment sum of the segment path) against its plain version at
+    the arxiv segment shapes (the copy form through ``src_csc``, edge
+    data by src and through the CSC permutation, one feature wide, bf16),
+    bit for bit on repeat, timed at the copy shape beside its bounds and
+    ``embedding_bag`` with offsets; its launches in a GCN segment step;
+23. reddit build: reddit_sage's dataset at ``--scale 1`` (233,700 nodes,
+    300-d features), features and labels on the card;
+24. determinism: the cases of ``experiments/determinism.py`` (the segment
+    pipeline forward and backward, ELL and block attention,
+    ``fit_full_graph`` of a GAT with strategy None, "ell" and "block")
+    and two full-width reddit_sage steps from one state and batch, each
+    run twice and compared with ``torch.equal``;
+25. sampled: S3 at a reddit_sage batch's shape (in_cols 70,656 × 32, d =
+    300 and 128) and the CSR entry at its backward's shape against their
+    plain versions, timed; prefetched batches against the same batches
+    made in line; 20 steps of ``fit_sampled``'s step through the prefetch
+    pipeline under ``torch.profiler`` (the device's idle share); then the
+    command line on reddit_sage at ``--scale 1`` for its 2 epochs, the
+    counters set to 0 before and read after: S3, the CSR entry and the
+    native sampler ran, a finite loss, its step, sampling and evaluation
+    times and peak memory;
+26. resilient: ``resilient_steps`` on cora_gat's GAT, N steps straight
+    against k steps, a checkpoint and a resume from it in a fresh state,
+    and a non-finite loss restored from the last checkpoint, bit for bit.
 
 Each phase's seconds are printed. The line before the last is the
 ``kernels`` JSON: for each of the nine kernels, for K1-K4, S1, S2 and S3
-in bf16, K4 at d = 300 and 1024, and K1-K4 at the clique suite's shapes, its
-source,
+in bf16, K4 at d = 300 and 1024, K1-K4 at the clique suite's shapes, S3's
+CSR entry at the arxiv copy shape, and S3 and the CSR entry at a
+reddit_sage batch's shapes, its source,
 the TPU kernel it replaces, its launches on its path, its error, time,
 plain time, bound and library time.
 
@@ -228,6 +257,12 @@ CLI_CONFIGS = ("cora_gat", "arxiv_gat", "arxiv_transformer")
 CLI_EPOCHS = 2
 # GIN on the arxiv configuration: width 128, one epoch on the ELL path.
 GIN_MODEL = dict(hidden_dim=128, num_layers=2)
+# reddit_sage (train/run.py): the command line at full width for its
+# default 2 epochs; steps profiled for the device's idle share.
+REDDIT_SCALE = 1
+PROFILE_STEPS = 20
+# resilient_steps on the card: N steps, and the step k of the checkpoint.
+RESILIENT_STEPS = (8, 3)
 
 
 def log(msg: str) -> None:
@@ -275,7 +310,8 @@ def phase_device():
 
 
 class Kernels:
-    """The nine kernels, their plain versions and where they came from."""
+    """The nine kernels and S3's CSR entry, their plain versions and where
+    they came from."""
 
     def __init__(self):
         from custom_op_benchmark_tpu_torch.ops.kernels import attention as ka
@@ -314,6 +350,11 @@ class Kernels:
                 "scripts/exp_grid_bisect.py:152"),
             "gather_sum": (
                 ks.gather_sum, ks.gather_sum_plain,
+                "custom_op_benchmark_tpu_torch/csrc/gather_sum.cu",
+                "scripts/exp_pallas_gather.py:63"),
+            # S3's CSR entry: the sorted segment sums of the segment path.
+            "csr_sum": (
+                ks.csr_sum, ks.csr_sum_plain,
                 "custom_op_benchmark_tpu_torch/csrc/gather_sum.cu",
                 "scripts/exp_pallas_gather.py:63"),
         }
@@ -651,6 +692,14 @@ def work(name, args, out):
     pos, kw = split_kwargs(args)
     distinct = {t.data_ptr(): t for t in (*pos, out) if torch.is_tensor(t)}
     nbytes = sum(t.numel() * t.element_size() for t in distinct.values())
+    if name == "csr_sum":
+        ptr, x = pos[:2]
+        idx = pos[2] if len(pos) > 2 else None
+        lo, hi = int(ptr[0]), int(ptr[-1])
+        rows = (idx[lo:hi] if idx is not None
+                else torch.arange(lo, hi, device=x.device))
+        ops = int(((rows >= 0) & (rows < x.shape[0])).sum()) * x[0].numel()
+        return nbytes, ops, PEAK_F32, ops
     if name == "gather_sum":
         cols, x = pos
         cols = cols if torch.is_tensor(cols) else cols.cols
@@ -835,6 +884,16 @@ def yardstick(name, args):
         return sampled_yardstick(*pos[:5])
     if name == "fused_attention_rows":
         return sdpa_yardstick(*pos[:7])
+    if name == "csr_sum":
+        ptr, x = pos[:2]
+        idx = pos[2] if len(pos) > 2 else None
+        lo, hi = int(ptr[0]), int(ptr[-1])
+        rows = (idx[lo:hi] if idx is not None
+                else torch.arange(lo, hi, device=x.device))
+        ops = int(((rows >= 0) & (rows < x.shape[0])).sum()) * x[0].numel()
+        return nbytes, ops, PEAK_F32, ops
+    if name == "csr_sum":
+        return csr_yardstick(*pos[:3])
     if name == "gather_sum":
         cols, x = pos[:2]
         if not torch.is_tensor(cols):
@@ -2005,6 +2064,379 @@ def phase_native(arxiv):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Determinism, S3's CSR entry, the sampled path, resilient steps
+# ---------------------------------------------------------------------------
+
+def csr_calls(ptr_r, ptr_c, src_csc, csc_perm, x, edges):
+    """The CSR entry's arguments as the segment path gives them: the copy
+    form (a node's in-neighbours' rows), the src-side sum of edge data in
+    canonical order (idx the identity) and the dst-side one through the
+    CSC permutation; also one feature wide, and bf16."""
+    return {
+        "csr_sum:copy": (ptr_c, x, src_csc),
+        "csr_sum:edges src": (ptr_r, edges),
+        "csr_sum:edges dst": (ptr_c, edges, csc_perm),
+        "csr_sum:d=1": (ptr_c, edges[:, :1].contiguous(), csc_perm),
+        "csr_sum:copy,bf16": (ptr_c, x.bfloat16(), src_csc),
+    }
+
+
+def csr_yardstick(ptr, x, idx=None):
+    """One PyTorch call for the CSR sum: ``F.embedding_bag`` with offsets
+    (a zero row appended for slots outside x), or ``torch.segment_reduce``
+    where the slots are the rows themselves."""
+    if idx is None:
+        def fn():
+            return torch.segment_reduce(x, "sum", offsets=ptr.long())
+        what = "torch.segment_reduce(offsets)"
+    else:
+        xz = torch.cat([x, x.new_zeros(1, x.shape[1])])
+        ii = idx.clamp(max=x.shape[0])
+
+        def fn():
+            return torch.nn.functional.embedding_bag(
+                ii, xz, ptr, mode="sum", include_last_offset=True)
+        what = "F.embedding_bag(offsets, mode='sum')"
+
+    def check(want):
+        return float((fn() - want).abs().max())
+
+    return what, fn, check
+
+
+def phase_csr(kern, data, l2_rate):
+    """S3's CSR entry at the arxiv configuration's segment shapes against
+    its plain version (1e-4; bf16 one rounding), bit for bit on repeat,
+    timed at the copy shape beside its bound (bytes, and the gathered rows
+    at the L2 gather rate) and ``embedding_bag`` with offsets; the
+    launches of one segment-path step of the arxiv GCN."""
+    from custom_op_benchmark_tpu_torch.models import GCN
+    from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import csr_sum
+    from custom_op_benchmark_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+    )
+
+    g, x = data["g"], data["x"]
+    n = g.n_nodes
+    rng = np.random.default_rng(SEED + 20)
+    edges = normal(rng, g.num_edges_padded, 4, device=g.device)
+    calls = csr_calls(g.indptr_r[: n + 1], g.indptr_c[: n + 1], g.src_csc,
+                      g.csc_perm, x, edges)
+    errs = check_kernels(kern, calls, "arxiv segment")
+    row = time_row(kern, "csr_sum", calls["csr_sum:copy"], "arxiv copy",
+                   {}, lib=csr_yardstick(*calls["csr_sum:copy"]))
+    gathered = g.n_edges * x.shape[1] * x.element_size()
+    row["bound_l2_ms"] = gathered / l2_rate * 1e3
+    log(f"[time] csr_sum gathers {gathered / 1e9:.3f} GB: at the L2 gather "
+        f"rate that takes {row['bound_l2_ms']:.4f} ms (share "
+        f"{row['bound_l2_ms'] / row['ms']:.3f})")
+    model = GCN(**ARXIV_MODELS["GCN"], out_dim=data["ds"].num_classes,
+                in_dim=x.shape[1],
+                generator=torch.Generator().manual_seed(SEED)).to(g.device)
+    state = create_train_state(model, learning_rate=2e-3)
+    step = make_train_step()
+    step(state, g, x, data["labels"], data["mask"])
+    kern.reset()
+    step(state, g, x, data["labels"], data["mask"])
+    torch.cuda.synchronize()
+    launches = csr_sum.launches
+    log(f"[csr] one arxiv GCN step on the segment path: CSR entry launches "
+        f"{launches} (one per copy-sum, forward and backward)")
+    assert launches > 0, launches
+    return errs, row
+
+
+def reddit_data(dev):
+    """reddit_sage's dataset at ``--scale 1`` (the command line's own
+    builder), features and labels on the card."""
+    from custom_op_benchmark_tpu_torch.train import run
+
+    t0 = time.perf_counter()
+    ds = run.reddit_dataset(REDDIT_SCALE)
+    log(f"[reddit] n={ds.graph.n_nodes} e={ds.graph.n_edges} "
+        f"features {ds.features.shape} classes {ds.num_classes}; host "
+        f"build {time.perf_counter() - t0:.2f} s")
+    return dict(ds=ds, feats=torch.from_numpy(ds.features).to(dev),
+                labels=torch.from_numpy(ds.labels.astype(np.int64)).to(dev))
+
+
+def reddit_batch(reddit, dev, sampler=None):
+    """One batch of reddit_sage's sampler on the card: (graph, x, labels,
+    seed mask, in_cols), and the batch."""
+    from custom_op_benchmark_tpu_torch.data import NeighborSampler
+    from custom_op_benchmark_tpu_torch.train import run
+
+    ds = reddit["ds"]
+    sampler = sampler or NeighborSampler(ds.graph, run.REDDIT_FANOUTS,
+                                         seed=SEED)
+    seeds = np.nonzero(ds.train_mask)[0][: run.REDDIT_BATCH]
+    b = sampler.sample(seeds)
+    ids = torch.from_numpy(b.node_ids.astype(np.int64)).to(dev)
+    return (b.graph.to(dev), reddit["feats"][ids],
+            reddit["labels"][torch.from_numpy(b.seed_ids).long().to(dev)],
+            torch.from_numpy(b.seed_mask).to(dev),
+            torch.from_numpy(b.in_cols).to(dev)), b
+
+
+def reddit_model(ds, dev):
+    from custom_op_benchmark_tpu_torch.train import run
+
+    model = run.reddit_sage_model(ds)
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    return model.to(dev)
+
+
+def phase_determinism(kern, dev, reddit):
+    """Each case twice on the card, compared with ``torch.equal``: the
+    cases of ``experiments/determinism.py`` (the segment pipeline forward
+    and backward, ELL and block attention, ``fit_full_graph`` of a GAT with
+    strategy None, ``"ell"`` and ``"block"``), and two full-width
+    reddit_sage steps from the same state and batch."""
+    from custom_op_benchmark_tpu_torch.experiments import determinism
+    from custom_op_benchmark_tpu_torch.train import (
+        create_train_state,
+        make_sampled_step,
+    )
+    from custom_op_benchmark_tpu_torch.train.checkpoint import (
+        load_payload,
+        state_payload,
+    )
+
+    kern.reset()
+    results = {}
+    for name, fn in determinism.cases(dev).items():
+        t0 = time.perf_counter()
+        results[name] = determinism.repeats(fn)
+        log(f"[determinism] {name}: {'same bits' if results[name] else 'DIFFERENT'}"
+            f" on a repeat ({time.perf_counter() - t0:.1f} s)")
+        torch.cuda.empty_cache()
+
+    args, _ = reddit_batch(reddit, dev)
+    state = create_train_state(reddit_model(reddit["ds"], dev),
+                               learning_rate=1e-3)
+    start = state_payload(state, clone=True)
+    step = make_sampled_step()
+    runs = []
+    for _ in range(2):
+        load_payload(state, copy.deepcopy(start))
+        loss = step(state, *args)
+        runs.append([loss] + [p.detach().clone()
+                              for p in state.model.parameters()])
+    results["sampled_step"] = determinism.same_bits(*runs)
+    log(f"[determinism] sampled_step (reddit_sage, full width): "
+        f"{'same bits' if results['sampled_step'] else 'DIFFERENT'}; "
+        f"kernel launches in the phase {kern.launches()}")
+    bad = [k for k, ok in results.items() if not ok]
+    assert not bad, f"not repeated bit for bit: {bad}"
+    return results
+
+
+def phase_sampled(kern, dev, reddit, l2_rate):
+    """reddit_sage on the card: S3 at the sampled shape (d = 300 and 128)
+    and the CSR entry at the sampled backward's shape against their plain
+    versions, S3 timed; 20 steps of ``fit_sampled``'s step and sampler
+    through the prefetch pipeline under the profiler (the device's idle
+    share), a prefetched epoch's batches against the same batches made in
+    line; then the command line at ``--scale 1`` for its 2 epochs with the
+    counters set to 0 before and read after: S3 and the CSR entry launched,
+    the native sampler ran, finite loss."""
+    import contextlib
+    import io
+
+    from custom_op_benchmark_tpu_torch.data import NeighborSampler, prefetch
+    from custom_op_benchmark_tpu_torch.graph import native
+    from custom_op_benchmark_tpu_torch.train import (
+        create_train_state,
+        make_sampled_step,
+        run,
+    )
+    from custom_op_benchmark_tpu_torch.train.loop import sampled_batches
+
+    ds = reddit["ds"]
+    calls0 = native.sample_subgraph_native.calls
+    (g, x, y, m, cols), b = reddit_batch(reddit, dev)
+    assert native.sample_subgraph_native.calls == calls0 + 1, \
+        "the native sampler did not run"
+    n = g.n_nodes
+    real = int((cols < n).sum())
+    log(f"[sampled] batch: {n} nodes ({int(b.node_mask.sum())} real), "
+        f"{g.num_edges_padded} edge slots ({g.n_edges} real), in_cols "
+        f"{tuple(cols.shape)} with {real} real slots")
+    h = normal(np.random.default_rng(SEED + 21), n, 128, device=dev)
+    calls = {"gather_sum:sampled d=300": (cols, x),
+             "gather_sum:sampled d=128": (cols, h),
+             "csr_sum:sampled backward": (g.indptr_r[: n + 1], h, g.dst)}
+    errs = check_kernels(kern, calls, "reddit batch")
+    rows = {}
+    for key in ("gather_sum:sampled d=300", "csr_sum:sampled backward"):
+        args = calls[key]
+        lib = (True if key.startswith("gather_sum")
+               else csr_yardstick(*args))
+        rows[key] = time_row(kern, key, args, "reddit batch", {}, lib=lib)
+        gathered = real * args[1].shape[1] * 4
+        rows[key]["bound_l2_ms"] = gathered / l2_rate * 1e3
+
+    # The prefetched batches equal the batches made in line.
+    train_ids = np.nonzero(ds.train_mask)[0][: 8 * run.REDDIT_BATCH]
+    made = [NeighborSampler(ds.graph, run.REDDIT_FANOUTS, seed=SEED)
+            for _ in range(2)]
+    inline = list(sampled_batches(made[0], train_ids, run.REDDIT_BATCH))
+    fetched = list(prefetch(sampled_batches(made[1], train_ids,
+                                            run.REDDIT_BATCH), 2, device=dev))
+    torch.cuda.synchronize()
+    same = len(inline) == len(fetched) and all(
+        torch.equal(torch.as_tensor(u), v.cpu())
+        for bi, bf in zip(inline, fetched)
+        for u, v in zip((bi[0].src, bi[0].dst, *bi[1:]),
+                        (bf[0].src, bf[0].dst, *bf[1:])))
+    log(f"[sampled] {len(fetched)} prefetched batches equal to the same "
+        f"batches made in line: {same}")
+    assert same
+
+    # 20 steady steps of fit_sampled's step through the pipeline, profiled.
+    state = create_train_state(reddit_model(ds, dev), learning_rate=1e-3)
+    step = make_sampled_step()
+    sampler = NeighborSampler(ds.graph, run.REDDIT_FANOUTS, seed=SEED)
+    batches = prefetch(sampled_batches(sampler, np.nonzero(
+        ds.train_mask)[0], run.REDDIT_BATCH), 2, device=dev)
+
+    def one():
+        gb, ids, seeds, mask, cb = next(batches)
+        return step(state, gb, reddit["feats"][ids], reddit["labels"][seeds],
+                    mask, cb)
+
+    for _ in range(5):
+        one()
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_STEPS):
+            one()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for s, e in spans:
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    idle = None
+    if spans:
+        window = spans[-1][1] - spans[0][0]
+        idle = 1.0 - busy / window
+        log(f"[sampled] profiled {PROFILE_STEPS} steps: {wall * 1e3:.1f} ms "
+            f"of wall time, device busy {busy / 1e3:.1f} ms of a "
+            f"{window / 1e3:.1f} ms window: idle share {idle:.3f}; "
+            f"{len(spans)} device events")
+    else:
+        log("[sampled] the profiler saw no device events: idle share not "
+            "measured")
+    del batches, state
+
+    # The command line at full width for its default 2 epochs.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kern.reset()
+    calls0 = native.sample_subgraph_native.calls
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = run.main(["--config", "reddit_sage", "--scale",
+                       str(REDDIT_SCALE)])
+    peak = sync_peak_gib()
+    line = out.getvalue().strip().splitlines()[-1]
+    launches = kern.launches()
+    sampled_calls = native.sample_subgraph_native.calls - calls0
+    log(f"[cli] {line}")
+    log(f"[sampled] reddit_sage --scale {REDDIT_SCALE}: peak memory "
+        f"{peak:.2f} GiB; native sampler calls {sampled_calls}; kernel "
+        f"launches {launches}")
+    rec = json.loads(line)
+    assert rc == 0 and rec["config"] == "reddit_sage", (rc, rec)
+    assert np.isfinite(rec["final_loss"]) and rec["steps"] > 0, rec
+    assert sampled_calls >= rec["steps"], (sampled_calls, rec["steps"])
+    assert launches["gather_sum"] > 0 and launches["csr_sum"] > 0, launches
+    return dict(errs=errs, rows=rows, cli=rec, peak_gib=peak, idle=idle,
+                launches=launches)
+
+
+def phase_resilient(kern, dev):
+    """``resilient_steps`` on the card: cora_gat's GAT on the cora-like
+    graph (segment path), N steps straight against k steps with a checkpoint, then
+    a fresh state resumed from it for the rest (``torch.equal`` on every
+    parameter), and a non-finite loss restored from the last checkpoint."""
+    import shutil
+    from pathlib import Path
+
+    from custom_op_benchmark_tpu_torch.train import (
+        CheckpointManager,
+        create_train_state,
+        make_train_step,
+        resilient_steps,
+        run,
+    )
+
+    ds = run.cora_dataset(1)
+    g = ds.graph.to(dev)
+    x, y, m = (torch.from_numpy(a).to(dev)
+               for a in (ds.features, ds.labels, ds.train_mask))
+    train_step = make_train_step()
+
+    def new_state():
+        model = run.cora_gat_model(ds)
+        model.reset_parameters(torch.Generator().manual_seed(SEED))
+        return create_train_state(model.to(dev), learning_rate=5e-3)
+
+    def step(state, _i):
+        loss, _ = train_step(state, g, x, y, m)
+        return state, loss
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    n, k = RESILIENT_STEPS
+    straight, losses = resilient_steps(step, new_state(), n)
+    mgr = CheckpointManager(str(root / "run"), keep=2)
+    resilient_steps(step, new_state(), k, manager=mgr)
+    events = []
+    resumed, rest = resilient_steps(step, new_state(), n, manager=mgr,
+                                    on_event=lambda e, s: events.append(e))
+    same = rest == losses[k:] and all(
+        torch.equal(a, b) for a, b in zip(resumed.model.parameters(),
+                                          straight.model.parameters()))
+    flaky = {"once": True}
+
+    def bad(state, i):
+        state, loss = step(state, i)
+        if i == n - 2 and flaky.pop("once", False):
+            loss = torch.full_like(loss, float("nan"))
+        return state, loss
+
+    mgr2 = CheckpointManager(str(root / "diverge"), keep=2)
+    ev2 = []
+    replayed, again = resilient_steps(bad, new_state(), n, manager=mgr2,
+                                      checkpoint_every=2,
+                                      on_event=lambda e, s: ev2.append(e))
+    same2 = again == losses and all(
+        torch.equal(a, b) for a, b in zip(replayed.model.parameters(),
+                                          straight.model.parameters()))
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[resilient] cora_gat GAT, {n} steps straight vs {k} + checkpoint "
+        f"+ resume ({events}): same bits {same}; a non-finite loss at step "
+        f"{n - 2} restored ({ev2.count('restore')} restore): same bits "
+        f"{same2}; losses {losses[0]:.6f} .. {losses[-1]:.6f}")
+    assert same and same2 and "resume" in events
+    assert ev2.count("restore") == 1
+
+
 def kernel_row(name, source, replaces, n, err, row, shape):
     out = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": n, "max_abs_err": err,
@@ -2085,6 +2517,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     arxiv_in = run("arxiv build", arxiv_data, dev)
     arxiv = run("arxiv", phase_arxiv, kern, arxiv_in)
+    l2_rate = l2_gather_rate(dev)
+    log(f"[s3] L2 gather rate (benchlib.l2_gather_rate): "
+        f"{l2_rate / 1e12:.3f} TB/s")
+    csr_errs, csr_row = run("csr", phase_csr, kern, arxiv_in, l2_rate)
     gc.collect()
     torch.cuda.empty_cache()
     dtype = run("dtype", phase_dtype, kern, dev, g, tg, arxiv_in)
@@ -2098,16 +2534,26 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     run("cli", phase_cli, kern, dev)
-    l2_rate = l2_gather_rate(dev)
-    log(f"[s3] L2 gather rate (benchlib.l2_gather_rate): "
-        f"{l2_rate / 1e12:.3f} TB/s")
     s3_times = run("S3 times", phase_s3_times, kern, s3_inputs, l2_rate)
+    reddit = run("reddit build", reddit_data, dev)
+    run("determinism", phase_determinism, kern, dev, reddit)
+    sampled = run("sampled", phase_sampled, kern, dev, reddit, l2_rate)
+    del reddit
+    gc.collect()
+    torch.cuda.empty_cache()
+    run("resilient", phase_resilient, kern, dev)
     log(f"[phase] all: {sum(run.seconds.values()):.1f} s")
     report = []
     for name, (_, _, source, replaces) in kern.table.items():
         if name in SLICE_KERNELS:
             row, err = times[(name, "h=8 d=64")], errs[name]
             n, shape = launches[name], "GraphTransformer slice, h=8 d=64"
+        elif name == "csr_sum":
+            row, err = csr_row, csr_errs["csr_sum:copy"]
+            n = sampled["launches"]["csr_sum"]
+            shape = ("arxiv copy-sum: 160,000 rows, 4.31M slots through "
+                     "src_csc, d=128; launches: the reddit_sage command "
+                     "line at --scale 1 (sampled backward, evaluation)")
         elif name == "gather_sum":
             row, err = s3_times["gather_sum"], s3_errs["gather_sum:experiment"]
             n = arxiv["s3_launches"]
@@ -2157,6 +2603,16 @@ def main() -> int:
             f"clique suite 512x30, unaligned tiling, one head, "
             f"{key.partition(' ')[2]}; launches: one clique suite run "
             f"(every shape of the suite)"))
+    for key, row in sampled["rows"].items():
+        name = key.partition(":")[0]
+        _, _, source, replaces = kern.table[name]
+        report.append(kernel_row(
+            key, source, replaces, sampled["launches"][name],
+            sampled["errs"][key], row,
+            "reddit_sage batch: 70,656 nodes, in_cols 70,656 x 32, "
+            + ("x d=300" if name == "gather_sum" else "dy d=128 over "
+               "indptr_r and dst") + "; launches: the reddit_sage command "
+            "line at --scale 1"))
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -59,6 +59,21 @@
 // 8-byte aligned rows, else one bf16 a lane. The f32 path is unchanged
 // (same operations, same bits).
 
+// CSR entry (csr_sum): y[r, :] = sum_{k in [ptr[r], ptr[r+1])} x[idx[k], :]
+// with idx optional (the identity: slot k reads row k). This is S3's
+// function over a CSR row range instead of an ELL table: the sorted
+// segment sum of the segment ops (ops/xla.py segment_sum, with idx the
+// CSC permutation on the dst side), the copy forms of gspmm (idx = the
+// other endpoint, so the (E, d) message never reaches memory) and the
+// backward of the sampled copy-sum (ops/sampled.py). It needs no padding
+// and no table build, which matters where a sampled batch brings a new
+// graph every step. Each row is one warp's chain in slot order with
+// S3's compensated sum (row_sum), so every run gives the same bits and
+// no atomics are used: it replaces index_add_, whose atomics on the card
+// add in an order that changes from run to run. Bound: bytes, as S3 (one
+// row of x read per slot, each output row written once); its longest
+// row sets a floor of one warp's chain, as S3's hub rows do.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -156,16 +171,19 @@ struct Chunk<bf16, false> : Vec1 {
 constexpr int MAX_BUCKETS = 64;
 
 // The sum over slots 0 .. D-1 of row_cols of x's rows, at feature f of
-// this lane (active: f < d), in slot order, compensated, in f32.
-template <typename E, bool VEC>
+// this lane (active: f < d), in slot order, compensated, in f32. Without
+// IDX the slots name the rows base, base + 1, ... of x themselves (the
+// CSR sum over edge data, csr_sum below); the arithmetic is the same.
+template <typename E, bool VEC, bool IDX = true>
 __device__ __forceinline__ typename Chunk<E, VEC>::T row_sum(
     const int* __restrict__ row_cols, int D, const E* __restrict__ x,
-    int d, int n_x, int f, bool active, int lane) {
+    int d, int n_x, int f, bool active, int lane, int base = 0) {
   using C = Chunk<E, VEC>;
   typename C::T acc = C::zero(), carry = C::zero();
   for (int k0 = 0; k0 < D; k0 += 32) {
     const int kn = min(32, D - k0);
-    const int mine = lane < kn ? row_cols[k0 + lane] : -1;
+    const int mine =
+        lane < kn ? (IDX ? row_cols[k0 + lane] : base + k0 + lane) : -1;
     int j = 0;
     for (; j + UNROLL <= kn; j += UNROLL) {
       typename C::T v[UNROLL];
@@ -252,6 +270,57 @@ int dispatch(const int* table, int n_buckets, const int* cols,
                                 zero_nodes, n_zero, x, y, d, n_x, stream);
 }
 
+// CSR sum (csr_sum): one warp per task (row, feature chunk), rows in
+// order; row r sums the slots ptr[r] .. ptr[r+1]-1 with row_sum, so a row
+// of any length is one warp's chain in slot order, the same operations
+// as an ELL row of S3 with no padded slot.
+template <typename E, bool VEC, bool IDX>
+__global__ void __launch_bounds__(THREADS)
+csr_sum_kernel(const int* __restrict__ ptr, int n_rows,
+               const int* __restrict__ idx, const E* __restrict__ x,
+               E* __restrict__ y, int d, int n_x, int n_chunks) {
+  using C = Chunk<E, VEC>;
+  const int lane = threadIdx.x & 31;
+  const long long task =
+      (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (task >= (long long)n_rows * n_chunks) return;
+  const int row = (int)(task / n_chunks);
+  const int f = (int)(task % n_chunks) * C::WIDTH + lane * C::PER_LANE;
+  const bool active = f < d;
+  const int lo = ptr[row];
+  const int D = ptr[row + 1] - lo;
+  const typename C::T acc = row_sum<E, VEC, IDX>(
+      IDX ? idx + lo : nullptr, D, x, d, n_x, f, active, lane, lo);
+  if (active) C::store(y + (size_t)row * d + f, acc);
+}
+
+template <typename E, bool VEC>
+int launch_csr(const int* ptr, int n_rows, const int* idx, const E* x,
+               E* y, int d, int n_x, cudaStream_t stream) {
+  const int n_chunks =
+      (d + Chunk<E, VEC>::WIDTH - 1) / Chunk<E, VEC>::WIDTH;
+  const long long tasks = (long long)n_rows * n_chunks;
+  const long long blocks = (tasks + WARPS - 1) / WARPS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  if (blocks == 0) return 0;
+  if (idx)
+    csr_sum_kernel<E, VEC, true><<<(unsigned)blocks, THREADS, 0, stream>>>(
+        ptr, n_rows, idx, x, y, d, n_x, n_chunks);
+  else
+    csr_sum_kernel<E, VEC, false><<<(unsigned)blocks, THREADS, 0, stream>>>(
+        ptr, n_rows, idx, x, y, d, n_x, n_chunks);
+  return (int)cudaGetLastError();
+}
+
+template <typename E>
+int dispatch_csr(const int* ptr, int n_rows, const int* idx, const E* x,
+                 E* y, int d, int n_x, int vec, int device,
+                 cudaStream_t stream) {
+  cudaSetDevice(device);
+  return vec ? launch_csr<E, true>(ptr, n_rows, idx, x, y, d, n_x, stream)
+             : launch_csr<E, false>(ptr, n_rows, idx, x, y, d, n_x, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -276,6 +345,26 @@ int gather_sum_bf16(const int* table, int n_buckets, const int* cols,
                     int vec, int device, cudaStream_t stream) {
   return dispatch<bf16>(table, n_buckets, cols, nodes, n_rows, zero_nodes,
                         n_zero, x, y, d, n_x, vec, device, stream);
+}
+
+// ptr (n_rows + 1,) int32, sorted; idx int32 naming a row of x for each
+// slot, or null for the identity (slot k reads row k); x (n_x, d) f32 ->
+// y (n_rows, d) f32, y[r] = sum of x's rows over slots ptr[r] ..
+// ptr[r+1]-1 in slot order (compensated); a slot naming a row outside
+// [0, n_x) adds zero. vec as for gather_sum_f32. d > 0.
+int csr_sum_f32(const int* ptr, int n_rows, const int* idx, const float* x,
+                float* y, int d, int n_x, int vec, int device,
+                cudaStream_t stream) {
+  return dispatch_csr<float>(ptr, n_rows, idx, x, y, d, n_x, vec, device,
+                             stream);
+}
+
+// The same in bf16: sums in f32, rounded once.
+int csr_sum_bf16(const int* ptr, int n_rows, const int* idx, const bf16* x,
+                 bf16* y, int d, int n_x, int vec, int device,
+                 cudaStream_t stream) {
+  return dispatch_csr<bf16>(ptr, n_rows, idx, x, y, d, n_x, vec, device,
+                            stream);
 }
 
 }  // extern "C"

@@ -6,11 +6,13 @@ configs (Cora, ogbn-arxiv) at matching scales. Everything is drawn with
 numpy from ``np.random.default_rng(seed)`` in the reference's order, so one
 seed gives the same graph, features, labels and masks in both packages.
 The arrays stay numpy; the graph is built on the host.
+``from_numpy_files`` loads the same record from an .npz.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -108,3 +110,20 @@ def arxiv_like(seed: int = 0, **kw) -> NodeClassificationDataset:
     kw.setdefault("feat_dim", 128)
     kw.setdefault("avg_degree", 7)
     return planted_partition(seed=seed, name="arxiv_like", **kw)
+
+
+def from_numpy_files(path: str, name: str = "file") -> NodeClassificationDataset:
+    """Load a dataset from an .npz with src/dst/features/labels/masks (or a
+    directory holding ``graph.npz``)."""
+    z = np.load(path if path.endswith(".npz")
+                else os.path.join(path, "graph.npz"))
+    n = int(z["features"].shape[0])
+    return NodeClassificationDataset(
+        graph=from_coo(z["src"], z["dst"], n),
+        features=z["features"].astype(np.float32),
+        labels=z["labels"].astype(np.int32),
+        train_mask=z["train_mask"].astype(bool),
+        val_mask=z["val_mask"].astype(bool),
+        test_mask=z["test_mask"].astype(bool),
+        num_classes=int(z["labels"].max()) + 1,
+        name=name)

@@ -2,9 +2,9 @@
 
 Counterpart of custom_op_benchmark_tpu/graph/native.py for the entry
 points the port uses so far: the dual-CSR build (``from_coo``), the row
-chunking (``partition_csr``), union-find components (``reorder``) and the
-ELL packer (``ell_pack``). The samplers come with ROADMAP M10, the halo
-plans with M12.
+chunking (``partition_csr``), union-find components (``reorder``), the
+ELL packer (``ell_pack``) and the neighbour samplers
+(``data/sampling.py``). The halo plans come with ROADMAP M12.
 
 The library is the port's own copy of the C++ source
 (``custom_op_benchmark_tpu_torch/csrc/graphcore.cpp``). ``g++`` builds it
@@ -14,10 +14,12 @@ builds anew and a stale library never shadows it. The build writes a
 temporary file and renames it into place, so processes that build at
 once (test workers) never load a half-written library.
 
-Every entry point has an exact numpy equivalent in its caller, which runs
-when the library cannot be built (no compiler): each function here
-returns None then, and :func:`available` says which path runs. Each
-counts its native calls in ``<function>.calls``.
+Every entry point has a numpy equivalent in its caller, which runs when
+the library cannot be built (no compiler): each function here returns
+None then, and :func:`available` says which path runs. The builds give
+the same arrays on both paths; the samplers' numpy path draws from
+another generator, as the reference's does, so it samples other edges.
+Each entry point counts its native calls in ``<function>.calls``.
 """
 
 from __future__ import annotations
@@ -50,6 +52,13 @@ _SIGNATURES = {
         _I32P, _I32P, _I64, _I64, _I32P]),
     "graphcore_ell_pack": (_I64, [
         _I32P, _I64, _I32P, _I64P, _I64, _I64P, _I64, _I64, _I64P,
+        _I32P, _I32P, _I32P, _I32P, _I64P]),
+    "graphcore_sample_in_edges": (_I64, [
+        _I32P, _I32P, _I64, _I32P, _I64, ctypes.c_int32, ctypes.c_uint64,
+        _I32P, _I32P]),
+    "graphcore_sample_subgraph": (_I64, [
+        _I32P, _I32P, _I64, _I32P, _I64, _I32P, _I64, ctypes.c_uint64,
+        ctypes.c_int32, _I64, _I64, ctypes.c_int32, ctypes.c_int32,
         _I32P, _I32P, _I32P, _I32P, _I64P]),
 }
 
@@ -198,7 +207,64 @@ def ell_pack_native(indptr, cols_all, eids_all, n_nodes: int, e_pad: int,
     return bucket_rows, rows_flat, cols_flat, eid_flat, row_pos, edge_pos
 
 
+def sample_in_edges_native(indptr_c, indices_c, n_nodes: int, seeds,
+                           fanout: int, seed: int):
+    """For each seed, at most ``fanout`` in-edges drawn without replacement
+    (all of them where the degree is not larger): ``(src, dst)`` int32, or
+    None without the library. ctypes releases the GIL for the call."""
+    lib = _load()
+    if lib is None:
+        return None
+    indptr_c = np.ascontiguousarray(indptr_c, np.int32)
+    indices_c = np.ascontiguousarray(indices_c, np.int32)
+    seeds = np.ascontiguousarray(seeds, np.int32)
+    cap = len(seeds) * fanout
+    src, dst = np.empty(cap, np.int32), np.empty(cap, np.int32)
+    w = lib.graphcore_sample_in_edges(
+        _p32(indptr_c), _p32(indices_c), n_nodes, _p32(seeds), len(seeds),
+        fanout, seed, _p32(src), _p32(dst))
+    sample_in_edges_native.calls += 1
+    return src[:w], dst[:w]
+
+
+def sample_subgraph_native(indptr_c, indices_c, n_nodes: int, seeds,
+                           fanouts, seed: int, *, add_self_loops: bool,
+                           max_nodes: int, max_edges: int, w: int,
+                           n_threads: int = 1):
+    """Layered sampling of a whole minibatch (graphcore_sample_subgraph):
+    ``(node_ids, n_local, lsrc, ldst, n_edges, in_cols)`` with ``lsrc`` and
+    ``ldst`` sized ``max_edges`` (only the first ``n_edges`` hold edges),
+    or None without the library or when the call fails. Raises
+    AssertionError when a sampled in-degree exceeds ``w``. ctypes
+    releases the GIL for the call, so a prefetch thread overlaps it with
+    the device's steps."""
+    lib = _load()
+    if lib is None:
+        return None
+    indptr_c = np.ascontiguousarray(indptr_c, np.int32)
+    indices_c = np.ascontiguousarray(indices_c, np.int32)
+    seeds = np.ascontiguousarray(seeds, np.int32)
+    fanouts = np.ascontiguousarray(fanouts, np.int32)
+    node_ids = np.empty(max_nodes, np.int32)
+    lsrc, ldst = np.empty(max_edges, np.int32), np.empty(max_edges, np.int32)
+    in_cols = np.empty((max_nodes, int(w)), np.int32)
+    n_out = np.zeros(2, np.int64)
+    rc = lib.graphcore_sample_subgraph(
+        _p32(indptr_c), _p32(indices_c), n_nodes, _p32(seeds), len(seeds),
+        _p32(fanouts), len(fanouts), seed, int(add_self_loops), max_nodes,
+        max_edges, int(w), int(n_threads), _p32(node_ids), _p32(lsrc),
+        _p32(ldst), _p32(in_cols), _p64(n_out))
+    if rc == -4:
+        raise AssertionError(f"sampled in-degree exceeds the dense-ELL "
+                             f"width {w}; sampler invariant broken")
+    if rc != 0:
+        return None
+    sample_subgraph_native.calls += 1
+    return node_ids, int(n_out[0]), lsrc, ldst, int(n_out[1]), in_cols
+
+
 ENTRY_POINTS = (build_dual_csr, partition_csr_native,
-                connected_components_native, ell_pack_native)
+                connected_components_native, ell_pack_native,
+                sample_in_edges_native, sample_subgraph_native)
 for _fn in ENTRY_POINTS:
     _fn.calls = 0

@@ -38,6 +38,7 @@ from custom_op_benchmark_tpu_torch.ops import (
     ell_gat_attention,
     softmax_aggregate_dst,
 )
+from custom_op_benchmark_tpu_torch.ops.xla import gather_rows
 
 
 class GATLayer(nn.Module):
@@ -100,9 +101,9 @@ class GATLayer(nn.Module):
         else:
             el = torch.einsum("nhd,hd->nh", z, a_l)
             er = torch.einsum("nhd,hd->nh", z, a_r)
-            # Padded edge endpoints clamp; their scores are masked.
-            scores = (el[g.src.long().clamp(max=n - 1)]
-                      + er[g.dst.long().clamp(max=n - 1)])
+            # Padded edge endpoints clamp; their scores are masked. The
+            # gathers' VJP is a sorted segment sum (no atomics).
+            scores = gather_rows(g, el, "src") + gather_rows(g, er, "dst")
             scores = F.leaky_relu(scores, self.negative_slope)
             dropout_fn = None
             if self.dropout_rate > 0.0 and self.training:

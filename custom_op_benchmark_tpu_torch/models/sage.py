@@ -3,9 +3,10 @@
 Counterpart of custom_op_benchmark_tpu/models/sage.py, full-graph: the
 neighbour mean runs on the segment path (``gspmm`` copy_lhs, mean), given
 ``ell`` on the ELL copy-SpMM, whose forward and backward are the CUDA
-kernel S3, or given ``block`` on ``block_copy_spmm`` with the whole stack
-in the ``(B, L, ·)`` layout. The sampled-minibatch path (``in_cols=``)
-comes with ROADMAP M10.
+kernel S3, given ``block`` on ``block_copy_spmm`` with the whole stack in
+the ``(B, L, ·)`` layout, or given ``in_cols`` (a sampled minibatch's
+in-neighbour matrix) on ``sampled_copy_spmm``: S3 forward, its CSR entry
+backward.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from custom_op_benchmark_tpu_torch.ops import (
     ell_copy_spmm,
     gspmm,
 )
+from custom_op_benchmark_tpu_torch.ops.sampled import sampled_copy_spmm
 
 
 class SAGELayer(nn.Module):
@@ -37,9 +39,7 @@ class SAGELayer(nn.Module):
         if block is not None:
             neigh = block_copy_spmm(block, x, reduce="mean")
         elif in_cols is not None:
-            raise NotImplementedError(
-                "the sampled-minibatch path (in_cols=) comes with ROADMAP "
-                "M10")
+            neigh = sampled_copy_spmm(in_cols, g, x, reduce="mean")
         elif ell is not None:
             src_ell, dst_ell = ell
             neigh = ell_copy_spmm(dst_ell, src_ell, x, reduce="mean")

@@ -10,6 +10,11 @@ Counterpart of ``pallas_gather_sum`` in scripts/exp_pallas_gather.py:
   table, it sums that bucket into rows 0..R-1 (the TPU kernel's function,
   the shape of experiments/exp_pallas_gather.py).
 
+- :func:`csr_sum` (S3's CSR entry) — ``y[r] = Σ_{k ∈ [ptr[r], ptr[r+1])}
+  x[idx[k]]`` over a CSR row range, ``idx`` optional (slot k reads row k):
+  the sorted segment sum of the segment ops, the copy forms of ``gspmm``
+  and the sampled copy-sum's backward, in a fixed order with no atomics.
+
 A slot whose column is outside ``[0, n_x)`` adds zero: the ELL pad column
 ``n_nodes`` needs no padded row of x, the convention of S1/S2. Any R is
 taken (the TPU kernel needs R % 8 == 0, its grid drops the tail), and any
@@ -21,7 +26,9 @@ where they are added, never copied to f32 as a whole.
 
 The wrapper runs the CUDA kernel (csrc/gather_sum.cu) on CUDA tensors and
 the plain version only on CPU tensors; ``gather_sum.launches`` counts
-float32 kernel launches and ``gather_sum.launches_bf16`` bfloat16 ones.
+float32 kernel launches and ``gather_sum.launches_bf16`` bfloat16 ones,
+and ``csr_sum.launches`` / ``csr_sum.launches_bf16`` those of the CSR
+entry.
 """
 
 from __future__ import annotations
@@ -111,3 +118,83 @@ def gather_sum(cols, x: torch.Tensor) -> torch.Tensor:
 
 gather_sum.launches = 0
 gather_sum.launches_bf16 = 0
+
+
+def _csr_args(ptr: torch.Tensor, x: torch.Tensor, idx):
+    if x.dim() < 1 or not x.dtype.is_floating_point:
+        raise ValueError(f"x must be floating point with a row axis, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if ptr.dim() != 1 or ptr.numel() < 1 or ptr.dtype != torch.int32:
+        raise ValueError(f"ptr must be (n_rows + 1,) int32, got {ptr.dtype} "
+                         f"{tuple(ptr.shape)}")
+    if idx is not None and (idx.dim() != 1 or idx.dtype != torch.int32):
+        raise ValueError(f"idx must be (E,) int32, got {idx.dtype} "
+                         f"{tuple(idx.shape)}")
+
+
+def csr_sum_plain(ptr: torch.Tensor, x: torch.Tensor,
+                  idx: torch.Tensor = None) -> torch.Tensor:
+    """The CSR sum in plain PyTorch: rows grouped by length into powers of
+    two, each group gathered into ``(rows, width, ...)`` (a padded slot
+    reads a zero row) and summed in f32 (f64 for f64), then rounded once
+    to x's dtype. Any floating dtype (the kernel takes f32 and bf16)."""
+    _csr_args(ptr, x, idx)
+    n_rows, n_x = ptr.numel() - 1, x.shape[0]
+    trail = tuple(x.shape[1:])
+    acc = torch.promote_types(x.dtype, torch.float32)
+    out = torch.zeros((n_rows,) + trail, dtype=acc, device=x.device)
+    lo = ptr[:-1].long()
+    length = ptr[1:].long() - lo
+    if n_rows == 0 or int(length.max()) <= 0:
+        return out.to(x.dtype)
+    xz = torch.cat([x, x.new_zeros((1,) + trail)])
+    width = torch.where(length > 0,
+                        2 ** torch.ceil(torch.log2(length.clamp(min=1)
+                                                   .double())).long(), 0)
+    for w in torch.unique(width).tolist():
+        if w == 0:
+            continue
+        rows = torch.nonzero(width == w)[:, 0]
+        k = lo[rows, None] + torch.arange(w, device=x.device)
+        valid = k < (lo + length)[rows, None]
+        if idx is not None:
+            k = idx[k.clamp(max=max(idx.numel() - 1, 0))].long()
+        c = torch.where(valid & (k >= 0) & (k < n_x), k, n_x)
+        out[rows] = xz[c].sum(1, dtype=acc)
+    return out.to(x.dtype)
+
+
+def csr_sum(ptr: torch.Tensor, x: torch.Tensor,
+            idx: torch.Tensor = None) -> torch.Tensor:
+    """ptr: (n_rows + 1,) int32 row offsets; x: (n_x, ...) float32 or
+    bfloat16; idx: (E,) int32 rows of x for the slots, or None (slot k
+    reads row k) → y (n_rows, ...): row r the sum over slots ptr[r] ..
+    ptr[r+1]-1 (a slot naming a row outside [0, n_x) adds 0), in slot
+    order, f32 sums rounded once to x's dtype. The same inputs give the
+    same bits on every run."""
+    _csr_args(ptr, x, idx)
+    tensors = (ptr, x) if idx is None else (ptr, x, idx)
+    if _on_cpu(*tensors):
+        return csr_sum_plain(ptr, x, idx)
+    xf = x.reshape(x.shape[0], -1)
+    ints = (ptr,) if idx is None else (ptr, idx)
+    _check_cuda(ints=ints, floats=(xf,), bf16=True)
+    trail = tuple(x.shape[1:])
+    n_rows, d = ptr.numel() - 1, xf.shape[1]
+    out = torch.empty((n_rows, d), device=x.device, dtype=x.dtype)
+    if d == 0 or n_rows == 0:
+        return out.reshape((n_rows,) + trail)
+    align = 4 * x.element_size()
+    vec = int(d % 4 == 0 and xf.data_ptr() % align == 0
+              and out.data_ptr() % align == 0)
+    dev, stream = _stream(x)
+    name = _entry("csr_sum", x)
+    _build.check(getattr(_build.library(), name)(
+        _p(ptr), n_rows, None if idx is None else _p(idx), _p(xf), _p(out),
+        d, xf.shape[0], vec, dev, stream), name)
+    _count(csr_sum, x)
+    return out.reshape((n_rows,) + trail)
+
+
+csr_sum.launches = 0
+csr_sum.launches_bf16 = 0

@@ -221,7 +221,8 @@ def softmax_aggregate_dst(g: Graph, scores: torch.Tensor, x: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
-# Generalised message passing (gSDDMM / gSpMM): plain torch, autograd
+# Generalised message passing (gSDDMM / gSpMM): gathers by endpoint and
+# sorted segment sums with hand VJPs (ops/xla.py), no atomics
 # ---------------------------------------------------------------------------
 
 _BINARY = {
@@ -237,9 +238,9 @@ _BINARY = {
 
 def _edge_operand(g: Graph, x, target: str):
     if target == "u":
-        return x[g.src.long().clamp(max=x.shape[0] - 1)]
+        return _xla.gather_rows(g, x, "src")
     if target == "v":
-        return x[g.dst.long().clamp(max=x.shape[0] - 1)]
+        return _xla.gather_rows(g, x, "dst")
     if target == "e":
         return x
     raise ValueError(f"target must be u/v/e, got {target!r}")
@@ -266,28 +267,36 @@ def gspmm(g: Graph, op: str, reduce: str, lhs=None, rhs=None, *,
         raise ValueError(f"reduce must be sum/mean/max/min, got {reduce!r}")
     if to not in ("src", "dst"):
         raise ValueError(f"to must be 'src' or 'dst', got {to!r}")
-    if lhs is None:
-        msg = _edge_operand(g, rhs, rhs_target)
-    elif rhs is None:
-        msg = _edge_operand(g, lhs, lhs_target)
-    else:
-        msg = _BINARY[op](_edge_operand(g, lhs, lhs_target),
-                          _edge_operand(g, rhs, rhs_target))
     n = g.n_nodes
-    if to == "src":
-        ids = g.src
+    operands = [(x, t) for x, t in ((lhs, lhs_target), (rhs, rhs_target))
+                if x is not None]
+    if len(operands) == 2 and op == "copy_lhs":
+        operands = operands[:1]
+    elif len(operands) == 2 and op == "copy_rhs":
+        operands = operands[1:]
+    frm = {"u": "src", "v": "dst"}.get(operands[0][1])
+    if (len(operands) == 1 and reduce in ("sum", "mean") and frm is not None
+            and frm != to):
+        # A node feature copied along each edge and summed at the other
+        # end: one CSR sum, with no (E, d) message in memory.
+        s = _xla.copy_sum(g, operands[0][0], frm, to)
     else:
-        msg = msg[g.csc_perm.long()]
-        ids = g.dst_csc
+        msg = _edge_operand(g, *operands[0])
+        if len(operands) == 2:
+            msg = _BINARY[op](msg, _edge_operand(g, *operands[1]))
+        if reduce in ("max", "min"):
+            ids = g.src if to == "src" else g.dst_csc
+            if to == "dst":
+                msg = msg[g.csc_perm.long()]
+            if reduce == "max":
+                return _xla.segment_max(msg, ids, n)
+            return -_xla.segment_max(-msg, ids, n)
+        s = _xla.sorted_segment_sum(g, msg, to)
     if reduce == "sum":
-        return _xla.segment_sum(msg, ids, n)
-    if reduce == "mean":
-        s = _xla.segment_sum(msg, ids, n)
-        cnt = _xla.segment_sum(msg.new_ones(msg.shape[:1]), ids, n)
-        return s / cnt.clamp(min=1.0).reshape((n,) + (1,) * (s.dim() - 1))
-    if reduce == "max":
-        return _xla.segment_max(msg, ids, n)
-    return -_xla.segment_max(-msg, ids, n)
+        return s
+    ptr = g.indptr_r if to == "src" else g.indptr_c
+    cnt = torch.diff(ptr[: n + 1]).to(s.dtype).clamp(min=1.0)
+    return s / cnt.reshape((n,) + (1,) * (s.dim() - 1))
 
 
 # ---------------------------------------------------------------------------
@@ -335,8 +344,6 @@ def gat_attention(g: Graph, a_l: torch.Tensor, a_r: torch.Tensor,
                                        float(negative_slope))
     el = torch.einsum("nhd,hd->nh", z, a_l)
     er = torch.einsum("nhd,hd->nh", z, a_r)
-    n = z.shape[0]
-    s = (el[g.src.long().clamp(max=n - 1)]
-         + er[g.dst.long().clamp(max=n - 1)])
+    s = _xla.gather_rows(g, el, "src") + _xla.gather_rows(g, er, "dst")
     s = torch.nn.functional.leaky_relu(s, negative_slope)
     return softmax_aggregate_dst(g, s, z)

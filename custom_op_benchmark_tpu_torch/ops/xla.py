@@ -8,18 +8,27 @@ features or scores ``(e, h)`` or ``(e, d)`` — in the graph's canonical
 - reductions over ``dst`` go through the precomputed CSC permutation, so
   their ids are sorted, as in the reference;
 - padded edges carry endpoint id ``n`` (one past the last node): gathers
-  clamp it to row ``n - 1``, and scatters drop it (they write into a
-  scratch row ``n`` that is cut off).
+  clamp it to row ``n - 1``, and scatters drop it (their segment ``n``
+  lies past the last row).
 
-The scatters use ``index_add_`` and ``scatter_reduce_``, which on CUDA add
-with atomics in an order that can change from run to run. That is allowed
-here, in the oracle only: the tile kernels own their outputs and repeat
-bit for bit; this module is what they are checked against.
+Every sum over segments is a sum over sorted segments in a fixed order:
+the ids are sorted, so segment ``s`` is the range ``ptr[s] .. ptr[s+1]``
+of a CSR offset array, and ``csr_sum`` (S3's CSR entry,
+ops/kernels/gather_sum.py) sums each range in slot order, one warp a row
+on the card, with no atomics. The same inputs give the same bits on every
+run, as the reference asserts (tests/test_determinism.py). The autograd
+Functions at the end, :func:`gather_rows`, :func:`sorted_segment_sum` and
+:func:`copy_sum`, are each other's VJPs, so no autograd backward of a
+gather over repeated ids (an ``index_put_`` with accumulation) runs
+either. :func:`segment_max` keeps ``scatter_reduce_`` with ``"amax"``: a
+maximum does not depend on the order of its operands.
 """
 
 from __future__ import annotations
 
 import torch
+
+from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import csr_sum
 
 
 def _gather_nodes(feat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -27,13 +36,28 @@ def _gather_nodes(feat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return feat[idx.long().clamp(max=feat.shape[0] - 1)]
 
 
-def segment_sum(vals: torch.Tensor, ids: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
-    """Scatter-add ``vals`` into ``num_segments`` rows; ids ≥ num_segments
-    are dropped."""
-    ids = ids.long().clamp(max=num_segments)
-    out = vals.new_zeros((num_segments + 1,) + tuple(vals.shape[1:]))
-    return out.index_add_(0, ids, vals)[:num_segments]
+def segment_ptr(ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """The CSR offsets (num_segments + 1,) int32 of sorted ``ids``: segment
+    s is ``ids[ptr[s]:ptr[s+1]]``; ids ≥ num_segments lie past ptr[-1]."""
+    ids = ids.int().contiguous()
+    if ids.device.type == "cpu" and ids.numel() > 1 and bool(
+            (ids[1:] < ids[:-1]).any()):
+        raise ValueError("segment ids must be sorted")
+    bounds = torch.arange(num_segments + 1, device=ids.device,
+                          dtype=torch.int32)
+    return torch.searchsorted(ids, bounds, out_int32=True)
+
+
+def segment_sum(vals: torch.Tensor, ids: torch.Tensor, num_segments: int,
+                perm: torch.Tensor = None) -> torch.Tensor:
+    """Sum ``vals`` over sorted segments into ``num_segments`` rows; ids ≥
+    num_segments are dropped. ``ids`` must be sorted. With ``perm`` the
+    k-th id belongs to ``vals[perm[k]]`` (CSC order over canonical edge
+    data), so the permuted copy of ``vals`` is never made. Fixed order,
+    no atomics (``csr_sum``)."""
+    ptr = segment_ptr(ids, num_segments)
+    idx = None if perm is None else perm.int().contiguous()
+    return csr_sum(ptr, vals.contiguous(), idx)
 
 
 def segment_max(vals: torch.Tensor, ids: torch.Tensor,
@@ -64,7 +88,7 @@ def sddmm_bwd(src, dst, csc_perm, dst_csc, A, B, dy):
     n = A.shape[0]
     dA = segment_sum(dy[:, :, None] * _gather_nodes(B, dst), src, n)
     contrib = dy[:, :, None] * _gather_nodes(A, src)
-    dB = segment_sum(contrib[csc_perm.long()], dst_csc, n)
+    dB = segment_sum(contrib, dst_csc, n, perm=csc_perm)
     return dA.to(A.dtype), dB.to(B.dtype)
 
 
@@ -121,5 +145,106 @@ def vector_spmm_bwd(src, dst, csc_perm, dst_csc, edata, x, dy):
                           _gather_nodes(x, dst))
     dedata = torch.where(_edge_valid(src, n), dedata, 0.0)
     contrib = edata[:, :, None] * _gather_nodes(dy, src)
-    dx = segment_sum(contrib[csc_perm.long()], dst_csc, n)
+    dx = segment_sum(contrib, dst_csc, n, perm=csc_perm)
     return dedata.to(edata.dtype), dx.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Gathers by endpoint and sums over sorted segments, each the other's VJP
+# ---------------------------------------------------------------------------
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, idx, ptr, order):
+        ctx.save_for_backward(ptr, order)
+        ctx.n = x.shape[0]
+        return _gather_nodes(x, idx)
+
+    @staticmethod
+    def backward(ctx, dy):
+        ptr, order = ctx.saved_tensors
+        n = ctx.n
+        # Rows 0..n-1 and the padded segment n, which the clamp sent to
+        # row n - 1.
+        s = csr_sum(ptr, dy.contiguous(), order)
+        dx = s[:n].clone()
+        dx[n - 1] += s[n]
+        return dx, None, None, None
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, vals, ptr, order, seg):
+        ctx.save_for_backward(seg)
+        ctx.n = ptr.numel() - 1
+        return csr_sum(ptr, vals.contiguous(), order)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (seg,) = ctx.saved_tensors
+        dyz = torch.cat([dy, dy.new_zeros((1,) + tuple(dy.shape[1:]))])
+        return dyz[seg.long().clamp(max=ctx.n)], None, None, None
+
+
+class _CopySum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ptr, idx, ptr_t, idx_t):
+        ctx.save_for_backward(ptr_t, idx_t)
+        return csr_sum(ptr, x.contiguous(), idx)
+
+    @staticmethod
+    def backward(ctx, dy):
+        ptr_t, idx_t = ctx.saved_tensors
+        return csr_sum(ptr_t, dy.contiguous(), idx_t), None, None, None, None
+
+
+def _side(g, by: str):
+    """(endpoint ids in canonical order, CSR offsets over n + 1 segments
+    with the padded one last, the order that lists the edges by that
+    endpoint: None for src, ``csc_perm`` for dst)."""
+    if by == "src":
+        return g.src, g.indptr_r, None
+    if by == "dst":
+        return g.dst, g.indptr_c, g.csc_perm
+    raise ValueError(f"by must be 'src' or 'dst', got {by!r}")
+
+
+def gather_rows(g, x: torch.Tensor, by: str) -> torch.Tensor:
+    """``x[src(e)]`` (``by="src"``) or ``x[dst(e)]`` (``by="dst"``) for
+    every edge in canonical order, padded edges reading row n - 1. Its
+    VJP is the sorted segment sum of the cotangent over the edges of each
+    node (the padded edges' into row n - 1), with no atomics."""
+    if x.shape[0] != g.n_nodes:
+        raise ValueError(f"x has {x.shape[0]} rows, the graph "
+                         f"{g.n_nodes} nodes")
+    ids, ptr, order = _side(g, by)
+    return _GatherRows.apply(x, ids, ptr, order)
+
+
+def sorted_segment_sum(g, vals: torch.Tensor, to: str) -> torch.Tensor:
+    """``out[u] = Σ_{e: src(e)=u} vals[e]`` (``to="src"``) or over the
+    in-edges of each node (``to="dst"``); ``vals`` is edge data in
+    canonical order, padded edges dropped. Its VJP gathers the cotangent
+    by each edge's endpoint (0 on padded edges)."""
+    ids, ptr, order = _side(g, to)
+    return _SegmentSum.apply(vals, ptr[: g.n_nodes + 1], order, ids)
+
+
+def copy_sum(g, x: torch.Tensor, frm: str, to: str) -> torch.Tensor:
+    """``out[v] = Σ_{e: to(e)=v} x[frm(e)]`` over real edges, with
+    ``(frm, to)`` = ``("src", "dst")`` or ``("dst", "src")``: the copy
+    form of ``gspmm`` with no ``(E, d)`` message in memory. Its VJP is the
+    same sum over the transpose."""
+    n = g.n_nodes
+    if x.shape[0] != n:
+        raise ValueError(f"x has {x.shape[0]} rows, the graph {n} nodes")
+    if (frm, to) == ("src", "dst"):
+        fwd = (g.indptr_c[: n + 1], g.src_csc)
+        bwd = (g.indptr_r[: n + 1], g.dst)
+    elif (frm, to) == ("dst", "src"):
+        fwd = (g.indptr_r[: n + 1], g.dst)
+        bwd = (g.indptr_c[: n + 1], g.src_csc)
+    else:
+        raise ValueError(f"copy_sum goes src→dst or dst→src, got "
+                         f"{frm}→{to}")
+    return _CopySum.apply(x, *fwd, *bwd)

@@ -1,13 +1,27 @@
-"""Training loops."""
+"""Training loops, checkpoints and the resilient step driver."""
 
+from custom_op_benchmark_tpu_torch.train.checkpoint import (
+    restore_checkpoint,
+    save_checkpoint,
+)
 from custom_op_benchmark_tpu_torch.train.loop import (
     TrainState,
     create_train_state,
     fit_full_graph,
+    fit_sampled,
     make_eval_step,
+    make_sampled_step,
     make_train_step,
     masked_cross_entropy,
 )
+from custom_op_benchmark_tpu_torch.train.resilient import (
+    CheckpointManager,
+    DivergenceError,
+    resilient_steps,
+)
 
-__all__ = ["TrainState", "create_train_state", "fit_full_graph",
-           "make_eval_step", "make_train_step", "masked_cross_entropy"]
+__all__ = ["CheckpointManager", "DivergenceError", "TrainState",
+           "create_train_state", "fit_full_graph", "fit_sampled",
+           "make_eval_step", "make_sampled_step", "make_train_step",
+           "masked_cross_entropy", "resilient_steps", "restore_checkpoint",
+           "save_checkpoint"]

@@ -1,17 +1,21 @@
-"""Full-graph training for node classification.
+"""Training for node classification: full-graph and sampled minibatches.
 
 Counterpart of the JAX package's ``create_train_state``,
-``masked_cross_entropy``, ``make_train_step``, ``make_eval_step`` and
-``fit_full_graph`` (custom_op_benchmark_tpu/train/loop.py). PyTorch runs
+``masked_cross_entropy``, ``make_train_step``, ``make_eval_step``,
+``fit_full_graph`` and ``fit_sampled`` (custom_op_benchmark_tpu/train/
+loop.py); ``fit_sampled_dp`` comes with the distributed plans. PyTorch runs
 eagerly and updates the parameters in place, so the state is the model and
-its optimizer, and a step returns ``(loss, acc)``.
+its optimizer; a full-graph step returns ``(loss, acc)``, a sampled one
+its loss.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import statistics
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -169,3 +173,145 @@ def fit_full_graph(model: nn.Module, dataset, *, epochs: int = 100,
     vl, va = eval_step(state, g, x, labels, val_mask)
     return state, dict(val_loss=float(vl), val_acc=float(va),
                        history=history)
+
+
+def make_sampled_step():
+    """A sampled-minibatch train step: the model in eval mode (no dropout,
+    as the reference's default), the loss over the batch's seeds (its first
+    ``len(seed_mask)`` nodes), one AdamW step. Returns the loss, on the
+    device."""
+
+    def sampled_step(state: TrainState, g, x, labels, seed_mask,
+                     in_cols=None):
+        state.model.train(False)
+        state.optimizer.zero_grad(set_to_none=True)
+        kw = {} if in_cols is None else {"in_cols": in_cols}
+        logits = state.model(g, x, **kw)
+        loss = masked_cross_entropy(logits[: seed_mask.shape[0]], labels,
+                                    seed_mask)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return loss.detach()
+
+    return sampled_step
+
+
+# Device-resident features and labels below this size (the reference's
+# rule, custom_op_benchmark_tpu/train/loop.py:215-220).
+DEVICE_FEATURES_BYTES = 8 * 1024 ** 3
+# Steps of the first epoch left out of the median step time (warm-up).
+WARMUP_STEPS = 5
+
+
+def sampled_batches(sampler, train_ids, batch_size, feats=None, *,
+                    takes_in_cols=True, timings=None):
+    """The batches of one epoch as ``(graph, x_spec, seed_ids, seed_mask,
+    in_cols)`` on the host: ``x_spec`` is the batch's global node ids, or
+    with ``feats`` (features kept on the host) its feature rows. Each
+    sample's host seconds go to ``timings`` when it is a list."""
+    import time
+
+    it = sampler.epoch(train_ids, batch_size)
+    while True:
+        t0 = time.perf_counter()
+        b = next(it, None)
+        if timings is not None and b is not None:
+            timings.append(time.perf_counter() - t0)
+        if b is None:
+            return
+        ids = b.node_ids.astype(np.int64)
+        yield (b.graph, ids if feats is None else feats[ids],
+               b.seed_ids.astype(np.int64), b.seed_mask,
+               b.in_cols if takes_in_cols else None)
+
+
+def fit_sampled(model: nn.Module, dataset, *, fanouts=(25, 10),
+                batch_size: int = 128, epochs: int = 1,
+                learning_rate: float = 1e-3, seed: int = 0,
+                prefetch_depth: int = 2, device=None):
+    """Sampled-minibatch training (the Reddit GraphSAGE configuration).
+
+    Counterpart of the reference's ``fit_sampled``. The sampler
+    (``data.sampling.NeighborSampler``, seeded with ``seed``) runs on the
+    host in a prefetch thread that copies each batch to the device while
+    the previous steps run (``data.pipeline.prefetch``). Features and
+    labels stay on the device when they take less than 8 GiB and are
+    gathered there by the batch's node ids; losses stay there until the
+    run ends. The parameters are drawn afresh from ``seed``. The final
+    evaluation is full-graph, on the segment path. Training runs on
+    ``device``: the CUDA device unless the caller names another.
+
+    Returns ``(state, metrics)``: ``losses``, ``final_loss``, ``val_acc``,
+    and ``steps``, ``sample_ms`` (median host seconds of one batch's
+    sampling, in ms), ``eval_ms``, and on the card ``step_ms`` (the median
+    time between the ends of consecutive steps on the device's stream,
+    the first epoch's first steps left out).
+    """
+    import inspect
+    import time
+
+    from custom_op_benchmark_tpu_torch.data.pipeline import prefetch
+    from custom_op_benchmark_tpu_torch.data.sampling import NeighborSampler
+
+    if device is None:
+        from custom_op_benchmark_tpu_torch.utils.device import cuda_device
+
+        device = cuda_device()
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    sampler = NeighborSampler(dataset.graph, fanouts, seed=seed)
+    takes_in_cols = "in_cols" in inspect.signature(
+        model.forward).parameters
+    feats, labels = dataset.features, dataset.labels
+    device_feats = feats.nbytes < DEVICE_FEATURES_BYTES
+    if device_feats:
+        feats_dev = torch.from_numpy(feats).to(device)
+    labels_dev = torch.from_numpy(labels.astype(np.int64)).to(device)
+    train_ids = np.nonzero(dataset.train_mask)[0]
+
+    if hasattr(model, "reset_parameters"):
+        model.to("cpu").reset_parameters(torch.Generator().manual_seed(seed))
+    model.to(device)
+    state = create_train_state(model, learning_rate=learning_rate)
+    step = make_sampled_step()
+
+    losses, sample_s, ends = [], [], []
+    for epoch in range(epochs):
+        batches = sampled_batches(
+            sampler, train_ids, batch_size,
+            None if device_feats else feats, takes_in_cols=takes_in_cols,
+            timings=sample_s)
+        for g_b, x_b, seeds_b, mask_b, cols_b in prefetch(
+                batches, prefetch_depth, device=device):
+            x = feats_dev[x_b] if device_feats else x_b
+            losses.append(step(state, g_b, x, labels_dev[seeds_b], mask_b,
+                               cols_b))
+            if on_card and (epoch > 0 or len(losses) > WARMUP_STEPS):
+                ends.append(torch.cuda.Event(enable_timing=True))
+                ends[-1].record()
+    losses = torch.stack(losses).tolist() if losses else []
+    step_ms = None
+    if on_card and len(ends) > 1:
+        ends[-1].synchronize()
+        step_ms = statistics.median(a.elapsed_time(b)
+                                    for a, b in zip(ends, ends[1:]))
+
+    # The final evaluation: full-graph inference on the segment path
+    # (sampling is a training-time approximation).
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model.eval()
+        g = dataset.graph.to(device)
+        x = feats_dev if device_feats else torch.from_numpy(feats).to(device)
+        pred = model(g, x).argmax(-1).cpu().numpy()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    val = dataset.val_mask
+    val_acc = (float((pred[val] == labels[val]).mean()) if val.any()
+               else float("nan"))
+    return state, dict(
+        losses=losses, final_loss=losses[-1] if losses else float("nan"),
+        val_acc=val_acc, steps=len(losses),
+        sample_ms=(statistics.median(sample_s) * 1e3 if sample_s
+                   else None),
+        step_ms=step_ms, eval_ms=eval_ms)

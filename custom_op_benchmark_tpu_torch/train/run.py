@@ -1,11 +1,13 @@
 """The command line for the end-to-end configurations.
 
     python -m custom_op_benchmark_tpu_torch.train.run --config NAME
-        [--scale S] [--epochs E] [--device cpu]
+        [--scale S] [--epochs E] [--data PATH] [--device cpu]
 
 Counterpart of custom_op_benchmark_tpu/train/run.py. Each run trains on a
 synthetic stand-in (``data.synthetic.planted_partition`` at the named
-scale; ``--scale`` shrinks the node count) and prints one JSON line
+scale; ``--scale`` shrinks the node count), or with ``--data`` on a
+dataset on disk (``data.datasets.load_dataset``: an OGB directory, a
+canonical .npz or a Planetoid-style .npz), and prints one JSON line
 ``{"config", "scale", "data", **metrics}``. Ported configurations:
 
   cora_gat            a 2-layer GAT (8 heads of 64), full graph, on the
@@ -17,16 +19,20 @@ scale; ``--scale`` shrinks the node count) and prints one JSON line
   arxiv_gat           a 3-layer GAT (4 heads of 128), full graph, on the
                       fused ELL path (``fit_full_graph(strategy="ell")``);
   arxiv_transformer   GraphTransformer(dim 128, 4 heads, 3 layers) on the
-                      fused ELL attention.
+                      fused ELL attention;
+  reddit_sage         GraphSAGE (hidden 128, 2 layers) on fanout (25, 10)
+                      neighbour samples of 256 seeds, host sampling
+                      overlapped with the device's steps
+                      (``fit_sampled``); its metrics add the median step,
+                      sampling and evaluation times.
 
 The table lists every configuration of the reference, so ``--help`` names
-them all; ``reddit_sage`` waits for sampling (ROADMAP M10), the three
-distributed ones for the distributed plans (ROADMAP M12), and ``--data``
-for the dataset loaders (ROADMAP M10): they raise ``NotImplementedError``
-and the command exits non-zero.
+them all; the three distributed ones wait for the distributed plans
+(ROADMAP M12): they raise ``NotImplementedError`` and the command exits
+non-zero.
 
 Training runs on the CUDA device, or with ``--device cpu`` on the CPU at a
-scale below 1 only (the kernels' plain versions stand in).
+scale below 1 or with ``--data`` (the kernels' plain versions stand in).
 """
 
 from __future__ import annotations
@@ -64,6 +70,14 @@ def arxiv_dataset(scale):
     return _ds(40, 4000, 128, scale, avg_degree=13, name="arxiv-like")
 
 
+def reddit_dataset(scale):
+    """reddit_sage's stand-in: 41 classes of 5,700 nodes, 300-d features and
+    average degree 50 at ``--scale 1``; below it 64-d and degree 15."""
+    full = scale >= 1
+    return _ds(41, 5700, 300 if full else 64, scale,
+               avg_degree=50 if full else 15, name="reddit-like")
+
+
 def cora_gat_model(ds):
     from custom_op_benchmark_tpu_torch.models import GAT
 
@@ -78,6 +92,13 @@ def arxiv_gat_model(ds):
                num_heads=4, in_dim=ds.features.shape[1])
 
 
+def reddit_sage_model(ds):
+    from custom_op_benchmark_tpu_torch.models import GraphSAGE
+
+    return GraphSAGE(hidden_dim=128, out_dim=ds.num_classes, num_layers=2,
+                     in_dim=ds.features.shape[1])
+
+
 def arxiv_transformer_model(ds):
     from custom_op_benchmark_tpu_torch.models import GraphTransformer
 
@@ -89,7 +110,8 @@ def arxiv_transformer_model(ds):
 @dataclasses.dataclass(frozen=True)
 class Setup:
     """A ported configuration: its dataset at a scale, its model for a
-    dataset, its strategy and learning rate."""
+    dataset, its strategy (or ``"sampled"`` for ``fit_sampled``) and
+    learning rate."""
 
     dataset: Callable
     model: Callable
@@ -102,7 +124,12 @@ SETUPS = {
     "arxiv_gat": Setup(arxiv_dataset, arxiv_gat_model, "ell", 2e-3),
     "arxiv_transformer": Setup(arxiv_dataset, arxiv_transformer_model,
                                "ell", 1e-3),
+    "reddit_sage": Setup(reddit_dataset, reddit_sage_model, "sampled",
+                         1e-3),
 }
+# reddit_sage's sampling (custom_op_benchmark_tpu/train/run.py:145-148).
+REDDIT_FANOUTS = (25, 10)
+REDDIT_BATCH = 256
 
 
 def layer_allclose(g, device, seed: int = 0) -> bool:
@@ -143,32 +170,48 @@ def layer_allclose(g, device, seed: int = 0) -> bool:
     return ok
 
 
-def train(name, scale, epochs, device):
-    """Train configuration ``name`` and return its metrics."""
-    from custom_op_benchmark_tpu_torch.train.loop import fit_full_graph
+def train(name, scale, epochs, device, data=None):
+    """Train configuration ``name`` (on the dataset at ``data`` if given)
+    and return its metrics."""
+    from custom_op_benchmark_tpu_torch.train.loop import (
+        fit_full_graph,
+        fit_sampled,
+    )
 
     setup = SETUPS[name]
-    ds = setup.dataset(scale)
+    if data:
+        from custom_op_benchmark_tpu_torch.data.datasets import load_dataset
+
+        ds = load_dataset(data)
+    else:
+        ds = setup.dataset(scale)
     metrics = {}
     if name == "cora_gat":
         metrics["layer_allclose_ok"] = layer_allclose(ds.graph.to(device),
                                                       device)
-    _, fit = fit_full_graph(setup.model(ds), ds, epochs=epochs,
-                            learning_rate=setup.learning_rate,
-                            strategy=setup.strategy, device=device)
+    if setup.strategy == "sampled":
+        _, fit = fit_sampled(setup.model(ds), ds, fanouts=REDDIT_FANOUTS,
+                             batch_size=REDDIT_BATCH, epochs=epochs,
+                             learning_rate=setup.learning_rate,
+                             device=device)
+        fit.pop("losses")
+    else:
+        _, fit = fit_full_graph(setup.model(ds), ds, epochs=epochs,
+                                learning_rate=setup.learning_rate,
+                                strategy=setup.strategy, device=device)
     metrics.update(fit)
     return metrics
 
 
 def _ported(name):
-    def run(scale, epochs, device):
-        return train(name, scale, epochs, device)
+    def run(scale, epochs, device, data=None):
+        return train(name, scale, epochs, device, data)
 
     return run
 
 
 def _refused(item, what):
-    def run(scale, epochs, device):
+    def run(scale, epochs, device, data=None):
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
                                   f"{item})")
 
@@ -179,7 +222,7 @@ CONFIGS = {
     "cora_gat": (_ported("cora_gat"), 100),
     "arxiv_gat": (_ported("arxiv_gat"), 60),
     "arxiv_transformer": (_ported("arxiv_transformer"), 40),
-    "reddit_sage": (_refused("M10", "reddit_sage's neighbour sampling"), 2),
+    "reddit_sage": (_ported("reddit_sage"), 2),
     "products_gat_dist": (_refused(
         "M12", "products_gat_dist's distributed plan"), 30),
     "products_transformer_dist": (_refused(
@@ -197,20 +240,19 @@ def main(argv=None) -> int:
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--data", type=str, default=None,
                     help="path to a real dataset (OGB directory, canonical "
-                    ".npz, or Planetoid-style .npz); not ported yet")
+                    ".npz, or Planetoid-style .npz); omits the synthetic "
+                    "stand-in")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where to train (default: the CUDA device, and "
-                    "fail without one); cpu at --scale below 1 only")
+                    "fail without one); cpu at --scale below 1 or with "
+                    "--data only")
     args = ap.parse_args(argv)
-    if args.data is not None:
-        raise NotImplementedError("--data needs the dataset loaders "
-                                  "(data/datasets.py), not ported yet "
-                                  "(ROADMAP M10)")
     fn, default_epochs = CONFIGS[args.config]
     if args.device == "cpu":
-        if args.scale >= 1:
+        if args.scale >= 1 and args.data is None:
             print("run: the full-size configurations train on the CUDA "
-                  "device only (pass --scale below 1)", file=sys.stderr)
+                  "device only (pass --scale below 1 or --data)",
+                  file=sys.stderr)
             return 1
         device = torch.device("cpu")
     else:
@@ -222,7 +264,8 @@ def main(argv=None) -> int:
             print(f"run: {err} (pass --device cpu with --scale below 1)",
                   file=sys.stderr)
             return 1
-    metrics = fn(args.scale, args.epochs or default_epochs, device)
+    metrics = fn(args.scale, args.epochs or default_epochs, device,
+                 data=args.data)
     print(json.dumps({"config": args.config, "scale": args.scale,
                       "data": args.data, **metrics}), flush=True)
     return 0

@@ -224,7 +224,9 @@ def test_unported_model_options_raise(data, case):
     dtype (``gat_dtype``): a bf16 GAT returns f32 logits within bf16
     tolerance (tests/test_dtypes.py's rtol 0.1, atol 0.15) of the f32
     model from the same weights (held to JAX in
-    tests/test_torch_model_dtypes.py)."""
+    tests/test_torch_model_dtypes.py). So is GraphSAGE's ``in_cols=``
+    (``sage_in_cols``): on a sampled batch it agrees with the segment path
+    over the batch graph (held to JAX in tests/test_torch_sampling.py)."""
     if case.endswith("_block"):
         g = clique_batch(3, 4)
         x = torch.from_numpy(np.random.default_rng(8).normal(
@@ -248,9 +250,17 @@ def test_unported_model_options_raise(data, case):
         torch.testing.assert_close(got, f32(ds.graph, x, ell=data["ell"]),
                                    rtol=0.1, atol=0.15)
         return
-    x = torch.zeros(ds.graph.n_nodes, 12)
-    with pytest.raises(NotImplementedError, match="ROADMAP M"):
-        GraphSAGE(8, 3, in_dim=12)(ds.graph, x, in_cols=object())
+    # sage_in_cols: a sampled batch's in-neighbour matrix holds exactly its
+    # graph's in-edges, so the sampled path equals the segment path there.
+    from custom_op_benchmark_tpu_torch.data import NeighborSampler
+
+    b = NeighborSampler(ds.graph, [5, 3], seed=0).sample(np.arange(16))
+    x = torch.from_numpy(ds.features[b.node_ids])
+    model = GraphSAGE(8, 3, in_dim=12,
+                      generator=torch.Generator().manual_seed(0))
+    torch.testing.assert_close(
+        model(b.graph, x, in_cols=torch.from_numpy(b.in_cols)),
+        model(b.graph, x), **LOGITS_TOL)
 
 
 @pytest.mark.parametrize("maker", ["planted_partition", "cora_like",
