@@ -27,7 +27,12 @@ on bf16 features with S3 in bf16), the flagship ``entry()`` and the
 native graphcore library. The seventh: the segment path's sums on S3's
 CSR entry, repeated bit for bit, and reddit_sage (GraphSAGE on fanout
 25/10 neighbour samples) through the command line, with checkpoints and
-resilient steps.
+resilient steps. The eighth: the distributed plans, P shards of a local
+mesh on the one card — the products-like graph (244,400 nodes, ~10M
+edges) on the halo plan of 8 shards, every plan's op against the
+single-device op, a one-rank NCCL process mesh, the three ``*_dist``
+configurations through the command line, ``fit_sampled_dp`` on
+reddit_sage's dataset and ``dryrun_multichip``.
 
 1. device: a CUDA device is present; print its name and power limit, then
    build the CUDA kernels from ``custom_op_benchmark_tpu_torch/csrc`` (one
@@ -155,15 +160,44 @@ resilient steps.
     counters set to 0 before and read after: S3, the CSR entry and the
     native sampler ran, a finite loss, its step, sampling and evaluation
     times and peak memory;
-26. resilient: ``resilient_steps`` on cora_gat's GAT, N steps straight
+26. dp (after 25, with its data): ``fit_sampled_dp`` (GraphSAGE 128, 2
+    layers, fanouts (25, 10), batches of 256) over a local mesh of 4
+    shards for 12 steps, the counters set to 0 before and read after (S3
+    8 and the CSR entry 4 launches a step), step and sampling times, peak
+    memory; two steps twice from one seed, bit for bit;
+27. resilient: ``resilient_steps`` on cora_gat's GAT, N steps straight
     against k steps, a checkpoint and a resume from it in a fresh state,
-    and a non-finite loss restored from the last checkpoint, bit for bit.
+    and a non-finite loss restored from the last checkpoint, bit for bit;
+28. dist build: the products-like graph at ``--scale 1`` and its halo plan
+    over 8 shards as the command line builds it (``build_plan``, order and
+    hub threshold "auto"), each host step timed (both orders, both
+    ``plan_stats``, ``halo_graph``, ``halo_ell``), the native packing
+    against numpy's (identical arrays), the routes and order that ran;
+    the plan goes to the cache under ``build/plan_cache``;
+29. dist parity: on the card, 4 heads of 16, each op against the
+    single-device ELL or segment op on the same renumbered graph, forward
+    and every gradient at 1e-4, each twice and compared with
+    ``torch.equal``: ``halo_attention_ell`` (hubs; 1-D and through the
+    2-D edge × head mesh, whose head axis is a view on the local
+    backend), ``halo_spmm_ell``, ``halo_spmm``,
+    ``halo_gat_attention``, the gather plan's four ops, ``tp_attention``;
+    bf16 per element; S3's CSR entry at the halo shape against its plain
+    version, timed beside its bound and ``torch.segment_reduce``, and its
+    launches in the segment forms;
+30. nccl: a one-rank NCCL group; one ``halo_attention_ell`` gradient step
+    on the process mesh against the local mesh at P = 1 (1e-5);
+31. dist CLI: ``products_gat_dist`` and ``products_transformer_dist`` at
+    ``--scale 1`` (8 shards, the cached plan) and ``papers100m_gat_dist``
+    at ``--scale 1`` (16 shards) through ``train.run.main``: finite
+    losses, step times, peak memory, the plan's host seconds;
+32. dryrun: ``dryrun_multichip(8)`` on the card, finite losses.
 
 Each phase's seconds are printed. The line before the last is the
 ``kernels`` JSON: for each of the nine kernels, for K1-K4, S1, S2 and S3
 in bf16, K4 at d = 300 and 1024, K1-K4 at the clique suite's shapes, S3's
-CSR entry at the arxiv copy shape, and S3 and the CSR entry at a
-reddit_sage batch's shapes, its source,
+CSR entry at the arxiv copy shape, S3 and the CSR entry at a
+reddit_sage batch's shapes, and the CSR entry at the halo plan's shape,
+its source,
 the TPU kernel it replaces, its launches on its path, its error, time,
 plain time, bound and library time.
 
@@ -175,10 +209,12 @@ The last line of standard output is
 import copy
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -263,6 +299,20 @@ REDDIT_SCALE = 1
 PROFILE_STEPS = 20
 # resilient_steps on the card: N steps, and the step k of the checkpoint.
 RESILIENT_STEPS = (8, 3)
+# The distributed plans: the products-like configuration of the command
+# line, its shard count and attention width, the plans' cache, the NCCL
+# phase's graph (n, e), the configurations the command line runs (with
+# their --scale) and the data-parallel run.
+PRODUCTS_SCALE = 1
+DIST_SHARDS = 8
+DIST_HEADS, DIST_HEAD_DIM = 4, 16
+DIST_TOL = 1e-4
+PLAN_CACHE = Path(__file__).resolve().parent / "build" / "plan_cache"
+NCCL_GRAPH = (16384, 200_000)
+DIST_CLI = (("products_gat_dist", 1), ("products_transformer_dist", 1),
+            ("papers100m_gat_dist", 1))
+DP_SHARDS = 4
+DP_STEPS = 12
 
 
 def log(msg: str) -> None:
@@ -2233,6 +2283,25 @@ def phase_determinism(kern, dev, reddit):
     return results
 
 
+def device_busy(prof):
+    """(busy µs, window µs, device events) of a profiled window: the union
+    of the device events' spans, and the span from the first to the
+    last."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for s, e in spans:
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    window = spans[-1][1] - spans[0][0] if spans else 0.0
+    return busy, window, len(spans)
+
+
 def phase_sampled(kern, dev, reddit, l2_rate):
     """reddit_sage on the card: S3 at the sampled shape (d = 300 and 128)
     and the CSR entry at the sampled backward's shape against their plain
@@ -2319,25 +2388,14 @@ def phase_sampled(kern, dev, reddit, l2_rate):
             one()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, None
-    for s, e in spans:
-        if end is None or s > end:
-            busy += e - s
-            end = e
-        elif e > end:
-            busy += e - end
-            end = e
+    busy, window, n_events = device_busy(prof)
     idle = None
-    if spans:
-        window = spans[-1][1] - spans[0][0]
+    if n_events:
         idle = 1.0 - busy / window
         log(f"[sampled] profiled {PROFILE_STEPS} steps: {wall * 1e3:.1f} ms "
             f"of wall time, device busy {busy / 1e3:.1f} ms of a "
             f"{window / 1e3:.1f} ms window: idle share {idle:.3f}; "
-            f"{len(spans)} device events")
+            f"{n_events} device events")
     else:
         log("[sampled] the profiler saw no device events: idle share not "
             "measured")
@@ -2437,6 +2495,506 @@ def phase_resilient(kern, dev):
     assert ev2.count("restore") == 1
 
 
+# ---------------------------------------------------------------------------
+# The distributed plans: P shards of a local mesh on the one card
+# ---------------------------------------------------------------------------
+
+def with_numpy_pack(fn):
+    """Run ``fn`` with the native halo packer declined (the numpy builder
+    runs, as where the library does not build)."""
+    from custom_op_benchmark_tpu_torch.graph import native
+
+    real = native.halo_pack_native
+    native.halo_pack_native = lambda *a, **k: None
+    try:
+        return fn()
+    finally:
+        native.halo_pack_native = real
+
+
+def same_ell_host(a, b) -> bool:
+    """Every array and size of two HaloEllHost packings equal."""
+    import dataclasses
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name == "route":
+            continue
+        if isinstance(x, list):
+            if len(x) != len(y) or not all(
+                    u.shape == v.shape and np.array_equal(u, v)
+                    for u, v in zip(x, y)):
+                return False
+        elif isinstance(x, np.ndarray):
+            if x.shape != y.shape or not np.array_equal(x, y):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def phase_dist_build(dev):
+    """The products-like graph at ``--scale 1`` and its halo plan over 8
+    shards, as the command line builds it (``build_plan``: order and hub
+    threshold "auto"), each host step timed; the native packing against
+    the numpy one (identical arrays); which route and order ran. The plan
+    goes to the on-disk cache the command line reads."""
+    import shutil
+
+    from custom_op_benchmark_tpu_torch.parallel import halo, make_mesh
+    from custom_op_benchmark_tpu_torch.parallel.train_dist import (
+        COMM_WEIGHT,
+        build_plan,
+    )
+    from custom_op_benchmark_tpu_torch.train import run
+
+    shutil.rmtree(PLAN_CACHE, ignore_errors=True)
+    t0 = time.perf_counter()
+    ds = run.products_dataset(PRODUCTS_SCALE)
+    g = ds.graph
+    log(f"[dist] products-like --scale {PRODUCTS_SCALE}: n={g.n_nodes} "
+        f"e={g.n_edges} features {ds.features.shape}; host build "
+        f"{time.perf_counter() - t0:.2f} s")
+    mesh = make_mesh((DIST_SHARDS,), ("edge",), device=dev)
+    t0 = time.perf_counter()
+    lay = build_plan(ds, mesh, plan="halo", order="auto",
+                     cache_dir=str(PLAN_CACHE))
+    total = time.perf_counter() - t0
+    info = lay.info
+    for name in ("cluster", "balanced"):
+        d = info["order_details"][name]
+        log(f"[dist] order {name:8s}: order {d['order_s']:.2f} s, "
+            f"plan_stats {d['plan_stats_s']:.2f} s; halo {d['halo']} n_hub "
+            f"{d['n_hub']} pack_slots {d['pack_slots']} interior "
+            f"{d['interior_frac']} halo_fraction {d['halo_fraction']:.3f} "
+            f"cost {d['cost']:.0f} (comm weight {COMM_WEIGHT:.3f})")
+    hg, he = lay.dg
+    log(f"[dist] picked order {info['order_details']['picked']}; reorder "
+        f"{info['reorder_s']:.2f} s, halo_graph {info['halo_graph_s']:.2f} s "
+        f"({hg.route}, hub threshold {info['hub_threshold']}), halo_ell "
+        f"{info['halo_ell_s']:.2f} s ({he.route}); build_plan {total:.2f} s "
+        f"with its cache writes")
+    log(f"[dist] plan: n_per {hg.n_per} halo M {hg.halo} hubs K {hg.n_hub} "
+        f"E_p {hg.edges_per_part}; halo_fraction {hg.halo_fraction:.4f}; "
+        f"exchange rows real {info['exchange_rows_real']} padded "
+        f"{info['exchange_rows_padded']}; interior row share "
+        f"{info['interior_row_share']:.4f}; buckets {he.widths}")
+    # The reference's routes: a hub plan is numpy's, the packing native.
+    assert hg.route == "numpy" and he.route == "native", (hg.route,
+                                                          he.route)
+    t0 = time.perf_counter()
+    eh_np = with_numpy_pack(lambda: halo.halo_ell_host(hg.host))
+    t_np = time.perf_counter() - t0
+    same = same_ell_host(he.host, eh_np)
+    log(f"[dist] halo_ell native {info['halo_ell_s']:.2f} s vs numpy "
+        f"{t_np:.2f} s: identical arrays {same}")
+    assert same and eh_np.route == "numpy"
+    return dict(ds=ds, mesh=mesh, layout=lay)
+
+
+def dist_case(label, fn, ref, ins, ref_ins, n, maps=None, tol=DIST_TOL):
+    """``fn`` on the mesh twice (output and the gradients of Σ y², equal
+    bits) against ``ref`` on one device, rows ``[:n]`` of each, within
+    ``tol``; ``maps[i]`` takes the mesh side's output (i = 0) or its i-th
+    gradient to the reference's layout (edge data in slot order to
+    canonical order). Returns the largest error."""
+    def run_once(f, args):
+        args = [a.detach().clone().requires_grad_() for a in args]
+        y = f(*args)
+        grads = torch.autograd.grad((y.float() ** 2).sum(), args)
+        return [y.detach()] + list(grads)
+
+    first, again = run_once(fn, ins), run_once(fn, ins)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    want = run_once(ref, ref_ins)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(first, want)):
+        if maps and maps.get(i):
+            a = maps[i](a)
+        a, b = a[:n].float(), b[:n].float()
+        err = float((a - b).abs().max())
+        ok = bool(torch.allclose(a, b, rtol=tol, atol=tol))
+        worst = max(worst, err)
+        log(f"[dist parity] {label:34s} {'y' if i == 0 else f'grad {i}'}: "
+            f"max_abs_err {err:.3e} max|ref| {float(b.abs().max()):.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        assert ok, f"{label} disagrees with the single-device op"
+    log(f"[dist parity] {label:34s} repeat: "
+        f"{'same bits' if same else 'DIFFERENT'}")
+    assert same, f"{label} does not repeat bit for bit"
+    return worst
+
+
+def phase_dist_parity(kern, dev, dist):
+    """At products width on the card (8 shards, 4 heads of 16), each plan's
+    op against the single-device ELL or segment op on the same renumbered
+    graph, forward and every gradient at 1e-4, each run twice and
+    compared with ``torch.equal``: ``halo_attention_ell`` (the "auto" hub
+    plan, 1-D and through the 2-D edge × head mesh, its head axis a view
+    on the local backend), ``halo_spmm_ell``,
+    ``halo_spmm``, ``halo_gat_attention``, the gather plan's four ops and
+    ``tp_attention``; bf16 per element; S3's CSR entry at the halo shape
+    against its plain version, timed, and its launches in the segment
+    forms."""
+    from custom_op_benchmark_tpu_torch import ops
+    from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import csr_sum
+    from custom_op_benchmark_tpu_torch.parallel import (
+        halo,
+        make_mesh,
+        shard_ops,
+        tp,
+    )
+
+    lay, mesh = dist["layout"], dist["mesh"]
+    hg, he = lay.dg
+    g = lay.graph.to(dev)
+    n, e = g.n_nodes, g.n_edges
+    h, d = DIST_HEADS, DIST_HEAD_DIM
+    rng = np.random.default_rng(SEED + 30)
+    host = [rng.standard_normal((n, h, d), dtype=np.float32)
+            for _ in range(3)]
+    one = [torch.from_numpy(a).to(dev) for a in host]
+    qkv = [halo.shard_halo_nodes(hg, mesh, a) for a in host]
+    t0 = time.perf_counter()
+    se, de = ops.ell_dual(g)
+    log(f"[dist parity] single-device ELL packing of the renumbered graph "
+        f"(n={n}, e={e}): {time.perf_counter() - t0:.2f} s")
+    errs = {}
+
+    def seg_attention(q, k, v):
+        s = ops.sddmm(g, k, q) / math.sqrt(d)
+        a = ops.edge_softmax(g, s, by="dst")
+        return ops.vector_spmm(g.reverse(), a[g.csc_perm.long()], v)
+
+    errs["halo_attention_ell"] = dist_case(
+        "halo_attention_ell (hubs)",
+        lambda q, k, v: halo.halo_attention_ell(hg, he, mesh, q, k, v),
+        lambda q, k, v: ops.ell_attention(de, se, q, k, v), qkv, one, n)
+    mesh2 = make_mesh((DIST_SHARDS, 2), ("edge", "head"), device=dev)
+    hg2 = halo.place_halo(hg.host, mesh2)
+    he2 = halo.place_ell(he.host, mesh2)
+    # On the local backend the head axis is a view: this runs the 1-D
+    # mesh's computation through a 2-D mesh's plan and axis lookups. The
+    # exchange of a rank's own heads runs only on a process mesh (the gloo
+    # test).
+    errs["halo_attention_ell 2-D"] = dist_case(
+        "halo_attention_ell (2-D, head a view)",
+        lambda q, k, v: halo.halo_attention_ell(hg2, he2, mesh2, q, k, v,
+                                                head_axis="head"),
+        lambda q, k, v: ops.ell_attention(de, se, q, k, v), qkv, one, n)
+
+    # bf16 per element against f32 from the same rounded inputs.
+    b16 = [t.bfloat16() for t in qkv]
+    r32 = [t.float() for t in b16]
+    y16 = halo.halo_attention_ell(hg, he, mesh, *b16).float()
+    y32 = halo.halo_attention_ell(hg, he, mesh, *r32)
+    bad = int(((y16 - y32).abs() > 6e-2 * y32.abs() + 5e-2).sum())
+    log(f"[dist parity] halo_attention_ell bf16 vs f32: max_abs_err "
+        f"{float((y16 - y32).abs().max()):.3e}, elements past 6e-2|f32| + "
+        f"5e-2: {bad}")
+    assert bad == 0
+    del b16, r32, y16, y32
+
+    x = torch.from_numpy(rng.standard_normal((n, h * d), dtype=np.float32))
+    ed = rng.uniform(size=g.num_edges_padded).astype(np.float32)
+    ed_t = torch.from_numpy(ed).to(dev)
+    xs = halo.shard_halo_nodes(hg, mesh, x)
+    eds = halo.halo_edge_data(hg, mesh, ed)
+
+    def seg_spmm(e_, x_):
+        return ops.vector_spmm(g.reverse(), e_[g.csc_perm.long()], x_)
+
+    errs["halo_spmm_ell"] = dist_case(
+        "halo_spmm_ell", lambda x_: halo.halo_spmm_ell(hg, he, mesh, eds, x_),
+        lambda x_: seg_spmm(ed_t, x_), [xs], [x.to(dev)], n)
+    kern.reset()
+    errs["halo_spmm"] = dist_case(
+        "halo_spmm", lambda x_: halo.halo_spmm(hg, mesh, eds, x_),
+        lambda x_: seg_spmm(ed_t, x_), [xs], [x.to(dev)], n)
+    errs["halo_gat_attention"] = dist_case(
+        "halo_gat_attention",
+        lambda q, k, v: halo.halo_gat_attention(hg, mesh, q, k, v),
+        seg_attention, qkv, one, n)
+    halo_csr = csr_sum.launches
+
+    # The gather plan on the same graph.
+    dg = shard_ops.dist_graph(g, mesh)
+    gq = [shard_ops.shard_nodes(dg, mesh, a) for a in host]
+    eid = torch.from_numpy(dg.eid.reshape(-1).astype(np.int64)).to(dev)
+    real = eid < e
+
+    def canon(y):
+        out = y.new_zeros((g.num_edges_padded,) + tuple(y.shape[1:]))
+        return out.index_copy(0, eid[real], y[real])
+
+    errs["dist_sddmm"] = dist_case(
+        "dist_sddmm", lambda a, b: shard_ops.dist_sddmm(dg, mesh, a, b),
+        lambda a, b: ops.sddmm(g, a, b), gq[:2], one[:2], e,
+        maps={0: canon})
+    sc = rng.standard_normal((e, h), dtype=np.float32)
+    sc_t = torch.from_numpy(sc).to(dev)
+    errs["dist_edge_softmax"] = dist_case(
+        "dist_edge_softmax",
+        lambda s_: shard_ops.dist_edge_softmax(dg, mesh, s_, by="dst"),
+        lambda s_: ops.edge_softmax(g, s_, by="dst"),
+        [shard_ops.shard_edges(dg, mesh, sc)], [sc_t], e,
+        maps={0: canon, 1: canon})
+    errs["dist_vector_spmm"] = dist_case(
+        "dist_vector_spmm", lambda s_, v_: shard_ops.dist_vector_spmm(
+            dg, mesh, s_, v_),
+        lambda s_, v_: ops.vector_spmm(g, s_, v_),
+        [shard_ops.shard_edges(dg, mesh, sc), gq[2]], [sc_t, one[2]], n,
+        maps={1: lambda t: canon(t)[:e]})
+    errs["dist_gat_attention"] = dist_case(
+        "dist_gat_attention",
+        lambda q, k, v: shard_ops.dist_gat_attention(dg, mesh, q, k, v),
+        seg_attention, gq, one, n)
+    seg_csr = csr_sum.launches
+    mesh_h = make_mesh((DIST_HEADS,), ("head",), device=dev)
+    errs["tp_attention"] = dist_case(
+        "tp_attention", lambda q, k, v: tp.tp_attention(de, se, mesh_h, q, k,
+                                                        v),
+        lambda q, k, v: ops.ell_attention(de, se, q, k, v), one, one, n)
+    log(f"[dist parity] CSR-entry launches in the segment forms: halo "
+        f"{halo_csr}, with the gather plan {seg_csr}")
+    assert halo_csr > 0 and seg_csr > halo_csr
+    del dg, gq
+
+    profile_dist_step(dev, dist)
+
+    # S3's CSR entry at the halo shape: the sorted segment sum over dst_loc.
+    ri = hg.rows("dst_loc")
+    vals = normal(rng, ri.shape[0] * ri.shape[1], h * d, device=dev)
+    calls = {"csr_sum:halo": (ri.ptr, vals)}
+    errs.update(check_kernels(kern, calls, "halo dst_loc"))
+    row = time_row(kern, "csr_sum:halo", calls["csr_sum:halo"],
+                   "halo shape", {}, lib=csr_yardstick(ri.ptr, vals))
+    # The other library call for the same sums: embedding_bag with
+    # offsets over the identity slots.
+    ident = torch.arange(vals.shape[0], dtype=torch.int32, device=dev)
+    row["embedding_bag_ms"] = time_library(
+        "halo shape", "csr_sum:halo", csr_yardstick(ri.ptr, vals, ident),
+        kern.table["csr_sum"][1](ri.ptr, vals), {})
+    return dict(errs=errs, row=row, launches=seg_csr)
+
+
+def profile_dist_step(dev, dist):
+    """One train step of products_gat_dist's model (GAT, hidden 64, 4
+    heads, 2 layers, Adam) on the 8-shard halo plan under the profiler:
+    its step time, the device's idle share and the device time of the
+    largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from custom_op_benchmark_tpu_torch.parallel.train_dist import (
+        dist_gat_forward,
+        init_dist_gat,
+    )
+
+    lay, mesh = dist["layout"], dist["mesh"]
+    params = init_dist_gat(SEED, lay.x.shape[1], DIST_HEADS * DIST_HEAD_DIM,
+                           dist["ds"].num_classes, DIST_HEADS, 2).to(dev)
+    opt = torch.optim.Adam(params.parameters(), lr=1e-2)
+    mask = lay.train_mask
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        logits = dist_gat_forward(lay.dg, mesh, params, lay.x)
+        nll = -torch.log_softmax(logits, -1).gather(
+            -1, lay.labels[:, None])[:, 0]
+        ((nll * mask).sum() / mask.sum()).backward()
+        opt.step()
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy, window, n_events = device_busy(prof)
+    if not n_events:
+        log("[dist profile] the profiler saw no device events: not measured")
+        return
+    log(f"[dist profile] one products_gat_dist step (8 shards): {wall:.1f} "
+        f"ms of wall time under the profiler, device busy {busy / 1e3:.1f} "
+        f"ms of a {window / 1e3:.1f} ms window (idle share "
+        f"{1 - busy / window:.3f})")
+
+    def dev_us(a):
+        return getattr(a, "self_device_time_total", None) or getattr(
+            a, "self_cuda_time_total", 0.0)
+
+    rows = sorted(prof.key_averages(), key=dev_us, reverse=True)[:8]
+    for a in rows:
+        log(f"[dist profile]   {dev_us(a) / 1e3:9.3f} ms "
+            f"({dev_us(a) / busy:.3f} of busy) x{a.count:<5d} "
+            f"{a.key[:90]}")
+
+
+def phase_nccl(dev):
+    """A one-rank NCCL group on the card: the process mesh's collectives
+    run there, and one ``halo_attention_ell`` gradient step on it equals
+    the local mesh at P = 1 (loss, input and projection gradients within
+    1e-5, after the ordered gradient sum)."""
+    import torch.distributed as dist
+
+    from custom_op_benchmark_tpu_torch.graph import random_graph
+    from custom_op_benchmark_tpu_torch.parallel import (
+        global_sum,
+        halo,
+        make_mesh,
+        psum_grads,
+    )
+
+    store = PLAN_CACHE.parent / "nccl_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        mesh_p = make_mesh(axis_names=("edge",), group=True)
+        local = make_mesh((1,), ("edge",), device=dev)
+        log(f"[nccl] backend {dist.get_backend()}, world size "
+            f"{dist.get_world_size()}, {mesh_p}")
+        g = random_graph(*NCCL_GRAPH, seed=SEED, power_law=True)
+        rng = np.random.default_rng(SEED + 31)
+        x = rng.standard_normal((g.n_nodes, 32), dtype=np.float32)
+        w0 = torch.from_numpy(rng.normal(0, 0.2, (32, 64)).astype(
+            np.float32)).to(dev)
+        out = []
+        for m in (mesh_p, local):
+            hg = halo.halo_graph(g, m, hub_threshold="auto")
+            he = halo.halo_ell(hg, m)
+            xs = halo.shard_halo_nodes(hg, m, x).requires_grad_()
+            w = w0.clone().requires_grad_()
+            q = (xs @ w).reshape(xs.shape[0], 4, 16)
+            loss = (halo.halo_attention_ell(hg, he, m, q, q, q) ** 2).sum()
+            gx, gw = torch.autograd.grad(loss, (xs, w))
+            (gw,) = psum_grads(m, "edge", [gw])
+            out.append((global_sum(m, "edge", loss.detach()), gx, gw))
+        torch.cuda.synchronize()
+        for name, a, b in zip(("loss", "input gradient",
+                               "projection gradient"), *out):
+            err = float((a - b).abs().max())
+            ok = bool(torch.allclose(a, b, rtol=1e-5, atol=1e-5))
+            log(f"[nccl] process mesh vs local mesh at P = 1, {name}: "
+                f"max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}")
+            assert ok
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dist_cli(kern):
+    """The three distributed configurations through ``train.run.main`` on
+    local meshes of their shard counts, with the counters set to 0 before
+    each and read after: a finite loss, the JAX CLI's keys, the step time,
+    peak memory and the plan's host seconds (the products plan comes from
+    the cache the dist build wrote)."""
+    import contextlib
+    import io
+    import os
+
+    from custom_op_benchmark_tpu_torch.train import run
+
+    os.environ["COB_CACHE_DIR"] = str(PLAN_CACHE)
+    recs = {}
+    for config, scale in DIST_CLI:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kern.reset()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = run.main(["--config", config, "--scale", str(scale)])
+        wall = time.perf_counter() - t0
+        rec = json.loads(out.getvalue().strip().splitlines()[-1])
+        plan = rec["plan"]
+        picked = plan.get("order_details", {}).get("picked", "cached")
+        log(f"[dist cli] {config} --scale {scale}: loss {rec['loss']:.6f} "
+            f"train_acc {rec['train_acc']:.4f} val_acc {rec['val_acc']:.4f} "
+            f"on {rec['num_devices']} shards; {rec['steps']} steps, step "
+            f"{rec['step_ms']:.3f} ms, peak {rec['peak_gib']:.2f} GiB; "
+            f"{wall:.1f} s in all; plan host seconds: order "
+            f"{plan['order_s']:.2f} reorder {plan['reorder_s']:.2f} "
+            f"halo_graph {plan['halo_graph_s']:.2f} halo_ell "
+            f"{plan['halo_ell_s']:.2f}; order {picked}, hub threshold "
+            f"{plan['hub_threshold']}, halo_fraction "
+            f"{plan['halo_fraction']:.4f}; launches {kern.launches()}")
+        assert rc == 0 and rec["config"] == config
+        assert np.isfinite(rec["loss"]) and rec["num_devices"] == (
+            16 if config.startswith("papers") else 8)
+        recs[config] = dict(rec, wall_s=wall)
+    return recs
+
+
+def phase_dp(kern, dev, reddit):
+    """``fit_sampled_dp`` on reddit_sage's dataset at ``--scale 1``:
+    GraphSAGE(128, 2 layers), fanouts (25, 10), batches of 256 over a
+    local mesh of 4 shards for ``DP_STEPS`` steps, the counters set to 0
+    before and read after (S3 twice and the CSR entry once a shard a step,
+    besides the final full-graph evaluation's), the step and sampling
+    times and peak memory; then two steps twice from one seed, equal bits.
+    """
+    from custom_op_benchmark_tpu_torch.parallel import make_mesh
+    from custom_op_benchmark_tpu_torch.train import fit_sampled_dp, run
+
+    ds = reddit["ds"]
+    mesh = make_mesh((DP_SHARDS,), ("batch",), device=dev)
+    kw = dict(fanouts=run.REDDIT_FANOUTS, batch_size=run.REDDIT_BATCH,
+              epochs=1, learning_rate=1e-3, seed=SEED)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kern.reset()
+    model = reddit_model(ds, dev)
+    t0 = time.perf_counter()
+    _, met = fit_sampled_dp(model, ds, mesh, max_steps=DP_STEPS, **kw)
+    wall = time.perf_counter() - t0
+    peak = sync_peak_gib()
+    total = kern.launches()
+    # The final evaluation's launches: the same full-graph forward.
+    kern.reset()
+    with torch.no_grad():
+        model(ds.graph.to(dev), reddit["feats"])
+    torch.cuda.synchronize()
+    evals = kern.launches()
+    steps = met["steps"]
+    s3 = (total["gather_sum"] - evals["gather_sum"]) / steps
+    csr = (total["csr_sum"] - evals["csr_sum"]) / steps
+    log(f"[dp] fit_sampled_dp on {DP_SHARDS} shards: {steps} steps, step "
+        f"{met['step_ms']:.3f} ms, sampling a group {met['sample_ms']:.3f} "
+        f"ms (host), peak {peak:.2f} GiB, {wall:.1f} s in all; losses "
+        f"{met['losses'][0]:.4f} .. {met['losses'][-1]:.4f}; val_acc "
+        f"{met['val_acc']:.4f}; launches a step: S3 {s3} (expected "
+        f"{2 * DP_SHARDS}), CSR entry {csr} (expected {DP_SHARDS}); the "
+        f"evaluation {evals['gather_sum']} S3, {evals['csr_sum']} CSR")
+    assert steps == DP_STEPS and np.isfinite(met["losses"]).all()
+    assert s3 == 2 * DP_SHARDS and csr == DP_SHARDS, (s3, csr)
+    runs = []
+    for _ in range(2):
+        m2 = reddit_model(ds, dev)
+        _, mt = fit_sampled_dp(m2, ds, mesh, max_steps=2, **kw)
+        runs.append((mt["losses"], [p.detach().clone()
+                                     for p in m2.parameters()]))
+    same = runs[0][0] == runs[1][0] and all(
+        torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    log(f"[dp] two steps twice from one seed: "
+        f"{'same bits' if same else 'DIFFERENT'}")
+    assert same
+    return dict(met, peak_gib=peak, wall_s=wall, s3_per_step=s3,
+                csr_per_step=csr, launches=total)
+
+
+def phase_dryrun(dev):
+    from custom_op_benchmark_tpu_torch.entry import dryrun_multichip
+
+    losses = dryrun_multichip(DIST_SHARDS, device=dev)
+    log(f"[dryrun] dryrun_multichip({DIST_SHARDS}) on the card: {losses}")
+
+
 def kernel_row(name, source, replaces, n, err, row, shape):
     out = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": n, "max_abs_err": err,
@@ -2444,8 +3002,9 @@ def kernel_row(name, source, replaces, n, err, row, shape):
            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
            "library_ms": row["library_ms"], "library": row["library"],
            "shape": shape}
-    if "bound_l2_ms" in row:
-        out["bound_l2_ms"] = row["bound_l2_ms"]
+    for extra in ("bound_l2_ms", "embedding_bag_ms"):
+        if extra in row:
+            out[extra] = row[extra]
     return out
 
 
@@ -2538,10 +3097,27 @@ def main() -> int:
     reddit = run("reddit build", reddit_data, dev)
     run("determinism", phase_determinism, kern, dev, reddit)
     sampled = run("sampled", phase_sampled, kern, dev, reddit, l2_rate)
+    dp = run("dp", phase_dp, kern, dev, reddit)
     del reddit
     gc.collect()
     torch.cuda.empty_cache()
     run("resilient", phase_resilient, kern, dev)
+    dist = run("dist build", phase_dist_build, dev)
+    dist_par = run("dist parity", phase_dist_parity, kern, dev, dist)
+    del dist
+    gc.collect()
+    torch.cuda.empty_cache()
+    run("nccl", phase_nccl, dev)
+    dist_cli = run("dist CLI", phase_dist_cli, kern)
+    run("dryrun", phase_dryrun, dev)
+    summary = {"dp": {k: dp[k] for k in ("steps", "step_ms", "sample_ms",
+                                         "peak_gib", "val_acc", "s3_per_step",
+                                         "csr_per_step")}}
+    for config, rec in dist_cli.items():
+        summary[config] = {k: rec[k] for k in (
+            "loss", "train_acc", "val_acc", "num_devices", "step_ms",
+            "peak_gib", "wall_s")}
+    log(f"[dist] summary: {json.dumps(summary)}")
     log(f"[phase] all: {sum(run.seconds.values()):.1f} s")
     report = []
     for name, (_, _, source, replaces) in kern.table.items():
@@ -2613,6 +3189,15 @@ def main() -> int:
             + ("x d=300" if name == "gather_sum" else "dy d=128 over "
                "indptr_r and dst") + "; launches: the reddit_sage command "
             "line at --scale 1"))
+    _, _, source, replaces = kern.table["csr_sum"]
+    report.append(kernel_row(
+        "csr_sum:halo", source, replaces, dist_par["launches"],
+        dist_par["errs"]["csr_sum:halo"], dist_par["row"],
+        f"halo plan of the products-like graph, {DIST_SHARDS} shards on one "
+        f"card: dst_loc's sorted segments, x ({DIST_SHARDS}·E_p, "
+        f"{DIST_HEADS * DIST_HEAD_DIM}); launches: the segment forms "
+        "(halo_spmm, halo_gat_attention, the gather plan's ops) in the dist "
+        "parity phase, forward and backward"))
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

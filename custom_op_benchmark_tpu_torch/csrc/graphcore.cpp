@@ -8,8 +8,8 @@
 // dual-CSR construction; part_csr.py row chunking) and that real datasets
 // (ogbn-*, papers100M-scale) need at C speed: canonical edge sorting,
 // dual-CSR construction, edge-balanced partitioning, union-find
-// components, degree-bucketed ELL packing, and layered uniform neighbor
-// sampling and the halo plans (not bound yet: ROADMAP M10 and M12).
+// components, degree-bucketed ELL packing, layered uniform neighbor
+// sampling, and the halo planner and packer of the distributed plans.
 //
 // Exposed as a plain C ABI consumed via ctypes (graph/native.py) — no
 // pybind11 dependency. All index arrays are int32; callers allocate

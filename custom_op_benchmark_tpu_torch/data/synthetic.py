@@ -62,9 +62,17 @@ def planted_partition(
     same = rng.random(e) < homophily
     cls_nodes = [np.nonzero(labels == c)[0] for c in range(num_classes)]
     dst = rng.integers(0, n, e)
+    # The same-class edges of each class in position order, as the
+    # reference's per-class masks give them (one stable sort, not a pass
+    # over all edges a class); the draws keep the reference's order.
+    pos = np.flatnonzero(same)
+    src_cls = labels[src[pos]]
+    by_cls = pos[np.argsort(src_cls, kind="stable")]
+    bounds = np.concatenate([[0], np.cumsum(np.bincount(
+        src_cls, minlength=num_classes))])
     for c in range(num_classes):
-        pick = same & (labels[src] == c)
-        dst[pick] = rng.choice(cls_nodes[c], size=int(pick.sum()))
+        pick = by_cls[bounds[c]:bounds[c + 1]]
+        dst[pick] = rng.choice(cls_nodes[c], size=len(pick))
     loops = np.arange(n)
     src_all = np.concatenate([src, dst, loops])
     dst_all = np.concatenate([dst, src, loops])

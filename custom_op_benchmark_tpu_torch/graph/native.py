@@ -1,10 +1,10 @@
 """ctypes binding of the port's graphcore library, with numpy equivalents.
 
 Counterpart of custom_op_benchmark_tpu/graph/native.py for the entry
-points the port uses so far: the dual-CSR build (``from_coo``), the row
+points the port uses: the dual-CSR build (``from_coo``), the row
 chunking (``partition_csr``), union-find components (``reorder``), the
-ELL packer (``ell_pack``) and the neighbour samplers
-(``data/sampling.py``). The halo plans come with ROADMAP M12.
+ELL packer (``ell_pack``), the neighbour samplers (``data/sampling.py``)
+and the halo planner and packer (``parallel/halo.py``).
 
 The library is the port's own copy of the C++ source
 (``custom_op_benchmark_tpu_torch/csrc/graphcore.cpp``). ``g++`` builds it
@@ -60,6 +60,13 @@ _SIGNATURES = {
         _I32P, _I32P, _I64, _I32P, _I64, _I32P, _I64, ctypes.c_uint64,
         ctypes.c_int32, _I64, _I64, ctypes.c_int32, ctypes.c_int32,
         _I32P, _I32P, _I32P, _I32P, _I64P]),
+    "graphcore_halo_plan": (_I64, [
+        _I32P, _I32P, _I64, _I64, _I64, _I64, _I64, _I64, _I64P, _I32P,
+        _I32P, _I32P, _I32P]),
+    "graphcore_halo_pack": (_I64, [
+        _I32P, _I32P, _I32P, _I64, _I64, _I64, _I64, _I64P, _I64P, _I64,
+        ctypes.c_int32, _I64, ctypes.c_int32, _I64, _I64, _I64, _I64P,
+        _I64P, _I32P, _I32P, _I32P, _I32P, _I32P, _I32P]),
 }
 
 
@@ -263,8 +270,105 @@ def sample_subgraph_native(indptr_c, indices_c, n_nodes: int, seeds,
     return node_ids, int(n_out[0]), lsrc, ldst, int(n_out[1]), in_cols
 
 
+def halo_plan_native(src, dst, n: int, p: int, n_per: int,
+                     pad_multiple: int, eid_pad: int):
+    """The halo plan without hubs (parallel/halo.py ``halo_plan_host``):
+    ``(send_idx (p, p, m), src_ext (p, e_p), dst_loc (p, e_p), eid (p,
+    e_p), e_p, m)``, equal to the numpy builder's arrays, or None without
+    the library or where the planner declines the shape."""
+    lib = _load()
+    if lib is None:
+        return None
+    src = np.ascontiguousarray(src, np.int32)
+    dst = np.ascontiguousarray(dst, np.int32)
+    e = len(src)
+    sizes = np.zeros(2, np.int64)
+    null32 = _I32P()
+    args = (_p32(src), _p32(dst), e, n, p, n_per, pad_multiple, eid_pad,
+            _p64(sizes))
+    if lib.graphcore_halo_plan(*args, null32, null32, null32, null32) != 0:
+        return None
+    e_p, m_max = int(sizes[0]), int(sizes[1])
+    send_idx = np.empty((p, p, m_max), np.int32)
+    src_ext, dst_loc, eid = (np.empty((p, e_p), np.int32) for _ in range(3))
+    if lib.graphcore_halo_plan(*args, _p32(send_idx), _p32(src_ext),
+                               _p32(dst_loc), _p32(eid)) != 0:
+        return None
+    halo_plan_native.calls += 1
+    return send_idx, src_ext, dst_loc, eid, e_p, m_max
+
+
+def halo_pack_native(row_mat, col_mat, valid_mat, valid_lt: int, p: int,
+                     n_rows: int, widths, spec_mode: int, spec_thresh: int,
+                     special_side: str, pad_row: int, pad_col: int,
+                     row_pad: int = 8, want_slot_pos=False,
+                     want_section_pos=False, nw_cap: int = 48):
+    """The shared-shape degree-bucket packer of the halo plan
+    (``parallel/halo.py`` ``_pack_shared``), straight off the ``(P, e_p)``
+    plan matrices: edge ``(s, j)`` has row ``row_mat[s, j]``, col
+    ``col_mat[s, j]`` and slot position ``j``, and is real where ``0 <=
+    valid_mat[s, j] < valid_lt``. Returns ``_pack_shared``'s tuple plus
+    ``slot_pos`` (None unless asked for), or None without the library or
+    where the size guards trip."""
+    lib = _load()
+    if lib is None:
+        return None
+    row_mat = np.ascontiguousarray(row_mat, np.int32)
+    col_mat = np.ascontiguousarray(col_mat, np.int32)
+    valid_mat = np.ascontiguousarray(valid_mat, np.int32)
+    e_p = row_mat.shape[1]
+    w0 = sorted(set(int(w) for w in widths))
+    wbuf = np.zeros(nw_cap, np.int64)
+    wbuf[: len(w0)] = w0
+    nw_io = np.array([len(w0)], np.int64)
+    r_pad_b = np.zeros(nw_cap, np.int64)
+    n_spec_b = np.zeros(nw_cap, np.int64)
+    side = 0 if special_side == "tail" else 1
+    null32 = _I32P()
+    head = (_p32(row_mat), _p32(col_mat), _p32(valid_mat), valid_lt, p, e_p,
+            n_rows, _p64(wbuf), _p64(nw_io), nw_cap, spec_mode, spec_thresh,
+            side, pad_row, pad_col, row_pad, _p64(r_pad_b), _p64(n_spec_b))
+    total_rows = lib.graphcore_halo_pack(*head, *([null32] * 6))
+    if total_rows < 0:
+        return None
+    nw = int(nw_io[0])
+    wa = wbuf[:nw]
+    rows_flat = np.empty(int(p * r_pad_b[:nw].sum()), np.int32)
+    n_slots = int(p * (r_pad_b[:nw] * wa).sum())
+    cols_flat = np.empty(n_slots, np.int32)
+    epos_flat = np.empty(n_slots, np.int32)
+    row_pos = np.empty((p, n_rows), np.int32)
+    section_pos = (np.empty((p, n_rows), np.int32) if want_section_pos
+                   else None)
+    slot_pos = np.empty((p, e_p), np.int32) if want_slot_pos else None
+    if lib.graphcore_halo_pack(
+            *head, _p32(rows_flat), _p32(cols_flat), _p32(epos_flat),
+            _p32(row_pos),
+            _p32(section_pos) if want_section_pos else null32,
+            _p32(slot_pos) if want_slot_pos else null32) < 0:
+        return None
+    # The flat buckets as the kept (non-empty) per-width arrays.
+    rows_b, cols_b, epos_b, bw, splits = [], [], [], [], []
+    ro = co = 0
+    for i in range(nw):
+        rp, w = int(r_pad_b[i]), int(wa[i])
+        if rp == 0:
+            continue
+        rows_b.append(rows_flat[ro:ro + p * rp].reshape(p, rp))
+        cols_b.append(cols_flat[co:co + p * rp * w].reshape(p, rp, w))
+        epos_b.append(epos_flat[co:co + p * rp * w].reshape(p, rp, w))
+        bw.append(w)
+        splits.append(int(n_spec_b[i]))
+        ro += p * rp
+        co += p * rp * w
+    halo_pack_native.calls += 1
+    return (rows_b, cols_b, epos_b, row_pos, splits, bw, int(total_rows),
+            section_pos, int(n_spec_b[:nw].sum()), slot_pos)
+
+
 ENTRY_POINTS = (build_dual_csr, partition_csr_native,
                 connected_components_native, ell_pack_native,
-                sample_in_edges_native, sample_subgraph_native)
+                sample_in_edges_native, sample_subgraph_native,
+                halo_plan_native, halo_pack_native)
 for _fn in ENTRY_POINTS:
     _fn.calls = 0

@@ -153,37 +153,38 @@ def vector_spmm_bwd(src, dst, csc_perm, dst_csc, edata, x, dy):
 # Gathers by endpoint and sums over sorted segments, each the other's VJP
 # ---------------------------------------------------------------------------
 
-class _GatherRows(torch.autograd.Function):
+class GatherRows(torch.autograd.Function):
+    """``x[idx]`` with ids past the last row clamped to it. ``ptr``
+    (``x.shape[0] + 1`` offsets) and ``order`` are the CSR of the clamped
+    ids, so the VJP sums the cotangent over each row's slots on
+    ``csr_sum``. The distributed plans (``parallel/rows.py``) use it on
+    tables of P shards' rows."""
+
     @staticmethod
     def forward(ctx, x, idx, ptr, order):
         ctx.save_for_backward(ptr, order)
-        ctx.n = x.shape[0]
         return _gather_nodes(x, idx)
 
     @staticmethod
     def backward(ctx, dy):
         ptr, order = ctx.saved_tensors
-        n = ctx.n
-        # Rows 0..n-1 and the padded segment n, which the clamp sent to
-        # row n - 1.
-        s = csr_sum(ptr, dy.contiguous(), order)
-        dx = s[:n].clone()
-        dx[n - 1] += s[n]
-        return dx, None, None, None
+        return csr_sum(ptr, dy.contiguous(), order), None, None, None
 
 
-class _SegmentSum(torch.autograd.Function):
+class SegmentSum(torch.autograd.Function):
+    """Σ of ``vals`` over the sorted segments of ``ptr`` (slots listed by
+    ``order``), on ``csr_sum``; ``seg`` names each slot's segment, so the
+    VJP gathers the cotangent by it."""
+
     @staticmethod
     def forward(ctx, vals, ptr, order, seg):
         ctx.save_for_backward(seg)
-        ctx.n = ptr.numel() - 1
         return csr_sum(ptr, vals.contiguous(), order)
 
     @staticmethod
     def backward(ctx, dy):
         (seg,) = ctx.saved_tensors
-        dyz = torch.cat([dy, dy.new_zeros((1,) + tuple(dy.shape[1:]))])
-        return dyz[seg.long().clamp(max=ctx.n)], None, None, None
+        return dy[seg.long()], None, None, None
 
 
 class _CopySum(torch.autograd.Function):
@@ -218,7 +219,10 @@ def gather_rows(g, x: torch.Tensor, by: str) -> torch.Tensor:
         raise ValueError(f"x has {x.shape[0]} rows, the graph "
                          f"{g.n_nodes} nodes")
     ids, ptr, order = _side(g, by)
-    return _GatherRows.apply(x, ids, ptr, order)
+    n = g.n_nodes
+    # The clamp sends the padded segment n to row n - 1: merge the two.
+    merged = torch.cat([ptr[:n], ptr[n + 1: n + 2]])
+    return GatherRows.apply(x, ids, merged, order)
 
 
 def sorted_segment_sum(g, vals: torch.Tensor, to: str) -> torch.Tensor:
@@ -227,7 +231,8 @@ def sorted_segment_sum(g, vals: torch.Tensor, to: str) -> torch.Tensor:
     canonical order, padded edges dropped. Its VJP gathers the cotangent
     by each edge's endpoint (0 on padded edges)."""
     ids, ptr, order = _side(g, to)
-    return _SegmentSum.apply(vals, ptr[: g.n_nodes + 1], order, ids)
+    # The padded segment n is summed and sliced off; its slots get 0.
+    return SegmentSum.apply(vals, ptr, order, ids)[: g.n_nodes]
 
 
 def copy_sum(g, x: torch.Tensor, frm: str, to: str) -> torch.Tensor:

@@ -9,6 +9,7 @@ from custom_op_benchmark_tpu_torch.train.loop import (
     create_train_state,
     fit_full_graph,
     fit_sampled,
+    fit_sampled_dp,
     make_eval_step,
     make_sampled_step,
     make_train_step,
@@ -22,6 +23,7 @@ from custom_op_benchmark_tpu_torch.train.resilient import (
 
 __all__ = ["CheckpointManager", "DivergenceError", "TrainState",
            "create_train_state", "fit_full_graph", "fit_sampled",
+           "fit_sampled_dp",
            "make_eval_step", "make_sampled_step", "make_train_step",
            "masked_cross_entropy", "resilient_steps", "restore_checkpoint",
            "save_checkpoint"]

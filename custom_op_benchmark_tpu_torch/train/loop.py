@@ -315,3 +315,122 @@ def fit_sampled(model: nn.Module, dataset, *, fanouts=(25, 10),
         sample_ms=(statistics.median(sample_s) * 1e3 if sample_s
                    else None),
         step_ms=step_ms, eval_ms=eval_ms)
+
+
+def dp_step(state: TrainState, mesh, axis: str, batches, feats, labels):
+    """One data-parallel sampled step: each of this process's shards
+    computes its batch's loss and gradients on its own (the model in eval
+    mode, no dropout), the gradients are averaged over ``mesh[axis]``,
+    summed in shard order, and AdamW takes one step. ``batches``: this
+    process's ``(graph, node_ids, seed_ids, seed_mask, in_cols)`` on the
+    device, one a shard. Returns the mean loss over the axis."""
+    from custom_op_benchmark_tpu_torch.parallel.mesh import psum
+
+    model = state.model
+    model.train(False)
+    params = list(model.parameters())
+    p = mesh.shape[axis]
+    grads, shard_losses = [], []
+    for g_b, ids, seeds, mask, cols in batches:
+        kw = {} if cols is None else {"in_cols": cols}
+        logits = model(g_b, feats[ids], **kw)
+        loss = masked_cross_entropy(logits[: mask.shape[0]], labels[seeds],
+                                    mask)
+        grads.append(torch.autograd.grad(loss, params))
+        shard_losses.append(loss.detach())
+    for j, prm in enumerate(params):
+        prm.grad = psum(mesh, axis, torch.stack([g[j] for g in grads]))[0] / p
+    state.optimizer.step()
+    state.step += 1
+    return psum(mesh, axis, torch.stack(shard_losses))[0] / p
+
+
+def fit_sampled_dp(model: nn.Module, dataset, mesh, *, fanouts=(25, 10),
+                   batch_size: int = 128, epochs: int = 1,
+                   learning_rate: float = 1e-3, seed: int = 0,
+                   axis: str = "batch", max_steps: Optional[int] = None):
+    """Data-parallel sampled-minibatch training over ``mesh[axis]``.
+
+    Counterpart of the reference's ``fit_sampled_dp``. Each step samples
+    ``P`` seed batches (P = the axis size) in the reference's order, batch
+    r of a group going to shard r; each shard computes its loss and
+    gradients on its own subgraph, and the gradients (and losses) are
+    averaged over the axis, summed in shard order, before one AdamW step of
+    the replicated parameters. On the local mesh the P shards run one after
+    the other on the mesh's device; on the process mesh every rank draws
+    the same groups and computes its own batch, so both meshes give the
+    same bits. The forward of each batch is S3 and its backward S3's CSR
+    entry (``ops/sampled.py``). ``max_steps`` stops after that many steps.
+
+    Returns ``(state, metrics)``: ``losses``, ``val_acc`` (full-graph, on
+    the segment path), ``num_devices``, and ``steps``, ``sample_ms`` (the
+    median host time to sample one group) and, on the card, ``step_ms``
+    (the median time between the ends of consecutive steps, after
+    warm-up).
+    """
+    import inspect
+    import time
+
+    from custom_op_benchmark_tpu_torch.data.sampling import NeighborSampler
+
+    p = mesh.shape[axis]
+    device = mesh.device
+    on_card = device.type == "cuda"
+    sampler = NeighborSampler(dataset.graph, fanouts, seed=seed)
+    takes_in_cols = "in_cols" in inspect.signature(
+        model.forward).parameters
+    feats = torch.from_numpy(dataset.features).to(device)
+    labels = torch.from_numpy(dataset.labels.astype(np.int64)).to(device)
+    train_ids = np.nonzero(dataset.train_mask)[0]
+    # The reference draws one batch to initialise its state; drawing it
+    # keeps the sampler's stream in step with the reference's.
+    sampler.sample(train_ids[:batch_size])
+    if hasattr(model, "reset_parameters"):
+        model.to("cpu").reset_parameters(torch.Generator().manual_seed(seed))
+    model.to(device)
+    state = create_train_state(model, learning_rate=learning_rate)
+    mine = range(p) if mesh.is_local else [mesh.shard_index(axis)]
+
+    def to_dev(batch):
+        g_b, ids, seeds, mask, cols = batch
+        return (g_b.to(device), torch.from_numpy(ids).to(device),
+                torch.from_numpy(seeds).to(device),
+                torch.from_numpy(mask).to(device),
+                None if cols is None else torch.from_numpy(cols).to(device))
+
+    losses, sample_s, ends = [], [], []
+    for _ in range(epochs):
+        it = sampled_batches(sampler, train_ids, batch_size,
+                             takes_in_cols=takes_in_cols)
+        while max_steps is None or len(losses) < max_steps:
+            t0 = time.perf_counter()
+            group = []
+            for b in it:
+                group.append(b)
+                if len(group) == p:
+                    break
+            if len(group) < p:
+                break
+            sample_s.append(time.perf_counter() - t0)
+            losses.append(dp_step(state, mesh, axis,
+                                  [to_dev(group[r]) for r in mine], feats,
+                                  labels))
+            if on_card and len(losses) > WARMUP_STEPS:
+                ends.append(torch.cuda.Event(enable_timing=True))
+                ends[-1].record()
+    losses = torch.stack(losses).tolist() if losses else []
+    step_ms = None
+    if on_card and len(ends) > 1:
+        ends[-1].synchronize()
+        step_ms = statistics.median(a.elapsed_time(b)
+                                    for a, b in zip(ends, ends[1:]))
+    with torch.no_grad():
+        pred = model(dataset.graph.to(device), feats).argmax(-1).cpu().numpy()
+    val = dataset.val_mask
+    val_acc = (float((pred[val] == dataset.labels[val]).mean())
+               if val.any() else float("nan"))
+    return state, dict(
+        losses=losses, val_acc=val_acc, num_devices=p, steps=len(losses),
+        sample_ms=(statistics.median(sample_s) * 1e3 if sample_s
+                   else None),
+        step_ms=step_ms)

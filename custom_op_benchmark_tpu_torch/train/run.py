@@ -26,10 +26,22 @@ canonical .npz or a Planetoid-style .npz), and prints one JSON line
                       (``fit_sampled``); its metrics add the median step,
                       sampling and evaluation times.
 
-The table lists every configuration of the reference, so ``--help`` names
-them all; the three distributed ones wait for the distributed plans
-(ROADMAP M12): they raise ``NotImplementedError`` and the command exits
-non-zero.
+  products_gat_dist   the edge-partitioned GAT (hidden 64, 4 heads, 2
+                      layers, Adam 1e-2) of ``parallel.train_dist.
+                      fit_edge_partitioned`` on the halo plan (order and
+                      hub threshold "auto") over 8 shards: a mesh of 8
+                      shards on the one device, or, under an initialised
+                      ``torch.distributed`` group (``torchrun``), one shard
+                      a process;
+  products_transformer_dist
+                      the same with the distributed graph transformer;
+  papers100m_gat_dist the GAT over 16 shards.
+
+The distributed configurations share the products-like dataset (47
+classes of 5,200 nodes, average degree 20; 100-d features at ``--scale``
+1, 32-d below it). Their metrics add the plan's host seconds and exchange
+numbers (``plan``), the median step time and the peak memory; with
+``COB_CACHE_DIR`` set the host plan is cached there (graph/cache.py).
 
 Training runs on the CUDA device, or with ``--device cpu`` on the CPU at a
 scale below 1 or with ``--data`` (the kernels' plain versions stand in).
@@ -210,10 +222,47 @@ def _ported(name):
     return run
 
 
-def _refused(item, what):
+def products_dataset(scale):
+    """The distributed configurations' stand-in: 47 classes of 5,200 nodes,
+    average degree 20, 100-d features at ``--scale 1`` (32-d below)."""
+    return _ds(47, 5200, 100 if scale >= 1 else 32, scale, avg_degree=20,
+               name="products-like")
+
+
+def dist_mesh(want_devices, device):
+    """The distributed configurations' mesh: one shard a process under an
+    initialised ``torch.distributed`` group, else ``want_devices`` shards
+    on ``device``."""
+    import torch.distributed as dist
+
+    from custom_op_benchmark_tpu_torch.parallel import make_mesh
+
+    if dist.is_available() and dist.is_initialized():
+        return make_mesh(axis_names=("edge",), group=True)
+    return make_mesh((want_devices,), ("edge",), device=device)
+
+
+def _dist(want_devices, arch="gat"):
     def run(scale, epochs, device, data=None):
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
-                                  f"{item})")
+        import os
+
+        from custom_op_benchmark_tpu_torch.parallel import (
+            fit_edge_partitioned,
+        )
+
+        if data:
+            from custom_op_benchmark_tpu_torch.data.datasets import (
+                load_dataset,
+            )
+
+            ds = load_dataset(data)
+        else:
+            ds = products_dataset(scale)
+        _, metrics = fit_edge_partitioned(
+            ds, dist_mesh(want_devices, device), hidden=64, num_heads=4,
+            num_layers=2, epochs=epochs, arch=arch,
+            cache_dir=os.environ.get("COB_CACHE_DIR"))
+        return metrics
 
     return run
 
@@ -223,13 +272,27 @@ CONFIGS = {
     "arxiv_gat": (_ported("arxiv_gat"), 60),
     "arxiv_transformer": (_ported("arxiv_transformer"), 40),
     "reddit_sage": (_ported("reddit_sage"), 2),
-    "products_gat_dist": (_refused(
-        "M12", "products_gat_dist's distributed plan"), 30),
-    "products_transformer_dist": (_refused(
-        "M12", "products_transformer_dist's distributed plan"), 30),
-    "papers100m_gat_dist": (_refused(
-        "M12", "papers100m_gat_dist's distributed plan"), 10),
+    "products_gat_dist": (_dist(8), 30),
+    "products_transformer_dist": (_dist(8, "transformer"), 30),
+    "papers100m_gat_dist": (_dist(16), 10),
 }
+
+
+def _join_launcher_group(config, device) -> bool:
+    """Under a launcher that sets ``WORLD_SIZE`` (``torchrun``), join its
+    process group for a distributed configuration: NCCL on the card of
+    ``LOCAL_RANK``, gloo on the CPU. Returns whether it did."""
+    import os
+
+    import torch.distributed as dist
+
+    if (not config.endswith("_dist") or "WORLD_SIZE" not in os.environ
+            or dist.is_initialized()):
+        return False
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    return True
 
 
 def main(argv=None) -> int:
@@ -264,8 +327,18 @@ def main(argv=None) -> int:
             print(f"run: {err} (pass --device cpu with --scale below 1)",
                   file=sys.stderr)
             return 1
-    metrics = fn(args.scale, args.epochs or default_epochs, device,
-                 data=args.data)
+    started = _join_launcher_group(args.config, device)
+    try:
+        metrics = fn(args.scale, args.epochs or default_epochs, device,
+                     data=args.data)
+    finally:
+        if started:
+            import torch.distributed as dist
+
+            rank = dist.get_rank()
+            dist.destroy_process_group()
+    if started and rank:
+        return 0                        # one line, from rank 0
     print(json.dumps({"config": args.config, "scale": args.scale,
                       "data": args.data, **metrics}), flush=True)
     return 0

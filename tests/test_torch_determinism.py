@@ -49,6 +49,18 @@ from custom_op_benchmark_tpu_torch.train import (
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """One intra-op thread for a module's tests, restored after it: the
+    tier-1 run's six workers share the machine, and many small ops on
+    many threads each spin against the other workers (a training test of
+    2.5 s alone took 300 s so)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
 # Autograd's backward of a gather: over a repeated index it accumulates
 # with index_put_(accumulate=True) / embedding_dense_backward, atomics on
 # the card.
@@ -287,3 +299,105 @@ def test_scan_and_walk_catch_an_atomic_gather():
         torch.zeros(4).index_add_(0, torch.tensor([0, 2]), torch.ones(2))
         perm.sum().backward()
     assert not scan.hits
+
+
+def _dist_cases():
+    """The distributed plans' ops (parallel/), each a function of a seed
+    that returns its output and every gradient."""
+    from custom_op_benchmark_tpu_torch.graph import random_graph as rg
+    from custom_op_benchmark_tpu_torch.parallel import (
+        halo,
+        make_mesh,
+        shard_ops,
+        tp,
+    )
+
+    g = rg(96, 800, seed=2, power_law=True)
+    mesh = make_mesh((4,), ("edge",), device="cpu")
+    hg = halo.halo_graph(g, mesh, hub_threshold=2)
+    he = halo.halo_ell(hg, mesh)
+    dg = shard_ops.dist_graph(g, mesh)
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(g.n_nodes, 2, 4)).astype(np.float32)
+    ed = rng.uniform(size=g.num_edges_padded).astype(np.float32)
+
+    def hnodes(a):
+        return halo.shard_halo_nodes(hg, mesh, a).requires_grad_()
+
+    def gnodes(a):
+        return shard_ops.shard_nodes(dg, mesh, a).requires_grad_()
+
+    def hedges():
+        return halo.halo_edge_data(hg, mesh, ed).requires_grad_()
+
+    def gedges():
+        return shard_ops.shard_edges(dg, mesh, np.stack([ed[: g.n_edges]] * 2,
+                                                        1)).requires_grad_()
+
+    se, de = tops.ell_dual(g)
+    mesh_h = make_mesh((2,), ("head",), device="cpu")
+    return {
+        "halo_spmm": lambda: (halo.halo_spmm, (hg, mesh), (hedges(),
+                                                           hnodes(x[:, 0]))),
+        "halo_gat_attention": lambda: (halo.halo_gat_attention, (hg, mesh),
+                                       (hnodes(x), hnodes(x), hnodes(x))),
+        "halo_attention_ell": lambda: (halo.halo_attention_ell,
+                                       (hg, he, mesh),
+                                       (hnodes(x), hnodes(x), hnodes(x))),
+        "halo_spmm_ell": lambda: (halo.halo_spmm_ell, (hg, he, mesh),
+                                  (hedges(), hnodes(x[:, 0]))),
+        "dist_sddmm": lambda: (shard_ops.dist_sddmm, (dg, mesh),
+                               (gnodes(x), gnodes(x))),
+        "dist_edge_softmax": lambda: (shard_ops.dist_edge_softmax,
+                                      (dg, mesh), (gedges(),)),
+        "dist_vector_spmm": lambda: (shard_ops.dist_vector_spmm, (dg, mesh),
+                                     (gedges(), gnodes(x))),
+        "dist_gat_attention": lambda: (shard_ops.dist_gat_attention,
+                                       (dg, mesh),
+                                       (gnodes(x), gnodes(x), gnodes(x))),
+        "tp_attention": lambda: (tp.tp_attention, (de, se, mesh_h),
+                                 tuple(torch.from_numpy(x).requires_grad_()
+                                       for _ in range(3))),
+    }
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("op", sorted(_dist_cases()))
+def test_distributed_ops_have_no_atomic_backward(op):
+    """Every op of the distributed plans on a local mesh (a hub plan for
+    the halo ops): no gather backward over a repeated index, no
+    accumulating scatter forward or backward, and equal bits on a
+    repeat."""
+    make = _dist_cases()[op]
+
+    def run():
+        fn, lead, args = make()
+        y = fn(*lead, *args)
+        assert unsafe_nodes(y) == []
+        return [y.detach()] + list(torch.autograd.grad((y ** 2).sum(),
+                                                       args))
+
+    _equal(_no_atomics(run), _no_atomics(run))
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("arch", ["gat", "transformer"])
+def test_edge_partitioned_training_bitwise_reproducible(arch):
+    """Two runs of fit_edge_partitioned (halo plan) give equal parameters
+    and metrics, with no accumulating scatter."""
+    from custom_op_benchmark_tpu_torch.parallel import (
+        fit_edge_partitioned,
+        make_mesh,
+    )
+
+    ds = planted_partition(num_classes=3, nodes_per_class=20, feat_dim=8,
+                           seed=0)
+
+    def fit():
+        return fit_edge_partitioned(
+            ds, make_mesh((4,), ("edge",), device="cpu"), hidden=8,
+            num_heads=2, num_layers=2, epochs=3, arch=arch)
+
+    (p1, m1), (p2, m2) = _no_atomics(fit), _no_atomics(fit)
+    assert m1["loss"] == m2["loss"]
+    _equal(list(p1.parameters()), list(p2.parameters()))

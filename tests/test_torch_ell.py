@@ -4,8 +4,8 @@ package's, on the same numpy inputs.
 The cases of tests/test_ell.py, each held to the JAX package's ELL ops
 (forward and gradient) at that file's tolerances: 1e-4 for forwards,
 1e-3 to 2e-3 for gradients; the cases of tests/test_packing_properties.py
-(except the halo plans, which come with ROADMAP M12) on the port's packing,
-whose arrays also equal JAX's bit for bit on both width ladders; and the
+(its halo plan case is in tests/test_torch_halo_native.py) on the port's
+packing, whose arrays also equal JAX's bit for bit on both width ladders; and the
 ``impl="ell"`` routes of the public ops against the port's segment oracle.
 The CUDA kernel S3 under ``ell_copy_spmm`` runs its plain version here, as
 the tensors lie on the CPU.

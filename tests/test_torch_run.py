@@ -11,8 +11,10 @@
 - ``reddit_sage`` (``fit_sampled``) reports a finite final loss and its
   step, sampling and evaluation times; ``--data`` trains on the committed
   OGB fixture;
-- the configurations that wait for later slices raise
-  ``NotImplementedError`` naming their ROADMAP items; the table names
+- the distributed configurations, which waited for ROADMAP item M12, now
+  train: each at a tiny ``--scale`` on a local mesh of its shard count on
+  the CPU, with the reference's JSON keys (``loss``, ``train_acc``,
+  ``val_acc``, ``num_devices``) and the plan's numbers; the table names
   every reference configuration with the reference's default epochs;
 - ``utils/config.py``'s dataclasses have the reference's fields and
   defaults.
@@ -44,6 +46,7 @@ from custom_op_benchmark_tpu_torch.train import (
     make_train_step,
 )
 from custom_op_benchmark_tpu_torch.train import run
+from tests.test_torch_determinism import one_thread  # noqa: F401
 
 SCALE = 0.005
 LOSS_RTOL = 1e-4
@@ -134,12 +137,28 @@ def test_one_train_step_matches_jax(config):
         assert err <= GRAD_SHARE * float(w.abs().max()) + 1e-12, (name, err)
 
 
+@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("config, item", [
     ("products_gat_dist", "M12"), ("products_transformer_dist", "M12"),
     ("papers100m_gat_dist", "M12")])
-def test_unported_configs_name_their_roadmap_item(config, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        run.main(["--config", config, "--scale", "0.01", "--device", "cpu"])
+def test_unported_configs_name_their_roadmap_item(config, item, capsys):
+    """The configurations of ROADMAP ``item`` (done) train on the CPU at a
+    tiny scale: one JSON line with the reference's keys, a finite loss,
+    the shard count of the reference's configuration."""
+    assert item == "M12"
+    assert run.main(["--config", config, "--scale", "0.01", "--epochs",
+                     "2", "--device", "cpu"]) == 0
+    rec = json.loads(capsys.readouterr().out.splitlines()[-1])
+    jax_keys = ("config", "scale", "data", "loss", "train_acc", "val_acc",
+                "num_devices")
+    assert list(rec)[: len(jax_keys)] == list(jax_keys)
+    assert rec["config"] == config and np.isfinite(rec["loss"])
+    assert rec["num_devices"] == (16 if config.startswith("papers") else 8)
+    assert 0.0 <= rec["val_acc"] <= 1.0
+    plan = rec["plan"]
+    assert plan["plan"] == "halo" and plan["order"] == "auto"
+    assert plan["num_parts"] == rec["num_devices"]
+    assert plan["order_details"]["picked"] in ("cluster", "balanced")
 
 
 def test_reddit_sage_reports_its_times(capsys):

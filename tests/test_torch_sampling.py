@@ -1,6 +1,6 @@
 """Neighbour sampling, the prefetch pipeline and sampled training against
-the JAX package (tests/test_sampling.py, all but ``test_fit_sampled_dp``,
-which needs the distributed plans).
+the JAX package (tests/test_sampling.py; ``fit_sampled_dp`` on a local
+mesh of 4 shards on the CPU, also repeated bit for bit).
 
 Beyond the reference's cases:
 - a batch of the port's ``NeighborSampler`` equals JAX's field by field
@@ -49,7 +49,11 @@ from custom_op_benchmark_tpu_torch.train import (
     fit_sampled,
     make_sampled_step,
 )
-from tests.test_torch_determinism import AtomicScan, unsafe_nodes
+from tests.test_torch_determinism import (  # noqa: F401
+    AtomicScan,
+    one_thread,
+    unsafe_nodes,
+)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 DS = dict(num_classes=3, nodes_per_class=60, feat_dim=8, avg_degree=6,
@@ -352,3 +356,153 @@ def test_one_sampled_sage_step_matches_jax(ds, jds):
         w = want[name]
         err = float((p.grad - w).abs().max())
         assert err <= 1e-4 * float(w.abs().max()) + 1e-12, (name, err)
+
+
+def _fit_dp(ds, **kw):
+    from custom_op_benchmark_tpu_torch.parallel import make_mesh
+    from custom_op_benchmark_tpu_torch.train import fit_sampled_dp
+
+    mesh = make_mesh((4,), ("batch",), device="cpu")
+    model = GraphSAGE(hidden_dim=16, out_dim=3, num_layers=2, in_dim=8)
+    _, metrics = fit_sampled_dp(model, ds, mesh, fanouts=(5, 3),
+                                batch_size=16, learning_rate=1e-2, **kw)
+    return model, metrics
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_fit_sampled_dp(ds):
+    """Minibatch data parallelism: P = 4 sampled subgraphs a step, one a
+    shard, the gradients averaged in shard order."""
+    _, metrics = _fit_dp(ds, epochs=10)
+    assert metrics["num_devices"] == 4
+    assert metrics["val_acc"] > 0.8, metrics
+    assert metrics["steps"] == len(metrics["losses"]) > 0
+
+
+def _jax_dp_init(jds, fanouts, batch_size, seed):
+    """JAX's ``fit_sampled_dp`` initial state, built as it builds it, and
+    its model."""
+    from custom_op_benchmark_tpu.train.loop import (
+        create_train_state as jax_create_train_state,
+    )
+
+    jmodel = JaxSAGE(hidden_dim=16, out_dim=3, num_layers=2)
+    train = np.nonzero(jds.train_mask)[0]
+    b0 = JaxSampler(jds.graph, fanouts, seed=seed).sample(train[:batch_size])
+    state = jax_create_train_state(
+        jmodel, b0.graph, jnp.asarray(jds.features[b0.node_ids]),
+        jax.random.PRNGKey(seed), learning_rate=1e-2,
+        in_cols=jnp.asarray(b0.in_cols))
+    return jmodel, state
+
+
+def _port_from(params):
+    """The port's GraphSAGE whose ``reset_parameters`` (which
+    ``fit_sampled_dp`` calls) loads JAX's parameters."""
+    model = GraphSAGE(hidden_dim=16, out_dim=3, num_layers=2, in_dim=8)
+    sd = flax_to_state_dict(jax.tree_util.tree_map(np.asarray, params))
+    model.reset_parameters = lambda generator=None: model.load_state_dict(
+        sd, strict=True)
+    return model
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_dp_step_gradient_is_the_mean_of_jax_shard_gradients(ds, jds):
+    """The first step's averaged gradient against the mean of JAX's P = 4
+    per-batch gradients at the same weights (each leaf within 1e-4 of its
+    largest value) and the step's loss against their mean loss (1e-5
+    relative): a gradient summed and not divided by P, a batch dropped,
+    doubled or taken from another group would each fail here, where an
+    Adam step hides the scale."""
+    from custom_op_benchmark_tpu_torch.parallel import make_mesh
+    from custom_op_benchmark_tpu_torch.train.loop import (
+        dp_step,
+        sampled_batches,
+    )
+
+    p, fanouts, bs = 4, (5, 3), 16
+    jmodel, jstate = _jax_dp_init(jds, fanouts, bs, 0)
+    train = np.nonzero(ds.train_mask)[0]
+    jit = JaxSampler(jds.graph, fanouts, seed=5).epoch(train, bs)
+    jgroup = [next(jit) for _ in range(p)]
+
+    def jloss(prm, jb):
+        logits = jmodel.apply({"params": prm}, jb.graph,
+                              jnp.asarray(jds.features[jb.node_ids]),
+                              in_cols=jnp.asarray(jb.in_cols))
+        k = jb.seed_mask.shape[-1]
+        return jax_masked_ce(logits[:k], jnp.asarray(jds.labels[jb.seed_ids]),
+                             jnp.asarray(jb.seed_mask))
+
+    per = [jax.value_and_grad(jloss)(jstate.params, jb) for jb in jgroup]
+    want_loss = sum(float(l) for l, _ in per) / p
+    want = flax_to_state_dict(jax.tree_util.tree_map(
+        lambda *gs: sum(np.asarray(g, np.float64) for g in gs) / p,
+        *[g for _, g in per]))
+
+    model = _port_from(jstate.params)
+    model.reset_parameters()
+    state = create_train_state(model, learning_rate=1e-2)
+    it = sampled_batches(NeighborSampler(ds.graph, fanouts, seed=5), train,
+                         bs)
+    group = [next(it) for _ in range(p)]
+    for b, jb in zip(group, jgroup):
+        np.testing.assert_array_equal(b[1], jb.node_ids)
+    batches = [(g_b, torch.from_numpy(ids), torch.from_numpy(seeds),
+                torch.from_numpy(mask), torch.from_numpy(cols))
+               for g_b, ids, seeds, mask, cols in group]
+    feats = torch.from_numpy(ds.features)
+    labels = torch.from_numpy(ds.labels.astype(np.int64))
+    mesh = make_mesh((p,), ("batch",), device="cpu")
+    loss = dp_step(state, mesh, "batch", batches, feats, labels)
+    np.testing.assert_allclose(loss.item(), want_loss, rtol=1e-5)
+    for name, prm in model.named_parameters():
+        w = want[name].float()
+        err = float((prm.grad - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()) + 1e-12, (name, err)
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_fit_sampled_dp_matches_jax(ds, jds):
+    """JAX's ``fit_sampled_dp`` on a 4-wide batch axis of its 8-device CPU
+    mesh and the port's on a local mesh of 4, from JAX's initial weights:
+    every step's loss within 1e-4 relative, the final parameters within
+    1e-4 of each leaf's largest value, the same ``num_devices``."""
+    from custom_op_benchmark_tpu.parallel import make_mesh as jax_make_mesh
+    from custom_op_benchmark_tpu.train import fit_sampled_dp as jax_fit_dp
+    from custom_op_benchmark_tpu_torch.parallel import make_mesh
+    from custom_op_benchmark_tpu_torch.train import fit_sampled_dp
+
+    fanouts, bs, epochs = (5, 3), 16, 3
+    jmodel, jstate0 = _jax_dp_init(jds, fanouts, bs, 0)
+    jstate, jmetrics = jax_fit_dp(
+        jmodel, jds, jax_make_mesh((4,), ("batch",)), fanouts=fanouts,
+        batch_size=bs, epochs=epochs, learning_rate=1e-2)
+    model = _port_from(jstate0.params)
+    _, metrics = fit_sampled_dp(
+        model, ds, make_mesh((4,), ("batch",), device="cpu"),
+        fanouts=fanouts, batch_size=bs, epochs=epochs, learning_rate=1e-2)
+    assert metrics["num_devices"] == jmetrics["num_devices"] == 4
+    assert len(metrics["losses"]) == len(jmetrics["losses"]) > 0
+    np.testing.assert_allclose(metrics["losses"], jmetrics["losses"],
+                               rtol=1e-4)
+    want = flax_to_state_dict(jax.tree_util.tree_map(np.asarray,
+                                                     jstate.params))
+    for name, prm in model.named_parameters():
+        w = want[name]
+        err = float((prm.detach() - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), (name, err)
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_fit_sampled_dp_repeats_bit_for_bit(ds):
+    """Two runs from one seed: equal losses and parameters, with no
+    accumulating scatter in any step."""
+    runs = []
+    for _ in range(2):
+        with AtomicScan() as scan:
+            model, metrics = _fit_dp(ds, epochs=2)
+        assert not scan.hits, scan.hits
+        runs.append((metrics["losses"], list(model.parameters())))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
