@@ -36,7 +36,10 @@ reddit_sage's dataset and ``dryrun_multichip``.
 
 1. device: a CUDA device is present; print its name and power limit, then
    build the CUDA kernels from ``custom_op_benchmark_tpu_torch/csrc`` (one
-   nvcc for each source, all started together);
+   nvcc for each source, all started together); the L2 gather rate
+   (``benchlib.l2_gather_rate``: the probe kernel csrc/l2_probe.cu), the
+   bound of S3's rows, printed beside S3's own rate on the same
+   L2-resident table (the earlier definition);
 2. kernel parity: each kernel against its plain PyTorch version on the
    card, at the slice's shapes, K1-K3 also at d=1024, K1 on masks with
    empty 16×8 fragments, strips and tiles and on a dense mask (its skip of
@@ -70,7 +73,8 @@ reddit_sage's dataset and ``dryrun_multichip``.
    then the entry points on the clique batch, each with the launch
    counters set to 0 before it and read after: the headline bench (its
    JSON line, ``auto_impl == "dense_block"``, ``kernel_parity_ok``, the
-   clique GAT step, the power-law ELL attention over the L2 gather rate),
+   clique GAT step, the power-law ELL attention over the L2 gather
+   rate, also printed over S3's own rate),
    the clique suite (every gate and row; its K1-K4 launches are the
    suite rows' counts), K1-K4 at the suite's new shapes (K1-K3 one head
    at d = 1024, K4 one head at d = 128) against their plain versions,
@@ -100,12 +104,18 @@ reddit_sage's dataset and ``dryrun_multichip``.
     the host (seconds and padding waste), moved to the card;
 14. S3 parity against its plain version, bit-for-bit repeats: at the
     experiment's shape, on every bucket of both packings of both ladders
-    at d = 128 and on each packing's whole table, at d = 1, 33 and 200,
-    at an R that is not a multiple of 8 and on a bucket of padding only;
-    the one-launch copy-sum against the per-bucket result, bit for bit,
-    one launch each; S3 in bf16 (one rounding of f32 sums) at the
-    experiment's shape, on every pow-2 bucket, every table and at d = 33
-    and 200, and ``ell_copy_spmm`` on bf16 features as one bf16 launch;
+    at d = 128 and on each packing's whole table, at d = 1, 4, 8, 33, 64
+    and 200, the src table also at d = 1, 4, 8 and 64, the src side's
+    CSR rows (``pl_spmm/xla_segment``'s forward sum over identity slots)
+    at d = 128 and 4, at an R that is not a multiple of 8 and on a bucket
+    of padding only; the 27,565-slot hub of the src table and of the src
+    CSR rows within 1e-4 relative of its f64 sum; the one-launch copy-sum
+    against the per-bucket result, bit for bit, one launch each; S3 in
+    bf16 (one rounding of f32 sums) at the experiment's shape, on every
+    pow-2 bucket, every table, at d = 4, 33, 64 and 200 and on the src
+    CSR rows, and ``ell_copy_spmm`` on bf16 features as one bf16 launch;
+    then the two hub shapes timed (as in 18, ``embedding_bag`` with
+    offsets over the table's rows and ``torch.segment_reduce``);
 15. the power-law path: the suite's gates at 2e-3 and its timed rows, and
     the S3 experiment's rows, with the counters set to 0 before and read
     after;
@@ -123,8 +133,7 @@ reddit_sage's dataset and ``dryrun_multichip``.
     losses, launches counted;
 18. S3 times: S3 against its plain version and ``F.embedding_bag`` at the
     experiment's shape, in f32 and in bf16, and a second bound: its
-    gathered bytes at the card's L2 gather rate, measured on a table that
-    fits the 50 MB L2;
+    gathered bytes at the probe's L2 gather rate (phase 1);
 19. dtype (after 16, with its arxiv data): the transformer slice in bf16
     on its tiles (K1-K4 in bf16 only), the arxiv GAT in bf16 on the ELL
     path and GraphSAGE on bf16 features (S3 in bf16), each against the f32
@@ -140,10 +149,11 @@ reddit_sage's dataset and ``dryrun_multichip``.
     bf16 GAT with finite gradients. 17 (the command line) runs after it;
 22. csr (after 16, with its arxiv data): S3's CSR entry (``csr_sum``, the
     sorted segment sum of the segment path) against its plain version at
-    the arxiv segment shapes (the copy form through ``src_csc``, edge
-    data by src and through the CSC permutation, one feature wide, bf16),
-    bit for bit on repeat, timed at the copy shape beside its bounds and
-    ``embedding_bag`` with offsets; its launches in a GCN segment step;
+    the arxiv segment shapes (the copy form through ``src_csc`` at d = 128
+    and 64, edge data by src and through the CSC permutation at d = 4 and
+    8, one feature wide, bf16), bit for bit on repeat, timed at the copy
+    shape and the narrow ones beside its bounds and ``embedding_bag`` with
+    offsets; its launches in a GCN and a GAT segment step;
 23. reddit build: reddit_sage's dataset at ``--scale 1`` (233,700 nodes,
     300-d features), features and labels on the card;
 24. determinism: the cases of ``experiments/determinism.py`` (the segment
@@ -181,9 +191,9 @@ reddit_sage's dataset and ``dryrun_multichip``.
     2-D edge × head mesh, whose head axis is a view on the local
     backend), ``halo_spmm_ell``, ``halo_spmm``,
     ``halo_gat_attention``, the gather plan's four ops, ``tp_attention``;
-    bf16 per element; S3's CSR entry at the halo shape against its plain
-    version, timed beside its bound and ``torch.segment_reduce``, and its
-    launches in the segment forms;
+    bf16 per element; S3's CSR entry at the halo shape (d = 64, and 4)
+    against its plain version, timed beside its bounds and
+    ``torch.segment_reduce``, and its launches in the segment forms;
 30. nccl: a one-rank NCCL group; one ``halo_attention_ell`` gradient step
     on the process mesh against the local mesh at P = 1 (1e-5);
 31. dist CLI: ``products_gat_dist`` and ``products_transformer_dist`` at
@@ -196,8 +206,9 @@ Each phase's seconds are printed. The line before the last is the
 ``kernels`` JSON: for each of the nine kernels, for K1-K4, S1, S2 and S3
 in bf16, K4 at d = 300 and 1024, K1-K4 at the clique suite's shapes, S3's
 CSR entry at the arxiv copy shape, S3 and the CSR entry at a
-reddit_sage batch's shapes, and the CSR entry at the halo plan's shape,
-its source,
+reddit_sage batch's shapes, the CSR entry at the halo plan's shape (d =
+64 and 4), S3's two hub shapes on the power-law graph and the CSR entry
+at the arxiv narrow widths (d = 1, 4, 8 and the copy at 64), its source,
 the TPU kernel it replaces, its launches on its path, its error, time,
 plain time, bound and library time.
 
@@ -935,14 +946,6 @@ def yardstick(name, args):
     if name == "fused_attention_rows":
         return sdpa_yardstick(*pos[:7])
     if name == "csr_sum":
-        ptr, x = pos[:2]
-        idx = pos[2] if len(pos) > 2 else None
-        lo, hi = int(ptr[0]), int(ptr[-1])
-        rows = (idx[lo:hi] if idx is not None
-                else torch.arange(lo, hi, device=x.device))
-        ops = int(((rows >= 0) & (rows < x.shape[0])).sum()) * x[0].numel()
-        return nbytes, ops, PEAK_F32, ops
-    if name == "csr_sum":
         return csr_yardstick(*pos[:3])
     if name == "gather_sum":
         cols, x = pos[:2]
@@ -1252,6 +1255,49 @@ def phase_powerlaw_build(dev):
     return case, train
 
 
+def powerlaw_hubs(case):
+    """S3's two hub shapes on the power-law graph: the src side's CSR rows
+    over identity slots (``pl_spmm/xla_segment``'s forward sum of its
+    (E, d) messages) and the pow-2 src table (the hub's bucket is 32,768
+    wide), each with its arguments."""
+    from custom_op_benchmark_tpu_torch.ops import xla
+
+    _, ptr, _ = xla._side(case.g, "src")
+    return {"csr": (ptr, case.be), "ell": (case.se.gather_table, case.q)}
+
+
+def hub_rows(name, args):
+    """The row of S3's output with the most valid slots, and the rows of x
+    those slots name."""
+    if name == "csr_sum":
+        ptr, x = args[:2]
+        length = torch.diff(ptr.long())
+        hub = int(length.argmax())
+        return hub, torch.arange(int(ptr[hub]), int(ptr[hub + 1]),
+                                 device=x.device)
+    table, x = args
+    off, w, first, rows = table.layout[0]           # the widest bucket
+    c = table.cols[off: off + rows * w].reshape(rows, w).long()
+    valid = (c >= 0) & (c < x.shape[0])
+    i = int(valid.sum(1).argmax())
+    return int(table.nodes[first + i]), c[i][valid[i]]
+
+
+def hub_check(kern, key, args):
+    """The hub row of S3's output on ``args`` within 1e-4 relative (of its
+    largest value) of the f64 sum of its slots."""
+    name = key.partition(":")[0]
+    out = kern.table[name][0](*args)
+    hub, rows = hub_rows(name, args)
+    exact = args[1][rows].double().sum(0)
+    rel = float((out[hub].double() - exact).abs().max()
+                / exact.abs().max())
+    log(f"[s3] {key} hub row {hub} ({rows.numel()} slots): within "
+        f"{rel:.3e} of its f64 sum (relative)")
+    assert rel < 1e-4, (key, rel)
+    return rel
+
+
 def phase_s3_parity(kern, dev, case, train):
     from custom_op_benchmark_tpu_torch.experiments import exp_pallas_gather
     from custom_op_benchmark_tpu_torch.graph.ell import one_bucket_table
@@ -1266,9 +1312,20 @@ def phase_s3_parity(kern, dev, case, train):
                 calls[f"gather_sum:{ladder},{eg.direction},D={b.width}"] = (
                     b.cols, case.q)
     widest = max(case.de.buckets, key=lambda b: b.num_rows)
-    for d in (1, 33, 200):
+    for d in (1, 4, 8, 33, 64, 200):
         calls[f"gather_sum:d={d}"] = (widest.cols,
                                       normal(rng, case.n, d, device=dev))
+    # The src side's sums on the CSR entry (pl_spmm/xla_segment's forward:
+    # identity slots over the src rows, the 27,565-slot hub among them),
+    # also at d = 4, and the src table (the hub padded to 32,768 slots) at
+    # narrow widths.
+    hub = powerlaw_hubs(case)
+    calls["csr_sum:powerlaw src rows"] = hub["csr"]
+    calls["csr_sum:powerlaw src rows d=4"] = (
+        hub["csr"][0], case.be[:, :4].contiguous())
+    for d in (1, 4, 8, 64):
+        calls[f"gather_sum:pow2,src,table,d={d}"] = (
+            case.se.gather_table, normal(rng, case.n, d, device=dev))
     calls["gather_sum:R=1001"] = (cols[:1001], x)
     calls["gather_sum:padding"] = (
         torch.full((64, 16), case.n, dtype=torch.int32, device=dev), case.q)
@@ -1279,6 +1336,8 @@ def phase_s3_parity(kern, dev, case, train):
         calls[f"gather_sum:{name},table"] = (eg.gather_table, case.q)
     errs = check_kernels(kern, calls, "power law / S3")
     torch.cuda.synchronize()
+    for key in ("csr_sum:powerlaw src rows", "gather_sum:pow2,src,table"):
+        hub_check(kern, key, calls[key])
     s3_table_checks(kern, "power law", packings, case.q)
 
     # S3 in bf16 (one rounding of f32 sums): the experiment's shape, every
@@ -1292,9 +1351,11 @@ def phase_s3_parity(kern, dev, case, train):
                 b.cols, qb)
     for name, eg in packings:
         calls16[f"gather_sum:{name},table,bf16"] = (eg.gather_table, qb)
-    for d in (33, 200):
+    for d in (4, 33, 64, 200):
         calls16[f"gather_sum:d={d},bf16"] = (
             widest.cols, normal(rng, case.n, d, device=dev).bfloat16())
+    calls16["csr_sum:powerlaw src rows,bf16"] = (
+        hub["csr"][0], case.be.bfloat16())
     errs.update(check_kernels(kern, calls16, "power law / S3 bf16"))
     # The ELL copy-SpMM on bf16 features takes the bf16 S3 itself: one
     # bf16 launch, no f32 one (no copy of the features to f32).
@@ -1570,10 +1631,12 @@ def phase_block(kern, dev, g):
     assert k2 == 1, k2
 
 
-def phase_bench(kern, dev):
+def phase_bench(kern, dev, rate_ratio):
     """The headline bench (``custom_op_benchmark_tpu_torch.bench.run``) at
     full size: its JSON line, ``auto_impl == "dense_block"`` and
-    ``kernel_parity_ok``, the launches of its one run."""
+    ``kernel_parity_ok``, the launches of its one run; the power-law ELL
+    attention's fractions of the L2 gather ceiling also over the earlier
+    ceiling (S3's own rate; ``rate_ratio`` = probe / S3)."""
     from custom_op_benchmark_tpu_torch import bench
 
     kern.reset()
@@ -1582,6 +1645,11 @@ def phase_bench(kern, dev):
     launches = kern.launches()
     log(f"[bench] {json.dumps(rec)}")
     log(f"[bench] kernel launches {launches}")
+    for model in ("unique", "refetch"):
+        frac = rec[f"powerlaw_attention_roofline_frac_{model}"]
+        log(f"[bench] power-law ELL attention, {model} bytes: "
+            f"{frac:.4f} of the probe's L2 gather ceiling, "
+            f"{frac * rate_ratio:.4f} of S3's own (the earlier ceiling)")
     assert rec["auto_impl"] == "dense_block", rec["auto_impl"]
     assert rec["kernel_parity_ok"] is True, rec["kernel_parity_ok"]
     assert launches["sddmm_tiles"] > 0, launches
@@ -1876,6 +1944,85 @@ def phase_arxiv(kern, data):
     return results
 
 
+def s3_l2_rate(dev, table_rows=16384, d=128, rows=125_000, slots=16):
+    """The earlier definition of the L2 gather rate, printed beside the
+    probe's: S3 itself on an L2-resident table (``table_rows`` rows of
+    ``d`` floats, ``rows`` rows of ``slots`` random slots), bytes/s."""
+    from custom_op_benchmark_tpu_torch.graph.ell import one_bucket_table
+
+    rng = np.random.default_rng(11)
+    x = normal(rng, table_rows, d, device=dev)
+    cols = torch.from_numpy(rng.integers(
+        0, table_rows, size=(rows, slots)).astype(np.int32)).to(dev)
+    table = one_bucket_table(cols)
+    fn = Kernels().table["gather_sum"][0]
+    return cols.numel() * d * 4 / (time_ms(lambda: fn(table, x)) / 1e3)
+
+
+def table_bag_yardstick(table, x):
+    """``F.embedding_bag`` with offsets over a GatherTable's rows (a zero
+    row appended for pad slots): the same sums in table row order, without
+    the step to the node rows."""
+    xz = torch.cat([x, x.new_zeros(1, x.shape[1])])
+    cols = torch.where((table.cols >= 0) & (table.cols < x.shape[0]),
+                       table.cols, x.shape[0])
+    offsets = torch.cat([torch.arange(
+        off, off + rows * w + (w == 0), max(w, 1), device=x.device)[:rows]
+        for off, w, _, rows in table.layout]
+        + [torch.tensor([cols.numel()], device=x.device)])
+
+    def fn():
+        return torch.nn.functional.embedding_bag(
+            cols, xz, offsets, mode="sum", include_last_offset=True)
+
+    def check(want):
+        return float((fn() - want[table.nodes.long()]).abs().max())
+
+    return "F.embedding_bag(offsets over the table's rows, mode='sum')", \
+        fn, check
+
+
+def l2_bound(row, name, args, l2_rate):
+    """The gathered rows' bytes (valid slots times a row) at the probe's
+    L2 gather rate, in ms, into ``row``."""
+    x = args[1]
+    if name == "csr_sum":
+        ptr = args[0]
+        idx = args[2] if len(args) > 2 else None
+        lo, hi = int(ptr[0]), int(ptr[-1])
+        rows = (idx[lo:hi] if idx is not None
+                else torch.arange(lo, hi, device=x.device))
+    else:
+        rows = args[0] if torch.is_tensor(args[0]) else args[0].cols
+    valid = int(((rows >= 0) & (rows < x.shape[0])).sum())
+    gathered = valid * x[0].numel() * x.element_size()
+    row["bound_l2_ms"] = gathered / l2_rate * 1e3
+    log(f"[time] {name} gathers {gathered / 1e9:.3f} GB: at the L2 gather "
+        f"rate {l2_rate / 1e12:.3f} TB/s (the probe) that takes "
+        f"{row['bound_l2_ms']:.4f} ms (share "
+        f"{row['bound_l2_ms'] / row['ms']:.3f})")
+    return row
+
+
+def phase_s3_hub_times(kern, case, l2_rate):
+    """S3's two hub shapes on the power-law graph timed beside their plain
+    versions, bytes bound, the probe's L2 bound and library call: the src
+    table (``embedding_bag`` with offsets) and the src CSR rows
+    (``torch.segment_reduce``)."""
+    hub = powerlaw_hubs(case)
+    rows = {}
+    for key, args, lib in (
+            ("gather_sum:powerlaw src table", hub["ell"],
+             table_bag_yardstick(*hub["ell"])),
+            ("csr_sum:powerlaw src rows", hub["csr"],
+             csr_yardstick(*hub["csr"]))):
+        rows[key] = l2_bound(
+            time_row(kern, key, args, "power law", GRID_TIMING, lib=lib),
+            key.partition(":")[0], args, l2_rate)
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_s3_times(kern, s3_inputs, l2_rate):
     """S3 at the experiment's shape (a one-bucket table) against its plain
     version and embedding_bag, in f32 and in bf16, with a second bound:
@@ -1885,13 +2032,7 @@ def phase_s3_times(kern, s3_inputs, l2_rate):
     for key, xx in (("gather_sum", x), ("gather_sum:bf16", x.bfloat16())):
         row = time_row(kern, key, (table, xx), "125000x16 d=128", {},
                        lib=True)
-        gathered = table.cols.numel() * xx.shape[1] * xx.element_size()
-        row["bound_l2_ms"] = gathered / l2_rate * 1e3
-        log(f"[time] {key} gathers {gathered / 1e9:.3f} GB: at the L2 "
-            f"gather rate {l2_rate / 1e12:.3f} TB/s that takes "
-            f"{row['bound_l2_ms']:.4f} ms (share "
-            f"{row['bound_l2_ms'] / row['ms']:.3f})")
-        rows[key] = row
+        rows[key] = l2_bound(row, "gather_sum", (table, xx), l2_rate)
         torch.cuda.empty_cache()
     return rows
 
@@ -2122,12 +2263,15 @@ def csr_calls(ptr_r, ptr_c, src_csc, csc_perm, x, edges):
     """The CSR entry's arguments as the segment path gives them: the copy
     form (a node's in-neighbours' rows), the src-side sum of edge data in
     canonical order (idx the identity) and the dst-side one through the
-    CSC permutation; also one feature wide, and bf16."""
+    CSC permutation (d = 8: the edge data's width, and 4); also one
+    feature wide, the copy at d = 64, and bf16."""
     return {
         "csr_sum:copy": (ptr_c, x, src_csc),
         "csr_sum:edges src": (ptr_r, edges),
-        "csr_sum:edges dst": (ptr_c, edges, csc_perm),
+        "csr_sum:edges dst": (ptr_c, edges[:, :4].contiguous(), csc_perm),
         "csr_sum:d=1": (ptr_c, edges[:, :1].contiguous(), csc_perm),
+        "csr_sum:edges dst d=8": (ptr_c, edges, csc_perm),
+        "csr_sum:copy d=64": (ptr_c, x[:, :64].contiguous(), src_csc),
         "csr_sum:copy,bf16": (ptr_c, x.bfloat16(), src_csc),
     }
 
@@ -2158,9 +2302,10 @@ def csr_yardstick(ptr, x, idx=None):
 def phase_csr(kern, data, l2_rate):
     """S3's CSR entry at the arxiv configuration's segment shapes against
     its plain version (1e-4; bf16 one rounding), bit for bit on repeat,
-    timed at the copy shape beside its bound (bytes, and the gathered rows
-    at the L2 gather rate) and ``embedding_bag`` with offsets; the
-    launches of one segment-path step of the arxiv GCN."""
+    timed at the copy shape and at the narrow widths (d = 1, 4, 8 and the
+    copy at 64) beside its bound (bytes, and the gathered rows at the
+    probe's L2 gather rate) and ``embedding_bag`` with offsets; the
+    launches of one segment-path step of the arxiv GCN and of the GAT."""
     from custom_op_benchmark_tpu_torch.models import GCN
     from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import csr_sum
     from custom_op_benchmark_tpu_torch.train import (
@@ -2171,17 +2316,22 @@ def phase_csr(kern, data, l2_rate):
     g, x = data["g"], data["x"]
     n = g.n_nodes
     rng = np.random.default_rng(SEED + 20)
-    edges = normal(rng, g.num_edges_padded, 4, device=g.device)
+    edges = normal(rng, g.num_edges_padded, 8, device=g.device)
     calls = csr_calls(g.indptr_r[: n + 1], g.indptr_c[: n + 1], g.src_csc,
                       g.csc_perm, x, edges)
     errs = check_kernels(kern, calls, "arxiv segment")
-    row = time_row(kern, "csr_sum", calls["csr_sum:copy"], "arxiv copy",
-                   {}, lib=csr_yardstick(*calls["csr_sum:copy"]))
-    gathered = g.n_edges * x.shape[1] * x.element_size()
-    row["bound_l2_ms"] = gathered / l2_rate * 1e3
-    log(f"[time] csr_sum gathers {gathered / 1e9:.3f} GB: at the L2 gather "
-        f"rate that takes {row['bound_l2_ms']:.4f} ms (share "
-        f"{row['bound_l2_ms'] / row['ms']:.3f})")
+    row = l2_bound(time_row(kern, "csr_sum", calls["csr_sum:copy"],
+                            "arxiv copy", {},
+                            lib=csr_yardstick(*calls["csr_sum:copy"])),
+                   "csr_sum", calls["csr_sum:copy"], l2_rate)
+    # The narrow sums (the edge softmax's at d = heads, a degree at d = 1)
+    # and the copy at d = 64, where a warp takes 32, 8, 4 or 2 rows.
+    narrow = {}
+    for key in ("csr_sum:d=1", "csr_sum:edges dst", "csr_sum:edges dst d=8",
+                "csr_sum:copy d=64"):
+        narrow[key] = l2_bound(time_row(
+            kern, key, calls[key], "arxiv", {},
+            lib=csr_yardstick(*calls[key])), "csr_sum", calls[key], l2_rate)
     model = GCN(**ARXIV_MODELS["GCN"], out_dim=data["ds"].num_classes,
                 in_dim=x.shape[1],
                 generator=torch.Generator().manual_seed(SEED)).to(g.device)
@@ -2195,7 +2345,22 @@ def phase_csr(kern, data, l2_rate):
     log(f"[csr] one arxiv GCN step on the segment path: CSR entry launches "
         f"{launches} (one per copy-sum, forward and backward)")
     assert launches > 0, launches
-    return errs, row
+    del state, step, model
+    # The arxiv GAT (4 heads) on the segment path: its edge softmax sums at
+    # d = 4 (and 1) go through the CSR entry.
+    model = arxiv_model("GAT", data["ds"].num_classes,
+                        x.shape[1]).to(g.device)
+    state = create_train_state(model, learning_rate=2e-3)
+    step = make_train_step()
+    kern.reset()
+    step(state, g, x, data["labels"], data["mask"])
+    torch.cuda.synchronize()
+    gat_launches = csr_sum.launches
+    log(f"[csr] one arxiv GAT step on the segment path: CSR entry launches "
+        f"{gat_launches}")
+    assert gat_launches > 0, gat_launches
+    del state, step, model
+    return errs, row, narrow, gat_launches
 
 
 def reddit_data(dev):
@@ -2626,7 +2791,7 @@ def dist_case(label, fn, ref, ins, ref_ins, n, maps=None, tol=DIST_TOL):
     return worst
 
 
-def phase_dist_parity(kern, dev, dist):
+def phase_dist_parity(kern, dev, dist, l2_rate):
     """At products width on the card (8 shards, 4 heads of 16), each plan's
     op against the single-device ELL or segment op on the same renumbered
     graph, forward and every gradient at 1e-4, each run twice and
@@ -2635,8 +2800,8 @@ def phase_dist_parity(kern, dev, dist):
     on the local backend), ``halo_spmm_ell``,
     ``halo_spmm``, ``halo_gat_attention``, the gather plan's four ops and
     ``tp_attention``; bf16 per element; S3's CSR entry at the halo shape
-    against its plain version, timed, and its launches in the segment
-    forms."""
+    against its plain version, timed (also at d = 4, the edge softmax's
+    sums), and its launches in the segment forms."""
     from custom_op_benchmark_tpu_torch import ops
     from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import csr_sum
     from custom_op_benchmark_tpu_torch.parallel import (
@@ -2766,7 +2931,8 @@ def phase_dist_parity(kern, dev, dist):
     # S3's CSR entry at the halo shape: the sorted segment sum over dst_loc.
     ri = hg.rows("dst_loc")
     vals = normal(rng, ri.shape[0] * ri.shape[1], h * d, device=dev)
-    calls = {"csr_sum:halo": (ri.ptr, vals)}
+    calls = {"csr_sum:halo": (ri.ptr, vals),
+             "csr_sum:halo d=4": (ri.ptr, vals[:, :h].contiguous())}
     errs.update(check_kernels(kern, calls, "halo dst_loc"))
     row = time_row(kern, "csr_sum:halo", calls["csr_sum:halo"],
                    "halo shape", {}, lib=csr_yardstick(ri.ptr, vals))
@@ -2776,7 +2942,13 @@ def phase_dist_parity(kern, dev, dist):
     row["embedding_bag_ms"] = time_library(
         "halo shape", "csr_sum:halo", csr_yardstick(ri.ptr, vals, ident),
         kern.table["csr_sum"][1](ri.ptr, vals), {})
-    return dict(errs=errs, row=row, launches=seg_csr)
+    # The halo's edge-softmax sums: one value a head (d = 4).
+    key = "csr_sum:halo d=4"
+    row4 = l2_bound(time_row(kern, key, calls[key], "halo shape", {},
+                             lib=csr_yardstick(*calls[key])),
+                    "csr_sum", calls[key], l2_rate)
+    l2_bound(row, "csr_sum", calls["csr_sum:halo"], l2_rate)
+    return dict(errs=errs, row=row, row4=row4, launches=seg_csr)
 
 
 def profile_dist_step(dev, dist):
@@ -3032,6 +3204,13 @@ def main() -> int:
     run = Phases()
     dev = run("device", phase_device)
     kern = Kernels()
+    l2_rate = l2_gather_rate(dev)
+    l2_rate_s3 = s3_l2_rate(dev)
+    log(f"[s3] L2 gather rate (benchlib.l2_gather_rate, the probe kernel "
+        f"csrc/l2_probe.cu): {l2_rate / 1e12:.3f} TB/s; S3 itself on the "
+        f"same L2-resident table (the earlier definition): "
+        f"{l2_rate_s3 / 1e12:.3f} TB/s")
+    kern.reset()
     g, tg_cpu, tg, x, labels, model_cpu = build_slice(dev)
     errs, slice_inputs = run("parity", phase_parity, kern, dev, tg)
     model = run("slice", phase_slice, dev, g, tg_cpu, tg, x, labels,
@@ -3050,7 +3229,7 @@ def main() -> int:
     run("block", phase_block, kern, dev, g)
     gc.collect()
     torch.cuda.empty_cache()
-    run("bench", phase_bench, kern, dev)
+    run("bench", phase_bench, kern, dev, l2_rate / l2_rate_s3)
     suite_launches = run("clique suite", phase_clique_suite, kern, dev)
     suite_errs, suite_times = run("suite kernels", phase_suite_kernels, kern,
                                   dev, tg)
@@ -3071,15 +3250,16 @@ def main() -> int:
     s3_errs, s3_inputs = run("S3 parity", phase_s3_parity, kern, dev,
                              pl_case, train)
     del train
-    run("power-law path", phase_powerlaw_path, kern, pl_case, s3_inputs)
+    hub_times = run("S3 hub times", phase_s3_hub_times, kern, pl_case,
+                    l2_rate)
+    pl_launches = run("power-law path", phase_powerlaw_path, kern, pl_case,
+                      s3_inputs)
     del pl_case
     torch.cuda.empty_cache()
     arxiv_in = run("arxiv build", arxiv_data, dev)
     arxiv = run("arxiv", phase_arxiv, kern, arxiv_in)
-    l2_rate = l2_gather_rate(dev)
-    log(f"[s3] L2 gather rate (benchlib.l2_gather_rate): "
-        f"{l2_rate / 1e12:.3f} TB/s")
-    csr_errs, csr_row = run("csr", phase_csr, kern, arxiv_in, l2_rate)
+    csr_errs, csr_row, csr_narrow, gat_csr = run("csr", phase_csr, kern,
+                                                 arxiv_in, l2_rate)
     gc.collect()
     torch.cuda.empty_cache()
     dtype = run("dtype", phase_dtype, kern, dev, g, tg, arxiv_in)
@@ -3103,7 +3283,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     run("resilient", phase_resilient, kern, dev)
     dist = run("dist build", phase_dist_build, dev)
-    dist_par = run("dist parity", phase_dist_parity, kern, dev, dist)
+    dist_par = run("dist parity", phase_dist_parity, kern, dev, dist,
+                   l2_rate)
     del dist
     gc.collect()
     torch.cuda.empty_cache()
@@ -3198,6 +3379,35 @@ def main() -> int:
         f"{DIST_HEADS * DIST_HEAD_DIM}); launches: the segment forms "
         "(halo_spmm, halo_gat_attention, the gather plan's ops) in the dist "
         "parity phase, forward and backward"))
+    for key, row in hub_times.items():
+        name = key.partition(":")[0]
+        _, _, source, replaces = kern.table[name]
+        report.append(kernel_row(
+            key + " (hub)", source, replaces, pl_launches[name],
+            s3_errs["gather_sum:pow2,src,table" if name == "gather_sum"
+                    else "csr_sum:powerlaw src rows"], row,
+            "power-law graph (131,072 nodes, 2M edges), d=128: "
+            + ("the pow-2 src table, the 27,565-slot hub padded to 32,768"
+               if name == "gather_sum" else "the src rows over identity "
+               "slots (pl_spmm/xla_segment's forward sum), the 27,565-slot "
+               "hub") + "; launches: the power-law path (suite and "
+            "experiment)"))
+    _, _, source, replaces = kern.table["csr_sum"]
+    for key, row in csr_narrow.items():
+        report.append(kernel_row(
+            key, source, replaces, gat_csr, csr_errs[key], row,
+            "arxiv segment shapes (160,000 rows, 4.31M slots): "
+            + {"csr_sum:d=1": "edge data d=1 through csc_perm",
+               "csr_sum:edges dst": "edge data d=4 through csc_perm",
+               "csr_sum:edges dst d=8": "edge data d=8 through csc_perm",
+               "csr_sum:copy d=64": "the copy through src_csc, d=64"}[key]
+            + "; launches: one arxiv GAT step on the segment path"))
+    report.append(kernel_row(
+        "csr_sum:halo d=4", source, replaces, dist_par["launches"],
+        dist_par["errs"]["csr_sum:halo d=4"], dist_par["row4"],
+        "halo plan of the products-like graph, dst_loc's sorted segments, "
+        "x (8·E_p, 4): the edge softmax's sums; launches: the segment forms "
+        "in the dist parity phase"))
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

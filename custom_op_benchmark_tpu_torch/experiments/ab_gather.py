@@ -1,34 +1,42 @@
-"""ELL copy-sum A/B: S3 as one launch over all buckets against the
-per-bucket S3 it replaced, and against variant builds of itself.
+"""S3 A/B: the committed S3 (csrc/gather_sum.cu) against its parent
+build and against variant builds of itself.
 
     python -m custom_op_benchmark_tpu_torch.experiments.ab_gather \
-        --old OLD.cu [--variant NEW.cu ...]
+        [--parent PARENT.cu] [--variant NEW.cu ...]
 
-``OLD.cu`` is the per-bucket ``csrc/gather_sum.cu``, copied out of git
-under ``build/`` beforehand, so the run needs no ``.git``: ``git show
-bad821e:custom_op_benchmark_tpu_torch/csrc/gather_sum.cu``. Its
-``gather_sum_f32(cols, x, y, R, D, d, n_x, vec, device, stream)`` sums one
-bucket. The old copy-sum is that kernel once per bucket and then the row
-combine (``torch.cat`` of the bucket outputs and a gather through
-``row_pos``), as ops/ell.py ran it; the new one is one launch of the
-committed S3 over the packing's cached table.
+Each source is copied out of git under ``build/`` beforehand, so the run
+needs no ``.git``.
 
-On the power-law graph of the power-law suite (n = 131,072, 2M edges;
-both ladders, both directions) and the arxiv configuration's training
-ladder (both directions), at d = 128, the two are checked bit for bit and
-timed by CUDA events over back-to-back calls (so host time between
-launches counts), in turns (old, new, new, old; each a median of
-repeats). Each ``--variant NEW.cu`` (an edited copy of the one-launch
-``csrc/gather_sum.cu`` under ``build/``, with the same entry point) is
-checked bit for bit against the committed S3 on the same packings, and on
-the arxiv ones at d = 40 too, and timed against it in turns (committed,
-variant, variant, committed). Then the arxiv GCN and GraphSAGE train
-steps on the ELL path (``make_train_step``, AdamW), old against new in
-the same turns: the old steps run the per-bucket copy-sum and, for the
-mean, the degree as a width-1 per-bucket sweep on every call, as
-ops/ell.py did; each step's S3 launches are counted. Prints one JSON line
-``{"ab_gather": {...}}`` with the card's name and power limit. Needs a
-CUDA device.
+``--parent``: the one-launch S3 before its redesign (long rows in pieces,
+lanes sized to the width, pad slots skipped): ``git show
+008df9d:custom_op_benchmark_tpu_torch/csrc/gather_sum.cu``, whose
+``gather_sum_*`` and ``csr_sum_*`` take no scratch. The committed
+wrappers launch it through an adapter that drops the scratch arguments
+(the wrapper still allocates the scratch, from PyTorch's cache). At every
+S3 row shape of PERF.md's kernel table, and at the hub shapes (the
+power-law graph's ELL src table, whose widest bucket pads the 27,565-slot
+hub to 32,768, and its src CSR rows, the sum of ``pl_spmm/xla_segment``'s
+forward) and narrow widths, the two are timed in turns (parent, new,
+new, parent; each a median of repeats of back-to-back calls by CUDA
+events) and compared: rows that are neither split (more than PIECE
+slots) nor padded (a slot outside x) bit for bit, the others within 1e-4
+(bf16: 2⁻⁷·|parent| + 1e-4), the new results equal on a repeat, and each
+hub row within 1e-4 relative of its f64 sum. The sampled shape and the
+halo shape are synthetic stand-ins of the same sizes (the real ones take
+minutes of host set-up; ``chip_smoke.py`` runs them): in_cols 70,656 x 32
+with 127,457 real slots at the front of their rows, and 244,408 rows of
+Poisson(40.9) identity slots at d = 64 beside ``torch.segment_reduce``.
+Then the whole ``pl_spmm/xla_segment`` forward and the arxiv GCN and
+GraphSAGE train steps on the ELL and on the segment path, parent against
+new in the same turns.
+
+``--variant NEW.cu`` (repeatable): an edited copy of the committed
+``csrc/gather_sum.cu`` with the same entry points, timed against it in
+turns (committed, variant, variant, committed) at the same shapes and
+checked bit for bit against it.
+
+Prints one JSON line ``{"ab_gather": {...}}`` with the card's name and
+power limit; exits 1 if a check failed. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -47,17 +55,15 @@ import torch
 
 from custom_op_benchmark_tpu_torch import models
 from custom_op_benchmark_tpu_torch.data import planted_partition
-from custom_op_benchmark_tpu_torch.models import sage
-from custom_op_benchmark_tpu_torch.ops import ell as ell_ops
-from custom_op_benchmark_tpu_torch.ops import ell_dual
-from custom_op_benchmark_tpu_torch.ops.ell import (
-    _copy_agg_raw,
-    _EllCopySum,
-    ell_combine_rows,
-)
+from custom_op_benchmark_tpu_torch.experiments import exp_pallas_gather
+from custom_op_benchmark_tpu_torch.graph.ell import one_bucket_table
+from custom_op_benchmark_tpu_torch.ops import ell_dual, vector_spmm, xla
 from custom_op_benchmark_tpu_torch.ops.kernels import _build
-from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import gather_sum
-from custom_op_benchmark_tpu_torch.ops.kernels import tiled_kernels as kt
+from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import (
+    PIECE,
+    csr_sum,
+    gather_sum,
+)
 from custom_op_benchmark_tpu_torch.utils import cuda_device
 from custom_op_benchmark_tpu_torch.utils.bench_suite import powerlaw_case
 from custom_op_benchmark_tpu_torch.train import (
@@ -74,18 +80,59 @@ STEP_MODELS = {"GCN": dict(hidden_dim=128, num_layers=2),
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def load(source: Path, argtypes) -> ctypes.CDLL:
-    """``source`` built on its own, its ``gather_sum_f32`` taking
-    ``argtypes``."""
-    so = _build.BUILD_DIR / f"ab_gather_{source.stem}.so"
-    so.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
-                    str(_build.CSRC), "-shared", "-o", str(so), str(source)],
-                   check=True)
+# The parent's C signatures (no scratch): gather_sum_* and csr_sum_*.
+PARENT_SIGNATURES = {
+    "gather_sum": [_P, _I, _P, _P, _I, _P, _I, _P, _P] + [_I] * 4 + [_P],
+    "csr_sum": [_P, _I, _P, _P, _P] + [_I] * 4 + [_P],
+}
+# What the parent's entry points keep of the committed wrapper's arguments:
+# all but (scratch, units, split rows) and (scratch, slots).
+PARENT_DROP = {"gather_sum": slice(12, 15), "csr_sum": slice(8, 10)}
+
+
+def build(sources) -> list:
+    """Each source built on its own into a shared library, one nvcc for
+    each, all started together; their paths."""
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sos = [_build.BUILD_DIR / f"ab_gather_{src.stem}.so" for src in sources]
+    procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                               str(_build.CSRC), "-shared", "-o", str(so),
+                               str(src)])
+             for src, so in zip(sources, sos)]
+    for src, proc in zip(sources, procs):
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed on {src}")
+    return sos
+
+
+def load(so: Path, argtypes=None, signatures=None) -> ctypes.CDLL:
+    """A built library whose ``gather_sum_f32`` takes ``argtypes``, or
+    each entry point named in ``signatures`` its types."""
     lib = ctypes.CDLL(str(so))
-    lib.gather_sum_f32.argtypes = argtypes
-    lib.gather_sum_f32.restype = ctypes.c_int
+    types = dict(signatures or {"gather_sum_f32": argtypes})
+    for name, argt in types.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argt
+        fn.restype = ctypes.c_int
     return lib
+
+
+class Library:
+    """S3's entry points from ``lib`` behind the committed wrappers' calls
+    (the parent's with the scratch arguments dropped); every other entry
+    point from the committed library."""
+
+    def __init__(self, lib, drop=None):
+        self.lib, self.drop, self.real = lib, drop or {}, _build.library()
+
+    def __getattr__(self, name):
+        base = name.rsplit("_", 1)[0]
+        if base not in ("gather_sum", "csr_sum"):
+            return getattr(self.real, name)
+        fn, cut = getattr(self.lib, name), self.drop.get(base)
+        if cut is None:
+            return fn
+        return lambda *a: fn(*a[:cut.start], *a[cut.stop:])
 
 
 @contextlib.contextmanager
@@ -100,183 +147,279 @@ def on_library(lib):
         _build.library = real
 
 
-def old_copy_sum(lib, eg, x, launches=None):
-    """The per-bucket copy-sum: one old S3 launch per bucket, then the
-    row combine. ``launches`` (a list) gets one entry a launch."""
-    dev, stream = kt._stream(x)
-    x = x.contiguous()
-    outs = []
-    for b in eg.buckets:
-        y = torch.empty((b.num_rows, x.shape[1]), device=x.device)
-        _build.check(lib.gather_sum_f32(
-            kt._p(b.cols), kt._p(x), kt._p(y), b.num_rows, b.width,
-            x.shape[1], x.shape[0], kt._vec(x.shape[1], x, y), dev, stream),
-            "old gather_sum")
-        outs.append(y)
-        if launches is not None:
-            launches.append(1)
-    return ell_combine_rows(eg, outs)
+def ms(fn, timing):
+    return statistics.median(time_cuda(fn, **timing)) * 1e3
 
 
-@contextlib.contextmanager
-def old_path(lib, launches):
-    """Run the ELL copy-SpMM as before: the per-bucket copy-sum, and the
-    mean's degree swept at width 1 on every call."""
-    def copy_sum(eg, x):
-        return old_copy_sum(lib, eg, x, launches)
-
-    def copy_spmm(ell, ell_t, x, *, reduce="sum"):
-        y = _EllCopySum.apply(ell, ell_t, x)
-        if reduce == "sum":
-            return y
-        deg = copy_sum(ell, x.new_ones((ell.n_nodes, 1)))
-        return y / deg.clamp(min=1)
-
-    real = ell_ops._copy_agg_raw, sage.ell_copy_spmm
-    ell_ops._copy_agg_raw, sage.ell_copy_spmm = copy_sum, copy_spmm
-    try:
-        yield
-    finally:
-        ell_ops._copy_agg_raw, sage.ell_copy_spmm = real
+def within(got, want):
+    """Within 1e-4 (bf16: one rounding, 2⁻⁷·|want| + 1e-4) elementwise."""
+    g, w = got.float(), want.float()
+    rtol = 2.0 ** -7 if got.dtype == torch.bfloat16 else 1e-4
+    return bool(((g - w).abs() <= rtol * w.abs() + 1e-4).all())
 
 
-def step_ab(lib, ds, g, timing):
-    """The arxiv GCN and GraphSAGE train steps on the ELL path, old copy-sum
-    against new, with their S3 launches a step."""
+def plain_rows(entry, args):
+    """(rows neither split nor padded, the row with the most valid slots
+    and those slots' rows of x) of S3's output on these arguments."""
+    if entry is gather_sum:
+        table, x = args
+        n_x = x.shape[0]
+        strict = torch.zeros(table.n_out, dtype=torch.bool, device=x.device)
+        strict[table.zero_nodes.long()] = True
+        hub, hub_rows, best = None, None, -1
+        for off, w, first, rows in table.layout:
+            c = table.cols[off: off + rows * w].reshape(rows, w)
+            valid = (c >= 0) & (c < n_x)
+            nodes = table.nodes[first: first + rows].long()
+            if w <= PIECE:
+                strict[nodes[valid.all(1)]] = True
+            count = valid.sum(1)
+            i = int(count.argmax()) if rows else 0
+            if rows and int(count[i]) > best:
+                best, hub = int(count[i]), int(nodes[i])
+                hub_rows = c[i][valid[i]].long()
+        return strict, hub, hub_rows
+    ptr, x = args[:2]
+    idx = args[2] if len(args) > 2 else None
+    n_slots = x.shape[0] if idx is None else idx.numel()
+    n_x = x.shape[0]
+    p = ptr.long().clamp(max=n_slots)
+    slots = torch.arange(n_slots, device=x.device)
+    rows = slots if idx is None else idx.long()
+    bad = torch.cat([torch.zeros(1, device=x.device, dtype=torch.long),
+                     ((rows < 0) | (rows >= n_x)).long().cumsum(0)])
+    length = p[1:] - p[:-1]
+    strict = (length <= PIECE) & (bad[p[1:]] == bad[p[:-1]])
+    hub = int(length.argmax())
+    sel = rows[int(p[hub]): int(p[hub + 1])]
+    return strict, hub, sel[(sel >= 0) & (sel < n_x)]
+
+
+def hub_error(out, x, hub, hub_rows):
+    """max |out[hub] − f64 sum| over max |f64 sum| for the hub row."""
+    exact = x[hub_rows].double().sum(0).reshape(-1)
+    got = out[hub].double().reshape(-1)
+    return float((got - exact).abs().max() / exact.abs().max().clamp(
+        min=1e-30))
+
+
+def sampled_cols(rng, dev, rows=70_656, width=32, real=127_457):
+    """in_cols of a sampled batch's size: ``real`` slots spread over the
+    rows at random (at most ``width`` a row), each row's real slots first
+    and naming random nodes, the rest the pad slot ``rows``."""
+    counts = np.minimum(rng.multinomial(real, np.full(rows, 1 / rows)),
+                        width)
+    cols = np.full((rows, width), rows, dtype=np.int32)
+    k = np.arange(width)[None, :] < counts[:, None]
+    cols[k] = rng.integers(0, rows, size=int(k.sum()), dtype=np.int32)
+    return torch.from_numpy(cols).to(dev)
+
+
+def halo_like(rng, dev, rows=244_408, d=64):
+    """Identity slots over ``rows`` rows of Poisson(40.9) slots (the halo
+    plan's dst_loc segments at the products configuration: 244,408 rows,
+    9,994,432 slots), x (slots, d)."""
+    lengths = rng.poisson(9_994_432 / rows, size=rows)
+    ptr = torch.from_numpy(np.concatenate([[0], np.cumsum(lengths)]).astype(
+        np.int32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal(
+        (int(lengths.sum()), d), dtype=np.float32)).to(dev)
+    return ptr, x
+
+
+def s3_shapes(dev, case, arxiv_g):
+    """{label: (entry, args)}: S3's rows in PERF.md's kernel table, the two
+    hub shapes and narrow widths."""
+    rng = np.random.default_rng(1)
+    cols, x = exp_pallas_gather.inputs(dev)
+    exp = one_bucket_table(cols)
+    g = arxiv_g
+    n = g.n_nodes
+    xa = torch.from_numpy(rng.standard_normal(
+        (n, D), dtype=np.float32)).to(dev)
+    edges = torch.from_numpy(rng.standard_normal(
+        (g.num_edges_padded, 8), dtype=np.float32)).to(dev)
+    ptr_c, ptr_r = g.indptr_c[: n + 1], g.indptr_r[: n + 1]
+    _, ptr_pl, _ = xla._side(case.g, "src")
+    x300 = torch.from_numpy(rng.standard_normal(
+        (70_656, 300), dtype=np.float32)).to(dev)
+    shapes = {
+        "ELL experiment 125000x16 d=128": (gather_sum, (exp, x)),
+        "ELL experiment 125000x16 d=128 bf16": (gather_sum,
+                                                (exp, x.bfloat16())),
+        "ELL sampled 70656x32 d=300 (synthetic)": (
+            gather_sum, (one_bucket_table(sampled_cols(rng, dev)), x300)),
+        "ELL power-law src table d=128 (hub)": (
+            gather_sum, (case.se.gather_table, case.q)),
+        "ELL power-law dst table d=128": (gather_sum,
+                                          (case.de.gather_table, case.q)),
+        "ELL power-law src table d=128 bf16 (hub)": (
+            gather_sum, (case.se.gather_table, case.q.bfloat16())),
+        "CSR power-law src rows d=128 (pl_spmm forward, hub)": (
+            csr_sum, (ptr_pl, case.be)),
+        "CSR arxiv copy d=128": (csr_sum, (ptr_c, xa, g.src_csc)),
+        "CSR arxiv copy d=128 bf16": (csr_sum,
+                                      (ptr_c, xa.bfloat16(), g.src_csc)),
+        "CSR arxiv copy d=64": (csr_sum, (ptr_c, xa[:, :64].contiguous(),
+                                          g.src_csc)),
+        "CSR arxiv edges src d=4": (csr_sum,
+                                    (ptr_r, edges[:, :4].contiguous())),
+    }
+    for h in (1, 4, 8):
+        shapes[f"CSR arxiv edges dst d={h}"] = (
+            csr_sum, (ptr_c, edges[:, :h].contiguous(), g.csc_perm))
+    shapes["CSR halo-like identity d=64 (synthetic)"] = (
+        csr_sum, halo_like(rng, dev))
+    return shapes
+
+
+def parent_ab(parent, variants, shapes, timing):
+    """Each shape: parent, new, new, parent (and committed against each
+    variant) timed in turns; bits and tolerances checked."""
+    out, ok = {}, True
+    for label, (entry, args) in shapes.items():
+        new = entry(*args)
+        again = entry(*args)
+        with on_library(parent):
+            old = entry(*args)
+        torch.cuda.synchronize()
+        strict, hub, hub_rows = plain_rows(entry, args)
+        x = args[1]
+        res = {"repeat_equal": bool(torch.equal(new, again)),
+               "plain_rows": int(strict.sum()), "rows": int(strict.numel()),
+               "plain_rows_same_bits": bool(torch.equal(old[strict],
+                                                        new[strict])),
+               "within_tolerance": within(new, old),
+               "max_abs_diff": float((new.float() - old.float()).abs().max()),
+               "hub_slots": int(hub_rows.numel()),
+               "hub_rel_err_f64": hub_error(new, x, hub, hub_rows),
+               "parent_hub_rel_err_f64": hub_error(old, x, hub, hub_rows)}
+
+        def run_old():
+            with on_library(parent):
+                entry(*args)
+
+        o1 = ms(run_old, timing)
+        n1, n2 = ms(lambda: entry(*args), timing), ms(lambda: entry(*args),
+                                                       timing)
+        o2 = ms(run_old, timing)
+        res.update(parent_ms=(o1 + o2) / 2, new_ms=(n1 + n2) / 2,
+                   parent_ms_each=[o1, o2], new_ms_each=[n1, n2])
+        if label.startswith("CSR halo"):
+            ptr, vals = args
+            res["segment_reduce_ms"] = ms(lambda: torch.segment_reduce(
+                vals, "sum", offsets=ptr.long()), timing)
+        for name, lib in variants.items():
+            with on_library(lib):
+                var = entry(*args)
+            n1 = ms(lambda: entry(*args), timing)
+
+            def run_var():
+                with on_library(lib):
+                    entry(*args)
+
+            v1, v2 = ms(run_var, timing), ms(run_var, timing)
+            n2 = ms(lambda: entry(*args), timing)
+            res[name] = dict(same_bits=bool(torch.equal(var, new)),
+                             committed_ms=(n1 + n2) / 2,
+                             variant_ms=(v1 + v2) / 2)
+        # The hub against f64 in f32 (a bf16 result carries its rounding).
+        ok &= (res["repeat_equal"] and res["plain_rows_same_bits"]
+               and res["within_tolerance"]
+               and (new.dtype == torch.bfloat16
+                    or res["hub_rel_err_f64"] < 1e-4))
+        ok &= all(res[name]["same_bits"] for name in variants)
+        out[label] = res
+        print(f"  {label}: {res}", flush=True)
+        del new, again, old
+    return out, ok
+
+
+def steps_ab(parent, pl_case, ds, g, timing):
+    """The pl_spmm/xla_segment forward and the arxiv GCN and GraphSAGE
+    train steps on the ELL and the segment path, parent against new in
+    turns, with each step's S3 and CSR-entry launches."""
     dev = g.device
-    ell = ell_dual(g, profile="train")
     x = torch.from_numpy(ds.features).to(dev)
     labels = torch.from_numpy(ds.labels).to(dev)
     mask = torch.from_numpy(ds.train_mask).to(dev)
-    out = {}
+    ell = ell_dual(g, profile="train")
+    runs = {"pl_spmm/xla_segment forward": lambda: vector_spmm(
+        pl_case.g, pl_case.ed, pl_case.q, impl="xla")}
+    keep = []
     for name, cfg in STEP_MODELS.items():
-        model = getattr(models, name)(
-            out_dim=ds.num_classes, in_dim=x.shape[1], **cfg,
-            generator=torch.Generator().manual_seed(0)).to(dev)
-        state = create_train_state(model, learning_rate=2e-3)
-        step = make_train_step(apply_kwargs={"ell": ell})
-        old_launches = []
+        for path, kw in (("ELL", {"ell": ell}), ("segment", {})):
+            model = getattr(models, name)(
+                out_dim=ds.num_classes, in_dim=x.shape[1], **cfg,
+                generator=torch.Generator().manual_seed(0)).to(dev)
+            state = create_train_state(model, learning_rate=2e-3)
+            step = make_train_step(apply_kwargs=kw)
+            keep.append((state, step))
+            runs[f"arxiv {name} {path} step"] = (
+                lambda state=state, step=step: step(state, g, x, labels,
+                                                    mask))
+    out = {}
+    for label, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        gather_sum.launches = csr_sum.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        launches = dict(s3=gather_sum.launches, csr=csr_sum.launches)
 
         def run_old():
-            with old_path(lib, old_launches):
-                step(state, g, x, labels, mask)
+            with on_library(parent):
+                fn()
 
-        def run_new():
-            step(state, g, x, labels, mask)
-
-        def ms(fn):
-            return statistics.median(time_cuda(fn, **timing)) * 1e3
-
-        run_old()
-        torch.cuda.synchronize()
-        n_old, old_launches[:] = len(old_launches), []
-        gather_sum.launches = 0
-        run_new()
-        torch.cuda.synchronize()
-        n_new = gather_sum.launches
-        o1 = ms(run_old)
-        n1, n2 = ms(run_new), ms(run_new)
-        o2 = ms(run_old)
-        out[name] = dict(old_step_ms=(o1 + o2) / 2, new_step_ms=(n1 + n2) / 2,
-                         old_ms_each=[o1, o2], new_ms_each=[n1, n2],
-                         old_s3_launches=n_old, new_s3_launches=n_new)
-        print(f"  arxiv {name} train step: {out[name]}", flush=True)
-        del state, step, model
+        o1 = ms(run_old, timing)
+        n1, n2 = ms(fn, timing), ms(fn, timing)
+        o2 = ms(run_old, timing)
+        out[label] = dict(parent_ms=(o1 + o2) / 2, new_ms=(n1 + n2) / 2,
+                          parent_ms_each=[o1, o2], new_ms_each=[n1, n2],
+                          launches=launches)
+        print(f"  {label}: {out[label]}", flush=True)
+    del keep
     return out
-
-
-def compare(lib, eg, x, timing):
-    old, new = old_copy_sum(lib, eg, x), _copy_agg_raw(eg, x)
-    torch.cuda.synchronize()
-    res = {"buckets": len(eg.buckets),
-           "same_bits": bool(torch.equal(old, new)),
-           "old_launches": len(eg.buckets) + 2, "new_launches": 1}
-    del old, new
-
-    def ms(fn):
-        return statistics.median(time_cuda(fn, **timing)) * 1e3
-
-    o1 = ms(lambda: old_copy_sum(lib, eg, x))
-    n1, n2 = (ms(lambda: _copy_agg_raw(eg, x)) for _ in range(2))
-    o2 = ms(lambda: old_copy_sum(lib, eg, x))
-    res.update(old_ms=(o1 + o2) / 2, new_ms=(n1 + n2) / 2,
-               old_ms_each=[o1, o2], new_ms_each=[n1, n2])
-    print(f"  {eg.direction}: {res}", flush=True)
-    return res
-
-
-def compare_variants(variants, eg, x, timing):
-    """The committed one-launch S3 against each variant build on one
-    packing: same bits, and times in turns (committed, variant, variant,
-    committed)."""
-    new = _copy_agg_raw(eg, x)
-    res = {}
-
-    def ms(fn):
-        return statistics.median(time_cuda(fn, **timing)) * 1e3
-
-    def run(lib):
-        with on_library(lib):
-            return _copy_agg_raw(eg, x)
-
-    for name, lib in variants.items():
-        same = bool(torch.equal(run(lib), new))
-        n1 = ms(lambda: _copy_agg_raw(eg, x))
-        v1, v2 = (ms(lambda: run(lib)) for _ in range(2))
-        n2 = ms(lambda: _copy_agg_raw(eg, x))
-        res[name] = dict(same_bits=same, new_ms=(n1 + n2) / 2,
-                         variant_ms=(v1 + v2) / 2)
-        print(f"  {eg.direction} d={x.shape[1]} {name}: {res[name]}",
-              flush=True)
-    return res
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--old", type=Path, required=True,
-                    help="the per-bucket gather_sum.cu")
+    ap.add_argument("--parent", type=Path,
+                    help="the one-launch gather_sum.cu before the redesign")
     ap.add_argument("--variant", type=Path, action="append", default=[],
-                    help="a variant build of the one-launch gather_sum.cu "
-                    "(same entry point), timed against the committed one")
+                    help="an edited copy of the committed gather_sum.cu "
+                    "(same entry points), timed against it")
     args = ap.parse_args(argv)
     dev = cuda_device()
-    lib = load(args.old, [_P] * 3 + [_I] * 6 + [_P])
-    variants = {v.stem: load(v, _build._SIGNATURES["gather_sum_f32"])
-                for v in args.variant}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    out = {"device": torch.cuda.get_device_name(dev), "nvidia_smi": smi}
+    out = {"device": torch.cuda.get_device_name(dev), "nvidia_smi": smi,
+           "piece": PIECE}
+    print(smi, flush=True)
     timing = dict(warmup=3, iters=10, repeats=5)
-    rng = np.random.default_rng(0)
+    ok = True
     case = powerlaw_case(131072, 2_000_000, D, device=dev)
-    packings = {"powerlaw pow2": (case.se, case.de),
-                "powerlaw train": ell_dual(case.g, profile="train")}
-    x = torch.from_numpy(rng.standard_normal((case.n, D),
-                                             dtype=np.float32)).to(dev)
-    for label, pair in packings.items():
-        for eg in pair:
-            out[f"{label} {eg.direction}"] = compare(lib, eg, x, timing)
-            out[f"{label} {eg.direction} variants"] = compare_variants(
-                variants, eg, x, timing)
-    del case, packings, x
     ds = planted_partition(**ARXIV)
     g = ds.graph.to(dev)
-    x = torch.from_numpy(rng.standard_normal((g.n_nodes, D),
-                                             dtype=np.float32)).to(dev)
-    x40 = x[:, :40].contiguous()
-    for eg in ell_dual(g, profile="train"):
-        out[f"arxiv train {eg.direction}"] = compare(lib, eg, x, timing)
-        for xv in (x, x40):
-            out[f"arxiv train {eg.direction} d={xv.shape[1]} variants"] = (
-                compare_variants(variants, eg, xv, timing))
-    out["arxiv steps"] = step_ab(lib, ds, g, timing)
+    sources = ([args.parent] if args.parent else []) + args.variant
+    built = dict(zip(sources, build(sources)))
+    if args.parent or args.variant:
+        entries = {f"{b}_{t}": types for b, types in PARENT_SIGNATURES.items()
+                   for t in ("f32", "bf16")}
+        parent = (Library(load(built[args.parent], signatures=entries),
+                          PARENT_DROP) if args.parent
+                  else Library(_build.library()))
+        ours = {name: _build._SIGNATURES[name] for name in entries}
+        variants = {v.stem: Library(load(built[v], signatures=ours))
+                    for v in args.variant}
+        out["shapes"], good = parent_ab(parent, variants,
+                                        s3_shapes(dev, case, g), timing)
+        ok &= good
+        if args.parent:
+            out["steps"] = steps_ab(parent, case, ds, g, timing)
     print(json.dumps({"ab_gather": out}), flush=True)
-    checks = [r["same_bits"] for r in out.values()
-              if isinstance(r, dict) and "same_bits" in r]
-    checks += [v["same_bits"] for k, r in out.items()
-               if k.endswith("variants") for v in r.values()]
-    return 0 if all(checks) else 1
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -74,6 +74,9 @@ class GatherTable:
     zero_nodes: (Z,) int32 — output rows with nothing to sum; written 0.
     n_out:      rows of the output; ``nodes`` and ``zero_nodes`` together
                 name each of them once.
+    layout:     the host's copy of the buckets, ``((offset, width, first
+                row, rows), ...)``: S3's wrapper sizes its launch and its
+                scratch from it without reading the card.
 
     S3's warp tasks are numbered over the rows in this order (times the
     feature chunks), then the zero rows, so the widest rows start first.
@@ -84,6 +87,7 @@ class GatherTable:
     nodes: torch.Tensor
     zero_nodes: torch.Tensor
     n_out: int
+    layout: tuple
 
     @property
     def device(self) -> torch.device:
@@ -91,10 +95,7 @@ class GatherTable:
 
     def bucket_rows(self):
         """[(col offset, width, first row, rows)] per bucket (host ints)."""
-        b = self.buckets.cpu().tolist()
-        ends = [row for _, _, row in b[1:]] + [int(self.nodes.shape[0])]
-        return [(off, w, row, end - row)
-                for (off, w, row), end in zip(b, ends)]
+        return [tuple(e) for e in self.layout]
 
     def to(self, device) -> "GatherTable":
         return dataclasses.replace(
@@ -103,15 +104,24 @@ class GatherTable:
             zero_nodes=self.zero_nodes.to(device))
 
 
+@functools.lru_cache(maxsize=64)
+def _one_bucket(width: int, device: torch.device) -> torch.Tensor:
+    # Made once a width and device: a fresh host tensor copied to the card
+    # each call would wait for the card's queue (a sampled batch calls S3
+    # on its in_cols every step).
+    return torch.tensor([[0, width, 0]], dtype=torch.int32, device=device)
+
+
 def one_bucket_table(cols: torch.Tensor) -> GatherTable:
     """The table of one bucket ``cols`` (R, D): output row r sums row r."""
     r, w = cols.shape
     dev = cols.device
     return GatherTable(
-        buckets=torch.tensor([[0, w, 0]], dtype=torch.int32, device=dev),
+        buckets=_one_bucket(w, dev),
         cols=cols.reshape(-1),
         nodes=torch.arange(r, dtype=torch.int32, device=dev),
-        zero_nodes=torch.zeros(0, dtype=torch.int32, device=dev), n_out=r)
+        zero_nodes=torch.zeros(0, dtype=torch.int32, device=dev), n_out=r,
+        layout=((0, w, 0, r),))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,7 +204,9 @@ class EllGraph:
             buckets=t(np.asarray(table, dtype=np.int32).reshape(-1, 3)),
             cols=t(np.concatenate(cols) if cols else empty),
             nodes=t(np.concatenate(nodes) if nodes else empty),
-            zero_nodes=t(np.flatnonzero(~has_row)), n_out=n)
+            zero_nodes=t(np.flatnonzero(~has_row)), n_out=n,
+            layout=tuple((int(o), int(w), int(r0), len(c))
+                         for (o, w, r0), c in zip(table, nodes)))
         return tab if self.device.type == "cpu" else tab.to(self.device)
 
     @functools.cached_property

@@ -24,7 +24,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("tiled_kernels.cu", "attention.cu", "grid_dma.cu",
-           "gather_sum.cu")
+           "gather_sum.cu", "l2_probe.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,9 +45,10 @@ _SIGNATURES = {
     + [_P],
     "spmm_row_sweep_dma_f32": [_P] * 4 + [_I] * 7 + [_P],
     "spmm_row_sweep_dma_v2_f32": [_P] * 5 + [_I] * 6 + [_P],
-    "gather_sum_f32": [_P, _I, _P, _P, _I, _P, _I, _P, _P] + [_I] * 4
-    + [_P],
-    "csr_sum_f32": [_P, _I, _P, _P, _P] + [_I] * 4 + [_P],
+    "gather_sum_f32": [_P, _I, _P, _P, _I, _P, _I, _P, _P] + [_I] * 3
+    + [_P] + [_I] * 3 + [_P],
+    "csr_sum_f32": [_P, _I, _P, _P, _P] + [_I] * 3 + [_P] + [_I] * 2 + [_P],
+    "l2_probe_f32": [_P, _I, _I, _I, _I, _P, _I, _P],
 }
 _SIGNATURES.update({name.replace("_f32", "_bf16"): _SIGNATURES[name]
                     for name in ("sddmm_tiles_f32", "spmm_row_sweep_f32",

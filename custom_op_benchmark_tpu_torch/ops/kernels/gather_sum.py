@@ -24,6 +24,12 @@ Sums are f32 in both dtypes and rounded once to x's dtype, as the TPU
 kernel sums in ``x.dtype`` with f32 accumulation: bf16 rows are widened
 where they are added, never copied to f32 as a whole.
 
+On the card a row of more than :data:`PIECE` slots is summed in pieces of
+PIECE slots whose compensated partials a second launch combines in piece
+order (csrc/gather_sum.cu); the wrapper allocates their scratch with
+``torch.empty``, sized from what the host knows (the table's host layout,
+or the CSR entry's slot count), and reads nothing back from the card.
+
 The wrapper runs the CUDA kernel (csrc/gather_sum.cu) on CUDA tensors and
 the plain version only on CPU tensors; ``gather_sum.launches`` counts
 float32 kernel launches and ``gather_sum.launches_bf16`` bfloat16 ones,
@@ -52,6 +58,27 @@ from custom_op_benchmark_tpu_torch.ops.kernels.tiled_kernels import (
 )
 
 MAX_BUCKETS = 64  # the kernel's table in shared memory (csrc/gather_sum.cu)
+PIECE = 256       # slots a piece of a long row (csrc/gather_sum.cu PIECE)
+_INT_MAX = 2**31 - 1
+
+
+def _windows(slots: int) -> int:
+    return -(-slots // PIECE)
+
+
+def ell_launch(table: GatherTable):
+    """(units, split rows, pieces) of S3's two passes over ``table``, from
+    its host layout: the rows' pieces plus the zero rows, the rows wider
+    than PIECE and their pieces."""
+    units = int(table.zero_nodes.shape[0])
+    split = pieces = 0
+    for _, w, _, rows in table.layout:
+        p = max(1, _windows(w))
+        units += rows * p
+        if p > 1:
+            split += rows
+            pieces += rows * p
+    return units, split, pieces
 
 
 def _table(cols: Union[torch.Tensor, GatherTable], x: torch.Tensor):
@@ -106,12 +133,17 @@ def gather_sum(cols, x: torch.Tensor) -> torch.Tensor:
     align = 4 * x.element_size()
     vec = int(d % 4 == 0 and xf.data_ptr() % align == 0
               and out.data_ptr() % align == 0)
+    units, split, pieces = ell_launch(table)
+    if units > _INT_MAX:
+        raise ValueError(f"{units} tasks; the kernel takes {_INT_MAX}")
+    scratch = torch.empty((pieces, 2, d) if split else (0,),
+                          device=x.device, dtype=torch.float32)
     dev, stream = _stream(x)
     name = _entry("gather_sum", x)
     _build.check(getattr(_build.library(), name)(
         _p(table.buckets), nb, _p(table.cols), _p(table.nodes), n_rows,
         _p(table.zero_nodes), n_zero, _p(xf), _p(out), d, xf.shape[0], vec,
-        dev, stream), name)
+        _p(scratch) if split else None, units, split, dev, stream), name)
     _count(gather_sum, x)
     return out.reshape((table.n_out,) + trail)
 
@@ -187,11 +219,16 @@ def csr_sum(ptr: torch.Tensor, x: torch.Tensor,
     align = 4 * x.element_size()
     vec = int(d % 4 == 0 and xf.data_ptr() % align == 0
               and out.data_ptr() % align == 0)
+    # Windows of PIECE slots over idx (or x's rows for identity slots):
+    # two partials of d (sum, carry) each, then one int a window.
+    n_slots = xf.shape[0] if idx is None else idx.numel()
+    scratch = torch.empty(_windows(n_slots) * (4 * d + 1), device=x.device,
+                          dtype=torch.float32)
     dev, stream = _stream(x)
     name = _entry("csr_sum", x)
     _build.check(getattr(_build.library(), name)(
         _p(ptr), n_rows, None if idx is None else _p(idx), _p(xf), _p(out),
-        d, xf.shape[0], vec, dev, stream), name)
+        d, xf.shape[0], vec, _p(scratch), n_slots, dev, stream), name)
     _count(csr_sum, x)
     return out.reshape((n_rows,) + trail)
 

@@ -42,9 +42,11 @@ from custom_op_benchmark_tpu_torch.parallel.mesh import (
 
 # The layout picker's weight of one exchanged row against one gathered
 # row: the card's row-gather rate over its link rate. The gather rate is
-# the L2 row-gather rate measured on NVIDIA H100 80GB HBM3 at 700.00 W
-# (``utils.benchlib.l2_gather_rate``, chip_smoke.py): a shard's node table
-# at the products configuration (~31k rows of 256 B) fits the 50 MB L2.
+# S3's rate for rows that hit L2, measured on NVIDIA H100 80GB HBM3 at
+# 700.00 W with S3 itself on an L2-resident table (chip_smoke.py prints
+# that figure beside ``utils.benchlib.l2_gather_rate``, the probe kernel's):
+# a shard's node table at the products configuration (~31k rows of 256 B)
+# fits the 50 MB L2. It is kept as measured: the plans depend on it.
 # The link rate is NVLink 4's published 450 GB/s a direction on the H100
 # SXM (900 GB/s both directions).
 ROW_GATHER_BYTES_PER_S = 7285.6e9

@@ -3,7 +3,7 @@
 Counterpart of the interface of custom_op_benchmark_tpu/utils/benchlib.py
 (:class:`BenchRecord`, :func:`bench_fn`, :func:`hbm_bandwidth_bytes`) for a
 CUDA card, plus :func:`l2_gather_rate`, the card's ceiling for row
-gathers that hit L2. Timing is by CUDA events around ``iters`` back-to-back calls
+gathers that hit L2 (a probe kernel of its own, csrc/l2_probe.cu). Timing is by CUDA events around ``iters`` back-to-back calls
 after warm-up, and the median of ``repeats`` such runs; a host clock would
 time only the enqueue. The peak memory bandwidth is measured on the device
 with a large copy, not read from a table. On a CPU tensor there is no
@@ -155,32 +155,44 @@ def hbm_bandwidth_bytes(device=None, nbytes: int = 1 << 30) -> float:
     return _copy_bandwidth(index, int(nbytes))
 
 
-def l2_gather_rate(device=None, *, table_rows: int = 16384, d: int = 128,
-                   rows: int = 125_000, slots: int = 16,
-                   seed: int = 11) -> float:
-    """Bytes per second that the ELL gather-sum kernel S3 gathers from a
-    table resident in the 50 MB L2 (``table_rows`` rows of ``d`` floats: 8
-    MiB by default), in the pattern of the S3 experiment (``rows`` rows of
-    ``slots`` random slots): the rate that bounds a gather whose rows
-    mostly hit L2. Measured on the CUDA device; raises where there is none.
-    """
+L2_PROBE_ROW_BYTES = 512   # csrc/l2_probe.cu: 128 floats a row
+
+
+def l2_gather_rate(device=None, *, table_rows: int = 16384,
+                   reads: int = 256, warps: int = 8192) -> float:
+    """Bytes per second that the card's L2 serves random rows of 512 bytes
+    (128 floats, one 16-byte load a lane: the row S3 reads at d = 128) from
+    a table resident in the 50 MB L2 (``table_rows`` rows: 8 MiB by
+    default), ``warps`` warps of ``reads`` rows each (1.07 GB by
+    default, about the S3 experiment's gathers): the better of 8 and 16
+    rows in flight a warp. Measured by csrc/l2_probe.cu, a kernel whose only purpose is
+    this measurement, so the bound it gives S3's rows does not move when
+    S3 does. Measured on the CUDA device; raises where there is none."""
     import numpy as np
 
-    from custom_op_benchmark_tpu_torch.graph.ell import one_bucket_table
-    from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import (
-        gather_sum,
+    from custom_op_benchmark_tpu_torch.ops.kernels import _build
+    from custom_op_benchmark_tpu_torch.ops.kernels.tiled_kernels import (
+        _p,
+        _stream,
     )
 
     if not torch.cuda.is_available():
         raise RuntimeError("l2_gather_rate measures a CUDA device; none is "
                            "present")
     dev = torch.device("cuda") if device is None else torch.device(device)
-    rng = np.random.default_rng(seed)
-    x = torch.from_numpy(rng.standard_normal(
-        (table_rows, d), dtype=np.float32)).to(dev)
-    cols = torch.from_numpy(rng.integers(
-        0, table_rows, size=(rows, slots)).astype(np.int32)).to(dev)
-    table = one_bucket_table(cols)
-    t = statistics.median(time_cuda(lambda: gather_sum(table, x),
-                                    device=dev))
-    return cols.numel() * d * 4 / t
+    table = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (table_rows, L2_PROBE_ROW_BYTES // 4), dtype=np.float32)).to(dev)
+    out = torch.empty(warps, device=dev)
+    lib = _build.library()
+    index, stream = _stream(table)
+
+    def probe(depth):
+        _build.check(lib.l2_probe_f32(_p(table), table_rows, reads, warps,
+                                      depth, _p(out), index, stream),
+                     "l2_probe_f32")
+
+    t = min(statistics.median(time_cuda(lambda: probe(depth), device=dev))
+            for depth in (8, 16))
+    if not bool(torch.isfinite(out).all()):
+        raise RuntimeError("the L2 probe wrote a non-finite sum")
+    return warps * reads * L2_PROBE_ROW_BYTES / t

@@ -102,7 +102,7 @@ def test_cpu_tensors_never_touch_the_build(monkeypatch):
 def test_the_build_knows_the_kernel():
     assert "gather_sum.cu" in _build.SOURCES
     assert (_build.CSRC / "gather_sum.cu").is_file()
-    assert len(_build._SIGNATURES["gather_sum_f32"]) == 14
+    assert len(_build._SIGNATURES["gather_sum_f32"]) == 17
 
 
 @pytest.mark.parametrize("r, k, n, d", [(16, 16, 100, 128), (24, 5, 70, 33),
