@@ -56,7 +56,7 @@ reddit_sage's dataset and ``dryrun_multichip``.
    timed here and used nowhere in the port); then one train step;
 6. bf16: K1-K4 on bf16 inputs against their plain versions (one bf16
    rounding) at the slice's shapes and on the irregular graph (d = 64, 33,
-   200); the op family and the attention through ``impl="tiled"`` in bf16
+   40, 200); the op family and the attention through ``impl="tiled"`` in bf16
    against f32 at 2e-2, forward and backward, counted; times with bounds
    at bf16 bytes and the bf16 tensor-core peak;
 7. K4 at heads wider than 128 (the cluster form, its layout printed) on
@@ -84,11 +84,11 @@ reddit_sage's dataset and ``dryrun_multichip``.
    moved to the card;
 10. grid kernel parity: S1, S2, S4, S5 (all four switch settings), K4 at
     d = 128 and d = 40 and K1-K3 at d = 128 against their plain versions
-    at the grid's shapes, S1 and S2 also in bf16, K4 and S5 also at d = 200
-    and 300, and S1, S2 (f32 and bf16, with the copy path each d takes),
-    S4, S5 and K4 again on the small irregular graph at d = 128, 100, 40,
-    33, 200 and 300 (at 128 and 33 also with no tile at all and with x of
-    no rows: zeros); S2 equal to K2 bit for bit at one head at every d in
+    at the grid's shapes, S1, S2, K1 and K2 also in bf16, K4 and S5 also
+    at d = 200 and 300, and S1, S2 (f32 and bf16, with the copy path each
+    d takes), S4, S5 and K4 again on the small irregular graph at d = 128,
+    100, 40, 33, 200 and 300 (at 128 and 33 also with no tile at all and
+    with x of no rows: zeros); S2 equal to K2 bit for bit at one head at every d in
     f32 and bf16, and S1 equal to S2 on the grid; S5 with exp and mask
     equal to K4 bit for bit at d = 40, 128 and 300;
 11. the grid path: S1 and S2 against the segment oracle, then the grid
@@ -97,9 +97,10 @@ reddit_sage's dataset and ``dryrun_multichip``.
     experiments' rows, with every launch counter set to 0 before and read
     after, float32 and bfloat16 launches apart;
 12. grid times: S1, S2 (also in bf16), S4, S5, K4 and K1–K3 at d = 128
-    against their plain versions, with bounds and library yardsticks as in
-    5, each S5 setting beside K4's time, and the peak memory of the grid
-    attention backward;
+    against their plain versions, K1 and K2 also in bf16 (K2 beside the
+    bf16 BSR call), with bounds and library yardsticks as in 5, each S5
+    setting beside K4's time, and the peak memory of the grid attention
+    backward;
 13. power-law build: the graph and its dual ELL packing on both ladders on
     the host (seconds and padding waste), moved to the card;
 14. S3 parity against its plain version, bit-for-bit repeats: at the
@@ -262,8 +263,9 @@ MODEL_RTOL = 1e-3
 PEAK_BYTES = 3.35e12
 PEAK_MMA_F32 = 495e12 / 3
 PEAK_F32 = 67e12
-# bf16 products on the tensor cores (the kernels take them as one exact
-# TF32 pass, but the card's least time for bf16 work is at this rate).
+# bf16 products on the tensor cores (K1, K2, S1 and S2 take them natively
+# at this rate; K3 and K4 as one exact TF32 pass, but the card's least
+# time for bf16 work is at this rate).
 PEAK_BF16 = 989e12
 SEED = 0
 # The slice: the clique batch, the model, and the wide SpMM width.
@@ -1058,6 +1060,13 @@ def phase_grid_parity(kern, dev, case):
         f"grid d={GRID_D}", only=TILE_KERNELS))
     b16 = dma_bf16_calls(tg, case.q_al, case.vals)
     errs.update(check_kernels(kern, b16, f"grid d={GRID_D} bf16"))
+    # K1 and K2 in bf16 at the grid's shapes (their times' error column).
+    x16 = case.q_al.bfloat16()
+    errs.update(check_kernels(
+        kern, {f"{k}:bf16": a for k, a in kernel_calls(
+            tg, x16, x16, x16, case.vals.bfloat16()).items()},
+        f"grid d={GRID_D} bf16", only=("sddmm_tiles", "spmm_row_sweep")))
+    del x16
     calls = grid_kernel_calls(tg, case.q_al, case.vals, None, None)
     s2_is_k2(kern, tg, case.vals, case.q_al, "grid",
              calls["spmm_row_sweep_dma"])
@@ -1179,7 +1188,9 @@ def phase_grid_path(kern, case):
 def phase_grid_times(kern, case):
     """The grid kernels against their plain versions and library
     yardsticks at d = 128: S1, S2, S4, K4, every S5 setting (each beside
-    K4's time), and K1-K3 at the grid's shapes."""
+    K4's time), K1-K3 at the grid's shapes, and K1 and K2 in bf16 (K2
+    beside the bf16 BSR call, K1 with its bytes bound: sampled_addmm takes
+    no bf16)."""
     from custom_op_benchmark_tpu_torch.utils.bench_suite import (
         tiled_grid_attention,
     )
@@ -1191,6 +1202,8 @@ def phase_grid_times(kern, case):
     b16 = dma_bf16_calls(case.tg, case.q_al, case.vals)
     bsr16 = yardstick("spmm_row_sweep_dma_v2",
                       b16["spmm_row_sweep_dma_v2:bf16"])
+    x16 = case.q_al.bfloat16()
+    sweep16 = kernel_calls(case.tg, x16, x16, x16, case.vals.bfloat16())
     no_sdpa = ("n/a (dense mask of 1.1 TB)", None, None)
     label = f"grid d={GRID_D}"
     for key, args, lib in (
@@ -1203,14 +1216,16 @@ def phase_grid_times(kern, case):
             *((k, calls[k], None) for k in S5_SETTINGS),
             ("sddmm_tiles", sweep["sddmm_tiles"], True),
             ("spmm_row_sweep", sweep["spmm_row_sweep"], bsr),
-            ("spmm_col_sweep", sweep["spmm_col_sweep"], True)):
+            ("spmm_col_sweep", sweep["spmm_col_sweep"], True),
+            ("spmm_row_sweep:bf16", sweep16["spmm_row_sweep"], bsr16),
+            ("sddmm_tiles:bf16", sweep16["sddmm_tiles"], True)):
         times[key] = time_row(kern, key, args, label, GRID_TIMING, lib=lib)
         torch.cuda.empty_cache()
     k4_ms = times[f"fused_attention_rows:d={GRID_D}"]["ms"]
     for key in S5_SETTINGS:
         log(f"[time] {key:30s} {label:11s} {times[key]['ms']:.4f} ms = "
             f"{times[key]['ms'] / k4_ms:.3f} x K4's {k4_ms:.4f} ms")
-    del bsr, bsr16, b16, sweep
+    del bsr, bsr16, b16, sweep, sweep16, x16
     del calls
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1427,7 +1442,7 @@ def phase_bf16(kern, dev, g, slice_inputs):
     errs = check_kernels(kern, calls, "slice h=8 d=64 bf16")
     rng = np.random.default_rng(SEED + 8)
     _, small = irregular_graph(rng, dev)
-    for hh, dd in ((2, 64), (1, 33), (1, 200)):
+    for hh, dd in ((2, 64), (1, 33), (1, 40), (1, 200)):
         qs, ks, vs = (normal(rng, small.n_nodes, hh, dd,
                              device=dev).bfloat16() for _ in range(3))
         sv = normal(rng, hh, small.num_tiles, 128, 128, device=dev)
@@ -3340,6 +3355,18 @@ def main() -> int:
             key, source, replaces, grid_bf16_launches[name], grid_errs[key],
             grid_times[key], f"grid 1024x1024, d={GRID_D}, bf16; launches: "
             "the grid path's bf16 launches"))
+    for name, n, what in (
+            ("spmm_row_sweep", grid_bf16_launches["spmm_row_sweep"],
+             "the grid path's bf16 launches"),
+            ("sddmm_tiles", bf16_launches["sddmm_tiles"],
+             "the bf16 op family and attention through impl='tiled' (the "
+             "grid path runs K1 in f32 only)")):
+        _, _, source, replaces = kern.table[name]
+        key = f"{name}:bf16"
+        report.append(kernel_row(
+            f"{key} grid", source, replaces, n, grid_errs[key],
+            grid_times[key], f"grid 1024x1024, d={GRID_D}, bf16; launches: "
+            + what))
     _, _, source, replaces = kern.table["gather_sum"]
     report.append(kernel_row(
         "gather_sum:bf16", source, replaces, dtype["s3_bf16_launches"],

@@ -20,14 +20,15 @@
 // grid's x blocks are shared by neighbouring row blocks). On the CUDA
 // cores (67 TFLOP/s) the products alone take 2.4-2.6 ms on the grid at
 // d = 128, twice the bytes' bound, so the products run on the tensor cores
-// with K2's arithmetic (mma_async.cuh: RowCfg, frag_a, mma_ab): 3xTF32
-// mma.sync m16n8k8 for f32, one exact TF32 pass for bf16, f32
-// accumulation, one rounding at the store. The stage layout (chunks of 64
-// columns of a vals tile and the matching 64 rows of x, strides 68 / DN + 8
-// floats), the warp tiling (8 warps, 32 rows x DN / 2 features each), the
-// pass order and the width route (DN = 64 for d <= 64, else 128) are K2's,
-// so S2 at one head gives K2's bits and the change against K2 is only in
-// scheduling and copies.
+// with K2's arithmetic and stores (mma_async.cuh: RowCfg, row_sweep_chunk,
+// row_sweep_store): 3xTF32 mma.sync m16n8k8 for f32, native bf16
+// m16n8k16 fed by ldmatrix for bf16, f32 accumulation, one rounding at the
+// store. The stage layout (chunks of 64 columns of a vals tile and the
+// matching 64 rows of x, strides 68 / 72 and DN + 8 elements), the warp
+// tiling (8 warps, 32 rows x DN / 2 features each), the pass order and the
+// width route (DN = 64 for d <= 64, else 128) are K2's, so S2 at one head
+// gives K2's bits and the change against K2 is only in scheduling and
+// copies.
 //
 // What the design does about K2's schedule (one short block per row block
 // and feature slice; its ring starts empty and its 64 KB store is
@@ -213,7 +214,7 @@ spmm_dma_kernel(const __grid_constant__ CUtensorMap vmap,
     return;
   }
 
-  const int g = lane / 4, t4 = lane % 4, wm = warp / 2, wn = warp % 2;
+  const int wm = warp / 2, wn = warp % 2;
   for (int w = blockIdx.x; w < items; w += gridDim.x) {
     const int rb = w / slices, d0 = (w % slices) * DN;
     int lo;
@@ -228,39 +229,13 @@ spmm_dma_kernel(const __grid_constant__ CUtensorMap vmap,
 
     for (int q = 0; q < n_chunks; ++q) {
       mbar_wait(&full[stage], pass);  // chunk q has landed
-      const E* vs = stages + stage * STAGE;
-      const E* va = vs + (32 * wm + g) * VLD + t4;
-      const E* xb = vs + TILE * VLD + t4 * XLD + wn * (DN / 2) + g;
-#pragma unroll
-      for (int ks = 0; ks < RS_COLS / 8; ++ks) {
-        uint32_t ah[2][4], al[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          frag_a(va + 16 * mi * VLD + ks * 8, 8 * VLD, 4, ah[mi], al[mi]);
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni) {
-          const E* b = xb + ks * 8 * XLD + 8 * ni;
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-            mma_ab(acc[mi][ni], ah[mi], al[mi], b[0], b[4 * XLD]);
-        }
-      }
+      row_sweep_chunk<E, DN>(acc, stages + stage * STAGE, wm, wn, lane);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[stage]);  // the warp is done
       advance();
     }
-
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const long long r =
-              (long long)rb * TILE + 32 * wm + 16 * mi + g + (u >= 2 ? 8 : 0);
-          const int f = d0 + wn * (DN / 2) + 8 * ni + 2 * t4 + (u & 1);
-          if (r < n_out && f < d) out[r * d + f] = from_f32<E>(acc[mi][ni][u]);
-        }
+    row_sweep_store<E, DN>(out, acc, (long long)rb * TILE, d0, n_out, d, d,
+                           wm, wn, lane);
   }
 }
 

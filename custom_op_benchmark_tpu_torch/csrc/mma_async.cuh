@@ -1,17 +1,20 @@
 // Building blocks shared by the kernels for Hopper (sm_90a): asynchronous
 // copies into shared memory (cp.async), f32-accurate tile products on the
-// tensor cores (mma.sync m16n8k8 TF32 in three passes, "3xTF32"), and the
-// row sweep's stage layout and fragment code (K2, S4, S1, S2).
+// tensor cores (mma.sync m16n8k8 TF32 in three passes, "3xTF32"), native
+// bf16 products (mma.sync m16n8k16 .bf16 fed by ldmatrix), and the row
+// sweep's stage layout, fragment code and stores (K2, S4, S1, S2).
 //
 // Element types: the tile kernels take f32 or bf16 rows (one type per
-// call), accumulate in f32 and store the input's type, rounding once. A
-// bf16 value widened to f32 is exact in TF32 (8 significant bits against
-// TF32's 11, the same exponent range), so its TF32 "lo" part is zero: a
-// product of two bf16 operands takes one TF32 pass instead of three, and
-// an f32 operand times a bf16 one takes two (lo*b + hi*b). bf16 rows move
-// as bf16 (half the bytes) and are widened to f32 where f32 rows are split
-// into TF32 parts: in shared memory (widen_rows, beside split_rows) or in
-// registers (to_f32 at the fragment read).
+// call), accumulate in f32 and store the input's type, rounding once. bf16
+// rows move as bf16 (half the bytes). K1 and K2 (and so S1 and S2) take
+// bf16 x bf16 products natively: m16n8k16 with .bf16 operands and f32
+// accumulators, at twice TF32's rate, each fragment read from a bf16 stage
+// by one ldmatrix (no widening, no conversion); a bf16 product is exact in
+// f32. K3 and K4 still widen bf16 to f32, which is exact in TF32 (8
+// significant bits against TF32's 11, the same exponent range), so a bf16 x
+// bf16 product takes one TF32 pass there, and an f32 operand times a bf16
+// one two (lo*b + hi*b): in shared memory (widen_rows) or in registers
+// (to_f32 at the fragment read, frag_a_tf32 / mma_ab_tf32).
 //
 // 3xTF32: TF32 keeps 10 mantissa bits, so one pass of f32 operands rounded
 // to TF32 is good to about 1e-3 relative, which misses the kernels' 1e-4
@@ -29,6 +32,21 @@
 //   B (8 x 8, k x n):       b0 (t, g)   b1 (t + 4, g)
 //   C (16 x 8):             c0 (g, 2t)  c1 (g, 2t + 1)  c2 (g + 8, 2t)
 //                           c3 (g + 8, 2t + 1)
+// m16n8k16 fragments (".bf16"; each register holds two bf16, the lower
+// column or k in the low half):
+//   A (16 x 16): r0 (g, 2t..2t+1)  r1 (g + 8, 2t..)  r2 (g, 2t+8..)
+//                r3 (g + 8, 2t+8..)
+//   B (16 x 8):  r0 (k 2t..2t+1, n g)  r1 (k 2t+8..2t+9, n g)
+//   C: as m16n8k8's.
+// ldmatrix.x4 reads four 8 x 8 matrices of 16-byte rows, lanes 8i..8i+7
+// giving the row addresses of matrix i, and hands lane l register i =
+// matrix i's (l / 4, 2(l % 4)..+1); with .trans, (2(l % 4)..+1, l / 4). So
+// one ldmatrix.x4 reads an A fragment (matrices: rows m / m + 8, columns k
+// / k + 8), and one reads the B fragments of two n-tiles, with .trans from
+// a stage whose rows are k (x in K2) or plain from one whose rows are n (B
+// in K1). Each 8-address phase is conflict-free when its rows fall on
+// distinct 16-byte bank groups: row strides of 80, 144 and 272 bytes.
+// tests/test_torch_bf16_mma.py models these maps, addresses and banks.
 
 #pragma once
 
@@ -173,6 +191,38 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a * b on bf16 operands (A 16 x 16, B 16 x 8), f32 accumulation.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 matrices of b16 from shared memory: this lane gives the
+// address of row lane % 8 of matrix lane / 8 (16-byte aligned).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+
+// The same, each matrix transposed.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+
 // The raw bits of an f32 value that is exact in TF32 (a widened bf16).
 __device__ __forceinline__ uint32_t exact_tf32(float x) {
   return __float_as_uint(x);
@@ -242,7 +292,7 @@ __device__ __forceinline__ void split_rows(float* x, float* lo, int tid) {
 }
 
 // ---------------------------------------------------------------------------
-// The row sweep's stage layout and fragment arithmetic: K2 and S4
+// The row sweep's stage layout, fragment arithmetic and stores: K2 and S4
 // (tiled_kernels.cu) and S1/S2 (grid_dma.cu) run the same code, so S2 at
 // one head gives K2's bits.
 // ---------------------------------------------------------------------------
@@ -252,7 +302,8 @@ constexpr int RS_COLS = 64;    // tile columns (rows of x) per stage
 constexpr int RS_STAGES = 3;
 
 // Stage strides in elements: vals 4 mod 32 words for f32 (68), 72 for
-// bf16 (a 16-byte multiple; the a0 reads still hit distinct words).
+// bf16 (144 bytes: 16-byte rows, and ldmatrix's 8 rows of a phase on
+// distinct 16-byte bank groups); x DN + 8 (for bf16 272 or 144 bytes).
 template <typename E, int DN>
 struct RowCfg {
   static constexpr int VLD = is_f32<E> ? RS_COLS + 4 : RS_COLS + 8;
@@ -261,12 +312,14 @@ struct RowCfg {
   static constexpr size_t SMEM = sizeof(E) * RS_STAGES * STAGE;
 };
 
-// A's fragment read from a stage of E: a0 at a, a1 (m + 8) at a[om], a2
-// (k + 4) at a[ok], a3 at a[om + ok]; split for f32, exact for bf16 (al
-// unused).
+// The TF32 route's fragments, for K3 (f32 and bf16) and the f32 row
+// sweep. A's fragment read from a stage of E: a0 at a, a1 (m + 8) at
+// a[om], a2 (k + 4) at a[ok], a3 at a[om + ok]; split for f32, exact for
+// bf16 (al unused).
 template <typename E>
-__device__ __forceinline__ void frag_a(const E* a, int om, int ok,
-                                       uint32_t (&ah)[4], uint32_t (&al)[4]) {
+__device__ __forceinline__ void frag_a_tf32(const E* a, int om, int ok,
+                                            uint32_t (&ah)[4],
+                                            uint32_t (&al)[4]) {
   if constexpr (is_f32<E>) {
     split_a(a[0], a[om], a[ok], a[om + ok], ah, al);
   } else {
@@ -280,13 +333,113 @@ __device__ __forceinline__ void frag_a(const E* a, int om, int ok,
 // acc += a * b with B's fragment values (b0, b1) read from a stage: 3xTF32
 // for f32, one pass for bf16.
 template <typename E>
-__device__ __forceinline__ void mma_ab(float (&acc)[4],
-                                       const uint32_t (&ah)[4],
-                                       const uint32_t (&al)[4], E b0, E b1) {
+__device__ __forceinline__ void mma_ab_tf32(float (&acc)[4],
+                                            const uint32_t (&ah)[4],
+                                            const uint32_t (&al)[4], E b0,
+                                            E b1) {
   if constexpr (is_f32<E>)
     mma_3xtf32(acc, ah, al, b0, b1);
   else
     mma_tf32(acc, ah, exact_tf32(to_f32(b0)), exact_tf32(to_f32(b1)));
+}
+
+// One staged chunk of the row sweep (RS_COLS columns of a vals tile at vs,
+// row stride VLD, and the matching RS_COLS rows of x after them, row
+// stride XLD) into the accumulators of warp (wm, wn): vals rows 32 wm ..
+// + 32 (two m16 tiles) times x features wn DN / 2 .. + DN / 2 (DN / 16 n8
+// tiles). f32: 8-deep steps in 3xTF32, A split in registers (each used for
+// DN / 16 fragments), B split in registers (each used for two). bf16:
+// 16-deep steps of m16n8k16, one ldmatrix.x4 per A fragment and one
+// ldmatrix.x4.trans per pair of B fragments (vals rows are m, x rows k).
+template <typename E, int DN>
+__device__ __forceinline__ void row_sweep_chunk(float (&acc)[2][DN / 16][4],
+                                                const E* vs, int wm, int wn,
+                                                int lane) {
+  using C = RowCfg<E, DN>;
+  constexpr int VLD = C::VLD, XLD = C::XLD, NI = DN / 16;
+  const E* xs = vs + RS_ROWS * VLD;
+  if constexpr (is_f32<E>) {
+    const int g = lane / 4, t4 = lane % 4;
+    const E* va = vs + (32 * wm + g) * VLD + t4;
+    const E* xb = xs + t4 * XLD + wn * (DN / 2) + g;
+#pragma unroll
+    for (int ks = 0; ks < RS_COLS / 8; ++ks) {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        frag_a_tf32(va + 16 * mi * VLD + ks * 8, 8 * VLD, 4, ah[mi], al[mi]);
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const E* b = xb + ks * 8 * XLD + 8 * ni;
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          mma_ab_tf32(acc[mi][ni], ah[mi], al[mi], b[0], b[4 * XLD]);
+      }
+    }
+  } else {
+    // This lane's ldmatrix row: row r8 + 8 * h8 of a 16-row slab, the
+    // 8-column half q16 (A: matrices (m, k), (m + 8, k), (m, k + 8),
+    // (m + 8, k + 8); x: (k, n), (k + 8, n), (k, n + 8), (k + 8, n + 8)).
+    const int r8 = lane % 8, h8 = (lane / 8) % 2, q16 = lane / 16;
+    const E* va = vs + (32 * wm + r8 + 8 * h8) * VLD + 8 * q16;
+    const E* xb = xs + (r8 + 8 * h8) * XLD + wn * (DN / 2) + 8 * q16;
+#pragma unroll
+    for (int ks = 0; ks < RS_COLS / 16; ++ks) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldsm_x4(a[mi], va + 16 * mi * VLD + 16 * ks);
+#pragma unroll
+      for (int nj = 0; nj < NI / 2; ++nj) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, xb + 16 * ks * XLD + 16 * nj);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_bf16(acc[mi][2 * nj], a[mi], b[0], b[1]);
+          mma_bf16(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
+        }
+      }
+    }
+  }
+}
+
+// Warp (wm, wn)'s accumulators of the row block at output row r0 and
+// feature f0 into out (row stride ld elements): rows below n_out and
+// features below d only. bf16 stores a row's two values (c0 c1, c2 c3) as
+// one 4-byte pair where both lie below d and the pair is 4-byte aligned,
+// else each alone, so no byte past d is written.
+template <typename E, int DN>
+__device__ __forceinline__ void row_sweep_store(
+    E* out, const float (&acc)[2][DN / 16][4], long long r0, int f0,
+    long long n_out, int d, long long ld, int wm, int wn, int lane) {
+  const int g = lane / 4, t4 = lane % 4;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < DN / 16; ++ni) {
+      if constexpr (is_f32<E>) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const long long r = r0 + 32 * wm + 16 * mi + g + (u >= 2 ? 8 : 0);
+          const int f = f0 + wn * (DN / 2) + 8 * ni + 2 * t4 + (u & 1);
+          if (r < n_out && f < d) out[r * ld + f] = acc[mi][ni][u];
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; u += 2) {
+          const long long r = r0 + 32 * wm + 16 * mi + g + (u >= 2 ? 8 : 0);
+          const int f = f0 + wn * (DN / 2) + 8 * ni + 2 * t4;
+          if (r >= n_out || f >= d) continue;
+          E* p = out + r * ld + f;
+          if (f + 1 < d && (reinterpret_cast<uintptr_t>(p) & 3) == 0) {
+            store2(p, acc[mi][ni][u], acc[mi][ni][u + 1]);
+          } else {
+            p[0] = from_f32<E>(acc[mi][ni][u]);
+            if (f + 1 < d) p[1] = from_f32<E>(acc[mi][ni][u + 1]);
+          }
+        }
+      }
+    }
 }
 
 // d += a * b with B's fragment at offsets o0, o1 of a split block (hi, lo).

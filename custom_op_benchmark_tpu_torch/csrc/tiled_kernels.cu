@@ -1,4 +1,4 @@
-// Block-sparse (BSR) tile kernels for Hopper (sm_90a), f32.
+// Block-sparse (BSR) tile kernels for Hopper (sm_90a), f32 and bf16.
 //
 // Replaces the three Pallas TPU kernels of
 // custom_op_benchmark_tpu/ops/pallas/tiled_kernels.py:
@@ -67,7 +67,9 @@
 // B's in registers as K3 does (each used for two): splitting x once per
 // chunk in shared memory (two stages then fit) was 3 % slower at the
 // slice and 1 % faster on the grid, measured on the H100. S4 replaces the
-// A fragments by the constant 0.01 and reads no vals.
+// A fragments by the constant 0.01 and reads no vals. In bf16 the same
+// stages (vals 72, x DN + 8 elements) feed ldmatrix: one .x4 per A
+// fragment and one .x4.trans per pair of B fragments a 16-deep step.
 //
 // K3 (spmm_col_sweep_kernel): the transposed sweep on the same ring, one
 // block per column block, head and up to 128 features.
@@ -78,11 +80,17 @@
 //
 // bf16 (the *_bf16 entry points; mma_async.cuh): node and tile arrays of
 // bf16 move as bf16, accumulate in f32 and are stored as bf16, rounded
-// once. Every product is bf16 x bf16, exact in TF32, so it takes one TF32
-// pass instead of three. K1 stages its A and B chunks as bf16 in the room
-// of B's lo parts and widens them once into the f32 stages; K2 and K3
-// keep their bf16 stages and widen each fragment value in registers where
-// the f32 kernels split it. K1 still sums each 8-deep step apart.
+// once. K1 and K2 take bf16 x bf16 products natively on the tensor cores
+// (mma.sync m16n8k16 .bf16, 989 TFLOP/s against TF32's 495), 16 deep a
+// step, every fragment read from a bf16 stage by one ldmatrix: nothing is
+// widened or converted. K1 in bf16 (sddmm_tiles_bf16_kernel) keeps the f32
+// kernel's blocks, warps and skip of empty fragments, sums each 16-deep
+// step apart, stages 32-feature chunks at a row stride of 40 (80 bytes, so
+// ldmatrix's 8 rows of a phase fall on distinct bank groups) in a
+// three-stage cp.async ring, and writes its output through shared memory as
+// 16-byte pieces. K2 in bf16 runs two blocks an SM and stores value pairs.
+// K3 keeps the TF32 route (frag_a_tf32 / mma_ab_tf32): it widens each
+// fragment value in registers, exact in TF32, and takes one pass.
 //
 // Layouts: node arrays are (n, H, d) contiguous, read in place per head
 // (row stride H*d, head offset h*d); rows at or past n read as zero, so
@@ -137,12 +145,11 @@ __device__ __forceinline__ unsigned live_fragments(const uint8_t* ms,
   return live;
 }
 
-template <typename E>
 __global__ void __launch_bounds__(THREADS, 2)
 sddmm_tiles_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
                    const uint8_t* __restrict__ mask,
-                   const E* __restrict__ A, const E* __restrict__ B,
-                   E* __restrict__ out, int T, int d, int nA, int nB,
+                   const float* __restrict__ A, const float* __restrict__ B,
+                   float* __restrict__ out, int T, int d, int nA, int nB,
                    int vec) {
   constexpr int NT = TILE / 8;  // fragments (8 columns each) of a warp
   extern __shared__ __align__(16) float smem[];
@@ -150,10 +157,6 @@ sddmm_tiles_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
   float* Bhi = As + TILE * SD_LD;   // B's TF32 hi parts
   float* Blo = Bhi + TILE * SD_LD;  // and lo parts
   uint8_t* Ms = reinterpret_cast<uint8_t*>(Blo + TILE * SD_LD);
-  // bf16: A's and B's chunks land here ([TILE][SD_KC] each) and are
-  // widened into As and Bhi; B has no lo part.
-  bf16* Ast = reinterpret_cast<bf16*>(Blo);
-  bf16* Bst = Ast + TILE * SD_KC;
 
   const int t = blockIdx.x, h = blockIdx.y;
   const long long ld = (long long)gridDim.y * d;
@@ -161,8 +164,8 @@ sddmm_tiles_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
   const int g = lane / 4, t4 = lane % 4;
   const long long r0 = (long long)rows[t] * TILE;
   const long long c0 = (long long)cols[t] * TILE;
-  const E* Ah = A + (long long)h * d;
-  const E* Bh = B + (long long)h * d;
+  const float* Ah = A + (long long)h * d;
+  const float* Bh = B + (long long)h * d;
   const int n_chunks = d > SD_KC ? (d + SD_KC - 1) / SD_KC : 1;
   const int kd = (d + 7) / 8;  // contraction steps; the rest is zero
 
@@ -177,27 +180,15 @@ sddmm_tiles_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
   const float* aw = As + (warp * 16 + g) * SD_LD + t4;
   const int bw = g * SD_LD + t4;
   for (int c = 0; c < n_chunks; ++c) {
-    if constexpr (is_f32<E>) {
-      load_rows<TILE, SD_KC, SD_LD, THREADS>(As, Ah, r0, nA, c * SD_KC, d,
-                                             ld, vec, tid);
-      load_rows<TILE, SD_KC, SD_LD, THREADS>(Bhi, Bh, c0, nB, c * SD_KC, d,
-                                             ld, vec, tid);
-    } else {
-      load_rows<TILE, SD_KC, SD_KC, THREADS>(Ast, Ah, r0, nA, c * SD_KC, d,
-                                             ld, vec, tid);
-      load_rows<TILE, SD_KC, SD_KC, THREADS>(Bst, Bh, c0, nB, c * SD_KC, d,
-                                             ld, vec, tid);
-    }
+    load_rows<TILE, SD_KC, SD_LD, THREADS>(As, Ah, r0, nA, c * SD_KC, d, ld,
+                                           vec, tid);
+    load_rows<TILE, SD_KC, SD_LD, THREADS>(Bhi, Bh, c0, nB, c * SD_KC, d, ld,
+                                           vec, tid);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
     if (c == 0) live = live_fragments(Ms + warp * 16 * MASK_LD, lane);
-    if constexpr (is_f32<E>) {
-      split_rows<TILE, SD_KC, SD_LD, THREADS>(Bhi, Blo, tid);
-    } else {
-      widen_rows<TILE, SD_KC, SD_KC, SD_LD, THREADS>(As, Ast, tid);
-      widen_rows<TILE, SD_KC, SD_KC, SD_LD, THREADS>(Bhi, Bst, tid);
-    }
+    split_rows<TILE, SD_KC, SD_LD, THREADS>(Bhi, Blo, tid);
     __syncthreads();
     if (live) {
       const int kend = min(SD_KC / 8, kd - c * (SD_KC / 8));
@@ -206,24 +197,14 @@ sddmm_tiles_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
         if (kk >= kend) break;
         const float* a = aw + kk * 8;
         uint32_t ah[4], al[4];
-        if constexpr (is_f32<E>) {
-          split_a(a[0], a[8 * SD_LD], a[4], a[8 * SD_LD + 4], ah, al);
-        } else {
-          ah[0] = exact_tf32(a[0]);
-          ah[1] = exact_tf32(a[8 * SD_LD]);
-          ah[2] = exact_tf32(a[4]);
-          ah[3] = exact_tf32(a[8 * SD_LD + 4]);
-        }
+        split_a(a[0], a[8 * SD_LD], a[4], a[8 * SD_LD + 4], ah, al);
         const int kb = bw + kk * 8;
 #pragma unroll
         for (int j = 0; j < NT; ++j)
           if ((live >> j) & 1u) {
             float s[4] = {0.f, 0.f, 0.f, 0.f};
             const int o = kb + j * 8 * SD_LD;
-            if constexpr (is_f32<E>)
-              mma_split(s, ah, al, Bhi, Blo, o, o + 4);
-            else
-              mma_tf32(s, ah, exact_tf32(Bhi[o]), exact_tf32(Bhi[o + 4]));
+            mma_split(s, ah, al, Bhi, Blo, o, o + 4);
 #pragma unroll
             for (int u = 0; u < 4; ++u) acc[j][u] += s[u];
           }
@@ -235,8 +216,8 @@ sddmm_tiles_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
   // Rows g and g + 8 of the warp's 16, columns 8j + 2t4, + 1: the mask
   // selects, two bytes per row; one pair of values per row and fragment.
   const uint8_t* mw = Ms + (warp * 16 + g) * MASK_LD + 2 * t4;
-  E* o = out + (((long long)h * T + t) * TILE + warp * 16 + g) * TILE +
-         2 * t4;
+  float* o = out + (((long long)h * T + t) * TILE + warp * 16 + g) * TILE +
+             2 * t4;
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     const uint16_t m0 = *reinterpret_cast<const uint16_t*>(mw + 8 * j);
@@ -249,19 +230,149 @@ sddmm_tiles_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
   }
 }
 
+// K1 in bf16: the f32 kernel's blocks, warps and skip, with bf16 stages
+// read by ldmatrix and m16n8k16 products. A ring of SB_RING stages of
+// (A chunk, B chunk) carries the feature chunks, so a chunk's copy overlaps
+// the products of the one before. A warp's 16 x 128 output strip goes
+// through shared memory (row stride SB_OLD: the fragment pairs' 4-byte
+// writes hit 32 distinct banks) and out as 16-byte pieces, whole sectors.
+constexpr int SB_LD = SD_KC + 8;   // stage row stride, bf16: 80 bytes
+constexpr int SB_RING = 3;
+constexpr int SB_STAGE = 2 * TILE * SB_LD;   // A then B, bf16 elements
+constexpr int SB_OLD = TILE + 8;   // output strip row stride, bf16
+constexpr size_t SB_SMEM =
+    sizeof(bf16) * SB_RING * SB_STAGE + (size_t)TILE * MASK_LD;
+static_assert(TILE * SB_OLD <= SB_RING * SB_STAGE,
+              "the output strips reuse the ring");
+
+__global__ void __launch_bounds__(THREADS, 2)
+sddmm_tiles_bf16_kernel(const int* __restrict__ rows,
+                        const int* __restrict__ cols,
+                        const uint8_t* __restrict__ mask,
+                        const bf16* __restrict__ A,
+                        const bf16* __restrict__ B, bf16* __restrict__ out,
+                        int T, int d, int nA, int nB, int vec) {
+  constexpr int NT = TILE / 8;  // fragments (8 columns each) of a warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  uint8_t* Ms = smem_raw + sizeof(bf16) * SB_RING * SB_STAGE;
+
+  const int t = blockIdx.x, h = blockIdx.y;
+  const long long ld = (long long)gridDim.y * d;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const long long r0 = (long long)rows[t] * TILE;
+  const long long c0 = (long long)cols[t] * TILE;
+  const bf16* Ah = A + (long long)h * d;
+  const bf16* Bh = B + (long long)h * d;
+  const int n_chunks = d > SD_KC ? (d + SD_KC - 1) / SD_KC : 1;
+  const int kd = (d + 15) / 16;  // contraction steps; the rest is zero
+
+  // Chunk c: features c * SD_KC .. + SD_KC of A's and B's rows (zero past
+  // d), into stage c % SB_RING.
+  auto issue = [&](int c) {
+    bf16* st = ring + (c % SB_RING) * SB_STAGE;
+    load_rows<TILE, SD_KC, SB_LD, THREADS>(st, Ah, r0, nA, c * SD_KC, d, ld,
+                                           vec, tid);
+    load_rows<TILE, SD_KC, SB_LD, THREADS>(st + TILE * SB_LD, Bh, c0, nB,
+                                           c * SD_KC, d, ld, vec, tid);
+  };
+
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[j][u] = 0.f;
+
+  load_mask<THREADS>(Ms, mask + (long long)t * TILE * TILE, tid);
+#pragma unroll
+  for (int c = 0; c < SB_RING - 1; ++c) {
+    if (c < n_chunks) issue(c);
+    cp_async_commit();  // the mask rides with chunk 0
+  }
+  unsigned live = 0;  // bit j: the warp's fragment j holds an edge
+  // This lane's ldmatrix rows (mma_async.cuh): A's rows m, m + 8 and
+  // column halves k, k + 8; B's rows (n) n, n + 8 for the pair's two
+  // fragments and column halves k, k + 8.
+  const int r8 = lane % 8, h8 = (lane / 8) % 2, q16 = lane / 16;
+  const int ao = (warp * 16 + r8 + 8 * h8) * SB_LD + 8 * q16;
+  const int bo = TILE * SB_LD + (r8 + 8 * q16) * SB_LD + 8 * h8;
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<SB_RING - 2>();  // chunk c has landed
+    __syncthreads();  // and every warp is done with chunk c - 1's stage
+    if (c == 0) live = live_fragments(Ms + warp * 16 * MASK_LD, lane);
+    if (c + SB_RING - 1 < n_chunks) issue(c + SB_RING - 1);
+    cp_async_commit();
+    if (live) {
+      const bf16* st = ring + (c % SB_RING) * SB_STAGE;
+      const int kend = min(SD_KC / 16, kd - c * (SD_KC / 16));
+#pragma unroll
+      for (int kk = 0; kk < SD_KC / 16; ++kk) {
+        if (kk >= kend) break;
+        uint32_t a[4];
+        ldsm_x4(a, st + ao + 16 * kk);
+#pragma unroll
+        for (int p = 0; p < NT / 2; ++p)
+          if ((live >> (2 * p)) & 3u) {
+            uint32_t b[4];
+            ldsm_x4(b, st + bo + 16 * p * SB_LD + 16 * kk);
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if ((live >> (2 * p + e)) & 1u) {
+                // Each 16-deep step's sum in a zeroed fragment, added to
+                // the accumulator in f32 (rounded to nearest).
+                float s[4] = {0.f, 0.f, 0.f, 0.f};
+                mma_bf16(s, a, b[2 * e], b[2 * e + 1]);
+#pragma unroll
+                for (int u = 0; u < 4; ++u) acc[2 * p + e][u] += s[u];
+              }
+          }
+      }
+    }
+  }
+  __syncthreads();  // every warp is done with the ring
+
+  // Rows g and g + 8 of the warp's strip, columns 8j + 2t4, + 1: the mask
+  // selects, two bytes per row; then 2 rows of 16 pieces a pass.
+  bf16* strip = ring + warp * 16 * SB_OLD;
+  const uint8_t* mw = Ms + (warp * 16 + g) * MASK_LD + 2 * t4;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const uint16_t m0 = *reinterpret_cast<const uint16_t*>(mw + 8 * j);
+    const uint16_t m1 =
+        *reinterpret_cast<const uint16_t*>(mw + 8 * MASK_LD + 8 * j);
+    store2(strip + g * SB_OLD + 8 * j + 2 * t4, (m0 & 0xff) ? acc[j][0] : 0.f,
+           (m0 >> 8) ? acc[j][1] : 0.f);
+    store2(strip + (g + 8) * SB_OLD + 8 * j + 2 * t4,
+           (m1 & 0xff) ? acc[j][2] : 0.f, (m1 >> 8) ? acc[j][3] : 0.f);
+  }
+  __syncwarp();
+  bf16* o = out + (((long long)h * T + t) * TILE + warp * 16) * TILE;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = 2 * i + lane / 16, f = (lane % 16) * 8;
+    *reinterpret_cast<uint4*>(o + r * TILE + f) =
+        *reinterpret_cast<const uint4*>(strip + r * SB_OLD + f);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // K2 and S4: SpMM row sweep
 // ---------------------------------------------------------------------------
 
-// RowCfg, frag_a and mma_ab (the stage layout and fragment arithmetic)
-// are in mma_async.cuh, shared with S1 and S2 (grid_dma.cu).
+// RowCfg, row_sweep_chunk and row_sweep_store (the stage layout, fragment
+// arithmetic and stores) are in mma_async.cuh, shared with S1 and S2
+// (grid_dma.cu).
 
 // Row sweep, one block per (row block, feature slice of DN, head), over
 // tiles ptr[i]..ptr[i+1] (row-sorted order):
 //   out row r = sum_c vals[t][r][c] * x[blk[t]*128 + c].
 // DOTONLY = true: every vals entry is 0.01; vals is not read (f32 only).
+// bf16 runs two blocks an SM (at most 128 registers a thread, 2 x 105 KB
+// of stages at DN = 128), so one block's ring prologue and stores overlap
+// the other's products.
 template <typename E, int DN, bool DOTONLY>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(THREADS, is_f32<E> ? 1 : 2)
 spmm_row_sweep_kernel(const int* __restrict__ ptr,
                       const int* __restrict__ blk,
                       const E* __restrict__ vals,
@@ -270,12 +381,13 @@ spmm_row_sweep_kernel(const int* __restrict__ ptr,
   using C = RowCfg<E, DN>;
   constexpr int VLD = C::VLD, XLD = C::XLD, STAGE = C::STAGE;
   constexpr int NI = DN / 16, CHUNKS = TILE / RS_COLS;
+  static_assert(!DOTONLY || is_f32<E>, "S4 is f32 only");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   E* smem = reinterpret_cast<E*>(smem_raw);
   const int i = blockIdx.x, d0 = blockIdx.y * DN, h = blockIdx.z;
   const long long ld = (long long)gridDim.z * d;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4, wm = warp / 2, wn = warp % 2;
+  const int wm = warp / 2, wn = warp % 2;
   const E* xh = x + (long long)h * d;
   const int lo = ptr[i], n_chunks = (ptr[i + 1] - lo) * CHUNKS;
 
@@ -300,8 +412,6 @@ spmm_row_sweep_kernel(const int* __restrict__ ptr,
     for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
       for (int u = 0; u < 4; ++u) acc[mi][ni][u] = 0.f;
-  uint32_t ch, cl;  // S4's constant, split
-  split_tf32(0.01f, ch, cl);
 
 #pragma unroll
   for (int q = 0; q < RS_STAGES - 1; ++q) {
@@ -314,45 +424,29 @@ spmm_row_sweep_kernel(const int* __restrict__ ptr,
     if (q + RS_STAGES - 1 < n_chunks) issue(q + RS_STAGES - 1);
     cp_async_commit();
     const E* vs = smem + (q % RS_STAGES) * STAGE;
-    const E* va = vs + (32 * wm + g) * VLD + t4;
-    const E* xb = vs + TILE * VLD + t4 * XLD + wn * (DN / 2) + g;
+    if constexpr (DOTONLY) {
+      // S4: K2's f32 products with every A value the constant, split.
+      uint32_t ch, cl;
+      split_tf32(0.01f, ch, cl);
+      const int g = lane / 4, t4 = lane % 4;
+      const E* xb = vs + TILE * VLD + t4 * XLD + wn * (DN / 2) + g;
+      const uint32_t ah[4] = {ch, ch, ch, ch}, al[4] = {cl, cl, cl, cl};
 #pragma unroll
-    for (int ks = 0; ks < RS_COLS / 8; ++ks) {
-      uint32_t ah[2][4], al[2][4];
+      for (int ks = 0; ks < RS_COLS / 8; ++ks)
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        if constexpr (DOTONLY) {
+        for (int ni = 0; ni < NI; ++ni) {
+          const E* b = xb + ks * 8 * XLD + 8 * ni;
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            ah[mi][u] = ch;
-            al[mi][u] = cl;
-          }
-        } else {
-          frag_a(va + 16 * mi * VLD + ks * 8, 8 * VLD, 4, ah[mi], al[mi]);
+          for (int mi = 0; mi < 2; ++mi)
+            mma_ab_tf32(acc[mi][ni], ah, al, b[0], b[4 * XLD]);
         }
-      }
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const E* b = xb + ks * 8 * XLD + 8 * ni;
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          mma_ab(acc[mi][ni], ah[mi], al[mi], b[0], b[4 * XLD]);
-      }
+    } else {
+      row_sweep_chunk<E, DN>(acc, vs, wm, wn, lane);
     }
   }
 
-  E* oh = out + (long long)h * d;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const long long r =
-            (long long)i * TILE + 32 * wm + 16 * mi + g + (u >= 2 ? 8 : 0);
-        const int f = d0 + wn * (DN / 2) + 8 * ni + 2 * t4 + (u & 1);
-        if (r < n_out && f < d) oh[r * ld + f] = from_f32<E>(acc[mi][ni][u]);
-      }
+  row_sweep_store<E, DN>(out + (long long)h * d, acc, (long long)i * TILE,
+                         d0, n_out, d, ld, wm, wn, lane);
 }
 
 template <typename E, int DN, bool DOTONLY>
@@ -363,6 +457,10 @@ int launch_row_sweep(const int* ptr, const int* blk, const E* vals,
   const int smem = (int)RowCfg<E, DN>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && !is_f32<E>)  // room for two blocks an SM
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   const int vec = d % (16 / (int)sizeof(E)) == 0 && aligned16(x);
   dim3 grid(nrb, (d + DN - 1) / DN, H);
@@ -466,13 +564,14 @@ spmm_col_sweep_kernel(const int* __restrict__ ptr,
       uint32_t ah[2][4], al[2][4];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
-        frag_a(va + ks * 8 * CS_VLD + 16 * mi, 8, 4 * CS_VLD, ah[mi], al[mi]);
+        frag_a_tf32(va + ks * 8 * CS_VLD + 16 * mi, 8, 4 * CS_VLD, ah[mi],
+                    al[mi]);
 #pragma unroll
       for (int ni = 0; ni < NI; ++ni) {
         const E* b = yb + ks * 8 * YLD + 8 * ni;
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi)
-          mma_ab(acc[mi][ni], ah[mi], al[mi], b[0], b[4 * YLD]);
+          mma_ab_tf32(acc[mi][ni], ah[mi], al[mi], b[0], b[4 * YLD]);
       }
     }
   }
@@ -506,14 +605,12 @@ int launch_col_sweep(const int* ptr, const int* perm, const int* rows,
   return (int)cudaGetLastError();
 }
 
-template <typename E>
-int sddmm_tiles(const int* rows, const int* cols, const uint8_t* mask,
-                const E* A, const E* B, E* out, int T, int H, int d, int nA,
-                int nB, int device, cudaStream_t stream) {
-  cudaSetDevice(device);
-  auto kernel = sddmm_tiles_kernel<E>;
+template <typename E, typename Kernel>
+int launch_sddmm(Kernel kernel, size_t smem, const int* rows, const int* cols,
+                 const uint8_t* mask, const E* A, const E* B, E* out, int T,
+                 int H, int d, int nA, int nB, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SD_SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -522,9 +619,22 @@ int sddmm_tiles(const int* rows, const int* cols, const uint8_t* mask,
   const int vec =
       d % (16 / (int)sizeof(E)) == 0 && aligned16(A) && aligned16(B);
   dim3 grid(T, H);
-  kernel<<<grid, THREADS, SD_SMEM, stream>>>(rows, cols, mask, A, B, out, T,
-                                             d, nA, nB, vec);
+  kernel<<<grid, THREADS, smem, stream>>>(rows, cols, mask, A, B, out, T, d,
+                                          nA, nB, vec);
   return (int)cudaGetLastError();
+}
+
+template <typename E>
+int sddmm_tiles(const int* rows, const int* cols, const uint8_t* mask,
+                const E* A, const E* B, E* out, int T, int H, int d, int nA,
+                int nB, int device, cudaStream_t stream) {
+  cudaSetDevice(device);
+  if constexpr (is_f32<E>)
+    return launch_sddmm(sddmm_tiles_kernel, SD_SMEM, rows, cols, mask, A, B,
+                        out, T, H, d, nA, nB, stream);
+  else
+    return launch_sddmm(sddmm_tiles_bf16_kernel, SB_SMEM, rows, cols, mask,
+                        A, B, out, T, H, d, nA, nB, stream);
 }
 
 template <typename E>
