@@ -62,7 +62,7 @@ reddit_sage's dataset and ``dryrun_multichip``.
 7. K4 at heads wider than 128 (the cluster form, its layout printed) on
    the irregular graph at d = 129, 200, 300, 1024 and 1100 (two clusters
    a row block) against its plain version at 1e-4, bit for bit on repeat,
-   and in bf16 at d = 200 and 300 (one bf16 rounding); through
+   and in bf16 at d = 129, 200, 300 and 1100 (one bf16 rounding); through
    ``attention(impl="tiled")`` counted; d = 300 and 1024 timed on the
    irregular graph and on the slice's tiles beside SDPA;
 8. the dense-block path: ``resolve(g, "auto") == "dense_block"``, the
@@ -84,7 +84,7 @@ reddit_sage's dataset and ``dryrun_multichip``.
    moved to the card;
 10. grid kernel parity: S1, S2, S4, S5 (all four switch settings), K4 at
     d = 128 and d = 40 and K1-K3 at d = 128 against their plain versions
-    at the grid's shapes, S1, S2, K1 and K2 also in bf16, K4 and S5 also
+    at the grid's shapes, S1, S2 and K1-K4 also in bf16, K4 and S5 also
     at d = 200 and 300, and S1, S2 (f32 and bf16, with the copy path each
     d takes), S4, S5 and K4 again on the small irregular graph at d = 128,
     100, 40, 33, 200 and 300 (at 128 and 33 also with no tile at all and
@@ -97,8 +97,9 @@ reddit_sage's dataset and ``dryrun_multichip``.
     experiments' rows, with every launch counter set to 0 before and read
     after, float32 and bfloat16 launches apart;
 12. grid times: S1, S2 (also in bf16), S4, S5, K4 and K1–K3 at d = 128
-    against their plain versions, K1 and K2 also in bf16 (K2 beside the
-    bf16 BSR call), with bounds and library yardsticks as in 5, each S5
+    against their plain versions, K1-K4 also in bf16 (K2 beside the bf16
+    BSR call, K3 beside that of the transposed view), with bounds and
+    library yardsticks as in 5, each S5
     setting beside K4's time, and the peak memory of the grid attention
     backward;
 13. power-law build: the graph and its dual ELL packing on both ladders on
@@ -205,13 +206,13 @@ reddit_sage's dataset and ``dryrun_multichip``.
 
 Each phase's seconds are printed. The line before the last is the
 ``kernels`` JSON: for each of the nine kernels, for K1-K4, S1, S2 and S3
-in bf16, K4 at d = 300 and 1024, K1-K4 at the clique suite's shapes, S3's
-CSR entry at the arxiv copy shape, S3 and the CSR entry at a
-reddit_sage batch's shapes, the CSR entry at the halo plan's shape (d =
-64 and 4), S3's two hub shapes on the power-law graph and the CSR entry
-at the arxiv narrow widths (d = 1, 4, 8 and the copy at 64), its source,
-the TPU kernel it replaces, its launches on its path, its error, time,
-plain time, bound and library time.
+in bf16, K1-K4 in bf16 on the grid, K4 at d = 300 and 1024, K1-K4 at the
+clique suite's shapes, S3's CSR entry at the arxiv copy shape, S3 and the
+CSR entry at a reddit_sage batch's shapes, the CSR entry at the halo
+plan's shape (d = 64 and 4), S3's two hub shapes on the power-law graph
+and the CSR entry at the arxiv narrow widths (d = 1, 4, 8 and the copy at
+64), its source, the TPU kernel it replaces, its launches on its path, its
+error, time, plain time, bound and library time.
 
 Exits non-zero on any failure, and at once when no CUDA device is present.
 The last line of standard output is
@@ -263,9 +264,8 @@ MODEL_RTOL = 1e-3
 PEAK_BYTES = 3.35e12
 PEAK_MMA_F32 = 495e12 / 3
 PEAK_F32 = 67e12
-# bf16 products on the tensor cores (K1, K2, S1 and S2 take them natively
-# at this rate; K3 and K4 as one exact TF32 pass, but the card's least
-# time for bf16 work is at this rate).
+# bf16 products on the tensor cores (K1-K4, S1 and S2 take them natively
+# at this rate).
 PEAK_BF16 = 989e12
 SEED = 0
 # The slice: the clique batch, the model, and the wide SpMM width.
@@ -294,7 +294,7 @@ BLOCK_FEAT = 128
 # irregular graph (1100 takes two clusters a row block), those also
 # checked in bf16, and those timed.
 K4_WIDE_CHECKED = (129, 200, 300, 1024, 1100)
-K4_WIDE_BF16 = (200, 300)
+K4_WIDE_BF16 = (129, 200, 300, 1100)
 K4_WIDE = (300, 1024)
 # The clique suite's new kernel shapes (utils/bench_suite.run_suite): K1-K3
 # at one head of 1024, K4 at one head of 128.
@@ -671,6 +671,21 @@ def grid_kernel_calls(tg, x, vals, x40, wp=None):
             calls[key] = att + (kw,)
         else:
             calls[key] = (tgt.tile_ptr, tgt.tile_cols) + wp + (kw,)
+    return calls
+
+
+def grid_bf16_calls(case):
+    """K1-K3 in bf16 as the grid attention's backward runs them, and K4 in
+    bf16 on the grid's transposed tiling, keyed ``<name>:bf16`` (K4
+    ``fused_attention_rows:d=<d>:bf16``)."""
+    x16 = case.q_al.bfloat16()
+    calls = {f"{k}:bf16": a for k, a in kernel_calls(
+        case.tg, x16, x16, x16, case.vals.bfloat16()).items()
+        if k in TILE_KERNELS}
+    tgt = case.tg.transpose()
+    calls[f"fused_attention_rows:d={GRID_D}:bf16"] = (
+        tgt.tile_ptr, tgt.tile_cols, tgt.mask, x16, x16, x16,
+        GRID_D ** -0.5)
     return calls
 
 
@@ -1060,13 +1075,9 @@ def phase_grid_parity(kern, dev, case):
         f"grid d={GRID_D}", only=TILE_KERNELS))
     b16 = dma_bf16_calls(tg, case.q_al, case.vals)
     errs.update(check_kernels(kern, b16, f"grid d={GRID_D} bf16"))
-    # K1 and K2 in bf16 at the grid's shapes (their times' error column).
-    x16 = case.q_al.bfloat16()
-    errs.update(check_kernels(
-        kern, {f"{k}:bf16": a for k, a in kernel_calls(
-            tg, x16, x16, x16, case.vals.bfloat16()).items()},
-        f"grid d={GRID_D} bf16", only=("sddmm_tiles", "spmm_row_sweep")))
-    del x16
+    # K1-K4 in bf16 at the grid's shapes (their times' error column).
+    errs.update(check_kernels(kern, grid_bf16_calls(case),
+                              f"grid d={GRID_D} bf16"))
     calls = grid_kernel_calls(tg, case.q_al, case.vals, None, None)
     s2_is_k2(kern, tg, case.vals, case.q_al, "grid",
              calls["spmm_row_sweep_dma"])
@@ -1188,9 +1199,10 @@ def phase_grid_path(kern, case):
 def phase_grid_times(kern, case):
     """The grid kernels against their plain versions and library
     yardsticks at d = 128: S1, S2, S4, K4, every S5 setting (each beside
-    K4's time), K1-K3 at the grid's shapes, and K1 and K2 in bf16 (K2
-    beside the bf16 BSR call, K1 with its bytes bound: sampled_addmm takes
-    no bf16)."""
+    K4's time), K1-K3 at the grid's shapes, and K1-K4 in bf16 (K2 beside
+    the bf16 BSR call, K3 beside the bf16 BSR call of the transposed view,
+    K1 with its bytes bound: sampled_addmm takes no bf16; K4 with no
+    library call, as in f32)."""
     from custom_op_benchmark_tpu_torch.utils.bench_suite import (
         tiled_grid_attention,
     )
@@ -1202,8 +1214,7 @@ def phase_grid_times(kern, case):
     b16 = dma_bf16_calls(case.tg, case.q_al, case.vals)
     bsr16 = yardstick("spmm_row_sweep_dma_v2",
                       b16["spmm_row_sweep_dma_v2:bf16"])
-    x16 = case.q_al.bfloat16()
-    sweep16 = kernel_calls(case.tg, x16, x16, x16, case.vals.bfloat16())
+    sweep16 = grid_bf16_calls(case)
     no_sdpa = ("n/a (dense mask of 1.1 TB)", None, None)
     label = f"grid d={GRID_D}"
     for key, args, lib in (
@@ -1217,15 +1228,18 @@ def phase_grid_times(kern, case):
             ("sddmm_tiles", sweep["sddmm_tiles"], True),
             ("spmm_row_sweep", sweep["spmm_row_sweep"], bsr),
             ("spmm_col_sweep", sweep["spmm_col_sweep"], True),
-            ("spmm_row_sweep:bf16", sweep16["spmm_row_sweep"], bsr16),
-            ("sddmm_tiles:bf16", sweep16["sddmm_tiles"], True)):
+            ("spmm_row_sweep:bf16", sweep16["spmm_row_sweep:bf16"], bsr16),
+            ("sddmm_tiles:bf16", sweep16["sddmm_tiles:bf16"], True),
+            ("spmm_col_sweep:bf16", sweep16["spmm_col_sweep:bf16"], True),
+            (f"fused_attention_rows:d={GRID_D}:bf16",
+             sweep16[f"fused_attention_rows:d={GRID_D}:bf16"], no_sdpa)):
         times[key] = time_row(kern, key, args, label, GRID_TIMING, lib=lib)
         torch.cuda.empty_cache()
     k4_ms = times[f"fused_attention_rows:d={GRID_D}"]["ms"]
     for key in S5_SETTINGS:
         log(f"[time] {key:30s} {label:11s} {times[key]['ms']:.4f} ms = "
             f"{times[key]['ms'] / k4_ms:.3f} x K4's {k4_ms:.4f} ms")
-    del bsr, bsr16, b16, sweep, sweep16, x16
+    del bsr, bsr16, b16, sweep, sweep16
     del calls
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3355,16 +3369,24 @@ def main() -> int:
             key, source, replaces, grid_bf16_launches[name], grid_errs[key],
             grid_times[key], f"grid 1024x1024, d={GRID_D}, bf16; launches: "
             "the grid path's bf16 launches"))
-    for name, n, what in (
-            ("spmm_row_sweep", grid_bf16_launches["spmm_row_sweep"],
+    family = ("the bf16 op family and attention through impl='tiled' (the "
+              "grid path runs {} in f32 only)")
+    for name, key, n, what in (
+            ("spmm_row_sweep", "spmm_row_sweep:bf16",
+             grid_bf16_launches["spmm_row_sweep"],
              "the grid path's bf16 launches"),
-            ("sddmm_tiles", bf16_launches["sddmm_tiles"],
+            ("sddmm_tiles", "sddmm_tiles:bf16", bf16_launches["sddmm_tiles"],
+             family.format("K1")),
+            ("spmm_col_sweep", "spmm_col_sweep:bf16",
+             bf16_launches["spmm_col_sweep"], family.format("K3")),
+            ("fused_attention_rows", f"fused_attention_rows:d={GRID_D}:bf16",
+             bf16_launches["fused_attention_rows"],
              "the bf16 op family and attention through impl='tiled' (the "
-             "grid path runs K1 in f32 only)")):
+             "grid path's bf16 attention runs K4's bf16 kernel through "
+             "attn_variant)")):
         _, _, source, replaces = kern.table[name]
-        key = f"{name}:bf16"
         report.append(kernel_row(
-            f"{key} grid", source, replaces, n, grid_errs[key],
+            f"{name}:bf16 grid", source, replaces, n, grid_errs[key],
             grid_times[key], f"grid 1024x1024, d={GRID_D}, bf16; launches: "
             + what))
     _, _, source, replaces = kern.table["gather_sum"]

@@ -4,9 +4,10 @@
 //   K4 fused_attention_rows <- custom_op_benchmark_tpu/ops/pallas/attention.py
 //   S5 attn_variant         <- scripts/exp_grid_bisect.py (K4 with use_exp /
 //                              use_mask switches, a diagnostic)
-// with one kernel, attention_mma_kernel: K4 at any head width, f32 or bf16,
-// on the tensor cores; S5 is the same kernel with its UseExp / UseMask
-// template switches, f32 (with both on, the same instantiation as K4).
+// with two kernels on the tensor cores: attention_mma_kernel, K4 in f32 at
+// any head width, and S5 as the same kernel with its UseExp / UseMask
+// template switches (with both on, the same instantiation as K4); and
+// attention_bf16_kernel, K4 in bf16.
 // Per row block I and head h, a flash-style forward over I's nonzero
 // adjacency tiles, one tile at a time:
 //   s      = (Q[I] K[J]^T) * scale, non-edges set to -1e30 (UseMask)
@@ -32,9 +33,9 @@
 // products bound it, not HBM.
 //
 // One block of 8 warps owns a 128-row block and a head (and, for d > 128,
-// a 128-feature slice); each warp owns 16 query rows. S = Q K^T and
-// acc += P V run as mma.sync m16n8k8 in 3xTF32 (mma_async.cuh), so the
-// products are as accurate as f32 FMAs. A warp's 16 x 128 scores stay in
+// a 64- or 128-feature slice); each warp owns 16 query rows. In f32, S =
+// Q K^T and acc += P V run as mma.sync m16n8k8 in 3xTF32 (mma_async.cuh),
+// so the products are as accurate as f32 FMAs. A warp's 16 x 128 scores stay in
 // its accumulator registers: the row max and sum are taken over the
 // thread's own 32 values and then across the 4 threads of a quad with
 // shuffles. P feeds the second product straight from those registers: the
@@ -84,10 +85,29 @@
 // cluster computes its own scores (block b contracts over slices b, b +
 // 8, ..., reloading its resident Q slice for each: correct, not tuned).
 //
-// bf16: K and V chunks land as bf16 in the lo room of a buffer and are
-// widened once into the hi room; Q is widened as it is loaded. QK^T is
-// bf16 x bf16, one TF32 pass; P stays f32, so P V takes two (lo*v +
-// hi*v). The output is rounded to bf16 once.
+// bf16 (attention_bf16_kernel): the same blocks, warps, steps, softmax and
+// cluster exchange on native bf16 products, mma.sync m16n8k16 .bf16 with
+// f32 accumulators, every fragment read from a bf16 stage by ldmatrix;
+// nothing is widened. Q stays resident as bf16 ([128][D + 8]); K and V
+// chunks stay bf16 ([128][64 + 8], 144-byte rows) in a ring of cp.async
+// stages, so a step takes one barrier (the f32 kernel takes three, two of
+// them for its split pass). QK^T: per 16-deep step one ldmatrix.x4 gives
+// the warp's A fragment and one (not transposed: K's rows are keys, n)
+// the B fragments of two 8-key n-tiles. P V needs no trip through shared
+// memory and no key permutation: the accumulators of keys 16m .. 16m + 7
+// and 16m + 8 .. 16m + 15 are, in their natural order, the m16n8k16 A
+// fragment of keys 16m .. 16m + 15. P is not rounded to one bf16, whose
+// error (up to 2^-8 of p, against values of either sign) fails the
+// per-element gate where an output cancels to near 0: it goes as hi =
+// bf16(p) and lo = bf16(p - hi), two k16 passes (lo * v, then hi * v),
+// good to 2^-16 of p; m, l and the row sums use the f32 p. V's B
+// fragments come by ldmatrix.trans (V's rows are the contraction keys).
+// The resident form sums QK^T in the mma; the cluster form sums each
+// 16-deep step apart and adds it in f32, and exchanges its f32 scores in
+// a region of its own.
+// Shared memory: 72 KB at D = 64 (two blocks an SM), 88 KB at D = 128,
+// plus 68 KB of exchange in the cluster form. The output is rounded to
+// bf16 once and stored as 4-byte pairs.
 //
 // Layouts: q, k, v and out are (n, H, d) contiguous, read in place per
 // head; rows at or past n, and features at or past d, read as zero. The
@@ -115,13 +135,36 @@ template <int D>
 struct MmaCfg {
   static constexpr int QLD = D + 4;     // resident Q row stride, floats
   static constexpr int NC = D / CHUNK;  // K (and V) chunks a slice
-  // A buffer: hi [TILE][CLD], lo [TILE][CLD] (bf16: the staged chunk).
+  // A buffer: hi [TILE][CLD], lo [TILE][CLD].
   static constexpr int BUF = 2 * TILE * CLD;
   static constexpr size_t SMEM =
       sizeof(float) * (TILE * QLD + 2 * BUF) + (size_t)TILE * MASK_LD;
 };
 static_assert(TILE * SLD <= MmaCfg<CHUNK>::BUF,
               "a score tile fits one chunk buffer");
+
+// bf16: Q resident [TILE][QLD], a ring of STAGES chunks [TILE][BLD] (144-
+// byte rows: ldmatrix's 8 rows of a phase on distinct bank groups), MASKS
+// mask buffers and, for the cluster form, the score exchange [TILE][SLD]
+// floats. One mask buffer is enough when the next tile's mask is copied
+// after this tile's softmax step (a tile's V steps NC >= STAGES - 1). The
+// resident form at D = 64 runs two blocks an SM (at most 128 registers a
+// thread); D = 128 (acc and s alone are 128 floats) and the cluster form
+// run one.
+constexpr int BLD = CHUNK + 8;    // staged bf16 chunk row stride
+
+template <int D, bool CLUSTER>
+struct BfCfg {
+  static constexpr int QLD = D + 8;
+  static constexpr int NC = D / CHUNK;
+  static constexpr int STAGES = 2;
+  static constexpr int MASKS = NC >= STAGES - 1 ? 1 : 2;
+  static constexpr int BLOCKS = !CLUSTER && D == 64 ? 2 : 1;
+  static constexpr size_t SMEM =
+      sizeof(bf16) * (TILE * QLD + STAGES * TILE * BLD) +
+      (size_t)MASKS * TILE * MASK_LD +
+      (CLUSTER ? sizeof(float) * TILE * SLD : 0);
+};
 
 // Cluster barriers (every thread of every block of the cluster arrives;
 // arrive releases, wait acquires, at cluster scope).
@@ -212,13 +255,14 @@ __device__ __forceinline__ void cluster_sum_scores(float (&s)[TILE / 8][4],
 // scale2: scale times log2(e) (UseExp) or scale. vec: q, k, v rows move as
 // 16-byte copies. cl: blocks per cluster (CLUSTER), each owning D
 // features; gridDim.z clusters per row block.
-template <typename E, int D, bool CLUSTER, bool UseExp, bool UseMask>
+template <int D, bool CLUSTER, bool UseExp, bool UseMask>
 __global__ void __launch_bounds__(MMA_THREADS, 1)
 attention_mma_kernel(const int* __restrict__ ptr,
                      const int* __restrict__ cols,
                      const uint8_t* __restrict__ mask,
-                     const E* __restrict__ q, const E* __restrict__ k,
-                     const E* __restrict__ v, E* __restrict__ out, int d,
+                     const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     int d,
                      int n_q, int n_kv, int n_out, float scale2, int vec,
                      int cl) {
   using C = MmaCfg<D>;
@@ -237,9 +281,9 @@ attention_mma_kernel(const int* __restrict__ ptr,
   const long long ld = (long long)gridDim.y * d;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
-  const E* qh = q + (long long)h * d;
-  const E* kh = k + (long long)h * d;
-  const E* vh = v + (long long)h * d;
+  const float* qh = q + (long long)h * d;
+  const float* kh = k + (long long)h * d;
+  const float* vh = v + (long long)h * d;
   const int lo = ptr[i], hi = ptr[i + 1];
   // K steps: NC a contraction slice; V steps: NC. CLUSTER: every block
   // takes as many slices as the cluster's first (past d they load zeros
@@ -254,7 +298,7 @@ attention_mma_kernel(const int* __restrict__ ptr,
 
   // The block's copies run in steps: for each tile, its K chunks, then its
   // V chunks, step s into buffer s % 2; the mask rides with a tile's first
-  // K chunk. bf16 chunks land in the lo room.
+  // K chunk.
   auto issue = [&](int step) {
     const int t = lo + step / steps, c = step % steps;
     if (t >= hi) return;
@@ -262,25 +306,19 @@ attention_mma_kernel(const int* __restrict__ ptr,
     const long long row = (long long)cols[t] * TILE;
     const bool kstep = c < nk;
     const int f0 = kstep ? kfeat(c) : fo + (c - nk) * CHUNK;
-    const E* src = kstep ? kh : vh;
-    if constexpr (is_f32<E>)
-      load_rows<TILE, CHUNK, CLD, MMA_THREADS>(buf, src, row, n_kv, f0, d,
-                                               ld, vec, tid);
-    else
-      load_rows<TILE, CHUNK, CHUNK, MMA_THREADS>(
-          reinterpret_cast<bf16*>(buf + TILE * CLD), src, row, n_kv, f0, d,
-          ld, vec, tid);
+    load_rows<TILE, CHUNK, CLD, MMA_THREADS>(buf, kstep ? kh : vh, row, n_kv,
+                                             f0, d, ld, vec, tid);
     if (UseMask && c == 0)
       load_mask<MMA_THREADS>(Ms, mask + (long long)t * TILE * TILE, tid);
   };
-  // Q's rows of the row block, features f0 .. f0 + D - 1, read and widened
-  // by plain loads (visible after the next barrier).
+  // Q's rows of the row block, features f0 .. f0 + D - 1, read by plain
+  // loads (visible after the next barrier).
   auto load_q = [&](int f0) {
     for (int e = tid; e < TILE * D; e += MMA_THREADS) {
       const int r = e / D, f = e % D;
       const long long row = (long long)i * TILE + r;
       Qs[r * QLD + f] =
-          (row < n_q && f0 + f < d) ? to_f32(qh[row * ld + f0 + f]) : 0.f;
+          (row < n_q && f0 + f < d) ? qh[row * ld + f0 + f] : 0.f;
     }
   };
 
@@ -294,11 +332,8 @@ attention_mma_kernel(const int* __restrict__ ptr,
     for (int u = 0; u < 4; ++u) acc[n][u] = 0.f;
 
   if (lo < hi) {
-    if constexpr (is_f32<E>)
-      load_rows<TILE, D, QLD, MMA_THREADS>(Qs, qh, (long long)i * TILE, n_q,
-                                           kfeat(0), d, ld, vec, tid);
-    else
-      load_q(kfeat(0));  // once per block
+    load_rows<TILE, D, QLD, MMA_THREADS>(Qs, qh, (long long)i * TILE, n_q,
+                                         kfeat(0), d, ld, vec, tid);
     issue(0);
     cp_async_commit();
     issue(1);
@@ -320,11 +355,7 @@ attention_mma_kernel(const int* __restrict__ ptr,
       __syncthreads();
       // Heads wider than 1024: the next contraction slice's Q.
       if (CLUSTER && nsl > 1 && c < nk && c % NC == 0) load_q(kfeat(c));
-      if constexpr (is_f32<E>)
-        split_rows<TILE, CHUNK, CLD, MMA_THREADS>(bh, bl, tid);
-      else
-        widen_rows<TILE, CHUNK, CHUNK, CLD, MMA_THREADS>(
-            bh, reinterpret_cast<const bf16*>(bl), tid);
+      split_rows<TILE, CHUNK, CLD, MMA_THREADS>(bh, bl, tid);
       __syncthreads();
 
       if (c < nk) {
@@ -341,23 +372,13 @@ attention_mma_kernel(const int* __restrict__ ptr,
         for (int kk = 0; kk < kend; ++kk) {
           const float* qa = qw + kk * 8;
           uint32_t ah[4], al[4];
-          if constexpr (is_f32<E>) {
-            split_a(qa[0], qa[8 * QLD], qa[4], qa[8 * QLD + 4], ah, al);
-          } else {
-            ah[0] = exact_tf32(qa[0]);
-            ah[1] = exact_tf32(qa[8 * QLD]);
-            ah[2] = exact_tf32(qa[4]);
-            ah[3] = exact_tf32(qa[8 * QLD + 4]);
-          }
+          split_a(qa[0], qa[8 * QLD], qa[4], qa[8 * QLD + 4], ah, al);
           const int kb = kw + kk * 8;
 #pragma unroll
           for (int j = 0; j < KEYS8; ++j) {
             const int o = kb + j * 8 * CLD;
             auto qk = [&](float(&dst)[4]) {
-              if constexpr (is_f32<E>)
-                mma_split(dst, ah, al, bh, bl, o, o + 4);
-              else
-                mma_tf32(dst, ah, exact_tf32(bh[o]), exact_tf32(bh[o + 4]));
+              mma_split(dst, ah, al, bh, bl, o, o + 4);
             };
             if constexpr (CLUSTER) {
               // Each 8-deep step is summed apart, then added in f32.
@@ -436,8 +457,7 @@ attention_mma_kernel(const int* __restrict__ ptr,
       if (c >= nk) {
         // acc[:, (c-nk)*64 : +64] += P V_c over the tile's keys, 8 at a
         // time in the order (0, 2, 4, 6, 1, 3, 5, 7): a0..a3 of P are c0,
-        // c2, c1, c3 of S. P is f32: three passes against f32 V, two
-        // against bf16 V.
+        // c2, c1, c3 of S, three passes.
         auto pv = [&](const int N0) {
 #pragma unroll
           for (int j = 0; j < KEYS8; ++j) {
@@ -448,11 +468,7 @@ attention_mma_kernel(const int* __restrict__ ptr,
             for (int n = 0; n < CHUNK / 8; ++n)
               if (fo + (N0 + n) * 8 < d) {
                 const int o0 = vb + n * 8, o1 = vb + CLD + n * 8;
-                if constexpr (is_f32<E>)
-                  mma_split(acc[N0 + n], ah, al, bh, bl, o0, o1);
-                else
-                  mma_2xtf32(acc[N0 + n], ah, al, exact_tf32(bh[o0]),
-                             exact_tf32(bh[o1]));
+                mma_split(acc[N0 + n], ah, al, bh, bl, o0, o1);
               }
           }
         };
@@ -486,7 +502,7 @@ attention_mma_kernel(const int* __restrict__ ptr,
   }
   const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
   const long long r0 = (long long)i * TILE + row0, r1 = r0 + 8;
-  E* oh = out + (long long)h * d;
+  float* oh = out + (long long)h * d;
 #pragma unroll
   for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -494,10 +510,279 @@ attention_mma_kernel(const int* __restrict__ ptr,
       const int f = fo + n * 8 + 2 * t4 + u;
       if (f >= d) continue;
       if (r0 < n_out)
-        oh[r0 * ld + f] = from_f32<E>(l0 > 0.f ? acc[n][u] / den0 : 0.f);
+        oh[r0 * ld + f] = l0 > 0.f ? acc[n][u] / den0 : 0.f;
       if (r1 < n_out)
-        oh[r1 * ld + f] = from_f32<E>(l1 > 0.f ? acc[n][2 + u] / den1 : 0.f);
+        oh[r1 * ld + f] = l1 > 0.f ? acc[n][2 + u] / den1 : 0.f;
     }
+}
+
+// K4 in bf16: the f32 kernel's blocks, warps, steps, online softmax and
+// cluster exchange, on native bf16 products (BfCfg above). scale2: scale
+// times log2(e).
+template <int D, bool CLUSTER>
+__global__ void __launch_bounds__(MMA_THREADS, BfCfg<D, CLUSTER>::BLOCKS)
+attention_bf16_kernel(const int* __restrict__ ptr,
+                      const int* __restrict__ cols,
+                      const uint8_t* __restrict__ mask,
+                      const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ out,
+                      int d, int n_q, int n_kv, int n_out, float scale2,
+                      int vec, int cl) {
+  using C = BfCfg<D, CLUSTER>;
+  constexpr int QLD = C::QLD, NC = C::NC, NS = C::STAGES;
+  constexpr int NT = D / 8, KEYS8 = TILE / 8, KEYS16 = TILE / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);    // [TILE][QLD]
+  bf16* ring = Qs + TILE * QLD;                // NS chunks [TILE][BLD]
+  uint8_t* Ms = reinterpret_cast<uint8_t*>(ring + NS * TILE * BLD);
+  float* Xs = reinterpret_cast<float*>(Ms + C::MASKS * TILE * MASK_LD);
+
+  const int b = CLUSTER ? blockIdx.x % cl : 0;
+  const int i = CLUSTER ? blockIdx.x / cl : blockIdx.x, h = blockIdx.y;
+  const int fo = CLUSTER ? (cl * blockIdx.z + b) * D : 0;
+  const long long ld = (long long)gridDim.y * d;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const bf16* qh = q + (long long)h * d;
+  const bf16* kh = k + (long long)h * d;
+  const bf16* vh = v + (long long)h * d;
+  const int lo = ptr[i], hi = ptr[i + 1];
+  const int nsl = CLUSTER ? ((d + D - 1) / D + cl - 1) / cl : 1;
+  const int nk = NC * nsl, nv = NC;
+  const int steps = nk + nv;
+  auto kfeat = [&](int c) {
+    return CLUSTER ? (b + cl * (c / NC)) * D + (c % NC) * CHUNK : c * CHUNK;
+  };
+
+  // Step s of the block's copies (a tile's K chunks, then its V chunks)
+  // into stage s % NS; the mask rides with a tile's first K chunk, into
+  // mask buffer (tile - lo) % MASKS.
+  auto issue = [&](int step) {
+    const int t = lo + step / steps, c = step % steps;
+    if (t >= hi) return;
+    bf16* st = ring + (step % NS) * TILE * BLD;
+    const bool kstep = c < nk;
+    load_rows<TILE, CHUNK, BLD, MMA_THREADS>(
+        st, kstep ? kh : vh, (long long)cols[t] * TILE, n_kv,
+        kstep ? kfeat(c) : fo + (c - nk) * CHUNK, d, ld, vec, tid);
+    if (c == 0)
+      load_mask<MMA_THREADS>(Ms + ((t - lo) % C::MASKS) * TILE * MASK_LD,
+                             mask + (long long)t * TILE * TILE, tid);
+  };
+
+  float m0 = M_INIT * LOG2E, m1 = M_INIT * LOG2E, l0 = 0.f, l1 = 0.f;
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[n][u] = 0.f;
+
+  if (lo < hi) {
+    // Q's slice rides with step 0's copies.
+    load_rows<TILE, D, QLD, MMA_THREADS>(Qs, qh, (long long)i * TILE, n_q,
+                                         kfeat(0), d, ld, vec, tid);
+#pragma unroll
+    for (int s = 0; s < NS - 1; ++s) {
+      issue(s);
+      cp_async_commit();
+    }
+  }
+  // This lane's ldmatrix rows (mma_async.cuh): Q's rows m, m + 8 and
+  // feature halves k, k + 8; K's rows (keys, n) n, n + 8 of an n-tile pair
+  // and feature halves; V's rows (keys, k) k, k + 8 and feature halves
+  // (n) of an n-tile pair.
+  const int r8 = lane % 8, h8 = (lane / 8) % 2, q16 = lane / 16;
+  const bf16* qw = Qs + (warp * 16 + r8 + 8 * h8) * QLD + 8 * q16;
+  const int ko = (r8 + 8 * q16) * BLD + 8 * h8;
+  const int vo = (r8 + 8 * h8) * BLD + 8 * q16;
+  const int row0 = warp * 16 + g;  // this thread's first row of the tile
+  const int kd = (d + 15) / 16;    // contraction steps of S; the rest is 0
+
+  float s[KEYS8][4];             // the tile's scores, then its P
+  uint32_t ph[KEYS16][4], pl[KEYS16][4];  // P's A fragments, hi and lo
+  for (int t = lo; t < hi; ++t) {
+    const uint8_t* mw = Ms + ((t - lo) % C::MASKS) * TILE * MASK_LD +
+                        row0 * MASK_LD + 2 * t4;
+#pragma unroll
+    for (int c = 0; c < steps; ++c) {
+      const int step = (t - lo) * steps + c;
+      cp_async_wait<NS - 2>();  // this step's chunk (and Q, mask) landed
+      __syncthreads();  // and every warp is done with the last step's stage
+      issue(step + NS - 1);
+      cp_async_commit();
+      // Heads wider than 1024: this contraction slice's Q.
+      if (CLUSTER && nsl > 1 && c < nk && c % NC == 0 && step > 0) {
+        load_rows<TILE, D, QLD, MMA_THREADS>(Qs, qh, (long long)i * TILE,
+                                             n_q, kfeat(c), d, ld, vec, tid);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      const bf16* st = ring + (step % NS) * TILE * BLD;
+
+      if (c < nk) {
+        // S += Q[:, f : f + 64] K_c^T, f = kfeat(c), 16 features a step.
+        if (c == 0) {
+#pragma unroll
+          for (int j = 0; j < KEYS8; ++j)
+#pragma unroll
+            for (int u = 0; u < 4; ++u) s[j][u] = 0.f;
+        }
+        const int kend = min(CHUNK / 16, kd - kfeat(c) / 16);
+#pragma unroll
+        for (int kk = 0; kk < CHUNK / 16; ++kk) {
+          if (kk >= kend) break;
+          uint32_t a[4];
+          ldsm_x4(a, qw + (c % NC) * CHUNK + 16 * kk);
+#pragma unroll
+          for (int p = 0; p < KEYS16; ++p) {
+            uint32_t bk[4];
+            ldsm_x4(bk, st + ko + 16 * p * BLD + 16 * kk);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              if constexpr (CLUSTER) {
+                // Each 16-deep step is summed apart, then added in f32.
+                float part[4] = {0.f, 0.f, 0.f, 0.f};
+                mma_bf16(part, a, bk[2 * e], bk[2 * e + 1]);
+#pragma unroll
+                for (int u = 0; u < 4; ++u) s[2 * p + e][u] += part[u];
+              } else {
+                mma_bf16(s[2 * p + e], a, bk[2 * e], bk[2 * e + 1]);
+              }
+            }
+          }
+        }
+      }
+
+      if (c == nk - 1) {
+        // The cluster's sum of every block's share, into s.
+        if constexpr (CLUSTER)
+          cluster_sum_scores(s, Xs, b, cl, tid, row0, t4);
+
+        // Scale, mask, the tile's row max, and P.
+        float mx0 = m0, mx1 = m1;
+#pragma unroll
+        for (int j = 0; j < KEYS8; ++j) {
+          const uint16_t b0 = *reinterpret_cast<const uint16_t*>(mw + 8 * j);
+          const uint16_t b1 =
+              *reinterpret_cast<const uint16_t*>(mw + 8 * MASK_LD + 8 * j);
+          s[j][0] = (b0 & 0xff) ? s[j][0] * scale2 : NEG_INF;
+          s[j][1] = (b0 >> 8) ? s[j][1] * scale2 : NEG_INF;
+          s[j][2] = (b1 & 0xff) ? s[j][2] * scale2 : NEG_INF;
+          s[j][3] = (b1 >> 8) ? s[j][3] * scale2 : NEG_INF;
+          mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+          mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+        }
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, o));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, o));
+        }
+        const float c0 = exp2f(m0 - mx0), c1 = exp2f(m1 - mx1);
+        m0 = mx0;
+        m1 = mx1;
+        float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < KEYS8; ++j) {
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            s[j][u] = exp2f(s[j][u] - m0);
+            s[j][2 + u] = exp2f(s[j][2 + u] - m1);
+          }
+          ps0 += s[j][0] + s[j][1];
+          ps1 += s[j][2] + s[j][3];
+        }
+        l0 = l0 * c0 + ps0;
+        l1 = l1 * c1 + ps1;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          acc[n][0] *= c0;
+          acc[n][1] *= c0;
+          acc[n][2] *= c1;
+          acc[n][3] *= c1;
+        }
+        // The accumulators of keys 16m .. 16m + 7 and 16m + 8 .. 16m + 15
+        // are, in order, the m16n8k16 A fragment of keys 16m .. 16m + 15:
+        // (g, 2t..), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..). P
+        // goes as two bf16 parts, hi and lo.
+#pragma unroll
+        for (int m = 0; m < KEYS16; ++m) {
+          split_bf16x2(s[2 * m][0], s[2 * m][1], ph[m][0], pl[m][0]);
+          split_bf16x2(s[2 * m][2], s[2 * m][3], ph[m][1], pl[m][1]);
+          split_bf16x2(s[2 * m + 1][0], s[2 * m + 1][1], ph[m][2], pl[m][2]);
+          split_bf16x2(s[2 * m + 1][2], s[2 * m + 1][3], ph[m][3], pl[m][3]);
+        }
+      }
+
+      if (c >= nk) {
+        // acc[:, (c-nk)*64 : +64] += P V_c over the tile's keys, 16 at a
+        // time: lo * v, then hi * v.
+        auto pv = [&](const int N0) {
+#pragma unroll
+          for (int m = 0; m < KEYS16; ++m)
+#pragma unroll
+            for (int nj = 0; nj < CHUNK / 16; ++nj)
+              if (fo + (N0 + 2 * nj) * 8 < d) {
+                uint32_t bv[4];
+                ldsm_x4_trans(bv, st + vo + 16 * m * BLD + 16 * nj);
+                mma_bf16(acc[N0 + 2 * nj], pl[m], bv[0], bv[1]);
+                mma_bf16(acc[N0 + 2 * nj], ph[m], bv[0], bv[1]);
+                mma_bf16(acc[N0 + 2 * nj + 1], pl[m], bv[2], bv[3]);
+                mma_bf16(acc[N0 + 2 * nj + 1], ph[m], bv[2], bv[3]);
+              }
+        };
+        // Constant first n-tiles, so acc stays in registers.
+        if constexpr (NC == 1)
+          pv(0);
+        else if (c == nk)
+          pv(0);
+        else
+          pv(CHUNK / 8);
+      }
+
+      // Every block of the cluster is done with Xs before it is written
+      // again (and before any block exits).
+      if (CLUSTER && c == nk - 1) cluster_wait();
+    }
+  }
+
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    l0 += __shfl_xor_sync(FULL, l0, o);
+    l1 += __shfl_xor_sync(FULL, l1, o);
+  }
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+  const long long r0 = (long long)i * TILE + row0, r1 = r0 + 8;
+  bf16* oh = out + (long long)h * d;
+  // A row's two values as one 4-byte pair where both lie below d and the
+  // pair is 4-byte aligned, else each alone.
+  auto put = [&](long long r, int f, float x, float y) {
+    if (r >= n_out) return;
+    bf16* p = oh + r * ld + f;
+    if (f + 1 < d && (reinterpret_cast<uintptr_t>(p) & 3) == 0) {
+      store2(p, x, y);
+    } else {
+      p[0] = from_f32<bf16>(x);
+      if (f + 1 < d) p[1] = from_f32<bf16>(y);
+    }
+  };
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int f = fo + n * 8 + 2 * t4;
+    if (f >= d) continue;
+    put(r0, f, l0 > 0.f ? acc[n][0] / den0 : 0.f,
+        l0 > 0.f ? acc[n][1] / den0 : 0.f);
+    put(r1, f, l1 > 0.f ? acc[n][2] / den1 : 0.f,
+        l1 > 0.f ? acc[n][3] / den1 : 0.f);
+  }
+}
+
+template <typename E, int D, bool CLUSTER, bool UseExp, bool UseMask>
+auto kernel_for() {
+  if constexpr (is_f32<E>)
+    return attention_mma_kernel<D, CLUSTER, UseExp, UseMask>;
+  else
+    return attention_bf16_kernel<D, CLUSTER>;
 }
 
 template <typename E, int D, bool CLUSTER, bool UseExp, bool UseMask>
@@ -505,10 +790,16 @@ int launch(const int* ptr, const int* cols, const uint8_t* mask, const E* q,
            const E* k, const E* v, E* out, int nrb, int H, int d, int n_q,
            int n_kv, int n_out, float scale, int vec, int cl, int clusters,
            cudaStream_t stream) {
-  auto kernel = attention_mma_kernel<E, D, CLUSTER, UseExp, UseMask>;
-  const int smem = (int)MmaCfg<D>::SMEM;
+  static_assert(is_f32<E> || (UseExp && UseMask), "bf16 is K4 only");
+  auto kernel = kernel_for<E, D, CLUSTER, UseExp, UseMask>();
+  const int smem =
+      (int)(is_f32<E> ? MmaCfg<D>::SMEM : BfCfg<D, CLUSTER>::SMEM);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && !is_f32<E>)  // room for two blocks an SM
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;

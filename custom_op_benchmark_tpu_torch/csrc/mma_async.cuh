@@ -6,15 +6,11 @@
 //
 // Element types: the tile kernels take f32 or bf16 rows (one type per
 // call), accumulate in f32 and store the input's type, rounding once. bf16
-// rows move as bf16 (half the bytes). K1 and K2 (and so S1 and S2) take
-// bf16 x bf16 products natively: m16n8k16 with .bf16 operands and f32
+// rows move as bf16 (half the bytes). In bf16, K1-K4 (and so S1 and S2)
+// take bf16 x bf16 products natively: m16n8k16 with .bf16 operands and f32
 // accumulators, at twice TF32's rate, each fragment read from a bf16 stage
 // by one ldmatrix (no widening, no conversion); a bf16 product is exact in
-// f32. K3 and K4 still widen bf16 to f32, which is exact in TF32 (8
-// significant bits against TF32's 11, the same exponent range), so a bf16 x
-// bf16 product takes one TF32 pass there, and an f32 operand times a bf16
-// one two (lo*b + hi*b): in shared memory (widen_rows) or in registers
-// (to_f32 at the fragment read, frag_a_tf32 / mma_ab_tf32).
+// f32. K4's P (f32) enters P V as two bf16 parts (split_bf16x2).
 //
 // 3xTF32: TF32 keeps 10 mantissa bits, so one pass of f32 operands rounded
 // to TF32 is good to about 1e-3 relative, which misses the kernels' 1e-4
@@ -43,9 +39,11 @@
 // matrix i's (l / 4, 2(l % 4)..+1); with .trans, (2(l % 4)..+1, l / 4). So
 // one ldmatrix.x4 reads an A fragment (matrices: rows m / m + 8, columns k
 // / k + 8), and one reads the B fragments of two n-tiles, with .trans from
-// a stage whose rows are k (x in K2) or plain from one whose rows are n (B
-// in K1). Each 8-address phase is conflict-free when its rows fall on
-// distinct 16-byte bank groups: row strides of 80, 144 and 272 bytes.
+// a stage whose rows are k (x in K2, y in K3, V in K4) or plain from one
+// whose rows are n (B in K1, K in K4); K3's A (vals^T) comes by .trans
+// from a stage whose rows are k. Each 8-address phase is conflict-free
+// when its rows fall on distinct 16-byte bank groups: row strides of 80,
+// 144 and 272 bytes.
 // tests/test_torch_bf16_mma.py models these maps, addresses and banks.
 
 #pragma once
@@ -57,9 +55,6 @@ using bf16 = __nv_bfloat16;
 
 template <typename E>
 constexpr bool is_f32 = sizeof(E) == 4;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
 // v rounded to E (to nearest even for bf16).
 template <typename E>
@@ -139,23 +134,6 @@ __device__ __forceinline__ void load_rows(E* dst, const E* src,
   }
 }
 
-// Widen a staged ROWS x W block of bf16 (row stride SLD elements, even)
-// into f32 (row stride DLD floats, a multiple of 4), by the NT threads of
-// a block; W is a multiple of 4.
-template <int ROWS, int W, int SLD, int DLD, int NT>
-__device__ __forceinline__ void widen_rows(float* dst, const bf16* src,
-                                           int tid) {
-  for (int e = tid; e < ROWS * W / 4; e += NT) {
-    const int r = e / (W / 4), c = (e % (W / 4)) * 4;
-    const __nv_bfloat162* s2 =
-        reinterpret_cast<const __nv_bfloat162*>(src + r * SLD + c);
-    const float2 a = __bfloat1622float2(s2[0]);
-    const float2 b = __bfloat1622float2(s2[1]);
-    *reinterpret_cast<float4*>(dst + r * DLD + c) =
-        make_float4(a.x, a.y, b.x, b.y);
-  }
-}
-
 // A 128 x 128 tile's mask bytes into dst, row stride MASK_LD bytes (144:
 // reading two bytes per row in the accumulator layout, c0 c1 at (g, 2t),
 // hits distinct banks), 16-byte copies; src 16-byte aligned.
@@ -223,9 +201,16 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
       : "memory");
 }
 
-// The raw bits of an f32 value that is exact in TF32 (a widened bf16).
-__device__ __forceinline__ uint32_t exact_tf32(float x) {
-  return __float_as_uint(x);
+// x, y rounded to a bf16 pair hi (x in the low half) and the pair lo of
+// what is left: x - hi is exact in f32, so hi + lo is x to 2^-16 of |x|,
+// where one bf16 keeps 2^-8.
+__device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 // A's fragment (a0..a3 as above) split into hi and lo parts.
@@ -244,16 +229,6 @@ __device__ __forceinline__ void mma_3xtf32_parts(
     uint32_t bh0, uint32_t bh1, uint32_t bl0, uint32_t bl1) {
   mma_tf32(d, alo, bh0, bh1);
   mma_tf32(d, ahi, bl0, bl1);
-  mma_tf32(d, ahi, bh0, bh1);
-}
-
-// d += a * b with A split (hi, lo) and B exact in TF32 (bh0, bh1): the two
-// passes lo*b + hi*b.
-__device__ __forceinline__ void mma_2xtf32(float (&d)[4],
-                                           const uint32_t (&ahi)[4],
-                                           const uint32_t (&alo)[4],
-                                           uint32_t bh0, uint32_t bh1) {
-  mma_tf32(d, alo, bh0, bh1);
   mma_tf32(d, ahi, bh0, bh1);
 }
 
@@ -312,37 +287,6 @@ struct RowCfg {
   static constexpr size_t SMEM = sizeof(E) * RS_STAGES * STAGE;
 };
 
-// The TF32 route's fragments, for K3 (f32 and bf16) and the f32 row
-// sweep. A's fragment read from a stage of E: a0 at a, a1 (m + 8) at
-// a[om], a2 (k + 4) at a[ok], a3 at a[om + ok]; split for f32, exact for
-// bf16 (al unused).
-template <typename E>
-__device__ __forceinline__ void frag_a_tf32(const E* a, int om, int ok,
-                                            uint32_t (&ah)[4],
-                                            uint32_t (&al)[4]) {
-  if constexpr (is_f32<E>) {
-    split_a(a[0], a[om], a[ok], a[om + ok], ah, al);
-  } else {
-    ah[0] = exact_tf32(to_f32(a[0]));
-    ah[1] = exact_tf32(to_f32(a[om]));
-    ah[2] = exact_tf32(to_f32(a[ok]));
-    ah[3] = exact_tf32(to_f32(a[om + ok]));
-  }
-}
-
-// acc += a * b with B's fragment values (b0, b1) read from a stage: 3xTF32
-// for f32, one pass for bf16.
-template <typename E>
-__device__ __forceinline__ void mma_ab_tf32(float (&acc)[4],
-                                            const uint32_t (&ah)[4],
-                                            const uint32_t (&al)[4], E b0,
-                                            E b1) {
-  if constexpr (is_f32<E>)
-    mma_3xtf32(acc, ah, al, b0, b1);
-  else
-    mma_tf32(acc, ah, exact_tf32(to_f32(b0)), exact_tf32(to_f32(b1)));
-}
-
 // One staged chunk of the row sweep (RS_COLS columns of a vals tile at vs,
 // row stride VLD, and the matching RS_COLS rows of x after them, row
 // stride XLD) into the accumulators of warp (wm, wn): vals rows 32 wm ..
@@ -366,14 +310,16 @@ __device__ __forceinline__ void row_sweep_chunk(float (&acc)[2][DN / 16][4],
     for (int ks = 0; ks < RS_COLS / 8; ++ks) {
       uint32_t ah[2][4], al[2][4];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        frag_a_tf32(va + 16 * mi * VLD + ks * 8, 8 * VLD, 4, ah[mi], al[mi]);
+      for (int mi = 0; mi < 2; ++mi) {
+        const E* a = va + 16 * mi * VLD + ks * 8;
+        split_a(a[0], a[8 * VLD], a[4], a[8 * VLD + 4], ah[mi], al[mi]);
+      }
 #pragma unroll
       for (int ni = 0; ni < NI; ++ni) {
         const E* b = xb + ks * 8 * XLD + 8 * ni;
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi)
-          mma_ab_tf32(acc[mi][ni], ah[mi], al[mi], b[0], b[4 * XLD]);
+          mma_3xtf32(acc[mi][ni], ah[mi], al[mi], b[0], b[4 * XLD]);
       }
     }
   } else {

@@ -80,7 +80,7 @@
 //
 // bf16 (the *_bf16 entry points; mma_async.cuh): node and tile arrays of
 // bf16 move as bf16, accumulate in f32 and are stored as bf16, rounded
-// once. K1 and K2 take bf16 x bf16 products natively on the tensor cores
+// once. K1-K3 take bf16 x bf16 products natively on the tensor cores
 // (mma.sync m16n8k16 .bf16, 989 TFLOP/s against TF32's 495), 16 deep a
 // step, every fragment read from a bf16 stage by one ldmatrix: nothing is
 // widened or converted. K1 in bf16 (sddmm_tiles_bf16_kernel) keeps the f32
@@ -88,9 +88,10 @@
 // step apart, stages 32-feature chunks at a row stride of 40 (80 bytes, so
 // ldmatrix's 8 rows of a phase fall on distinct bank groups) in a
 // three-stage cp.async ring, and writes its output through shared memory as
-// 16-byte pieces. K2 in bf16 runs two blocks an SM and stores value pairs.
-// K3 keeps the TF32 route (frag_a_tf32 / mma_ab_tf32): it widens each
-// fragment value in registers, exact in TF32, and takes one pass.
+// 16-byte pieces. K2 and K3 in bf16 keep their f32 rings, run two blocks
+// an SM, let the sums accumulate in the mma across a block's tiles, and
+// store value pairs; K3 reads its A (vals^T) from the [r][c] vals stage by
+// ldmatrix.trans.
 //
 // Layouts: node arrays are (n, H, d) contiguous, read in place per head
 // (row stride H*d, head offset h*d); rows at or past n read as zero, so
@@ -438,7 +439,7 @@ spmm_row_sweep_kernel(const int* __restrict__ ptr,
           const E* b = xb + ks * 8 * XLD + 8 * ni;
 #pragma unroll
           for (int mi = 0; mi < 2; ++mi)
-            mma_ab_tf32(acc[mi][ni], ah, al, b[0], b[4 * XLD]);
+            mma_3xtf32(acc[mi][ni], ah, al, b[0], b[4 * XLD]);
         }
     } else {
       row_sweep_chunk<E, DN>(acc, vs, wm, wn, lane);
@@ -490,10 +491,16 @@ int row_sweep(const int* ptr, const int* blk, const E* vals, const E* x,
 // i.e. out[j] (128 x DN) = sum_t A_t B_t with A_t = vals[t]^T (c x r) and
 // B_t = y rows (r x f). Warp w owns output rows 32 * (w / 2) .. + 32 and
 // features (w % 2) * DN / 2 .. + DN / 2: two 16-row m-tiles by DN / 16
-// 8-wide n-tiles of accumulators. Both operands are read from row-major
-// stages (vals [r][c], y [r][f]) whose strides are 8 mod 32 floats, so the
+// 8-wide n-tiles of accumulators (bf16 stored as K2's, row_sweep_store).
+// Both operands are read from row-major stages (vals [r][c], y [r][f]) whose
+// rows are the contraction (k). f32: strides 8 mod 32 floats, so the
 // fragment reads a0 (k = t, m = g) and b0 (k = t, n = g) hit 32 distinct
-// banks; no transpose.
+// banks; no transpose. bf16: 16-deep steps of m16n8k16, A = vals^T by one
+// ldmatrix.x4.trans per m-tile (matrices (k, m), (k, m + 8), (k + 8, m),
+// (k + 8, m + 8) of the stage), B by one ldmatrix.x4.trans per pair of
+// n-tiles as K2 reads x; 272- and (DN + 8) * 2-byte rows put each phase on
+// 8 distinct bank groups. Two bf16 blocks share an SM (80 KB of stages at
+// DN = 64, 104 KB at DN = 128).
 constexpr int CS_ROWS = 64;   // contraction rows (of vals and y) per stage
 constexpr int CS_STAGES = 3;
 constexpr int CS_VLD = TILE + 8;
@@ -506,7 +513,7 @@ struct ColCfg {
 };
 
 template <typename E, int DN>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(THREADS, is_f32<E> ? 1 : 2)
 spmm_col_sweep_kernel(const int* __restrict__ ptr,
                       const int* __restrict__ perm,
                       const int* __restrict__ blk,
@@ -557,37 +564,70 @@ spmm_col_sweep_kernel(const int* __restrict__ ptr,
     if (q + CS_STAGES - 1 < n_chunks) issue(q + CS_STAGES - 1);
     cp_async_commit();
     const E* vs = smem + (q % CS_STAGES) * STAGE;
-    const E* va = vs + t4 * CS_VLD + 32 * wm + g;
-    const E* yb = vs + CS_ROWS * CS_VLD + t4 * YLD + wn * (DN / 2) + g;
+    if constexpr (is_f32<E>) {
+      const E* va = vs + t4 * CS_VLD + 32 * wm + g;
+      const E* yb = vs + CS_ROWS * CS_VLD + t4 * YLD + wn * (DN / 2) + g;
 #pragma unroll
-    for (int ks = 0; ks < CS_ROWS / 8; ++ks) {
-      uint32_t ah[2][4], al[2][4];
+      for (int ks = 0; ks < CS_ROWS / 8; ++ks) {
+        uint32_t ah[2][4], al[2][4];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        frag_a_tf32(va + ks * 8 * CS_VLD + 16 * mi, 8, 4 * CS_VLD, ah[mi],
-                    al[mi]);
+        for (int mi = 0; mi < 2; ++mi) {
+          const E* a = va + ks * 8 * CS_VLD + 16 * mi;
+          split_a(a[0], a[8], a[4 * CS_VLD], a[4 * CS_VLD + 8], ah[mi],
+                  al[mi]);
+        }
 #pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const E* b = yb + ks * 8 * YLD + 8 * ni;
+        for (int ni = 0; ni < NI; ++ni) {
+          const E* b = yb + ks * 8 * YLD + 8 * ni;
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+            mma_3xtf32(acc[mi][ni], ah[mi], al[mi], b[0], b[4 * YLD]);
+        }
+      }
+    } else {
+      // This lane's ldmatrix row: A's stage row (k) r8 + 8 * q16, columns
+      // (m) 8 * h8 ..; y's row (k) r8 + 8 * h8, features 8 * q16 ..
+      const int r8 = lane % 8, h8 = (lane / 8) % 2, q16 = lane / 16;
+      const E* va = vs + (r8 + 8 * q16) * CS_VLD + 32 * wm + 8 * h8;
+      const E* yb = vs + CS_ROWS * CS_VLD + (r8 + 8 * h8) * YLD +
+                    wn * (DN / 2) + 8 * q16;
+#pragma unroll
+      for (int ks = 0; ks < CS_ROWS / 16; ++ks) {
+        uint32_t a[2][4];
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi)
-          mma_ab_tf32(acc[mi][ni], ah[mi], al[mi], b[0], b[4 * YLD]);
+          ldsm_x4_trans(a[mi], va + 16 * ks * CS_VLD + 16 * mi);
+#pragma unroll
+        for (int nj = 0; nj < NI / 2; ++nj) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, yb + 16 * ks * YLD + 16 * nj);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            mma_bf16(acc[mi][2 * nj], a[mi], b[0], b[1]);
+            mma_bf16(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
+          }
+        }
       }
     }
   }
 
-  E* oh = out + (long long)h * d;
+  if constexpr (is_f32<E>) {
+    E* oh = out + (long long)h * d;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
+      for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const long long r =
-            (long long)j * TILE + 32 * wm + 16 * mi + g + (u >= 2 ? 8 : 0);
-        const int f = d0 + wn * (DN / 2) + 8 * ni + 2 * t4 + (u & 1);
-        if (r < n_out && f < d) oh[r * ld + f] = from_f32<E>(acc[mi][ni][u]);
-      }
+        for (int u = 0; u < 4; ++u) {
+          const long long r =
+              (long long)j * TILE + 32 * wm + 16 * mi + g + (u >= 2 ? 8 : 0);
+          const int f = d0 + wn * (DN / 2) + 8 * ni + 2 * t4 + (u & 1);
+          if (r < n_out && f < d) oh[r * ld + f] = acc[mi][ni][u];
+        }
+  } else {
+    row_sweep_store<E, DN>(out + (long long)h * d, acc, (long long)j * TILE,
+                           d0, n_out, d, ld, wm, wn, lane);
+  }
 }
 
 template <typename E, int DN>
@@ -598,6 +638,10 @@ int launch_col_sweep(const int* ptr, const int* perm, const int* rows,
   const int smem = (int)ColCfg<E, DN>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && !is_f32<E>)  // room for two blocks an SM
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(ncb, (d + DN - 1) / DN, H);
   kernel<<<grid, THREADS, smem, stream>>>(ptr, perm, rows, vals, y, out, T, d,

@@ -1,7 +1,7 @@
 """Tile-kernel A/B: the committed K1–K4, S5, S1 and S2 against older builds.
 
     python -m custom_op_benchmark_tpu_torch.experiments.ab_tiled \\
-        [--k1k2 OLD.cu ...] [--k3 OLD_K3.cu] [--k4 OLD_ATTENTION.cu] \\
+        [--k1k2 OLD.cu ...] [--k3 OLD_K3.cu] [--k4 OLD_ATTENTION.cu ...] \\
         [--dma OLD_GRID_DMA.cu ...]
 
 ``--k1k2`` and ``--k3`` name an older ``csrc/tiled_kernels.cu``, ``--k4``
@@ -15,13 +15,13 @@ one beside it (built alone it would take the committed header and time
 the new arithmetic as the old). For the parent commit, say ``P``::
 
     mkdir -p build/ab/P
-    for f in tiled_kernels.cu grid_dma.cu mma_async.cuh; do
+    for f in tiled_kernels.cu attention.cu grid_dma.cu mma_async.cuh; do
       git show P:custom_op_benchmark_tpu_torch/csrc/$f > build/ab/P/$f
     done
 
 then on one H100 ``... ab_tiled --k1k2 build/ab/P/tiled_kernels.cu
---dma build/ab/P/grid_dma.cu``. An edited copy (``sed``) in the same
-directory is an older build like any other.
+--k4 build/ab/P/attention.cu --dma build/ab/P/grid_dma.cu``. An edited
+copy (``sed``) in the same directory is an older build like any other.
 
 - ``--k1k2`` (repeatable): a file whose ``sddmm_tiles_f32`` and
   ``spmm_row_sweep_f32`` have the committed signatures; its K1 and K2 are
@@ -34,11 +34,16 @@ directory is an older build like any other.
 - ``--k3``: a file whose ``spmm_col_sweep_f32`` takes no ``vec``
   argument, as the CUDA-core K3 of commit ``11ccb10`` does; its K3 is
   timed against the committed one.
-- ``--k4``: a file whose ``fused_attention_rows_f32`` takes no launch
-  layout and whose ``attn_variant_f32`` takes no ``vec``, as those of
-  commit ``faa5f85`` do (K4 with one block per 128 output features
-  recomputing the scores above d = 128, and S5 on the CUDA cores,
-  d ≤ 256).
+- ``--k4`` (repeatable): a file whose ``fused_attention_rows_f32`` takes
+  no launch layout and whose ``attn_variant_f32`` takes no ``vec``, as
+  those of commit ``faa5f85`` do (K4 with one block per 128 output
+  features recomputing the scores above d = 128, and S5 on the CUDA
+  cores, d ≤ 256); or a file with the committed signatures (its
+  ``fused_attention_rows_f32`` takes the launch layout ``int clusters``,
+  commit ``008df9d`` on), whose K4 is then also timed in bf16 through
+  ``fused_attention_rows_bf16`` (at the slice, on the grid and at
+  n = 300, d = 300) and whose f32 K4 and S5 must give the committed
+  build's bits.
 - ``--dma`` (repeatable): a file whose ``spmm_row_sweep_dma_f32`` and
   ``spmm_row_sweep_dma_v2_f32`` have the committed signatures, as those of
   commit ``d5e31ae`` (S1 and S2 on the CUDA cores) do, or an edited copy of
@@ -61,10 +66,10 @@ four switch settings (timed on the grid's own inputs and checked there
 with ``exp``; without it, checked on inputs where it is well posed).
 Prints one JSON line ``{"ab_tiled": {...}}`` with the card's name and power
 limit, and exits 1 if a build disagrees with its plain version, S2 differs
-from K2, or an f32 output of a ``--k1k2`` or ``--dma`` file differs from
-the committed build's bits (expected of an older design with other f32
-arithmetic, such as the CUDA-core builds, or of an edited copy that skips
-work). Needs a CUDA device.
+from K2, or an f32 output of a ``--k1k2``, ``--dma`` or committed-signature
+``--k4`` file differs from the committed build's bits (expected of an
+older design with other f32 arithmetic, such as the CUDA-core builds, or
+of an edited copy that skips work). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -112,9 +117,12 @@ OLD_SIGNATURES = {
             "spmm_row_sweep_dma_v2_f32": [_P] * 5 + [_I] * 6 + [_P]},
 }
 # A --k1k2 file with bf16 entries (commit faa5f85 on) has K3 and S4 with
-# the committed signatures.
+# the committed signatures; a --k4 file whose K4 takes ``int clusters``
+# has K4 (f32 and bf16) and S5 with them.
 BF16_ERA = {"spmm_col_sweep_f32": [_P] * 6 + [_I] * 8 + [_P],
             "spmm_dotonly_f32": [_P] * 4 + [_I] * 6 + [_P]}
+# K4's bf16 rows (against a committed-signature --k4 file).
+BF16_K4 = ("slice h=8 d=64", "n=300 d=300")
 S5_SETTINGS = {f"{'exp' if e else 'noexp'},{'mask' if m else 'nomask'}":
                dict(use_exp=e, use_mask=m) for e in (True, False)
                for m in (True, False)}
@@ -146,6 +154,10 @@ def load_old(files):
         signatures = dict(OLD_SIGNATURES[role])
         if role == "k1k2" and hasattr(lib, "sddmm_tiles_bf16"):
             signatures.update(BF16_ERA)
+        lib.committed = role == "k4" and committed_k4(source)
+        if lib.committed:
+            signatures = {name: _build._SIGNATURES[name]
+                          for name in OLD_SIGNATURES["k4"]}
         for name, argtypes in list(signatures.items()):
             twin = name.replace("_f32", "_bf16")
             if hasattr(lib, twin):
@@ -157,6 +169,14 @@ def load_old(files):
         lib.entries = set(signatures)
         libs.append(lib)
     return libs
+
+
+def committed_k4(source):
+    """Whether ``source``'s ``fused_attention_rows_f32`` takes the launch
+    layout (``int clusters``), as the committed one does."""
+    text = source.read_text()
+    at = text.find("int fused_attention_rows_f32(")
+    return at >= 0 and "int clusters" in text[at: text.find(")", at)]
 
 
 def has(lib, name, t):
@@ -228,7 +248,15 @@ def old_attention(lib, ptr, cols, mask, q, k, v, scale, use_exp=None,
     head = (kt._p(ptr), kt._p(cols), kt._p(mask), kt._p(qh), kt._p(kh),
             kt._p(vh), kt._p(out), ptr.numel() - 1, h, d, n_q, kh.shape[0],
             n_q, float(scale))
-    if use_exp is None:
+    if lib.committed:
+        layout = (kt._vec(d, qh, kh, vh), *ka.kernel_route(d)[1:])
+        if use_exp is None:
+            status = getattr(lib, kt._entry("fused_attention_rows", q))(
+                *head, *layout, dev, stream)
+        else:
+            status = lib.attn_variant_f32(*head, *layout, int(use_exp),
+                                          int(use_mask), dev, stream)
+    elif use_exp is None:
         status = lib.fused_attention_rows_f32(
             *head, kt._vec(d, qh, kh, vh), dev, stream)
     else:
@@ -439,22 +467,35 @@ def tile_rows(olds, label, calls, timing, out):
                     *fns[name], call, timing, bits=True)
 
 
-def attention_slice(lib, tgt, rng, normal, out):
-    """K4 at the slice's shapes and on the 300-node irregular graph."""
-    def old(*a):
-        return old_attention(lib, *a)
-
+def attention_slice(libs, tgt, rng, normal, out):
+    """K4 of each older build at the slice's shapes and on the 300-node
+    irregular graph; in bf16 too where the build has the committed
+    signatures (h = 8, d = 64 and n = 300, d = 300)."""
     def k4(label, tg, d, heads=None, enqueue=False):
         shape = (tg.n_nodes, d) if heads is None else (tg.n_nodes, heads, d)
         call = (tg.tile_ptr, tg.tile_cols, tg.mask,
                 *(normal(*shape) for _ in range(3)), d ** -0.5)
-        res = dict(layout=ka.kernel_route(d), **compare(
-            old, ka.fused_attention_rows, ka.fused_attention_rows_plain,
-            call, {}))
-        if enqueue:
-            for name, fn in (("old", old), ("new", ka.fused_attention_rows)):
-                res[f"{name}_enqueue"] = host_and_device_ms(lambda: fn(*call))
-        out[f"fused_attention_rows {label}"] = res
+        for tag, lib in libs:
+            dtypes = ((torch.float32, torch.bfloat16) if lib.committed
+                      and label in BF16_K4 else (torch.float32,))
+            for dt in dtypes:
+                args = tuple(a.to(dt) if torch.is_tensor(a)
+                             and a.is_floating_point() else a for a in call)
+
+                def old(*a, _lib=lib):
+                    return old_attention(_lib, *a)
+
+                res = dict(layout=ka.kernel_route(d), **compare(
+                    old, ka.fused_attention_rows,
+                    ka.fused_attention_rows_plain, args, {},
+                    bits=lib.committed))
+                if enqueue and dt == torch.float32:
+                    for name, fn in (("old", old),
+                                     ("new", ka.fused_attention_rows)):
+                        res[f"{name}_enqueue"] = host_and_device_ms(
+                            lambda: fn(*args))
+                tail = "" if dt == torch.float32 else " bf16"
+                out[f"fused_attention_rows {label}{tail} vs {tag}"] = res
 
     k4("slice h=8 d=64", tgt, 64, heads=8)
     n_small = 300
@@ -467,22 +508,35 @@ def attention_slice(lib, tgt, rng, normal, out):
         k4(f"slice h=1 d={d}", tgt, d)
 
 
-def attention_grid(lib, case, out):
-    """K4 and S5's four settings on the grid at d = 128."""
+def attention_grid(libs, case, out):
+    """K4 (also in bf16 where the build has the committed signatures) and
+    S5's four settings on the grid at d = 128."""
     tg = case.tg.transpose()
     att = (tg.tile_ptr, tg.tile_cols, tg.mask, case.q_al, case.q_al,
            case.q_al, case.d ** -0.5)
-    out["fused_attention_rows grid d=128"] = dict(
-        layout=ka.kernel_route(case.d), **compare(
-            lambda *a: old_attention(lib, *a), ka.fused_attention_rows,
-            ka.fused_attention_rows_plain, att, GRID_TIMING))
     wp = (tg.tile_ptr, tg.tile_cols) + ka.well_posed_s5(
         tg, case.d, device=case.q_al.device, seed=3)
-    for key, kw in S5_SETTINGS.items():
-        out[f"attn_variant {key} grid d=128"] = compare(
-            lambda *a, **k: old_attention(lib, *a, **k), ka.attn_variant,
-            ka.attn_variant_plain, att, GRID_TIMING, kw,
-            None if kw["use_exp"] else wp)
+    for tag, lib in libs:
+        def old(*a, _lib=lib, **k):
+            return old_attention(_lib, *a, **k)
+
+        out[f"fused_attention_rows grid d=128 vs {tag}"] = dict(
+            layout=ka.kernel_route(case.d), **compare(
+                old, ka.fused_attention_rows, ka.fused_attention_rows_plain,
+                att, GRID_TIMING, bits=lib.committed))
+        if lib.committed:
+            x16 = case.q_al.bfloat16()
+            out[f"fused_attention_rows grid d=128 bf16 vs {tag}"] = dict(
+                layout=ka.kernel_route(case.d), **compare(
+                    old, ka.fused_attention_rows,
+                    ka.fused_attention_rows_plain, att[:3] + (x16,) * 3
+                    + att[6:], GRID_TIMING))
+            del x16
+        for key, kw in S5_SETTINGS.items():
+            out[f"attn_variant {key} grid d=128 vs {tag}"] = compare(
+                old, ka.attn_variant, ka.attn_variant_plain, att,
+                GRID_TIMING, kw, None if kw["use_exp"] else wp,
+                bits=lib.committed)
 
 
 def main(argv=None) -> int:
@@ -491,8 +545,9 @@ def main(argv=None) -> int:
                     help="older or edited tiled_kernels.cu for K1 and K2 "
                     "(and K3, S4 where it has bf16 entries; repeatable)")
     ap.add_argument("--k3", type=Path, help="older file for K3 (no vec)")
-    ap.add_argument("--k4", type=Path,
-                    help="older attention.cu for K4 and S5")
+    ap.add_argument("--k4", type=Path, action="append", default=[],
+                    help="older or edited attention.cu for K4 and S5 "
+                    "(repeatable)")
     ap.add_argument("--dma", type=Path, action="append", default=[],
                     help="older or edited grid_dma.cu for S1 and S2 "
                     "(repeatable)")
@@ -502,13 +557,13 @@ def main(argv=None) -> int:
     dev = cuda_device()
     files = ([(f, "k1k2") for f in args.k1k2]
              + ([(args.k3, "k3")] if args.k3 else [])
-             + ([(args.k4, "k4")] if args.k4 else [])
+             + [(f, "k4") for f in args.k4]
              + [(f, "dma") for f in args.dma])
     libs = dict(zip(files, load_old(files)))
     olds = [(f"{f.parent.name}/{f.name}", libs[f, role],
              old_entries(role, libs[f, role]))
             for f, role in files if role in ("k1k2", "k3")]
-    lib4 = libs[args.k4, "k4"] if args.k4 else None
+    libs4 = [(f"{f.parent.name}/{f.name}", libs[f, "k4"]) for f in args.k4]
     dma_libs = [(f, libs[f, "dma"]) for f in args.dma]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -533,8 +588,8 @@ def main(argv=None) -> int:
                 tile_rows(olds, label, kernel_args(
                     tgt, a.to(dt), b.to(dt), v.to(dt)), {}, out)
         del cases, vals, x, y
-    if lib4 is not None:
-        attention_slice(lib4, tgt, rng, normal, out)
+    if libs4:
+        attention_slice(libs4, tgt, rng, normal, out)
     del tgt
     torch.cuda.empty_cache()
     case = grid_case(1024, 1024, 128, device=dev)
@@ -545,8 +600,8 @@ def main(argv=None) -> int:
                 case.tg, x, x, case.vals.to(dt)), GRID_TIMING, out)
             del x
             torch.cuda.empty_cache()
-    if lib4 is not None:
-        attention_grid(lib4, case, out)
+    if libs4:
+        attention_grid(libs4, case, out)
     if dma_libs:
         dma_grid(dma_libs, case, out)
     print(json.dumps({"ab_tiled": out}), flush=True)
