@@ -167,7 +167,7 @@ reddit_sage's dataset and ``dryrun_multichip``.
     300 and 128) and the CSR entry at its backward's shape against their
     plain versions, timed; prefetched batches against the same batches
     made in line; 20 steps of ``fit_sampled``'s step through the prefetch
-    pipeline under ``torch.profiler`` (the device's idle share); then the
+    pipeline under ``benchlib.trace_fn`` (the device's idle share); then the
     command line on reddit_sage at ``--scale 1`` for its 2 epochs, the
     counters set to 0 before and read after: S3, the CSR entry and the
     native sampler ran, a finite loss, its step, sampling and evaluation
@@ -202,7 +202,21 @@ reddit_sage's dataset and ``dryrun_multichip``.
     ``--scale 1`` (8 shards, the cached plan) and ``papers100m_gat_dist``
     at ``--scale 1`` (16 shards) through ``train.run.main``: finite
     losses, step times, peak memory, the plan's host seconds;
-32. dryrun: ``dryrun_multichip(8)`` on the card, finite losses.
+32. dryrun: ``dryrun_multichip(8)`` on the card, finite losses;
+33. profiles (after 19, with its arxiv data): ``benchlib.trace_fn`` on the
+    transformer slice's train step in f32 and in bf16, the clique GAT step
+    on the dense blocks, the arxiv GAT step on the ELL path and the grid
+    attention's backward (the grid rebuilt): each path's idle share and
+    top five device kernels by name (``benchlib.device_summary``), the
+    traces under ``build/traces``;
+34. drivers (after 26, with its data): each card driver of
+    ``experiments/`` (the ELL backward's passes, the ELL attention rows,
+    the bucket ladders, the epochs and the halo attention at P = 1, the
+    halo accounting, the distributed transformer step, the user story,
+    the row-width yardstick) once through its ``main`` with ``--small``,
+    exit 0 and one JSON line each; ``bench_sampled`` at its full size on
+    the reddit dataset (host sampling, device and pipelined steps, the
+    idle share; its presampled and pipelined runs equal bit for bit).
 
 Each phase's seconds are printed. The line before the last is the
 ``kernels`` JSON: for each of the nine kernels, for K1-K4, S1, S2 and S3
@@ -321,11 +335,18 @@ DIST_SHARDS = 8
 DIST_HEADS, DIST_HEAD_DIM = 4, 16
 DIST_TOL = 1e-4
 PLAN_CACHE = Path(__file__).resolve().parent / "build" / "plan_cache"
+# Chrome traces and summaries of benchlib.trace_fn, one directory a profile.
+TRACE_DIR = PLAN_CACHE.parent / "traces"
 NCCL_GRAPH = (16384, 200_000)
 DIST_CLI = (("products_gat_dist", 1), ("products_transformer_dist", 1),
             ("papers100m_gat_dist", 1))
 DP_SHARDS = 4
 DP_STEPS = 12
+# The drivers of experiments/ that run on the card, each run once with
+# --small by the drivers phase (bench_sampled at its full size).
+CARD_DRIVERS = ("exp_bwd_accounting", "bench_attn_bwd", "exp_ell_ladder",
+                "bench_epoch", "exp_halo_accounting", "bench_dist_transformer",
+                "verify_story", "exp_dtype_width")
 
 
 def log(msg: str) -> None:
@@ -2477,23 +2498,32 @@ def phase_determinism(kern, dev, reddit):
     return results
 
 
-def device_busy(prof):
-    """(busy µs, window µs, device events) of a profiled window: the union
-    of the device events' spans, and the span from the first to the
-    last."""
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, None
-    for s, e in spans:
-        if end is None or s > end:
-            busy += e - s
-            end = e
-        elif e > end:
-            busy += e - end
-            end = e
-    window = spans[-1][1] - spans[0][0] if spans else 0.0
-    return busy, window, len(spans)
+def profile_of(fn, args, name, iters):
+    """``benchlib.trace_fn``'s summary of ``iters`` calls of ``fn(*args)``
+    after one warm-up call (the trace under ``build/traces/<name>``)."""
+    from custom_op_benchmark_tpu_torch.utils.benchlib import (
+        read_summary,
+        trace_fn,
+    )
+
+    return read_summary(trace_fn(fn, args, str(TRACE_DIR / name),
+                                 iters=iters))
+
+
+def log_profile(tag, what, prof, top=5):
+    """Log a profile's busy time, idle share and its ``top`` kernels, each
+    line led by ``tag``."""
+    if prof["idle_share"] is None:
+        log(f"{tag} {what}: the profiler saw no device events: not "
+            "measured")
+        return
+    log(f"{tag} {what}: {prof['host_ms']:.1f} ms of wall time under the "
+        f"profiler, device busy {prof['busy_ms']:.1f} ms of a "
+        f"{prof['window_ms']:.1f} ms window (idle share "
+        f"{prof['idle_share']:.3f}); {prof['events']} device events")
+    for k in prof["top"][:top]:
+        log(f"{tag}   {k['ms']:9.3f} ms ({k['share']:.3f} of busy) "
+            f"x{k['count']:<5d} {k['name'][:90]}")
 
 
 def phase_sampled(kern, dev, reddit, l2_rate):
@@ -2573,26 +2603,11 @@ def phase_sampled(kern, dev, reddit, l2_rate):
     for _ in range(5):
         one()
     torch.cuda.synchronize()
-    from torch.profiler import ProfilerActivity, profile
-
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_STEPS):
-            one()
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    busy, window, n_events = device_busy(prof)
-    idle = None
-    if n_events:
-        idle = 1.0 - busy / window
-        log(f"[sampled] profiled {PROFILE_STEPS} steps: {wall * 1e3:.1f} ms "
-            f"of wall time, device busy {busy / 1e3:.1f} ms of a "
-            f"{window / 1e3:.1f} ms window: idle share {idle:.3f}; "
-            f"{n_events} device events")
-    else:
-        log("[sampled] the profiler saw no device events: idle share not "
-            "measured")
+    prof = profile_of(lambda f: one(), (reddit["feats"],), "sampled",
+                      PROFILE_STEPS)
+    idle = prof["idle_share"]
+    log_profile("[sampled]", f"{PROFILE_STEPS} steps through the prefetch "
+                "pipeline", prof)
     del batches, state
 
     # The command line at full width for its default 2 epochs.
@@ -2619,6 +2634,122 @@ def phase_sampled(kern, dev, reddit, l2_rate):
     assert launches["gather_sum"] > 0 and launches["csr_sum"] > 0, launches
     return dict(errs=errs, rows=rows, cli=rec, peak_gib=peak, idle=idle,
                 launches=launches)
+
+
+def phase_profiles(dev, g, tg, arxiv):
+    """``benchlib.trace_fn`` on five paths that had no profile of the
+    port: the transformer slice's train step (tiled) in f32 and in bf16,
+    the clique GAT step on the dense blocks, the arxiv GAT step on the
+    ELL path, and the grid attention's backward (the grid rebuilt here,
+    dropped after). Each path's idle share and top five kernels, by
+    kernel name, are logged; returns the summaries."""
+    from custom_op_benchmark_tpu_torch.graph import block_graph
+    from custom_op_benchmark_tpu_torch.models import GAT, GraphTransformer
+    from custom_op_benchmark_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+    )
+    from custom_op_benchmark_tpu_torch.utils.bench_suite import (
+        tiled_grid_attention,
+    )
+
+    def train_profile(name, what, model, gd, x, labels, views, iters):
+        state = create_train_state(model)
+        step = make_train_step(apply_kwargs=views)
+        mask = torch.ones(gd.n_nodes, dtype=torch.bool, device=dev)
+        prof = profile_of(lambda x: step(state, gd, x, labels, mask), (x,),
+                          name, iters)
+        log_profile(f"[profiles] [{name}]", what, prof)
+        return prof
+
+    out = {}
+    rng = np.random.default_rng(SEED + 30)
+    gd = g.to(dev)
+    x = torch.from_numpy(rng.standard_normal(
+        (g.n_nodes, MODEL["dim"]), dtype=np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, MODEL["out_dim"],
+                                           size=g.n_nodes)).to(dev)
+    for name, dt in (("slice_f32", None), ("slice_bf16", torch.bfloat16)):
+        model = GraphTransformer(
+            **MODEL, dtype=dt,
+            generator=torch.Generator().manual_seed(SEED)).to(dev)
+        out[name] = train_profile(
+            name, f"3 train steps of the transformer slice (tiled, "
+            f"{'f32' if dt is None else 'bf16'})", model, gd, x, labels,
+            {"tiled": tg}, 3)
+        del model
+    xb = torch.from_numpy(rng.standard_normal(
+        (g.n_nodes, BLOCK_FEAT), dtype=np.float32)).to(dev)
+    gat = GAT(**BLOCK_GAT, in_dim=BLOCK_FEAT,
+              generator=torch.Generator().manual_seed(SEED)).to(dev)
+    out["clique_gat_block"] = train_profile(
+        "clique_gat_block", "3 train steps of the clique GAT on the dense "
+        "blocks", gat, gd, xb, labels, {"block": block_graph(gd)}, 3)
+    del gat, x, xb, labels
+    ds = arxiv["ds"]
+    model = arxiv_model("GAT", ds.num_classes, ds.features.shape[1]).to(dev)
+    out["arxiv_gat_ell"] = train_profile(
+        "arxiv_gat_ell", "2 train steps of the arxiv GAT on the ELL path",
+        model, arxiv["g"], arxiv["x"], arxiv["labels"].long(),
+        {"ell": arxiv["ell"]}, 2)
+    del model
+    torch.cuda.empty_cache()
+    case = phase_grid_build(dev)
+    q = case.q_al.detach().requires_grad_()
+    prof = profile_of(lambda q: torch.autograd.grad(
+        (tiled_grid_attention(case, q) ** 2).sum(), q), (q,), "grid_bwd", 1)
+    log_profile("[profiles] [grid_bwd]", f"the grid attention's forward and "
+                f"backward (d={GRID_D})", prof)
+    out["grid_bwd"] = prof
+    del case, q
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, prof in out.items():
+        assert prof["idle_share"] is not None, f"{name}: no device events"
+        assert sum(k["share"] for k in prof["top"]) <= 1 + 1e-9, name
+    return out
+
+
+def phase_drivers(dev, reddit):
+    """Each card driver of ``experiments/`` once through its ``main`` in
+    ``--small`` mode (exit 0, one JSON line), and ``bench_sampled`` at its
+    full size on the reddit dataset built here; the drivers' output lines
+    are logged with a prefix. Returns each driver's JSON record."""
+    import contextlib
+    import importlib
+    import io
+
+    from custom_op_benchmark_tpu_torch.experiments import bench_sampled
+
+    out = {}
+    for name in CARD_DRIVERS:
+        mod = importlib.import_module(
+            f"custom_op_benchmark_tpu_torch.experiments.{name}")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main(["--small"])
+        lines = buf.getvalue().strip().splitlines()
+        for line in lines[:-1]:
+            log(f"[drivers] [{name}] {line}")
+        log(f"[drivers] {name} --small: exit {rc} in "
+            f"{time.perf_counter() - t0:.1f} s: {lines[-1][:2000]}")
+        assert rc == 0, f"{name} --small exited {rc}"
+        out[name] = json.loads(lines[-1])[name]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rec = bench_sampled.run(dev, "full", ds=reddit["ds"],
+                                feats=reddit["feats"],
+                                labels=reddit["labels"], trace_dir=TRACE_DIR)
+    for line in buf.getvalue().strip().splitlines():
+        log(f"[drivers] [bench_sampled] {line}")
+    log(f"[drivers] bench_sampled (full size, reddit_sage's dataset) in "
+        f"{time.perf_counter() - t0:.1f} s: {json.dumps(rec)}")
+    assert rec["ok"], "bench_sampled: the presampled and pipelined runs' " \
+        "final losses differ"
+    out["bench_sampled"] = rec
+    return out
 
 
 def phase_resilient(kern, dev):
@@ -2982,11 +3113,8 @@ def phase_dist_parity(kern, dev, dist, l2_rate):
 
 def profile_dist_step(dev, dist):
     """One train step of products_gat_dist's model (GAT, hidden 64, 4
-    heads, 2 layers, Adam) on the 8-shard halo plan under the profiler:
-    its step time, the device's idle share and the device time of the
-    largest kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
+    heads, 2 layers, Adam) on the 8-shard halo plan under the profiler
+    (``benchlib.trace_fn``): the device's idle share and its top kernels."""
     from custom_op_benchmark_tpu_torch.parallel.train_dist import (
         dist_gat_forward,
         init_dist_gat,
@@ -2998,40 +3126,17 @@ def profile_dist_step(dev, dist):
     opt = torch.optim.Adam(params.parameters(), lr=1e-2)
     mask = lay.train_mask
 
-    def step():
+    def step(x):
         opt.zero_grad(set_to_none=True)
-        logits = dist_gat_forward(lay.dg, mesh, params, lay.x)
+        logits = dist_gat_forward(lay.dg, mesh, params, x)
         nll = -torch.log_softmax(logits, -1).gather(
             -1, lay.labels[:, None])[:, 0]
         ((nll * mask).sum() / mask.sum()).backward()
         opt.step()
 
-    step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    busy, window, n_events = device_busy(prof)
-    if not n_events:
-        log("[dist profile] the profiler saw no device events: not measured")
-        return
-    log(f"[dist profile] one products_gat_dist step (8 shards): {wall:.1f} "
-        f"ms of wall time under the profiler, device busy {busy / 1e3:.1f} "
-        f"ms of a {window / 1e3:.1f} ms window (idle share "
-        f"{1 - busy / window:.3f})")
-
-    def dev_us(a):
-        return getattr(a, "self_device_time_total", None) or getattr(
-            a, "self_cuda_time_total", 0.0)
-
-    rows = sorted(prof.key_averages(), key=dev_us, reverse=True)[:8]
-    for a in rows:
-        log(f"[dist profile]   {dev_us(a) / 1e3:9.3f} ms "
-            f"({dev_us(a) / busy:.3f} of busy) x{a.count:<5d} "
-            f"{a.key[:90]}")
+    prof = profile_of(step, (lay.x,), "dist", 1)
+    log_profile("[dist profile]", f"one products_gat_dist step "
+                f"({DIST_SHARDS} shards)", prof, top=8)
 
 
 def phase_nccl(dev):
@@ -3294,6 +3399,7 @@ def main() -> int:
     dtype = run("dtype", phase_dtype, kern, dev, g, tg, arxiv_in)
     gc.collect()
     torch.cuda.empty_cache()
+    run("profiles", phase_profiles, dev, g, tg, arxiv_in)
     run("native", phase_native, arxiv_in)
     del arxiv_in
     gc.collect()
@@ -3307,6 +3413,7 @@ def main() -> int:
     run("determinism", phase_determinism, kern, dev, reddit)
     sampled = run("sampled", phase_sampled, kern, dev, reddit, l2_rate)
     dp = run("dp", phase_dp, kern, dev, reddit)
+    run("drivers", phase_drivers, dev, reddit)
     del reddit
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,21 +1,26 @@
 """Benchmark harness: warm-up, repeats, medians, roofline accounting.
 
 Counterpart of the interface of custom_op_benchmark_tpu/utils/benchlib.py
-(:class:`BenchRecord`, :func:`bench_fn`, :func:`hbm_bandwidth_bytes`) for a
-CUDA card, plus :func:`l2_gather_rate`, the card's ceiling for row
-gathers that hit L2 (a probe kernel of its own, csrc/l2_probe.cu). Timing is by CUDA events around ``iters`` back-to-back calls
-after warm-up, and the median of ``repeats`` such runs; a host clock would
-time only the enqueue. The peak memory bandwidth is measured on the device
-with a large copy, not read from a table. On a CPU tensor there is no
-device to time and :func:`bench_fn` raises: a CPU run is a smoke run of
-the code paths, never a device number.
+(:class:`BenchRecord`, :func:`bench_fn`, :func:`trace_fn`,
+:func:`hbm_bandwidth_bytes`) for a CUDA card, plus :func:`l2_gather_rate`,
+the card's ceiling for row gathers that hit L2 (a probe kernel of its own,
+csrc/l2_probe.cu), and :func:`device_summary`, the busy time, idle share
+and top kernels of a ``torch.profiler`` window. Timing is by CUDA events
+around ``iters`` back-to-back calls after warm-up, and the median of
+``repeats`` such runs; a host clock would time only the enqueue. The peak
+memory bandwidth is measured on the device with a large copy, not read
+from a table. On a CPU tensor there is no device to time and
+:func:`bench_fn` raises: a CPU run is a smoke run of the code paths, never
+a device number.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import json
+import os
 import statistics
 from typing import Any, Callable, Optional
 
@@ -90,24 +95,180 @@ def time_cuda(fn: Callable[[], Any], *, warmup: int = 3, iters: int = 10,
     return times
 
 
+# iters="auto": the calls in one CUDA-event window double until the window
+# lasts this long, or until AUTO_MAX_CALLS calls.
+AUTO_WINDOW_S = 0.020
+AUTO_MAX_CALLS = 4096
+
+
+def auto_calls(window_s: Callable[[int], float], *,
+               target_s: float = AUTO_WINDOW_S,
+               max_calls: int = AUTO_MAX_CALLS) -> int:
+    """The calls per timed window for ``iters="auto"``: 1, 2, 4, ... until
+    ``window_s(k)`` (the seconds of one window of ``k`` calls) reaches
+    ``target_s``, or ``max_calls``."""
+    k = 1
+    while k < max_calls and window_s(k) < target_s:
+        k = min(2 * k, max_calls)
+    return k
+
+
+def _clone(x):
+    """A copy of ``x`` whose tensors own fresh storage (tuples, lists and
+    dicts are copied through; anything else is shared)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone().requires_grad_(x.requires_grad)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_clone(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    return x
+
+
+def rotated_args(args: tuple, rotate: int) -> list:
+    """``rotate`` sets of ``args`` for ``bench_fn(rotate=R)``: the first is
+    ``args`` itself, the others copies that share no tensor storage with
+    it or with each other."""
+    if rotate < 1:
+        raise ValueError(f"rotate must be at least 1, got {rotate}")
+    return [args] + [_clone(args) for _ in range(rotate - 1)]
+
+
 def bench_fn(fn: Callable[..., Any], args: tuple = (), *, warmup: int = 3,
-             iters: int = 10, repeats: int = 5, name: str = "bench",
+             iters=10, repeats: int = 5, name: str = "bench",
              bytes_moved: Optional[float] = None,
              flops: Optional[float] = None, edges: Optional[int] = None,
-             **extra) -> BenchRecord:
+             rotate: int = 1, **extra) -> BenchRecord:
     """Time ``fn(*args)`` on the CUDA device that holds ``args``: the
     median over ``repeats`` of the mean of ``iters`` back-to-back calls,
-    after ``warmup`` calls. Raises on CPU tensors."""
+    after ``warmup`` calls. Raises on CPU tensors.
+
+    ``iters="auto"`` doubles the calls in one CUDA-event window until the
+    window lasts at least 20 ms (or 4096 calls), so a row of a few µs
+    stands clear of the events' resolution and launch jitter; the count
+    chosen is the record's ``extra["iters"]``. ``rotate=R`` cycles the
+    calls over R independent copies of ``args`` (see
+    :func:`rotated_args`), so the working set can exceed the card's 50 MB
+    L2 and back-to-back calls read device memory, as a caller that finds
+    its inputs cold would."""
     dev = _device_of(args)
     if dev.type != "cuda":
         raise RuntimeError(f"bench_fn times CUDA devices; the arguments lie "
                            f"on {dev}")
-    times = time_cuda(lambda: fn(*args), warmup=warmup, iters=iters,
-                      repeats=repeats, device=dev)
+    sets = itertools.cycle(rotated_args(args, rotate))
+
+    def call():
+        return fn(*next(sets))
+
+    if iters == "auto":
+        for _ in range(warmup):
+            call()
+        iters = auto_calls(lambda k: time_cuda(call, warmup=0, iters=k,
+                                               repeats=1, device=dev)[0] * k)
+        extra["iters"] = iters
+    elif not isinstance(iters, int) or iters < 1:
+        raise ValueError(f"iters must be a positive int or 'auto', got "
+                         f"{iters!r}")
+    if rotate > 1:
+        extra["rotate"] = rotate
+    times = time_cuda(call, warmup=warmup, iters=iters, repeats=repeats,
+                      device=dev)
     return BenchRecord(name=name, time_s=statistics.median(times),
                        times=times, bytes_moved=bytes_moved, flops=flops,
                        edges=edges, device=torch.cuda.get_device_name(dev),
                        extra=extra)
+
+
+def device_summary(prof, top: int = 8) -> dict:
+    """Busy time, idle share and top device activities of a profiled
+    window (``torch.profiler.profile``, or any object whose ``events()``
+    have ``name``, ``device_type`` and ``time_range``).
+
+    Only events that ran on the device count: kernels, copies and sets,
+    never the host ops that launched them nor the spans that annotate a
+    group of kernels on the device's timeline (``record_function`` and
+    the optimizer's step), so no time is counted twice.
+    ``busy_ms`` is the union of their spans, ``window_ms`` the span from
+    the first start to the last end, ``idle_share`` 1 − busy / window.
+    ``top`` lists the ``top`` names by busy time, each with ``ms`` (the
+    busy time it added: its spans less what an event that started earlier
+    already covered, so the list's ``share`` of busy sums to at most 1)
+    and ``count``. With no device event (a CPU run) the three times and
+    the share are None and ``top`` is empty."""
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    if not spans:
+        return dict(busy_ms=None, window_ms=None, idle_share=None, events=0,
+                    top=[])
+    busy, end = 0.0, None
+    per_name: dict = {}
+    for s, e, name in spans:
+        added = e - s if end is None or s >= end else max(e - end, 0.0)
+        busy += added
+        end = e if end is None else max(end, e)
+        ms, count = per_name.get(name, (0.0, 0))
+        per_name[name] = (ms + added, count + 1)
+    window = end - spans[0][0]
+    ranked = sorted(per_name.items(), key=lambda kv: kv[1][0], reverse=True)
+    return dict(
+        busy_ms=busy / 1e3, window_ms=window / 1e3,
+        idle_share=1.0 - busy / window if window > 0 else 0.0,
+        events=len(spans),
+        top=[dict(name=name, ms=us / 1e3, share=us / busy if busy else 0.0,
+                  count=count) for name, (us, count) in ranked[:top]])
+
+
+def trace_fn(fn: Callable[..., Any], args: tuple, trace_dir: str, *,
+             iters: int = 3) -> str:
+    """Profile ``fn(*args)`` with ``torch.profiler`` (CPU and, on a CUDA
+    device, CUDA activities) on the device that holds ``args``: a warm-up
+    step of one call under the profiler, whose events are dropped (the
+    tracer's first kernels can be lost while it starts), then a recorded
+    step of ``iters`` calls and a synchronisation. Writes the Chrome trace
+    (``trace.json``, for Perfetto or ``chrome://tracing``) and
+    ``summary.json`` (:func:`device_summary` of the recorded step, its
+    ``iters``, the device and the step's host ``ms``) into ``trace_dir``,
+    and returns ``trace_dir``."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    dev = _device_of(args)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    os.makedirs(trace_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=activities, schedule=schedule(
+            wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn(*args)
+        sync()
+        prof.step()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn(*args)
+        sync()
+        wall = time.perf_counter() - t0
+        prof.step()
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+    summary = dict(device_summary(prof), iters=iters, host_ms=wall * 1e3,
+                   device=(torch.cuda.get_device_name(dev) if on_card
+                           else str(dev)))
+    with open(os.path.join(trace_dir, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    return trace_dir
+
+
+def read_summary(trace_dir: str) -> dict:
+    """The ``summary.json`` that :func:`trace_fn` wrote into ``trace_dir``."""
+    with open(os.path.join(trace_dir, "summary.json")) as f:
+        return json.load(f)
 
 
 def bench_ms(out: dict, name: str, fn: Callable[..., Any], *args,
