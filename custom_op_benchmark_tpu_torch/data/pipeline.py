@@ -9,7 +9,10 @@ that event before it uses the item, and ``record_stream`` tells the
 caching allocator that the item's device memory is in use on the consumer's
 stream, so it is not handed out again before those steps end. An error in
 the producer surfaces in the consumer. ``size`` items are queued ahead. A
-consumer that stops early stops the producer at its next item.
+consumer that stops early stops the producer at its next item. The
+producer's copies run in the span ``data.to_device`` and the consumer's
+wait for an item in ``data.batch_wait`` (``utils.spans``; the producer's
+thread shows in a trace taken with ``profile_all_threads``).
 
 Items are nested tuples, lists and dicts of tensors, numpy arrays (made
 tensors) and :class:`~custom_op_benchmark_tpu_torch.graph.graph.Graph`s;
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from custom_op_benchmark_tpu_torch.graph.graph import Graph
+from custom_op_benchmark_tpu_torch.utils.spans import span
 
 
 def map_tensors(obj, fn: Callable[[torch.Tensor], torch.Tensor]):
@@ -75,13 +79,14 @@ def prefetch(iterator: Iterable, size: int = 2,
             for item in iterator:
                 event = None
                 if on_card:
-                    with torch.cuda.stream(stream):
+                    with span("data.to_device"), torch.cuda.stream(stream):
                         item = map_tensors(item, lambda t: t.pin_memory().to(
                             device, non_blocking=True))
                         event = torch.cuda.Event()
                         event.record(stream)
                 elif device is not None:
-                    item = map_tensors(item, lambda t: t.to(device))
+                    with span("data.to_device"):
+                        item = map_tensors(item, lambda t: t.to(device))
                 if not put((item, event)):
                     return
         except BaseException as e:   # surfaces in the consumer
@@ -93,7 +98,8 @@ def prefetch(iterator: Iterable, size: int = 2,
     thread.start()
     try:
         while True:
-            item, event = q.get()
+            with span("data.batch_wait"):
+                item, event = q.get()
             if item is done:
                 if err:
                     raise err[0]

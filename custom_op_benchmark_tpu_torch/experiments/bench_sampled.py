@@ -17,7 +17,10 @@ seeds a batch). Over the same N batches it times
                          ``prefetch`` (sampling in its thread, copies on a
                          side stream), one synchronisation at the end
     idle_share           the device's idle share over steps of the
-                         pipelined run (``benchlib.trace_fn``)
+                         pipelined run (``benchlib.trace_fn``, every
+                         thread recorded: the trace in ``trace_dir`` shows
+                         the prefetch thread's ``data.sample`` and
+                         ``data.to_device`` beside ``train.step``)
 
 and the bytes each step sends to the card (every tensor of a prefetched
 batch). The presampled and the pipelined runs start from two states drawn

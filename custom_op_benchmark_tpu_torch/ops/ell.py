@@ -17,7 +17,10 @@ contracts as ops/primitives.py:
   residual; the gathered ``(R, D, h, d)`` tiles are made one bucket at a
   time and never saved.
 
-Every op is a ``torch.autograd.Function`` with the reference's hand VJP.
+Every op is a ``torch.autograd.Function`` with the reference's hand VJP;
+its forward and backward run inside the spans ``ell.<op>.fwd`` and
+``ell.<op>.bwd`` (``utils.spans``; ``ell_gat_attention`` →
+``ell.gat_attention``).
 Heads are per-head einsums on ``(R, D, h, d)`` views: the reference's
 block-indicator matmuls, its optimisation-barrier hop and its lane tiling
 of narrow gathers change only how XLA lowers the code on a TPU, so they
@@ -59,6 +62,7 @@ from custom_op_benchmark_tpu_torch.graph.ell import (
 )
 from custom_op_benchmark_tpu_torch.graph.graph import Graph
 from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import gather_sum
+from custom_op_benchmark_tpu_torch.utils.spans import spanned
 
 MASK_VALUE = -1e30
 DENOM_FLOOR = 1e-30
@@ -234,12 +238,14 @@ def _sddmm_raw(eg: EllGraph, A3, B3):
 
 class _EllSpmm(Function):
     @staticmethod
+    @spanned("ell.spmm.fwd")
     def forward(ctx, se, de, e2, x3):
         ctx.graphs = (se, de)
         ctx.save_for_backward(e2, x3)
         return _spmm_raw(se, e2, x3)
 
     @staticmethod
+    @spanned("ell.spmm.bwd")
     def backward(ctx, dy):
         se, de = ctx.graphs
         e2, x3 = ctx.saved_tensors
@@ -253,12 +259,14 @@ class _EllSpmm(Function):
 
 class _EllSddmm(Function):
     @staticmethod
+    @spanned("ell.sddmm.fwd")
     def forward(ctx, se, de, A3, B3):
         ctx.graphs = (se, de)
         ctx.save_for_backward(A3, B3)
         return _sddmm_raw(se, A3, B3)
 
     @staticmethod
+    @spanned("ell.sddmm.bwd")
     def backward(ctx, dy):
         se, de = ctx.graphs
         A3, B3 = ctx.saved_tensors
@@ -272,6 +280,7 @@ class _EllSddmm(Function):
 
 class _EllSoftmax(Function):
     @staticmethod
+    @spanned("ell.softmax.fwd")
     def forward(ctx, ell, x2):
         ctx.ell = ell
         if not ell.buckets:
@@ -284,6 +293,7 @@ class _EllSoftmax(Function):
         return y
 
     @staticmethod
+    @spanned("ell.softmax.bwd")
     def backward(ctx, dy):
         ell = ctx.ell
         (y,) = ctx.saved_tensors
@@ -389,6 +399,7 @@ def _spmm_sddmm_fused(eg: EllGraph, w_packed, a3, b3, want_spmm: bool):
 
 class _EllSpmmPacked(Function):
     @staticmethod
+    @spanned("ell.spmm.fwd")
     def forward(ctx, se, de, n_src, x3, *ws):
         ctx.graphs, ctx.n_src = (se, de), n_src
         ctx.save_for_backward(x3, *ws)
@@ -398,6 +409,7 @@ class _EllSpmmPacked(Function):
         return ell_combine_rows(se, _spmm_packed(se, w3, x3)).to(x3.dtype)
 
     @staticmethod
+    @spanned("ell.spmm.bwd")
     def backward(ctx, dy):
         """Two gather passes; the cotangents stay packed. dst pass: one dy
         gather per bucket gives ``dx[v] = Σ w·dy[u]`` and ``dW_dst[r,k] =
@@ -494,6 +506,7 @@ def _attn_bwd(ell, ell_t, q3, k3, v3, scale, alphas, dy, be_t=None):
 
 class _EllAttention(Function):
     @staticmethod
+    @spanned("ell.attention.fwd")
     def forward(ctx, ell, ell_t, q3, k3, v3, scale):
         ctx.graphs, ctx.scale = (ell, ell_t), scale
         if not ell.buckets:
@@ -504,6 +517,7 @@ class _EllAttention(Function):
         return y[: q3.shape[0]].to(q3.dtype)
 
     @staticmethod
+    @spanned("ell.attention.bwd")
     def backward(ctx, dy):
         ell, ell_t = ctx.graphs
         q3, k3, v3, *alphas = ctx.saved_tensors
@@ -522,6 +536,7 @@ class _EllEdgeBiasAttention(Function):
     dst bucket, and the gradient comes back for both copies."""
 
     @staticmethod
+    @spanned("ell.edge_bias_attention.fwd")
     def forward(ctx, ell, ell_t, q3, k3, v3, scale, packed, n_src, *bes):
         ctx.graphs, ctx.scale = (ell, ell_t), scale
         ctx.packed, ctx.n_src = packed, n_src
@@ -535,6 +550,7 @@ class _EllEdgeBiasAttention(Function):
         return y[: q3.shape[0]].to(q3.dtype)
 
     @staticmethod
+    @spanned("ell.edge_bias_attention.bwd")
     def backward(ctx, dy):
         ell, ell_t = ctx.graphs
         q3, k3, v3, *rest = ctx.saved_tensors
@@ -621,11 +637,13 @@ def _copy_agg_raw(eg: EllGraph, x):
 
 class _EllCopySum(Function):
     @staticmethod
+    @spanned("ell.copy_spmm.fwd")
     def forward(ctx, ell, ell_t, x):
         ctx.ell_t, ctx.n = ell_t, x.shape[0]
         return _copy_agg_raw(ell, x)
 
     @staticmethod
+    @spanned("ell.copy_spmm.bwd")
     def backward(ctx, dy):
         return None, None, _copy_agg_raw(ctx.ell_t, dy)[: ctx.n]
 
@@ -650,6 +668,7 @@ def ell_copy_spmm(ell: EllGraph, ell_t: EllGraph, x, *, reduce: str = "sum"):
 
 class _EllNodeMulEdge(Function):
     @staticmethod
+    @spanned("ell.node_mul_edge.fwd")
     def forward(ctx, ell, A3, Be):
         ctx.ell = ell
         ctx.save_for_backward(A3, Be)
@@ -662,6 +681,7 @@ class _EllNodeMulEdge(Function):
         ]).to(A3.dtype)
 
     @staticmethod
+    @spanned("ell.node_mul_edge.bwd")
     def backward(ctx, dy):
         """Gather-only: both cotangents reduce on the src packing,
         ``dA[u] = Σ_slots dy·Be`` (row combine) and ``dBe[e] = Σ_h
@@ -703,6 +723,7 @@ def ell_node_mul_edge(ell: EllGraph, ell_t: EllGraph, A, Be):
 
 class _EllGat(Function):
     @staticmethod
+    @spanned("ell.gat_attention.fwd")
     def forward(ctx, ell, ell_t, a_l, a_r, z, slope):
         ctx.graphs, ctx.slope = (ell, ell_t), slope
         if not ell.buckets:
@@ -727,6 +748,7 @@ class _EllGat(Function):
         return ell_combine_rows(ell, outs)[:n].to(z.dtype)
 
     @staticmethod
+    @spanned("ell.gat_attention.bwd")
     def backward(ctx, dy):
         """Pass 1 (dst packing): α and the LeakyReLU sign from the
         residuals, ``dpre = LeakyReLU'(pre)·α(dα − Σ α·dα)``, its row sums

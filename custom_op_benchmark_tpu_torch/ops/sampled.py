@@ -9,7 +9,8 @@ The backward is the transposed copy-sum over the batch graph's canonical
 (src-sorted) edge order, ``dx[u] = Σ_{e: src(e)=u} dy[dst(e)]``: S3's CSR
 entry (``csr_sum``) over ``indptr_r``, which sums in a fixed order with
 no atomics; padded edges lie in the scratch segment ``N`` and their
-``dst`` is ``N``, so they add nothing.
+``dst`` is ``N``, so they add nothing. The forward and the backward run
+inside the spans ``sampled.copy_spmm.fwd`` / ``.bwd`` (``utils.spans``).
 """
 
 from __future__ import annotations
@@ -21,15 +22,18 @@ from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import (
     csr_sum,
     gather_sum,
 )
+from custom_op_benchmark_tpu_torch.utils.spans import spanned
 
 
 class _SampledCopySum(torch.autograd.Function):
     @staticmethod
+    @spanned("sampled.copy_spmm.fwd")
     def forward(ctx, cols, x, ptr, dst):
         ctx.save_for_backward(ptr, dst)
         return gather_sum(cols, x.contiguous())
 
     @staticmethod
+    @spanned("sampled.copy_spmm.bwd")
     def backward(ctx, dy):
         ptr, dst = ctx.saved_tensors
         return None, csr_sum(ptr, dy.contiguous(), dst), None, None

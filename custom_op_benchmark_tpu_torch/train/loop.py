@@ -6,7 +6,10 @@ Counterpart of the JAX package's ``create_train_state``,
 loop.py); ``fit_sampled_dp`` comes with the distributed plans. PyTorch runs
 eagerly and updates the parameters in place, so the state is the model and
 its optimizer; a full-graph step returns ``(loss, acc)``, a sampled one
-its loss.
+its loss. Both steps run inside the span ``train.step``, their model and
+loss in ``train.forward``, ``loss.backward()`` in ``train.backward`` and
+AdamW's step in ``train.optimizer``; each batch's sampling in
+``sampled_batches`` runs in ``data.sample`` (``utils.spans``).
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from custom_op_benchmark_tpu_torch.utils.spans import span, spanned
 
 
 @dataclasses.dataclass
@@ -62,13 +67,17 @@ def make_train_step(dropout: bool = False,
     """
     views = dict(apply_kwargs or {})
 
+    @spanned("train.step")
     def train_step(state: TrainState, g, x, labels, mask):
         state.model.train(dropout)
         state.optimizer.zero_grad(set_to_none=True)
-        logits = state.model(g, x, **views)
-        loss = masked_cross_entropy(logits, labels, mask)
-        loss.backward()
-        state.optimizer.step()
+        with span("train.forward"):
+            logits = state.model(g, x, **views)
+            loss = masked_cross_entropy(logits, labels, mask)
+        with span("train.backward"):
+            loss.backward()
+        with span("train.optimizer"):
+            state.optimizer.step()
         state.step += 1
         with torch.no_grad():
             acc = _accuracy(logits, labels, mask)
@@ -181,16 +190,20 @@ def make_sampled_step():
     ``len(seed_mask)`` nodes), one AdamW step. Returns the loss, on the
     device."""
 
+    @spanned("train.step")
     def sampled_step(state: TrainState, g, x, labels, seed_mask,
                      in_cols=None):
         state.model.train(False)
         state.optimizer.zero_grad(set_to_none=True)
         kw = {} if in_cols is None else {"in_cols": in_cols}
-        logits = state.model(g, x, **kw)
-        loss = masked_cross_entropy(logits[: seed_mask.shape[0]], labels,
-                                    seed_mask)
-        loss.backward()
-        state.optimizer.step()
+        with span("train.forward"):
+            logits = state.model(g, x, **kw)
+            loss = masked_cross_entropy(logits[: seed_mask.shape[0]],
+                                        labels, seed_mask)
+        with span("train.backward"):
+            loss.backward()
+        with span("train.optimizer"):
+            state.optimizer.step()
         state.step += 1
         return loss.detach()
 
@@ -215,7 +228,8 @@ def sampled_batches(sampler, train_ids, batch_size, feats=None, *,
     it = sampler.epoch(train_ids, batch_size)
     while True:
         t0 = time.perf_counter()
-        b = next(it, None)
+        with span("data.sample"):
+            b = next(it, None)
         if timings is not None and b is not None:
             timings.append(time.perf_counter() - t0)
         if b is None:

@@ -230,9 +230,12 @@ def trace_fn(fn: Callable[..., Any], args: tuple, trace_dir: str, *,
     (``trace.json``, for Perfetto or ``chrome://tracing``) and
     ``summary.json`` (:func:`device_summary` of the recorded step, its
     ``iters``, the device and the step's host ``ms``) into ``trace_dir``,
-    and returns ``trace_dir``."""
+    and returns ``trace_dir``. Every thread of the process is recorded
+    (``profile_all_threads``), not only the caller's and autograd's: a
+    prefetch thread's ``data.*`` spans too (``utils.spans``)."""
     import time
 
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile, schedule
 
     dev = _device_of(args)
@@ -246,7 +249,9 @@ def trace_fn(fn: Callable[..., Any], args: tuple, trace_dir: str, *,
     activities = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if on_card else [])
     with profile(activities=activities, schedule=schedule(
-            wait=0, warmup=1, active=1, repeat=1)) as prof:
+            wait=0, warmup=1, active=1, repeat=1),
+            experimental_config=_ExperimentalConfig(
+                profile_all_threads=True)) as prof:
         fn(*args)
         sync()
         prof.step()

@@ -1,0 +1,64 @@
+"""Named host spans in the port's traces: ``span(name)`` and ``spanned``.
+
+A span is a ``torch.profiler.record_function`` range, so it lands in the
+one trace the port already takes (``utils.benchlib.trace_fn``, or any
+``torch.profiler.profile``) as a host event on the profiler's clock, the
+clock of the device trace. The device ops launched inside a span can then
+be credited to it, and an idle gap named after it. With no profiler
+recording, ``span`` returns one shared no-op context and builds nothing.
+
+The port's spans, all under four prefixes:
+
+- ``train.step``, ``train.forward`` (the model and the loss),
+  ``train.backward`` and ``train.optimizer`` (AdamW's step) in
+  ``train.loop``'s full-graph and sampled steps;
+- ``ell.<op>.fwd`` / ``ell.<op>.bwd`` in the forward and backward of every
+  ``torch.autograd.Function`` of ``ops.ell`` (``ell_gat_attention`` →
+  ``ell.gat_attention``), and ``sampled.copy_spmm.fwd`` / ``.bwd`` in
+  ``ops.sampled``; a backward span runs on autograd's thread;
+- ``data.sample`` (one batch's sampling in ``train.loop.sampled_batches``),
+  ``data.to_device`` (the prefetch thread's copies) and
+  ``data.batch_wait`` (the consumer's wait for the next batch) in the
+  sampled pipeline.
+
+``torch.profiler`` records a thread only where its state reaches it: the
+caller's thread and autograd's threads. A ``threading.Thread`` such as
+``data.pipeline.prefetch``'s producer is recorded only under
+``experimental_config=_ExperimentalConfig(profile_all_threads=True)``
+(as ``utils.benchlib.trace_fn`` takes its traces), so ``span`` also opens
+where any profiler of the process records.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+
+import torch
+from torch.autograd import profiler as _profiler
+
+_OFF = contextlib.nullcontext()
+
+
+def _recording() -> bool:
+    return (torch.autograd._profiler_enabled()
+            or getattr(_profiler, "_is_profiler_enabled", False))
+
+
+def span(name: str):
+    """``record_function(name)`` while a profiler records, else a shared
+    no-op context."""
+    if _recording():
+        return _profiler.record_function(name)
+    return _OFF
+
+
+def spanned(name: str):
+    """Decorator: the function's every call runs inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap

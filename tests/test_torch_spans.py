@@ -1,0 +1,182 @@
+"""The port's spans (``utils/spans.py``) in a training step on the CPU.
+
+One case per op family of the GAT and GraphSAGE paths: the full-graph GAT
+and GraphSAGE on the ELL view (``ell.gat_attention``, ``ell.copy_spmm``)
+and GraphSAGE on a sampled batch (``sampled.copy_spmm``). Under
+``torch.profiler`` a step records one each of ``train.step``,
+``train.forward``, ``train.backward`` and ``train.optimizer`` and the op's
+forward and backward spans, each inside its phase; the profiler changes
+no bit of the loss or the parameters; without it ``span`` builds no
+``record_function``. The sampled pipeline's ``data.*`` spans show on the
+producer's thread in a ``benchlib.trace_fn`` trace.
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from custom_op_benchmark_tpu_torch.data import synthetic
+from custom_op_benchmark_tpu_torch.data.pipeline import prefetch
+from custom_op_benchmark_tpu_torch.data.sampling import NeighborSampler
+from custom_op_benchmark_tpu_torch.models import GAT, GraphSAGE
+from custom_op_benchmark_tpu_torch.ops import ell_dual
+from custom_op_benchmark_tpu_torch.train.loop import (
+    create_train_state,
+    make_sampled_step,
+    make_train_step,
+    sampled_batches,
+)
+from custom_op_benchmark_tpu_torch.utils import benchlib, spans
+
+DATA = dict(num_classes=3, nodes_per_class=40, feat_dim=12, avg_degree=6,
+            seed=3)
+PHASES = ("train.step", "train.forward", "train.backward", "train.optimizer")
+PREFIXES = ("train.", "ell.", "sampled.", "data.")
+
+
+@pytest.fixture(scope="module")
+def ds():
+    return synthetic.planted_partition(**DATA)
+
+
+def _gat_ell(ds):
+    model = GAT(hidden_dim=8, out_dim=3, num_layers=3, num_heads=2,
+                in_dim=12)
+    return model, _full_graph(ds, model), "ell.gat_attention", 3, 3
+
+
+def _sage_ell(ds):
+    # The first layer aggregates the features, which take no gradient.
+    model = GraphSAGE(hidden_dim=8, out_dim=3, num_layers=3, in_dim=12)
+    return model, _full_graph(ds, model), "ell.copy_spmm", 3, 2
+
+
+def _sage_sampled(ds):
+    model = GraphSAGE(hidden_dim=8, out_dim=3, num_layers=2, in_dim=12)
+    b = NeighborSampler(ds.graph, [5, 3], seed=0).sample(np.arange(16))
+    step = make_sampled_step()
+    args = (b.graph, torch.from_numpy(ds.features[b.node_ids]),
+            torch.from_numpy(ds.labels[b.seed_ids].astype(np.int64)),
+            torch.from_numpy(b.seed_mask), torch.from_numpy(b.in_cols))
+    return model, lambda state: step(state, *args), "sampled.copy_spmm", 2, 1
+
+
+def _full_graph(ds, model):
+    step = make_train_step(apply_kwargs={"ell": ell_dual(ds.graph,
+                                                         profile="train")})
+    args = (ds.graph, torch.from_numpy(ds.features),
+            torch.from_numpy(ds.labels), torch.from_numpy(ds.train_mask))
+    return lambda state: step(state, *args)
+
+
+FAMILIES = {"gat_ell": _gat_ell, "sage_ell": _sage_ell,
+            "sage_sampled": _sage_sampled}
+
+
+def _state(model):
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return create_train_state(model, learning_rate=1e-2)
+
+
+def _profiled_step(ds, family):
+    model, run, op, n_fwd, n_bwd = FAMILIES[family](ds)
+    state = _state(model)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run(state)
+    found = {}
+    for e in prof.events():
+        if e.name.startswith(PREFIXES):
+            found.setdefault(e.name, []).append(e)
+    return found, op, n_fwd, n_bwd
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_step_records_each_phase_once_and_every_op_call(ds, family):
+    found, op, n_fwd, n_bwd = _profiled_step(ds, family)
+    assert {p: len(found.get(p, [])) for p in PHASES} == dict.fromkeys(
+        PHASES, 1)
+    assert len(found.get(f"{op}.fwd", [])) == n_fwd
+    assert len(found.get(f"{op}.bwd", [])) == n_bwd
+    assert set(found) == set(PHASES) | {f"{op}.fwd", f"{op}.bwd"}
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_op_spans_lie_inside_their_phase(ds, family):
+    found, op, _, _ = _profiled_step(ds, family)
+
+    def inside(inner, outer):
+        return (outer.time_range.start <= inner.time_range.start
+                and inner.time_range.end <= outer.time_range.end)
+
+    fwd, bwd = found["train.forward"][0], found["train.backward"][0]
+    assert all(inside(e, fwd) for e in found[f"{op}.fwd"])
+    # Whichever thread autograd ran the backward on.
+    assert all(inside(e, bwd) for e in found[f"{op}.bwd"])
+    assert inside(fwd, found["train.step"][0])
+    assert inside(found["train.optimizer"][0], found["train.step"][0])
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_profiler_changes_no_bits(ds, family):
+    def two_steps(profiled):
+        model, run, *_ = FAMILIES[family](ds)
+        state = _state(model)
+        if profiled:
+            with profile(activities=[ProfilerActivity.CPU]):
+                losses = [run(state) for _ in range(2)]
+        else:
+            losses = [run(state) for _ in range(2)]
+        loss = losses[-1][0] if isinstance(losses[-1], tuple) else losses[-1]
+        return loss, [p.detach().clone() for p in model.parameters()]
+
+    (l_on, p_on), (l_off, p_off) = two_steps(True), two_steps(False)
+    assert torch.equal(l_on, l_off)
+    assert all(torch.equal(a, b) for a, b in zip(p_on, p_off))
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_no_record_function_without_a_profiler(ds, family, monkeypatch):
+    built, real = [], spans._profiler.record_function
+
+    def spy(name, *args, **kwargs):
+        # torch's optimizer builds its own ranges through the same name.
+        if name.startswith(PREFIXES):
+            built.append(name)
+        return real(name, *args, **kwargs)
+
+    monkeypatch.setattr(spans._profiler, "record_function", spy)
+    model, run, *_ = FAMILIES[family](ds)
+    run(_state(model))
+    assert built == []
+
+
+def test_data_spans_on_the_producer_thread(ds, tmp_path):
+    """``data.sample`` and ``data.to_device`` on the prefetch thread,
+    ``data.batch_wait`` on the consumer's, in one ``trace_fn`` trace that
+    records every thread."""
+    sampler = NeighborSampler(ds.graph, [5, 3], seed=0)
+    items = prefetch(sampled_batches(sampler, np.arange(120), 8), 1,
+                     device="cpu")
+    next(items)
+
+    def one(x):
+        return next(items)[1].sum() + x
+
+    out = benchlib.trace_fn(one, (torch.zeros(()),), str(tmp_path / "t"),
+                            iters=6)
+    with open(tmp_path / "t" / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    threads = {}
+    for e in events:
+        if e.get("ph") == "X" and e["name"].startswith("data."):
+            threads.setdefault(e["name"], set()).add(e["tid"])
+    assert out == str(tmp_path / "t")
+    assert set(threads) == {"data.sample", "data.to_device",
+                            "data.batch_wait"}
+    assert threads["data.sample"] == threads["data.to_device"]
+    assert not threads["data.sample"] & threads["data.batch_wait"]
+    for _ in items:
+        pass
