@@ -127,9 +127,16 @@ reddit_sage's dataset and ``dryrun_multichip``.
     the same weights (logits, loss, every gradient), S3 launched in the
     forward and the backward of GCN and SAGE, then three AdamW steps
     through ``fit_full_graph(strategy="ell")`` with finite losses, the
-    step time, the S3 launches of a step (one per copy-sum) and the peak
-    memory of each path; one epoch of GIN (width 128) on the ELL path
-    with its S3 launches;
+    step time, the S3 launches of a step (one per copy-sum), the GAT
+    sweeps' launches of a GAT step (3 each) and the peak memory of each
+    path; one epoch of GIN (width 128) on the ELL path with its S3
+    launches; then the GAT attention's three sweeps (csrc/ell_gat.cu) on
+    the arxiv packings at the GAT's hidden layer (4 heads of 128) and
+    output layer (one head of 40), f32 and bf16, against the op's plain
+    torch (the forward's out, α, el and er; the backward's dz, d_a_l and
+    d_a_r, the plain backward on the kernel's LeakyReLU sides), bit for
+    bit on repeat, timed beside their plain versions and two bounds (the
+    bf16 GAT step of 19 launches each sweep 3 times in bf16);
 17. the command line on cora_gat (with ``layer_allclose_ok``), arxiv_gat
     and arxiv_transformer at ``--scale 1``, ``--epochs 2``: finite
     losses, launches counted;
@@ -225,7 +232,8 @@ clique suite's shapes, S3's CSR entry at the arxiv copy shape, S3 and the
 CSR entry at a reddit_sage batch's shapes, the CSR entry at the halo
 plan's shape (d = 64 and 4), S3's two hub shapes on the power-law graph
 and the CSR entry at the arxiv narrow widths (d = 1, 4, 8 and the copy at
-64), its source, the TPU kernel it replaces, its launches on its path, its
+64), and the GAT sweeps at the arxiv GAT's two shapes in f32 and bf16:
+its source, the TPU kernel it replaces, its launches on its path, its
 error, time, plain time, bound and library time.
 
 Exits non-zero on any failure, and at once when no CUDA device is present.
@@ -320,6 +328,23 @@ CLI_CONFIGS = ("cora_gat", "arxiv_gat", "arxiv_transformer")
 CLI_EPOCHS = 2
 # GIN on the arxiv configuration: width 128, one epoch on the ELL path.
 GIN_MODEL = dict(hidden_dim=128, num_layers=2)
+# The GAT attention's three ELL sweeps (csrc/ell_gat.cu), checked and timed
+# at the arxiv GAT's hidden layer (4 heads of 128, the first shape: the
+# kernel rows) and output layer (one head of 40), in f32 and bf16; a
+# 3-layer step launches each sweep once a layer. Kernel vs plain version:
+# both take f32 products and sums in other orders (the node scores,
+# softmax and sums over at most the widest bucket's slots, d_a_l and d_a_r
+# over every node), elementwise |kernel − plain| ≤ GAT_TOL·(|plain| +
+# max|plain|); in bf16 each side rounds its outputs once, so the two f32
+# results round to neighbours: |kernel − plain| ≤ BF16_RTOL·|plain| +
+# GAT_BF16_ATOL·max|plain| (dz's two terms are rounded each before their
+# add, as the plain version rounds them: a term larger than dz moves it by
+# its own rounding).
+GAT_SWEEPS = ("gat_forward", "gat_backward_dst", "gat_backward_src")
+GAT_SHAPES = ((4, 128), (1, 40))
+GAT_SLOPE = 0.2
+GAT_TOL = 1e-5
+GAT_BF16_ATOL = 1e-3
 # reddit_sage (train/run.py): the command line at full width for its
 # default 2 epochs; steps profiled for the device's idle share.
 REDDIT_SCALE = 1
@@ -394,11 +419,13 @@ def phase_device():
 
 
 class Kernels:
-    """The nine kernels and S3's CSR entry, their plain versions and where
-    they came from."""
+    """The nine kernels, S3's CSR entry and the GAT attention's three
+    sweeps, their plain versions and where they came from."""
 
     def __init__(self):
+        from custom_op_benchmark_tpu_torch.ops import ell as ell_ops
         from custom_op_benchmark_tpu_torch.ops.kernels import attention as ka
+        from custom_op_benchmark_tpu_torch.ops.kernels import ell_gat as kgat
         from custom_op_benchmark_tpu_torch.ops.kernels import gather_sum as ks
         from custom_op_benchmark_tpu_torch.ops.kernels import grid_dma as kg
         from custom_op_benchmark_tpu_torch.ops.kernels import (
@@ -441,6 +468,15 @@ class Kernels:
                 ks.csr_sum, ks.csr_sum_plain,
                 "custom_op_benchmark_tpu_torch/csrc/gather_sum.cu",
                 "scripts/exp_pallas_gather.py:63"),
+            # The GAT attention's sweeps; their plain versions are the op's
+            # plain torch, forward and backward (both passes at once).
+            **{name: (getattr(kgat, name), plain,
+                      "custom_op_benchmark_tpu_torch/csrc/ell_gat.cu",
+                      "none: the JAX package's ell_gat_attention "
+                      "(custom_op_benchmark_tpu/ops/ell.py) is plain XLA")
+               for name, plain in zip(GAT_SWEEPS, (
+                   ell_ops._gat_fwd_plain, ell_ops._gat_bwd_plain,
+                   ell_ops._gat_bwd_plain))},
         }
 
     def reset(self):
@@ -1969,6 +2005,19 @@ def phase_arxiv(kern, data):
             sums = counted_copy_sums(ell_ops, lambda: step(state, g, x,
                                                            labels, mask))
             launches = gather_sum.launches
+            if name == "GAT" and path == "ell":
+                sweeps = [kern.table[k][0] for k in GAT_SWEEPS]
+                for fn in sweeps:
+                    fn.launches = fn.launches_bf16 = 0
+                step(state, g, x, labels, mask)
+                torch.cuda.synchronize()
+                counts = [(fn.launches, fn.launches_bf16) for fn in sweeps]
+                log(f"[arxiv] GAT train step (ell): the GAT sweeps' launches "
+                    f"(f32, bf16) {dict(zip(GAT_SWEEPS, counts))}")
+                # Three layers: each sweep once a layer.
+                assert counts == [(3, 0)] * 3, counts
+                results["gat_launches"] = {
+                    k: c[0] for k, c in zip(GAT_SWEEPS, counts)}
             results[(name, path)] = (ms, peak, launches)
             log(f"[time] arxiv {name} train step ({path}) {ms:.3f} ms, "
                 f"peak memory {peak:.2f} GiB, S3 launches a step {launches} "
@@ -1992,6 +2041,175 @@ def phase_arxiv(kern, data):
     assert np.isfinite(metrics["history"][0]["loss"]), metrics
     assert results["gin_s3_launches"] > 0, results["gin_s3_launches"]
     return results
+
+
+def gat_close(label, name, got, want, bf16):
+    """A sweep's output against its plain version, elementwise (GAT_TOL, or
+    in bf16 BF16_RTOL and GAT_BF16_ATOL); returns (max|kernel − plain|,
+    that over max|plain|)."""
+    got, want = got.detach().float(), want.detach().float()
+    big = float(want.abs().max())
+    tol = (BF16_RTOL * want.abs() + GAT_BF16_ATOL * big if bf16
+           else GAT_TOL * (want.abs() + big))
+    err = (got - want).abs()
+    rel = float(err.max()) / max(big, 1e-30)
+    assert bool((err <= tol).all()), (
+        f"GAT sweeps {label} {name}: kernel vs plain {rel:.3e} of "
+        f"max|plain|")
+    return float(err.max()), rel
+
+
+def gat_signs(ell, el, er):
+    """Each bucket's LeakyReLU sides, (R, D, h) bool: ``el[u] + er[v] >
+    0`` from node scores el, er (n, h) f32, the one f32 add the kernels
+    make (the pad column and pad rows read a zero row)."""
+    elp, erp = (torch.cat([t, t.new_zeros(1, t.shape[1])]) for t in (el, er))
+    return [elp[b.cols.long()] + erp[b.rows.long()][:, None, :] > 0
+            for b in ell.buckets]
+
+
+def distinct_bytes(*tensors):
+    """The bytes of the distinct tensors among ``tensors``, each once."""
+    seen = {t.data_ptr(): t for t in tensors}
+    return sum(t.numel() * t.element_size() for t in seen.values())
+
+
+def phase_gat_sweeps(kern, data):
+    """The GAT attention's three sweeps (csrc/ell_gat.cu) on the arxiv
+    packings (training ladder) at GAT_SHAPES, f32 and bf16, against the
+    op's plain torch on the same card tensors: the forward's out, α at
+    every table slot, el and er; the backward's dz, d_a_l and d_a_r, where
+    the plain backward takes the slots' LeakyReLU sides from the kernel's
+    el and er (f32 sums in another order can put a slot's el + er, near 0,
+    on the other side of the kink, where the slopes differ; those slots
+    are counted, and the backward against the plain forward's own sides
+    printed); two runs equal bit for bit; each sweep timed in turns with
+    its plain version (the backward's both passes at once) beside two
+    bounds at 3.35 TB/s: its distinct inputs and outputs once, and each
+    real slot's gathered row once."""
+    se, de = data["ell"]
+    n = de.n_nodes
+    fwd, dst, src = (kern.table[name][0] for name in GAT_SWEEPS)
+    fwd_plain, bwd_plain = (kern.table[name][1] for name in GAT_SWEEPS[:2])
+    table = lambda e: (e.gather_table.buckets, e.gather_table.cols,
+                       e.gather_table.nodes, e.gather_table.zero_nodes)
+    t = de.gather_table
+    real = int(((t.cols >= 0) & (t.cols < n)).sum())
+    rng = np.random.default_rng(SEED + 20)
+    rows, errs = {}, {}
+    for h, d in GAT_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            label = f"h={h} d={d}" + (",bf16" if bf16 else "")
+            z, dy = (normal(rng, n, h, d, device=de.device).to(dtype)
+                     for _ in range(2))
+            a_l, a_r = ((normal(rng, h, d, device=de.device)
+                         * d ** -0.5).to(dtype) for _ in range(2))
+
+            def kernels():
+                out, alpha, el, er = fwd(de, a_l, a_r, z, GAT_SLOPE)
+                ad, der = dst(de, z, dy, alpha, el, er, GAT_SLOPE)
+                return (out, alpha, el, er, ad, der,
+                        *src(se, a_l, a_r, z, dy, ad, der))
+
+            # α and (α, dpre) are written at the real slots' flat places
+            # only: the rest of those arrays is never read.
+            slots = de.table_flat.long()[de.gather_table.cols < n]
+            defined = lambda out: [x[slots] if i in (1, 4) else x
+                                   for i, x in enumerate(out)]
+            got = kernels()
+            again = kernels()
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(
+                defined(got), defined(again))), label
+            del again
+            out, alpha, el, er, ad, der, d_a_l, d_a_r, dz = got
+            out_p, alphas_p, signs_p = fwd_plain(de, a_l, a_r, z, GAT_SLOPE)
+            el_p, er_p = (torch.einsum("nhd,hd->nh", z.float(), a.float())
+                          for a in (a_l, a_r))
+            alpha_p = torch.cat([a.reshape(-1, h) for a in alphas_p])
+            e = {"out": gat_close(label, "out", out, out_p, bf16)}
+            for name, x, w in (("alpha", alpha[slots], alpha_p[slots]),
+                               ("el", el, el_p), ("er", er, er_p)):
+                e[name] = gat_close(label, name, x, w, False)
+            signs = gat_signs(de, el, er)
+            valid = [(b.cols < n)[:, :, None] for b in de.buckets]
+            flips = sum(int(((sk != sp) & v).sum()) for sk, sp, v in
+                        zip(signs, signs_p, valid))
+            want = bwd_plain(de, se, a_l, a_r, z, alphas_p, signs, dy,
+                             GAT_SLOPE)
+            for name, x, w in zip(("d_a_l", "d_a_r", "dz"),
+                                  (d_a_l, d_a_r, dz), want):
+                assert x.dtype == w.dtype and x.shape == w.shape, name
+                e[name] = gat_close(label, name, x, w, bf16)
+            own = bwd_plain(de, se, a_l, a_r, z, alphas_p, signs_p, dy,
+                            GAT_SLOPE)
+            own_err = {name: rel_err(x, w) for name, x, w in
+                       zip(("d_a_l", "d_a_r", "dz"), (d_a_l, d_a_r, dz),
+                           own)}
+            del want, own
+            log(f"[gat] {label}: kernel vs plain, max err / max|plain|: "
+                + ", ".join(f"{k} {v[1]:.2e}" for k, v in e.items())
+                + f"; bit for bit on repeat; {flips} of {real * h} slot "
+                f"sides differ between the kernel's el + er and the plain "
+                f"forward's; the backward against those sides: "
+                + ", ".join(f"{k} {v:.2e}" for k, v in own_err.items()))
+            # A sweep's error over its outputs (the backward's for both
+            # passes): the largest absolute, the largest over an output's
+            # max.
+            for names, keys in ((GAT_SWEEPS[:1], ("out", "alpha", "el", "er")),
+                                (GAT_SWEEPS[1:], ("d_a_l", "d_a_r", "dz"))):
+                for name in names:
+                    errs[(name, label)] = tuple(max(e[k][i] for k in keys)
+                                                for i in range(2))
+
+            calls = {
+                "gat_forward": (lambda: fwd(de, a_l, a_r, z, GAT_SLOPE),
+                                lambda: fwd_plain(de, a_l, a_r, z,
+                                                  GAT_SLOPE)),
+                "gat_backward_dst": (
+                    lambda: dst(de, z, dy, alpha, el, er, GAT_SLOPE),
+                    lambda: bwd_plain(de, se, a_l, a_r, z, alphas_p,
+                                      signs_p, dy, GAT_SLOPE)),
+                "gat_backward_src": (
+                    lambda: src(se, a_l, a_r, z, dy, ad, der), None),
+            }
+            moved = {
+                "gat_forward": (*table(de), de.table_flat, z, a_l, a_r, out,
+                                alpha, el, er),
+                "gat_backward_dst": (*table(de), de.table_flat, z, dy, alpha,
+                                     el, er, ad, der),
+                "gat_backward_src": (*table(se), se.table_twin, dy, ad, der,
+                                     z, a_l, a_r, dz, d_a_l, d_a_r),
+            }
+            gathered = real * h * d * z.element_size()
+            for name, (kfn, pfn) in calls.items():
+                p1 = time_ms(pfn) if pfn else None
+                k1, k2 = time_ms(kfn), time_ms(kfn)
+                p2 = time_ms(pfn) if pfn else None
+                nbytes = distinct_bytes(*moved[name])
+                row = dict(ms=(k1 + k2) / 2,
+                           plain_ms=(p1 + p2) / 2 if pfn else None,
+                           bound_ms=nbytes / PEAK_BYTES * 1e3,
+                           bound_by="bytes",
+                           bound_rows_ms=gathered / PEAK_BYTES * 1e3,
+                           library_ms=None,
+                           library="n/a (no PyTorch call computes the sweep)")
+                rows[(name, label)] = row
+                plain = (f"plain {p1:.4f}/{p2:.4f} ms"
+                         + (" (both passes)" if name != "gat_forward"
+                            else "") if pfn else "plain: in the row above")
+                log(f"[time] {name:18s} {label:14s} kernel {k1:.4f}/"
+                    f"{k2:.4f} ms  {plain}  bound {row['bound_ms']:.4f} ms "
+                    f"({nbytes / 1e6:.1f} MB once) share "
+                    f"{row['bound_ms'] / row['ms']:.3f}; each real slot's "
+                    f"row once ({gathered / 1e9:.3f} GB) "
+                    f"{row['bound_rows_ms']:.4f} ms, share "
+                    f"{row['bound_rows_ms'] / row['ms']:.3f}")
+            del got, out, alpha, el, er, ad, der, d_a_l, d_a_r, dz, z, dy
+            del out_p, alphas_p, signs_p, alpha_p, signs, calls, moved
+            torch.cuda.empty_cache()
+    return dict(rows=rows, errs=errs)
 
 
 def s3_l2_rate(dev, table_rows=16384, d=128, rows=125_000, slots=16):
@@ -2176,6 +2394,8 @@ def phase_dtype(kern, dev, g, tg, arxiv):
                                dtype=dt),
         arxiv["g"], {None: arxiv["x"], torch.bfloat16: arxiv["x"]},
         arxiv["labels"], arxiv["mask"], views)
+    assert all(gat_launches[1][k] == 3 and gat_launches[0][k] == 0
+               for k in GAT_SWEEPS), gat_launches
     torch.cuda.empty_cache()
     # GraphSAGE takes no dtype: it follows its features (f32 weights), so
     # its "bf16" model is the f32 one on bf16 features.
@@ -2188,6 +2408,7 @@ def phase_dtype(kern, dev, g, tg, arxiv):
     assert sage_launches[1]["gather_sum"] > 0, sage_launches
     return dict(slice_bf16_launches=n16, slice=slice_times, gat=gat_times,
                 gat_launches=gat_launches, sage=sage_times,
+                gat_bf16_launches={k: gat_launches[1][k] for k in GAT_SWEEPS},
                 s3_bf16_launches=sage_launches[1]["gather_sum"])
 
 
@@ -3301,6 +3522,17 @@ def phase_dryrun(dev):
     log(f"[dryrun] dryrun_multichip({DIST_SHARDS}) on the card: {losses}")
 
 
+def gat_shape(name, at, launches):
+    """The shape text of a GAT sweep's kernel row."""
+    return (f"arxiv {'src' if name == 'gat_backward_src' else 'dst'} "
+            f"packing (training ladder), {at}"
+            + ("; plain: the plain backward, both passes"
+               if name == "gat_backward_dst" else "")
+            + ("; plain: in gat_backward_dst's row"
+               if name == "gat_backward_src" else "")
+            + f"; launches: {launches}")
+
+
 def kernel_row(name, source, replaces, n, err, row, shape):
     out = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": n, "max_abs_err": err,
@@ -3308,7 +3540,8 @@ def kernel_row(name, source, replaces, n, err, row, shape):
            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
            "library_ms": row["library_ms"], "library": row["library"],
            "shape": shape}
-    for extra in ("bound_l2_ms", "embedding_bag_ms"):
+    for extra in ("bound_l2_ms", "embedding_bag_ms", "bound_rows_ms",
+                  "max_err_of_max"):
         if extra in row:
             out[extra] = row[extra]
     return out
@@ -3392,6 +3625,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     arxiv_in = run("arxiv build", arxiv_data, dev)
     arxiv = run("arxiv", phase_arxiv, kern, arxiv_in)
+    gat = run("gat sweeps", phase_gat_sweeps, kern, arxiv_in)
+    gc.collect()
+    torch.cuda.empty_cache()
     csr_errs, csr_row, csr_narrow, gat_csr = run("csr", phase_csr, kern,
                                                  arxiv_in, l2_rate)
     gc.collect()
@@ -3447,6 +3683,14 @@ def main() -> int:
             shape = ("arxiv copy-sum: 160,000 rows, 4.31M slots through "
                      "src_csc, d=128; launches: the reddit_sage command "
                      "line at --scale 1 (sampled backward, evaluation)")
+        elif name in GAT_SWEEPS:
+            h, d = GAT_SHAPES[0]
+            key = (name, f"h={h} d={d}")
+            row = dict(gat["rows"][key], max_err_of_max=gat["errs"][key][1])
+            err, n = gat["errs"][key][0], arxiv["gat_launches"][name]
+            shape = gat_shape(name, f"h={h} d={d}, f32",
+                              "one arxiv GAT train step (3 layers) on the "
+                              "ELL path")
         elif name == "gather_sum":
             row, err = s3_times["gather_sum"], s3_errs["gather_sum:experiment"]
             n = arxiv["s3_launches"]
@@ -3564,6 +3808,19 @@ def main() -> int:
         "halo plan of the products-like graph, dst_loc's sorted segments, "
         "x (8·E_p, 4): the edge softmax's sums; launches: the segment forms "
         "in the dist parity phase"))
+    for (name, label), row in gat["rows"].items():
+        if label == "h={} d={}".format(*GAT_SHAPES[0]):
+            continue
+        _, _, source, replaces = kern.table[name]
+        bf16 = label.endswith(",bf16")
+        report.append(kernel_row(
+            f"{name}:{label}", source, replaces,
+            (dtype["gat_bf16_launches"] if bf16
+             else arxiv["gat_launches"])[name], gat["errs"][(name, label)][0],
+            dict(row, max_err_of_max=gat["errs"][(name, label)][1]),
+            gat_shape(name, label.replace(",bf16", ", bf16"),
+                      "one arxiv GAT train step (3 layers) on the ELL path"
+                      + (" in bf16" if bf16 else ""))))
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,9 @@
 // are random, so the rate is set by how many of them are in flight and by
 // the L2's rate for them; x itself often fits the 50 MB L2.
 //
-// The design (one row engine for both entries):
+// The design (one row engine for both entries; the table, its task
+// numbering and the pad-skipping walk are ell_table.cuh's, which the GAT
+// attention's sweeps in ell_gat.cu share):
 //
 // - Lanes sized to the width. A row's features are spread over G lanes,
 //   4 a lane as one 16-byte load (8 bytes for bf16) when rows are
@@ -114,14 +116,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "ell_table.cuh"
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int UNROLL = 4;
-constexpr int PIECE = 256;
-constexpr int MAX_BUCKETS = 64;
+namespace {
 
 // s += v, carrying the rounding error of each add in c (Kahan).
 __device__ __forceinline__ void kahan_add(float& s, float& c, float v) {
@@ -217,15 +214,6 @@ struct Chunk<bf16, false> : Vec1 {
   }
 };
 
-// The lanes a row takes: the smallest power of two that covers d at
-// per_lane features a lane, at most 32.
-int lanes_for(int d, int per_lane) {
-  const int need = (d + per_lane - 1) / per_lane;
-  int g = 1;
-  while (g < need && g < 32) g <<= 1;
-  return g;
-}
-
 // Where a lane works: its group's task (task / n_chunks is the unit: a
 // row, a piece or a zero row; task % n_chunks the feature chunk), its lane
 // in the group and its first feature f (active: f < d).
@@ -237,14 +225,12 @@ struct Lane {
 
 template <typename C>
 __device__ __forceinline__ Lane lane_of(int G, int d, int n_chunks) {
+  const Group g = group_of(G);
   Lane l;
-  l.lane = threadIdx.x & 31;
-  l.in_group = l.lane & (G - 1);
-  const long long task =
-      ((long long)blockIdx.x * WARPS + (threadIdx.x >> 5)) * (32 / G) +
-      l.lane / G;
-  l.unit = task / n_chunks;
-  l.chunk = (int)(task % n_chunks);
+  l.lane = g.lane;
+  l.in_group = g.in_group;
+  l.unit = g.task / n_chunks;
+  l.chunk = (int)(g.task % n_chunks);
   l.f = (l.chunk * G + l.in_group) * C::PER_LANE;
   l.active = l.f < d;
   return l;
@@ -253,13 +239,10 @@ __device__ __forceinline__ Lane lane_of(int G, int d, int n_chunks) {
 // The sum, at this lane's features, of x's rows named by slots k0 ..
 // k1 - 1, in slot order, compensated, added to (acc, carry). With IDX slot
 // k names row ids[k], else row k itself; a slot naming a row outside
-// [0, n_x) is skipped. A warp-wide group (G == 32) with ids loads 32 of
-// them at once, coalesced, takes a ballot of the valid ones and compacts
-// them in slot order into its warp's 32 ints of shared memory (`compact`:
-// each valid lane writes its id at its rank), so a padded slot costs
-// nothing but its share of one load; then it walks them. Narrower groups
-// and slots that are rows load as they go. UNROLL rows are loaded before
-// they are added.
+// [0, n_x) is skipped. A warp-wide group (G == 32) with ids walks only
+// the valid slots (compact_walk, into its warp's 32 ints of shared memory
+// `compact`); narrower groups and slots that are rows load as they go.
+// UNROLL rows are loaded before they are added.
 template <typename E, bool VEC, bool IDX>
 __device__ __forceinline__ void seg_sum(
     const int* __restrict__ ids, int k0, int k1, const E* __restrict__ x,
@@ -267,15 +250,8 @@ __device__ __forceinline__ void seg_sum(
     typename Chunk<E, VEC>::T& acc, typename Chunk<E, VEC>::T& carry) {
   using C = Chunk<E, VEC>;
   if (IDX && G == 32) {
-    for (int base = k0; base < k1; base += 32) {
-      const int mine =
-          base + l.lane < k1 ? __ldg(ids + base + l.lane) : -1;
-      const unsigned valid =
-          __ballot_sync(FULL, (unsigned)mine < (unsigned)n_x);
-      if ((valid >> l.lane) & 1)
-        compact[__popc(valid & ((1u << l.lane) - 1))] = mine;
-      __syncwarp();
-      const int n = __popc(valid);
+    compact_walk(ids, k0, k1, n_x, l.lane, compact, nullptr,
+                 [](int) { return 0; }, [&](int n) {
       int j = 0;
       for (; j + UNROLL <= n; j += UNROLL) {
         typename C::T v[UNROLL];
@@ -289,8 +265,7 @@ __device__ __forceinline__ void seg_sum(
       for (; j < n; ++j)
         if (l.active)
           C::add(acc, carry, C::load(x + (size_t)compact[j] * d + l.f));
-      __syncwarp();                         // read before rewritten
-    }
+    });
     return;
   }
   int k = k0;
@@ -343,54 +318,6 @@ __device__ __forceinline__ void add_partial(const float* p, int d, int f,
 // ELL entry
 // ---------------------------------------------------------------------------
 
-// The table in shared memory, with each bucket's pieces a row and where its
-// pass-1 tasks (units), partials and split rows (pass-2 units) begin; the
-// entry at n_buckets holds the totals.
-struct Tab {
-  int off[MAX_BUCKETS], width[MAX_BUCKETS], pieces[MAX_BUCKETS];
-  int first[MAX_BUCKETS + 1];
-  long long unit0[MAX_BUCKETS + 1], part0[MAX_BUCKETS + 1],
-      split0[MAX_BUCKETS + 1];
-};
-
-__device__ __forceinline__ void load_tab(Tab& t, const int* table,
-                                         int n_buckets, int n_rows) {
-  for (int b = threadIdx.x; b < n_buckets; b += THREADS) {
-    t.off[b] = table[3 * b];
-    t.width[b] = table[3 * b + 1];
-    t.first[b] = table[3 * b + 2];
-    t.pieces[b] = t.width[b] > PIECE ? (t.width[b] + PIECE - 1) / PIECE : 1;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    t.first[n_buckets] = n_rows;
-    long long u = 0, p = 0, s = 0;
-    for (int b = 0; b < n_buckets; ++b) {
-      t.unit0[b] = u;
-      t.part0[b] = p;
-      t.split0[b] = s;
-      const long long rows = t.first[b + 1] - t.first[b];
-      u += rows * t.pieces[b];
-      if (t.pieces[b] > 1) {
-        p += rows * t.pieces[b];
-        s += rows;
-      }
-    }
-    t.unit0[n_buckets] = u;
-    t.part0[n_buckets] = p;
-    t.split0[n_buckets] = s;
-  }
-  __syncthreads();
-}
-
-// The bucket whose range of a (a prefix over the buckets) holds v.
-__device__ __forceinline__ int bucket_of(const long long* a, int n_buckets,
-                                         long long v) {
-  int b = 0;
-  while (b + 1 < n_buckets && a[b + 1] <= v) ++b;
-  return b;
-}
-
 // Pass 1: one group per unit: a piece of a row, in table order (a row of
 // one piece is stored at once, a longer row's pieces go to the scratch),
 // then the zero rows.
@@ -414,20 +341,15 @@ gather_sum_kernel(const int* __restrict__ table, int n_buckets,
       C::store(y + (size_t)zero_nodes[z] * d + l.f, C::zero());
     return;
   }
-  const int b = bucket_of(tab.unit0, n_buckets, l.unit);
-  const long long local = l.unit - tab.unit0[b];
-  const int P = tab.pieces[b], D = tab.width[b];
-  const int row = (int)(local / P), piece = (int)(local % P);
-  const int* row_cols = cols + tab.off[b] + (size_t)row * D;
+  const Piece q = piece_of(tab, n_buckets, l.unit);
   typename C::T acc = C::zero(), carry = C::zero();
-  seg_sum<E, VEC, true>(row_cols, piece * PIECE, min(D, (piece + 1) * PIECE),
-                        x, d, n_x, l, G, compact, acc, carry);
+  seg_sum<E, VEC, true>(cols + q.base, q.k0, q.k1, x, d, n_x, l, G, compact,
+                        acc, carry);
   if (!l.active) return;
-  if (P == 1)
-    C::store(y + (size_t)nodes[tab.first[b] + row] * d + l.f, acc);
+  if (q.P == 1)
+    C::store(y + (size_t)nodes[tab.first[q.b] + q.row] * d + l.f, acc);
   else
-    put_partial<C>(partial(scratch, tab.part0[b] + local, d), d, l.f, acc,
-                   carry);
+    put_partial<C>(partial(scratch, q.part, d), d, l.f, acc, carry);
 }
 
 // Pass 2: one group per split row, in table order: its partials combined
@@ -443,15 +365,12 @@ gather_combine_kernel(const int* __restrict__ table, int n_buckets,
   load_tab(tab, table, n_buckets, n_rows);
   const Lane l = lane_of<C>(G, d, n_chunks);
   if (l.unit >= tab.split0[n_buckets] || !l.active) return;
-  const int b = bucket_of(tab.split0, n_buckets, l.unit);
-  const int row = (int)(l.unit - tab.split0[b]);
-  const int P = tab.pieces[b];
-  const long long s0 = tab.part0[b] + (long long)row * P;
+  const Split sp = split_of(tab, n_buckets, l.unit);
   typename C::T s = C::zero(), c = C::zero();
-  for (int p = 0; p < P; ++p)
-    add_partial<C>(partial(const_cast<float*>(scratch), s0 + p, d), d, l.f,
-                   s, c);
-  C::store(y + (size_t)nodes[tab.first[b] + row] * d + l.f, s);
+  for (int p = 0; p < sp.P; ++p)
+    add_partial<C>(partial(const_cast<float*>(scratch), sp.part + p, d), d,
+                   l.f, s, c);
+  C::store(y + (size_t)nodes[tab.first[sp.b] + sp.row] * d + l.f, s);
 }
 
 // Units (pass 1) and split rows (pass 2) are bounds from the host; the
@@ -465,20 +384,17 @@ int launch(const int* table, int n_buckets, const int* cols,
   if (n_buckets > MAX_BUCKETS) return (int)cudaErrorInvalidValue;
   const int G = lanes_for(d, C::PER_LANE);
   const int n_chunks = (d + G * C::PER_LANE - 1) / (G * C::PER_LANE);
-  const long long per_block = (long long)WARPS * (32 / G);
-  const long long b1 = ((long long)n_units * n_chunks + per_block - 1) /
-                       per_block;
-  const long long b2 = ((long long)n_split * n_chunks + per_block - 1) /
-                       per_block;
-  if (b1 > 0x7fffffffLL || b2 > 0x7fffffffLL)
-    return (int)cudaErrorInvalidConfiguration;
+  unsigned b1, b2;
+  int bad = blocks_for((long long)n_units * n_chunks, G, &b1);
+  if (!bad) bad = blocks_for((long long)n_split * n_chunks, G, &b2);
+  if (bad) return bad;
   if (b1 == 0) return 0;
-  gather_sum_kernel<E, VEC><<<(unsigned)b1, THREADS, 0, stream>>>(
+  gather_sum_kernel<E, VEC><<<b1, THREADS, 0, stream>>>(
       table, n_buckets, cols, nodes, n_rows, zero_nodes, n_zero, x, y, d,
       n_x, G, n_chunks, scratch);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || b2 == 0) return (int)err;
-  gather_combine_kernel<E, VEC><<<(unsigned)b2, THREADS, 0, stream>>>(
+  gather_combine_kernel<E, VEC><<<b2, THREADS, 0, stream>>>(
       table, n_buckets, nodes, n_rows, y, d, G, n_chunks, scratch);
   return (int)cudaGetLastError();
 }

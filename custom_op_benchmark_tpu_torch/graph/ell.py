@@ -16,7 +16,10 @@ Packing runs on the host, in the native graphcore library where it builds
 same arrays, as the JAX package's two packers do. The tensors then move to
 the graph's device. Each packing also carries, built on first use and cached, the
 table that the copy-sum kernel S3 sweeps in one launch over all buckets
-(:class:`GatherTable`) and its rows' degrees.
+(:class:`GatherTable`), its rows' degrees, and where the table's slots lie
+in the flat slot order and in the twin packing's (``table_flat``,
+``table_twin``: the GAT sweeps' per-slot values cross between the
+packings there).
 """
 
 from __future__ import annotations
@@ -177,12 +180,10 @@ class EllGraph:
         bucket first, each summed into its node's output row; nodes of
         degree 0 are the zero rows. Built on the host once, on this
         packing's device."""
-        order = sorted(range(len(self.buckets)),
-                       key=lambda i: -self.buckets[i].width)
         n = self.n_nodes
         table, cols, nodes = [], [], []
         off = row = 0
-        for i in order:
+        for i in self._widest_first():
             b = self.buckets[i]
             owners = _host(b.rows)
             real = owners < n
@@ -208,6 +209,44 @@ class EllGraph:
             layout=tuple((int(o), int(w), int(r0), len(c))
                          for (o, w, r0), c in zip(table, nodes)))
         return tab if self.device.type == "cpu" else tab.to(self.device)
+
+    def _widest_first(self) -> List[int]:
+        """The buckets' indices in the order of :attr:`gather_table`."""
+        return sorted(range(len(self.buckets)),
+                      key=lambda i: -self.buckets[i].width)
+
+    @functools.cached_property
+    def table_flat(self) -> torch.Tensor:
+        """(S,) int32: for each slot of ``gather_table.cols``, its slot in
+        the concatenation of the buckets' ``(R·D,)`` flats, the order that
+        ``edge_pos`` and ``twin_slot`` index (a table row is its bucket's
+        row of the same owner). Built on the host once, on this packing's
+        device."""
+        base = np.cumsum([0] + [b.num_rows * b.width for b in self.buckets])
+        flat = [np.zeros(0, dtype=np.int64)]
+        for i in self._widest_first():
+            b = self.buckets[i]
+            real = np.flatnonzero(_host(b.rows) < self.n_nodes)
+            flat.append((base[i] + real[:, None] * b.width
+                         + np.arange(b.width)).reshape(-1))
+        return torch.from_numpy(
+            np.concatenate(flat).astype(np.int32)).to(self.device)
+
+    @functools.cached_property
+    def table_twin(self) -> torch.Tensor:
+        """(S,) int32: ``twin_slot`` in ``gather_table``'s slot order, so
+        for each slot the slot of its edge in the twin packing's flat
+        order (the twin's ``total_slots`` for a pad slot). Needs a packing
+        from ``ops.ell.ell_dual``."""
+        if self.twin_slot is None:
+            raise ValueError("table_twin needs twin_slot: build the "
+                             "packings with ops.ell.ell_dual")
+        twin = np.concatenate([np.zeros(0, dtype=np.int32)]
+                              + [_host(t).reshape(-1)
+                                 for t in self.twin_slot])
+        return torch.from_numpy(
+            np.ascontiguousarray(twin[_host(self.table_flat)])).to(
+                self.device)
 
     @functools.cached_property
     def row_degree(self) -> torch.Tensor:

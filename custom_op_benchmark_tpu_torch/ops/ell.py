@@ -15,7 +15,7 @@ contracts as ops/primitives.py:
   ``twin_slot`` (:func:`ell_cross_packed`);
 - the fused attentions keep α (and GAT's LeakyReLU sign) as the forward's
   residual; the gathered ``(R, D, h, d)`` tiles are made one bucket at a
-  time and never saved.
+  time and never saved (the GAT attention on the card makes none).
 
 Every op is a ``torch.autograd.Function`` with the reference's hand VJP;
 its forward and backward run inside the spans ``ell.<op>.fwd`` and
@@ -26,8 +26,10 @@ block-indicator matmuls, its optimisation-barrier hop and its lane tiling
 of narrow gathers change only how XLA lowers the code on a TPU, so they
 are left out. The copy-sum sweep is the CUDA kernel S3
 (ops/kernels/gather_sum.py), forward and backward, one launch over all
-buckets of a packing; the other ops are plain torch, as they are plain
-XLA in the reference.
+buckets of a packing; the GAT attention's three sweeps are the CUDA
+kernels of ops/kernels/ell_gat.py on CUDA tensors (its plain torch runs on
+CPU tensors); the other ops are plain torch, as they are plain XLA in the
+reference.
 
 Internally node tensors are ``(n, h, d)`` and per-edge scores and weights
 ``(E, h)``; the public functions take the reference's ranks, ``(n, d)``
@@ -61,7 +63,9 @@ from custom_op_benchmark_tpu_torch.graph.ell import (
     ell_pack,
 )
 from custom_op_benchmark_tpu_torch.graph.graph import Graph
+from custom_op_benchmark_tpu_torch.ops.kernels import ell_gat
 from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import gather_sum
+from custom_op_benchmark_tpu_torch.ops.kernels.tiled_kernels import _on_cpu
 from custom_op_benchmark_tpu_torch.utils.spans import spanned
 
 MASK_VALUE = -1e30
@@ -721,31 +725,80 @@ def ell_node_mul_edge(ell: EllGraph, ell_t: EllGraph, A, Be):
 # Fused GAT attention
 # ---------------------------------------------------------------------------
 
+def _gat_fwd_plain(ell, a_l, a_r, z, slope):
+    """The forward on the dst packing in plain torch: (out (n, h, d) in
+    z's dtype, per-bucket α, per-bucket LeakyReLU signs)."""
+    n = z.shape[0]
+    zf, a_lf, a_rf = _f32(z, a_l, a_r)
+    zp = _pad_nodes(zf, ell.n_nodes)
+    el = torch.einsum("nhd,hd->nh", zp, a_lf)        # (n+1, h)
+    er = torch.einsum("nhd,hd->nh", zp, a_rf)
+    outs, alphas, signs = [], [], []
+    for b in ell.buckets:
+        cols = b.cols.long()
+        pre = el[cols] + er[b.rows.long()][:, None, :]   # (R, D, h)
+        s = torch.where(pre > 0, pre, slope * pre)
+        alpha = _masked_softmax(s, b.cols < ell.n_nodes)
+        outs.append(torch.einsum("rkh,rkhd->rhd", alpha, zp[cols]))
+        alphas.append(alpha)
+        signs.append(pre > 0)
+    return ell_combine_rows(ell, outs)[:n].to(z.dtype), alphas, signs
+
+
+def _gat_bwd_plain(ell, ell_t, a_l, a_r, z, alphas, signs, dy, slope):
+    """The backward in plain torch: (d_a_l, d_a_r, dz)."""
+    n, h = z.shape[0], z.shape[1]
+    zf, a_lf, a_rf = _f32(z, a_l, a_r)
+    zp = _pad_nodes(zf, ell.n_nodes)
+    dyp = _pad_nodes(dy.float(), ell.n_nodes)
+    der_c, both = [], []
+    for b, alpha, sign in zip(ell.buckets, alphas, signs):
+        dalpha = torch.einsum("rhd,rkhd->rkh", dyp[b.rows.long()],
+                              zp[b.cols.long()])
+        agg = (alpha * dalpha).sum(1, keepdim=True)
+        dS = alpha * (dalpha - agg)
+        dpre = torch.where(sign, dS, slope * dS)
+        der_c.append(dpre.sum(1))                    # (R, h)
+        both.append(torch.cat([alpha, dpre], -1))    # (R, D, 2h)
+    der = ell_combine_rows(ell, der_c)[:n]
+    both_t = ell_cross_packed(ell, ell_t, both)
+    del both
+    dz_c, del_c = [], []
+    for b, bt in zip(ell_t.buckets, both_t):
+        dz_c.append(torch.einsum("rkh,rkhd->rhd", bt[..., :h],
+                                 dyp[b.cols.long()]))
+        del_c.append(bt[..., h:].sum(1))
+    d_el = ell_combine_rows(ell_t, del_c)[:n]           # (n, h)
+    dz_src = (ell_combine_rows(ell_t, dz_c)[:n]
+              + d_el[..., None] * a_lf).to(z.dtype)
+    dz = (der[..., None] * a_rf).to(z.dtype) + dz_src
+    d_a_l = torch.einsum("nh,nhd->hd", d_el, zf).to(a_l.dtype)
+    d_a_r = torch.einsum("nh,nhd->hd", der, zf).to(a_r.dtype)
+    return d_a_l, d_a_r, dz
+
+
 class _EllGat(Function):
+    """On CUDA tensors the three sweeps of ops/kernels/ell_gat.py (z padded
+    to the packing's nodes; the residuals α in the dst packing's flat slot
+    order, el and er); on CPU tensors the plain torch above (the residuals
+    α and the LeakyReLU signs per bucket)."""
+
     @staticmethod
     @spanned("ell.gat_attention.fwd")
     def forward(ctx, ell, ell_t, a_l, a_r, z, slope):
-        ctx.graphs, ctx.slope = (ell, ell_t), slope
+        ctx.graphs, ctx.slope, ctx.n = (ell, ell_t), slope, z.shape[0]
         if not ell.buckets:
             ctx.save_for_backward(a_l, a_r, z)
             return torch.zeros_like(z)
-        n = z.shape[0]
-        zf, a_lf, a_rf = _f32(z, a_l, a_r)
-        zp = _pad_nodes(zf, ell.n_nodes)
-        el = torch.einsum("nhd,hd->nh", zp, a_lf)        # (n+1, h)
-        er = torch.einsum("nhd,hd->nh", zp, a_rf)
-        outs, alphas, signs = [], [], []
-        for b in ell.buckets:
-            cols = b.cols.long()
-            pre = el[cols] + er[b.rows.long()][:, None, :]   # (R, D, h)
-            s = torch.where(pre > 0, pre, slope * pre)
-            alpha = _masked_softmax(s, b.cols < ell.n_nodes)
-            outs.append(torch.einsum("rkh,rkhd->rhd", alpha, zp[cols]))
-            alphas.append(alpha)
-            signs.append(pre > 0)
-        ctx.n_alpha = len(alphas)
-        ctx.save_for_backward(a_l, a_r, z, *alphas, *signs)
-        return ell_combine_rows(ell, outs)[:n].to(z.dtype)
+        if _on_cpu(a_l, a_r, z, ell.row_pos):
+            out, alphas, signs = _gat_fwd_plain(ell, a_l, a_r, z, slope)
+            ctx.n_alpha = len(alphas)
+            ctx.save_for_backward(a_l, a_r, z, *alphas, *signs)
+            return out
+        zk = _pad_rows(z, ell.n_nodes).contiguous()
+        out, alpha, el, er = ell_gat.gat_forward(ell, a_l, a_r, zk, slope)
+        ctx.save_for_backward(a_l, a_r, zk, alpha, el, er)
+        return out[: ctx.n]
 
     @staticmethod
     @spanned("ell.gat_attention.bwd")
@@ -763,36 +816,18 @@ class _EllGat(Function):
         if not ell.buckets:
             return (None, None, torch.zeros_like(a_l), torch.zeros_like(a_r),
                     torch.zeros_like(z), None)
-        alphas, signs = rest[: ctx.n_alpha], rest[ctx.n_alpha:]
-        slope = ctx.slope
-        n, h = z.shape[0], z.shape[1]
-        zf, a_lf, a_rf = _f32(z, a_l, a_r)
-        zp = _pad_nodes(zf, ell.n_nodes)
-        dyp = _pad_nodes(dy.float(), ell.n_nodes)
-        der_c, both = [], []
-        for b, alpha, sign in zip(ell.buckets, alphas, signs):
-            dalpha = torch.einsum("rhd,rkhd->rkh", dyp[b.rows.long()],
-                                  zp[b.cols.long()])
-            agg = (alpha * dalpha).sum(1, keepdim=True)
-            dS = alpha * (dalpha - agg)
-            dpre = torch.where(sign, dS, slope * dS)
-            der_c.append(dpre.sum(1))                    # (R, h)
-            both.append(torch.cat([alpha, dpre], -1))    # (R, D, 2h)
-        der = ell_combine_rows(ell, der_c)[:n]
-        both_t = ell_cross_packed(ell, ell_t, both)
-        del both
-        dz_c, del_c = [], []
-        for b, bt in zip(ell_t.buckets, both_t):
-            dz_c.append(torch.einsum("rkh,rkhd->rhd", bt[..., :h],
-                                     dyp[b.cols.long()]))
-            del_c.append(bt[..., h:].sum(1))
-        d_el = ell_combine_rows(ell_t, del_c)[:n]           # (n, h)
-        dz_src = (ell_combine_rows(ell_t, dz_c)[:n]
-                  + d_el[..., None] * a_lf).to(z.dtype)
-        dz = (der[..., None] * a_rf).to(z.dtype) + dz_src
-        d_a_l = torch.einsum("nh,nhd->hd", d_el, zf).to(a_l.dtype)
-        d_a_r = torch.einsum("nh,nhd->hd", der, zf).to(a_r.dtype)
-        return None, None, d_a_l, d_a_r, dz, None
+        if _on_cpu(z):
+            alphas, signs = rest[: ctx.n_alpha], rest[ctx.n_alpha:]
+            grads = _gat_bwd_plain(ell, ell_t, a_l, a_r, z, alphas, signs,
+                                   dy, ctx.slope)
+            return (None, None, *grads, None)
+        alpha, el, er = rest
+        dyk = _pad_rows(dy, ell.n_nodes).contiguous()
+        ad, der = ell_gat.gat_backward_dst(ell, z, dyk, alpha, el, er,
+                                           ctx.slope)
+        d_a_l, d_a_r, dz = ell_gat.gat_backward_src(ell_t, a_l, a_r, z, dyk,
+                                                    ad, der)
+        return None, None, d_a_l, d_a_r, dz[: ctx.n], None
 
 
 def ell_gat_attention(ell: EllGraph, ell_t: EllGraph, a_l, a_r, z, *,

@@ -24,7 +24,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("tiled_kernels.cu", "attention.cu", "grid_dma.cu",
-           "gather_sum.cu", "l2_probe.cu")
+           "gather_sum.cu", "l2_probe.cu", "ell_gat.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -32,8 +32,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # Argument types of every C entry point; pointers and the stream are
 # c_void_p so ctypes does not cut them to 32 bits.
-# The _bf16 entry points of K1–K4, S1, S2, S3 and S3's CSR entry take the
-# same arguments as their _f32 ones.
+# The _bf16 entry points of K1–K4, S1, S2, S3, S3's CSR entry and the GAT
+# sweeps take the same arguments as their _f32 ones.
 _SIGNATURES = {
     "sddmm_tiles_f32": [_P] * 6 + [_I] * 6 + [_P],
     "spmm_row_sweep_f32": [_P] * 5 + [_I] * 7 + [_P],
@@ -49,6 +49,12 @@ _SIGNATURES = {
     + [_P] + [_I] * 3 + [_P],
     "csr_sum_f32": [_P, _I, _P, _P, _P] + [_I] * 3 + [_P] + [_I] * 2 + [_P],
     "l2_probe_f32": [_P, _I, _I, _I, _I, _P, _I, _P],
+    "ell_gat_fwd_f32": [_P, _I, _P, _P, _I, _P, _I] + [_P] * 4 + [_I] * 3
+    + [ctypes.c_float] + [_P] * 5 + [_I] * 4 + [_P],
+    "ell_gat_bwd_dst_f32": [_P, _I, _P, _P, _I, _P, _I] + [_P] * 6
+    + [_I] * 3 + [ctypes.c_float] + [_P] * 3 + [_I] * 3 + [_P],
+    "ell_gat_bwd_src_f32": [_P, _I, _P, _P, _I, _P, _I] + [_P] * 7
+    + [_I] * 3 + [_P] * 5 + [_I] * 4 + [_P],
 }
 _SIGNATURES.update({name.replace("_f32", "_bf16"): _SIGNATURES[name]
                     for name in ("sddmm_tiles_f32", "spmm_row_sweep_f32",
@@ -56,7 +62,9 @@ _SIGNATURES.update({name.replace("_f32", "_bf16"): _SIGNATURES[name]
                                  "fused_attention_rows_f32",
                                  "spmm_row_sweep_dma_f32",
                                  "spmm_row_sweep_dma_v2_f32",
-                                 "gather_sum_f32", "csr_sum_f32")})
+                                 "gather_sum_f32", "csr_sum_f32",
+                                 "ell_gat_fwd_f32", "ell_gat_bwd_dst_f32",
+                                 "ell_gat_bwd_src_f32")})
 
 
 def _nvcc() -> str:

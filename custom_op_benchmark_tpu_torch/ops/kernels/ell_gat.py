@@ -1,0 +1,148 @@
+"""The GAT attention's three ELL sweeps as CUDA kernels (csrc/ell_gat.cu).
+
+``ops/ell.py``'s ``_EllGat`` runs these on CUDA tensors; its plain torch
+code (``_gat_fwd_plain``, ``_gat_bwd_plain``) runs on CPU tensors, as the
+other wrappers of ``ops/kernels`` run their plain versions. Each sweep is
+one call over all buckets of a packing, driven by the packing's
+:class:`~custom_op_benchmark_tpu_torch.graph.ell.GatherTable`:
+
+- :func:`gat_forward` (dst packing): ``el = z·a_l``, ``er = z·a_r``, the
+  masked softmax α of ``LeakyReLU(el[u] + er[v])`` over each row's slots,
+  and ``out[v] = Σ α·z[u]``;
+- :func:`gat_backward_dst` (pass 1, dst packing): ``dα = <dy[v], z[u]>``,
+  ``dpre = LeakyReLU'·α(dα − Σ α·dα)`` and its row sums ``der``;
+- :func:`gat_backward_src` (pass 2, src packing): ``dz[u] = (der·a_r) +
+  (Σ α·dy[v] + d_el·a_l)`` with ``d_el[u] = Σ dpre``, α and dpre read
+  through ``twin_slot``, and ``d_a_l = Σ_n d_el·z``, ``d_a_r = Σ_n der·z``.
+
+z is ``(n, h, d)`` float32 or bfloat16 with n the packings' node count;
+every sum is f32, outputs are rounded to z's dtype where the plain version
+rounds (and ``d_a_l``, ``d_a_r`` to the attention vectors' dtype). α and
+dpre cross between the sweeps in the dst packing's flat slot order
+(``EllGraph.table_flat`` places the dst table's slots there,
+``EllGraph.table_twin`` the src table's twins). ``<sweep>.launches``
+counts calls in float32 and ``<sweep>.launches_bf16`` in bfloat16.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from custom_op_benchmark_tpu_torch.graph.ell import EllGraph
+from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import (
+    MAX_BUCKETS,
+    ell_launch,
+)
+from custom_op_benchmark_tpu_torch.ops.kernels.tiled_kernels import (
+    _call,
+    _check_cuda,
+    _count,
+    _p,
+)
+
+NODE_CHUNK = 256  # nodes a partial of d_a_l, d_a_r (csrc/ell_gat.cu)
+
+
+def _table_args(ell: EllGraph):
+    """The table's arrays and counts as the C entry points take them, and
+    (units, split rows, pieces) of its sums."""
+    t = ell.gather_table
+    nb = t.buckets.shape[0]
+    if nb > MAX_BUCKETS:
+        raise ValueError(f"{nb} buckets; the kernels take {MAX_BUCKETS}")
+    _check_cuda(ints=(t.buckets, t.cols, t.nodes, t.zero_nodes))
+    args = (_p(t.buckets), nb, _p(t.cols), _p(t.nodes), t.nodes.shape[0],
+            _p(t.zero_nodes), t.zero_nodes.shape[0])
+    return args, ell_launch(t)
+
+
+def _vec(d: int, *tensors: torch.Tensor) -> int:
+    """1 when a lane moves 4 features of one head as one load: d % 4 == 0
+    and every base aligned to 4 elements."""
+    return int(d % 4 == 0 and all(
+        t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors))
+
+
+def _check(ell: EllGraph, z: torch.Tensor, *more: torch.Tensor) -> None:
+    _check_cuda(floats=(z,) + more, bf16=True)
+    if z.dim() != 3 or z.shape[0] != ell.n_nodes or 0 in z.shape[1:]:
+        raise ValueError(f"z must be (n_nodes={ell.n_nodes}, h, d) with h, "
+                         f"d > 0, got {tuple(z.shape)}")
+    if ell.device != z.device:
+        raise ValueError(f"the packing is on {ell.device}, z on {z.device}")
+    for t in more:
+        if t.shape != z.shape:
+            raise ValueError(f"{tuple(t.shape)} differs from z "
+                             f"{tuple(z.shape)}")
+
+
+def gat_forward(ell: EllGraph, a_l: torch.Tensor, a_r: torch.Tensor,
+                z: torch.Tensor, slope: float):
+    """ell: the dst packing; a_l, a_r (h, d); z (n, h, d) contiguous →
+    (out (n, h, d) in z's dtype, α (ell.total_slots, h) f32 in the
+    packing's flat slot order, el (n, h) f32, er (n, h) f32)."""
+    _check(ell, z)
+    n, h, d = z.shape
+    a_lf, a_rf = (a.float().contiguous() for a in (a_l, a_r))
+    targs, (units, split, pieces) = _table_args(ell)
+    f32 = dict(device=z.device, dtype=torch.float32)
+    out = torch.empty_like(z)
+    alpha = torch.empty((ell.total_slots, h), **f32)
+    el = torch.empty((n, h), **f32)
+    er = torch.empty((n, h), **f32)
+    scratch = torch.empty((pieces * h * d,) if split else (0,), **f32)
+    _call("ell_gat_fwd", z, *targs, _p(ell.table_flat), _p(z), _p(a_lf),
+          _p(a_rf), n, h, d, slope, _p(out), _p(alpha), _p(el), _p(er),
+          _p(scratch) if split else None, units, split,
+          _vec(d, z, out, a_lf, a_rf))
+    _count(gat_forward, z)
+    return out, alpha, el, er
+
+
+def gat_backward_dst(ell: EllGraph, z: torch.Tensor, dy: torch.Tensor,
+                     alpha: torch.Tensor, el: torch.Tensor, er: torch.Tensor,
+                     slope: float):
+    """Pass 1 on the dst packing ``ell``: z, dy (n, h, d) contiguous, the
+    forward's α, el, er → (ad (ell.total_slots, 2h) f32: each slot's α then
+    dpre in the flat slot order, der (n, h) f32)."""
+    _check(ell, z, dy)
+    n, h, d = z.shape
+    targs, (units, _, _) = _table_args(ell)
+    f32 = dict(device=z.device, dtype=torch.float32)
+    dal = torch.empty((ell.gather_table.cols.shape[0], h), **f32)
+    ad = torch.empty((ell.total_slots, 2 * h), **f32)
+    der = torch.empty((n, h), **f32)
+    _call("ell_gat_bwd_dst", z, *targs, _p(ell.table_flat), _p(z), _p(dy),
+          _p(alpha), _p(el), _p(er), n, h, d, slope, _p(dal), _p(ad),
+          _p(der), units, _vec(d, z, dy))
+    _count(gat_backward_dst, z)
+    return ad, der
+
+
+def gat_backward_src(ell_t: EllGraph, a_l: torch.Tensor, a_r: torch.Tensor,
+                     z: torch.Tensor, dy: torch.Tensor, ad: torch.Tensor,
+                     der: torch.Tensor):
+    """Pass 2 on the src packing ``ell_t`` (from ``ell_dual``): pass 1's
+    ad and der → (d_a_l, d_a_r in a_l's and a_r's dtypes, dz (n, h, d) in
+    z's dtype)."""
+    _check(ell_t, z, dy)
+    n, h, d = z.shape
+    a_lf, a_rf = (a.float().contiguous() for a in (a_l, a_r))
+    targs, (units, split, pieces) = _table_args(ell_t)
+    f32 = dict(device=z.device, dtype=torch.float32)
+    dz = torch.empty_like(z)
+    d_el = torch.empty((n, h), **f32)
+    d_a = torch.empty((2, h, d), **f32)
+    scratch = torch.empty((pieces * (h * d + h),) if split else (0,), **f32)
+    node_scratch = torch.empty((-(-n // NODE_CHUNK) * 2 * h * d,), **f32)
+    _call("ell_gat_bwd_src", z, *targs, _p(ell_t.table_twin), _p(dy),
+          _p(ad), _p(der), _p(z), _p(a_lf), _p(a_rf), n, h, d, _p(dz),
+          _p(d_el), _p(d_a), _p(scratch) if split else None,
+          _p(node_scratch), units, split, _vec(d, dy, z, dz, a_lf, a_rf))
+    _count(gat_backward_src, z)
+    return d_a[0].to(a_l.dtype), d_a[1].to(a_r.dtype), dz
+
+
+gat_forward.launches = gat_forward.launches_bf16 = 0
+gat_backward_dst.launches = gat_backward_dst.launches_bf16 = 0
+gat_backward_src.launches = gat_backward_src.launches_bf16 = 0

@@ -43,6 +43,7 @@ import torch
 
 from custom_op_benchmark_tpu_torch.ops.kernels import _build
 from custom_op_benchmark_tpu_torch.ops.segments import sorted_segment_reduce
+from custom_op_benchmark_tpu_torch.utils.spans import launch
 
 TILE = 128  # the only tile size the kernels take (tile_r == tile_c)
 
@@ -143,6 +144,19 @@ def _count(fn, t: torch.Tensor) -> None:
 def _stream(t: torch.Tensor):
     return (t.device.index,
             ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream))
+
+
+def _call(name: str, t: torch.Tensor, *args) -> None:
+    """Launch the C entry point of ``name`` for ``t``'s dtype with
+    ``args``, then ``t``'s device and current stream, inside
+    ``spans.launch`` (a profiler then links the kernel to the caller's
+    span); raise if the launch failed. The launch path for new wrappers
+    (ops/kernels/ell_gat.py takes it)."""
+    entry = _entry(name, t)
+    dev, stream = _stream(t)
+    fn = getattr(_build.library(), entry)
+    with launch(entry):
+        _build.check(fn(*args, dev, stream), entry)
 
 
 # ---------------------------------------------------------------------------

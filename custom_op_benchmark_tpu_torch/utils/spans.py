@@ -21,6 +21,10 @@ The port's spans, all under four prefixes:
   ``data.batch_wait`` (the consumer's wait for the next batch) in the
   sampled pipeline.
 
+``launch(name)`` wraps a kernel launched outside the dispatcher (a ctypes
+call through ``ops/kernels/tiled_kernels._call``, as the GAT sweeps'), so
+that the profiler links it to a host event inside the caller's span.
+
 ``torch.profiler`` records a thread only where its state reaches it: the
 caller's thread and autograd's threads. A ``threading.Thread`` such as
 ``data.pipeline.prefetch``'s producer is recorded only under
@@ -50,6 +54,26 @@ def span(name: str):
     no-op context."""
     if _recording():
         return _profiler.record_function(name)
+    return _OFF
+
+
+def launch(name: str):
+    """An op-scope range named ``name`` around a kernel launched outside
+    the dispatcher (a ctypes call) while a profiler records, else the
+    shared no-op context.
+
+    The profiler links a kernel to the innermost op-scope range open at
+    its launch; a span (``record_function``) is a user-scope range and is
+    not one. A kernel launched bare inside an autograd Function would link
+    to the Function's own range (``_EllGat``, ``_EllGatBackward``), which
+    opens before the Function's ``ell.*`` span, and the span would get
+    none of its time.
+
+    ``torch._C._profiler._RecordFunctionFast`` is private PyTorch API (no
+    public call opens an op-scope range); checked on torch 2.11 with CUDA
+    and 2.13 on the CPU (``tests/test_torch_spans.py``)."""
+    if _recording():
+        return torch._C._profiler._RecordFunctionFast(name)
     return _OFF
 
 

@@ -20,8 +20,9 @@ the JAX package at the row lengths the pieces change.
   {1, 3, 4, 8, 64, 128, 300}, f32 (1e-4 of the largest value) and bf16
   (one bf16 rounding of JAX's f32 sum: 2⁻⁷·|JAX| + 1e-4·max|JAX|).
 - Source checks: the C entry points' parameters against
-  ``_build._SIGNATURES``, PIECE in the wrapper against the source, and no
-  atomic in csrc/gather_sum.cu.
+  ``_build._SIGNATURES``, PIECE in the wrapper against the source (the
+  row engine's header csrc/ell_table.cuh), and no atomic in
+  csrc/gather_sum.cu or its header.
 """
 
 import ctypes
@@ -53,6 +54,9 @@ HUB = 27_565        # the largest src row of random_graph(131072, 2M, power_law)
 LENGTHS = (0, 1, L - 1, L, L + 1, 4 * L + 3, HUB)
 WIDTHS = (1, 3, 4, 8, 64, 128, 300)
 SOURCE = _build.CSRC / "gather_sum.cu"
+# The row engine's table, task numbering and constants, shared with the GAT
+# attention's sweeps (csrc/ell_gat.cu).
+HEADER = _build.CSRC / "ell_table.cuh"
 
 
 # ---------------------------------------------------------------------------
@@ -520,7 +524,8 @@ def test_signatures_agree_with_the_sources():
 
 
 def test_piece_and_no_atomics_in_the_source():
-    text = SOURCE.read_text()
+    text = SOURCE.read_text() + HEADER.read_text()
+    assert '#include "ell_table.cuh"' in SOURCE.read_text()
     assert re.search(r"constexpr int PIECE = (\d+);", text).group(1) == str(L)
     # No atomic function (atomicAdd, atomicCAS, ...) and no PTX atom/red.
     assert not re.search(r"\batomic[A-Z]\w*\s*\(|\batom\.|\bred\.", text)

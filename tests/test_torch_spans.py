@@ -8,7 +8,8 @@ and GraphSAGE on a sampled batch (``sampled.copy_spmm``). Under
 forward and backward spans, each inside its phase; the profiler changes
 no bit of the loss or the parameters; without it ``span`` builds no
 ``record_function``. The sampled pipeline's ``data.*`` spans show on the
-producer's thread in a ``benchlib.trace_fn`` trace.
+producer's thread in a ``benchlib.trace_fn`` trace. ``launch``, around a
+ctypes kernel launch, is an op-scope range inside the span around it.
 """
 
 import json
@@ -151,6 +152,23 @@ def test_no_record_function_without_a_profiler(ds, family, monkeypatch):
     model, run, *_ = FAMILIES[family](ds)
     run(_state(model))
     assert built == []
+
+
+def test_launch_is_an_op_range_inside_its_span():
+    """``launch`` builds nothing without a profiler; under one it is an
+    op-scope range (the profiler links a kernel launched outside the
+    dispatcher to it, not to a user-scope span) that opens inside the span
+    around it."""
+    assert spans.launch("a_f32") is spans.launch("b_f32")   # the no-op
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with spans.span("ell.op.fwd"):
+            with spans.launch("op_f32"):
+                torch.ones(2).sum()
+    ev = {e.name: e for e in prof.events()}
+    k, s = ev["op_f32"].time_range, ev["ell.op.fwd"].time_range
+    assert ev["ell.op.fwd"].is_user_annotation
+    assert not ev["op_f32"].is_user_annotation
+    assert s.start <= k.start <= k.end <= s.end
 
 
 def test_data_spans_on_the_producer_thread(ds, tmp_path):
