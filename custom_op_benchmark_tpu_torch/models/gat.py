@@ -41,6 +41,27 @@ from custom_op_benchmark_tpu_torch.ops import (
 from custom_op_benchmark_tpu_torch.ops.xla import gather_rows
 
 
+def attend(g, z, a_l, a_r, *, ell=None, negative_slope: float = 0.2,
+           dropout_fn=None):
+    """A GAT layer's attention on z (n, h, d): ``out[v] = Σ α·z[u]`` with α
+    the softmax over the in-edges of v of ``LeakyReLU(a_l·z[u] +
+    a_r·z[v])``; ``a_r`` None leaves the dst term out. On the ELL view
+    ``ell`` (``(src_ell, dst_ell)``) the fused ``ell_gat_attention``;
+    without it the segment path, whose α ``dropout_fn`` may drop."""
+    if ell is not None:
+        src_ell, dst_ell = ell
+        return ell_gat_attention(dst_ell, src_ell, a_l, a_r, z,
+                                 negative_slope=negative_slope)
+    # Padded edge endpoints clamp; their scores are masked. The gathers'
+    # VJP is a sorted segment sum (no atomics).
+    scores = gather_rows(g, torch.einsum("nhd,hd->nh", z, a_l), "src")
+    if a_r is not None:
+        scores = scores + gather_rows(
+            g, torch.einsum("nhd,hd->nh", z, a_r), "dst")
+    scores = F.leaky_relu(scores, negative_slope)
+    return softmax_aggregate_dst(g, scores, z, dropout_fn=dropout_fn)
+
+
 class GATLayer(nn.Module):
     """One multi-head GAT layer (additive attention, LeakyReLU scores).
 
@@ -94,24 +115,15 @@ class GATLayer(nn.Module):
             return out.mean(-2)
         n = x.shape[0]
         z = dense(self.W, x, self.dtype).reshape(n, h, d)
-        if ell is not None and self._deterministic():
-            src_ell, dst_ell = ell
-            out = ell_gat_attention(dst_ell, src_ell, a_l, a_r, z,
-                                    negative_slope=self.negative_slope)
-        else:
-            el = torch.einsum("nhd,hd->nh", z, a_l)
-            er = torch.einsum("nhd,hd->nh", z, a_r)
-            # Padded edge endpoints clamp; their scores are masked. The
-            # gathers' VJP is a sorted segment sum (no atomics).
-            scores = gather_rows(g, el, "src") + gather_rows(g, er, "dst")
-            scores = F.leaky_relu(scores, self.negative_slope)
-            dropout_fn = None
-            if self.dropout_rate > 0.0 and self.training:
-                p = self.dropout_rate
+        dropout_fn = None
+        if not self._deterministic():
+            p = self.dropout_rate
 
-                def dropout_fn(a):
-                    return F.dropout(a, p, training=True)
-            out = softmax_aggregate_dst(g, scores, z, dropout_fn=dropout_fn)
+            def dropout_fn(a):
+                return F.dropout(a, p, training=True)
+        out = attend(g, z, a_l, a_r, ell=ell if dropout_fn is None else None,
+                     negative_slope=self.negative_slope,
+                     dropout_fn=dropout_fn)
         if self.residual:
             out = out + self._residual(x).reshape(n, h, d)
         if self.concat_heads:
@@ -161,16 +173,25 @@ class GAT(nn.Module):
         blk = block if block_layout else None
         if block_layout:
             x = block.scatter_nodes(x)
-        for layer in self.layers[:-1]:
+        for i, layer in enumerate(self.layers[:-1]):
             if self.remat:
                 x = checkpoint(layer, g, x, ell=ell, block=blk,
                                use_reentrant=False)
             else:
                 x = layer(g, x, ell=ell, block=blk)
-            x = F.elu(x)
-            if self.dropout_rate > 0.0:
-                x = F.dropout(x, self.dropout_rate, training=self.training)
+            x = self._between(i, x)
         out = self.layers[-1](g, x, ell=ell, block=blk)
         if block_layout:
             out = block.gather_nodes(out)
+        return self._output(out)
+
+    def _between(self, i: int, x):
+        """What follows hidden layer ``i``: ELU, then dropout."""
+        x = F.elu(x)
+        if self.dropout_rate > 0.0:
+            x = F.dropout(x, self.dropout_rate, training=self.training)
+        return x
+
+    def _output(self, out):
+        """The logits from the last layer's output."""
         return out.float() if self.dtype is not None else out

@@ -727,16 +727,20 @@ def ell_node_mul_edge(ell: EllGraph, ell_t: EllGraph, A, Be):
 
 def _gat_fwd_plain(ell, a_l, a_r, z, slope):
     """The forward on the dst packing in plain torch: (out (n, h, d) in
-    z's dtype, per-bucket α, per-bucket LeakyReLU signs)."""
+    z's dtype, per-bucket α, per-bucket LeakyReLU signs). ``a_r`` None:
+    no dst term."""
     n = z.shape[0]
-    zf, a_lf, a_rf = _f32(z, a_l, a_r)
+    zf, a_lf = _f32(z, a_l)
     zp = _pad_nodes(zf, ell.n_nodes)
     el = torch.einsum("nhd,hd->nh", zp, a_lf)        # (n+1, h)
-    er = torch.einsum("nhd,hd->nh", zp, a_rf)
+    er = (None if a_r is None
+          else torch.einsum("nhd,hd->nh", zp, a_r.float()))
     outs, alphas, signs = [], [], []
     for b in ell.buckets:
         cols = b.cols.long()
-        pre = el[cols] + er[b.rows.long()][:, None, :]   # (R, D, h)
+        pre = el[cols]                                   # (R, D, h)
+        if er is not None:
+            pre = pre + er[b.rows.long()][:, None, :]
         s = torch.where(pre > 0, pre, slope * pre)
         alpha = _masked_softmax(s, b.cols < ell.n_nodes)
         outs.append(torch.einsum("rkh,rkhd->rhd", alpha, zp[cols]))
@@ -746,9 +750,10 @@ def _gat_fwd_plain(ell, a_l, a_r, z, slope):
 
 
 def _gat_bwd_plain(ell, ell_t, a_l, a_r, z, alphas, signs, dy, slope):
-    """The backward in plain torch: (d_a_l, d_a_r, dz)."""
+    """The backward in plain torch: (d_a_l, d_a_r, dz); ``a_r`` None: no
+    dst term, and d_a_r None."""
     n, h = z.shape[0], z.shape[1]
-    zf, a_lf, a_rf = _f32(z, a_l, a_r)
+    zf, a_lf = _f32(z, a_l)
     zp = _pad_nodes(zf, ell.n_nodes)
     dyp = _pad_nodes(dy.float(), ell.n_nodes)
     der_c, both = [], []
@@ -771,8 +776,10 @@ def _gat_bwd_plain(ell, ell_t, a_l, a_r, z, alphas, signs, dy, slope):
     d_el = ell_combine_rows(ell_t, del_c)[:n]           # (n, h)
     dz_src = (ell_combine_rows(ell_t, dz_c)[:n]
               + d_el[..., None] * a_lf).to(z.dtype)
-    dz = (der[..., None] * a_rf).to(z.dtype) + dz_src
     d_a_l = torch.einsum("nh,nhd->hd", d_el, zf).to(a_l.dtype)
+    if a_r is None:
+        return d_a_l, None, dz_src
+    dz = (der[..., None] * a_r.float()).to(z.dtype) + dz_src
     d_a_r = torch.einsum("nh,nhd->hd", der, zf).to(a_r.dtype)
     return d_a_l, d_a_r, dz
 
@@ -781,7 +788,8 @@ class _EllGat(Function):
     """On CUDA tensors the three sweeps of ops/kernels/ell_gat.py (z padded
     to the packing's nodes; the residuals α in the dst packing's flat slot
     order, el and er); on CPU tensors the plain torch above (the residuals
-    α and the LeakyReLU signs per bucket)."""
+    α and the LeakyReLU signs per bucket). ``a_r`` None: no dst term (er
+    None) and no a_r cotangent."""
 
     @staticmethod
     @spanned("ell.gat_attention.fwd")
@@ -790,7 +798,8 @@ class _EllGat(Function):
         if not ell.buckets:
             ctx.save_for_backward(a_l, a_r, z)
             return torch.zeros_like(z)
-        if _on_cpu(a_l, a_r, z, ell.row_pos):
+        if _on_cpu(*(t for t in (a_l, a_r, z, ell.row_pos)
+                     if t is not None)):
             out, alphas, signs = _gat_fwd_plain(ell, a_l, a_r, z, slope)
             ctx.n_alpha = len(alphas)
             ctx.save_for_backward(a_l, a_r, z, *alphas, *signs)
@@ -814,7 +823,8 @@ class _EllGat(Function):
         ell, ell_t = ctx.graphs
         a_l, a_r, z, *rest = ctx.saved_tensors
         if not ell.buckets:
-            return (None, None, torch.zeros_like(a_l), torch.zeros_like(a_r),
+            return (None, None, torch.zeros_like(a_l),
+                    None if a_r is None else torch.zeros_like(a_r),
                     torch.zeros_like(z), None)
         if _on_cpu(z):
             alphas, signs = rest[: ctx.n_alpha], rest[ctx.n_alpha:]
@@ -835,9 +845,11 @@ def ell_gat_attention(ell: EllGraph, ell_t: EllGraph, a_l, a_r, z, *,
     """Fused GAT core on the ELL layout: ``score[e] = LeakyReLU(a_l·z[src]
     + a_r·z[dst])``, α the softmax over the in-edges of dst, ``out[dst] =
     Σ α·z[src]``. ``ell`` is the dst packing, ``ell_t`` the src packing;
-    a_l, a_r: (h, d); z: (n, h, d) → (n, h, d)."""
-    if z.dim() != 3 or a_l.shape != z.shape[1:] or a_r.shape != z.shape[1:]:
+    a_l, a_r: (h, d); z: (n, h, d) → (n, h, d). ``a_r`` None leaves the
+    dst term out (``score[e] = LeakyReLU(a_l·z[src])``)."""
+    if z.dim() != 3 or a_l.shape != z.shape[1:] or (
+            a_r is not None and a_r.shape != z.shape[1:]):
         raise ValueError(f"ell_gat_attention wants z (n, h, d) and a_l/a_r "
                          f"(h, d); got {tuple(z.shape)}, {tuple(a_l.shape)},"
-                         f" {tuple(a_r.shape)}")
+                         f" {None if a_r is None else tuple(a_r.shape)}")
     return _EllGat.apply(ell, ell_t, a_l, a_r, z, float(negative_slope))

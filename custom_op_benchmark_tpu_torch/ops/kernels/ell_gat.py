@@ -22,6 +22,13 @@ dpre cross between the sweeps in the dst packing's flat slot order
 (``EllGraph.table_flat`` places the dst table's slots there,
 ``EllGraph.table_twin`` the src table's twins). ``<sweep>.launches``
 counts calls in float32 and ``<sweep>.launches_bf16`` in bfloat16.
+
+With ``a_r`` None there is no dst term: the score is ``LeakyReLU(el[u])``
+and there is no ``d_a_r``. The sweeps then take a zero ``a_r`` (so ``er``
+is 0 and the dz term ``der·a_r`` adds 0) and run their instructions
+unchanged; ``gat_forward`` returns ``er`` None, ``gat_backward_dst`` takes
+it so, and ``<sweep>.launches_no_dst`` counts these calls in either
+dtype.
 """
 
 from __future__ import annotations
@@ -76,14 +83,24 @@ def _check(ell: EllGraph, z: torch.Tensor, *more: torch.Tensor) -> None:
                              f"{tuple(z.shape)}")
 
 
-def gat_forward(ell: EllGraph, a_l: torch.Tensor, a_r: torch.Tensor,
-                z: torch.Tensor, slope: float):
-    """ell: the dst packing; a_l, a_r (h, d); z (n, h, d) contiguous →
-    (out (n, h, d) in z's dtype, α (ell.total_slots, h) f32 in the
-    packing's flat slot order, el (n, h) f32, er (n, h) f32)."""
+def _dst_term(a_r, a_lf: torch.Tensor):
+    """(``a_r`` as the sweeps take it, whether the dst term is absent): f32
+    and contiguous, or zeros shaped as a_l for None."""
+    if a_r is None:
+        return torch.zeros_like(a_lf), True
+    return a_r.float().contiguous(), False
+
+
+def gat_forward(ell: EllGraph, a_l: torch.Tensor, a_r, z: torch.Tensor,
+                slope: float):
+    """ell: the dst packing; a_l, a_r (h, d) (a_r None: no dst term); z
+    (n, h, d) contiguous → (out (n, h, d) in z's dtype, α
+    (ell.total_slots, h) f32 in the packing's flat slot order, el (n, h)
+    f32, er (n, h) f32, None without a dst term)."""
     _check(ell, z)
     n, h, d = z.shape
-    a_lf, a_rf = (a.float().contiguous() for a in (a_l, a_r))
+    a_lf = a_l.float().contiguous()
+    a_rf, no_dst = _dst_term(a_r, a_lf)
     targs, (units, split, pieces) = _table_args(ell)
     f32 = dict(device=z.device, dtype=torch.float32)
     out = torch.empty_like(z)
@@ -96,16 +113,20 @@ def gat_forward(ell: EllGraph, a_l: torch.Tensor, a_r: torch.Tensor,
           _p(scratch) if split else None, units, split,
           _vec(d, z, out, a_lf, a_rf))
     _count(gat_forward, z)
-    return out, alpha, el, er
+    if no_dst:
+        gat_forward.launches_no_dst += 1
+    return out, alpha, el, None if no_dst else er
 
 
 def gat_backward_dst(ell: EllGraph, z: torch.Tensor, dy: torch.Tensor,
-                     alpha: torch.Tensor, el: torch.Tensor, er: torch.Tensor,
-                     slope: float):
+                     alpha: torch.Tensor, el: torch.Tensor, er, slope: float):
     """Pass 1 on the dst packing ``ell``: z, dy (n, h, d) contiguous, the
-    forward's α, el, er → (ad (ell.total_slots, 2h) f32: each slot's α then
-    dpre in the flat slot order, der (n, h) f32)."""
+    forward's α, el, er (None: no dst term) → (ad (ell.total_slots, 2h)
+    f32: each slot's α then dpre in the flat slot order, der (n, h) f32)."""
     _check(ell, z, dy)
+    no_dst = er is None
+    if no_dst:
+        er = torch.zeros_like(el)
     n, h, d = z.shape
     targs, (units, _, _) = _table_args(ell)
     f32 = dict(device=z.device, dtype=torch.float32)
@@ -116,18 +137,21 @@ def gat_backward_dst(ell: EllGraph, z: torch.Tensor, dy: torch.Tensor,
           _p(alpha), _p(el), _p(er), n, h, d, slope, _p(dal), _p(ad),
           _p(der), units, _vec(d, z, dy))
     _count(gat_backward_dst, z)
+    if no_dst:
+        gat_backward_dst.launches_no_dst += 1
     return ad, der
 
 
-def gat_backward_src(ell_t: EllGraph, a_l: torch.Tensor, a_r: torch.Tensor,
+def gat_backward_src(ell_t: EllGraph, a_l: torch.Tensor, a_r,
                      z: torch.Tensor, dy: torch.Tensor, ad: torch.Tensor,
                      der: torch.Tensor):
     """Pass 2 on the src packing ``ell_t`` (from ``ell_dual``): pass 1's
     ad and der → (d_a_l, d_a_r in a_l's and a_r's dtypes, dz (n, h, d) in
-    z's dtype)."""
+    z's dtype); a_r None: no dst term, and d_a_r None."""
     _check(ell_t, z, dy)
     n, h, d = z.shape
-    a_lf, a_rf = (a.float().contiguous() for a in (a_l, a_r))
+    a_lf = a_l.float().contiguous()
+    a_rf, no_dst = _dst_term(a_r, a_lf)
     targs, (units, split, pieces) = _table_args(ell_t)
     f32 = dict(device=z.device, dtype=torch.float32)
     dz = torch.empty_like(z)
@@ -140,9 +164,11 @@ def gat_backward_src(ell_t: EllGraph, a_l: torch.Tensor, a_r: torch.Tensor,
           _p(d_el), _p(d_a), _p(scratch) if split else None,
           _p(node_scratch), units, split, _vec(d, dy, z, dz, a_lf, a_rf))
     _count(gat_backward_src, z)
+    if no_dst:
+        gat_backward_src.launches_no_dst += 1
+        return d_a[0].to(a_l.dtype), None, dz
     return d_a[0].to(a_l.dtype), d_a[1].to(a_r.dtype), dz
 
 
-gat_forward.launches = gat_forward.launches_bf16 = 0
-gat_backward_dst.launches = gat_backward_dst.launches_bf16 = 0
-gat_backward_src.launches = gat_backward_src.launches_bf16 = 0
+for _sweep in (gat_forward, gat_backward_dst, gat_backward_src):
+    _sweep.launches = _sweep.launches_bf16 = _sweep.launches_no_dst = 0

@@ -1,0 +1,5 @@
+"""The DGL ogbn-arxiv GAT cell's device milliseconds a step of the
+forward (``train.forward``'s self time and every ``*.fwd`` span inside
+it), as ``forward_device_ms`` reads them."""
+
+from gnnbench.metrics.forward_device_ms import read  # noqa: F401

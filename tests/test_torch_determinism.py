@@ -41,7 +41,13 @@ from custom_op_benchmark_tpu_torch.graph import (
     clique_batch,
     random_graph,
 )
-from custom_op_benchmark_tpu_torch.models import GAT, GCN, GIN, GraphSAGE
+from custom_op_benchmark_tpu_torch.models import (
+    GAT,
+    GATDGL,
+    GCN,
+    GIN,
+    GraphSAGE,
+)
 from custom_op_benchmark_tpu_torch.train import (
     fit_full_graph,
     masked_cross_entropy,
@@ -256,7 +262,8 @@ def test_training_bitwise_reproducible(strategy):
     _equal(list(s1.model.parameters()), list(s2.model.parameters()))
 
 
-@pytest.mark.parametrize("arch", ["GAT", "GCN", "GraphSAGE", "GIN"])
+@pytest.mark.parametrize("arch", ["GAT", "GATDGL", "GCN", "GraphSAGE",
+                                  "GIN"])
 @pytest.mark.parametrize("path", ["segment", "ell"])
 def test_model_paths_have_no_atomic_backward(arch, path):
     """Every model's segment and ELL paths: no gather backward over a
@@ -267,8 +274,8 @@ def test_model_paths_have_no_atomic_backward(arch, path):
     g = ds.graph
     views = {"ell": tops.ell_dual(g, profile="train")} if path == "ell" \
         else {}
-    kw = dict(num_heads=2) if arch == "GAT" else {}
-    model = {"GAT": GAT, "GCN": GCN, "GraphSAGE": GraphSAGE,
+    kw = dict(num_heads=2) if arch in ("GAT", "GATDGL") else {}
+    model = {"GAT": GAT, "GATDGL": GATDGL, "GCN": GCN, "GraphSAGE": GraphSAGE,
              "GIN": GIN}[arch](hidden_dim=8, out_dim=3, in_dim=8, **kw,
                                generator=torch.Generator().manual_seed(0))
     x = torch.from_numpy(ds.features)
