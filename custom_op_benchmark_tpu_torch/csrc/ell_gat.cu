@@ -41,31 +41,56 @@
 //     d_a_l = Σ_n d_el·z and d_a_r = Σ_n der·z over fixed chunks of nodes,
 //     summed in chunk order (gat_node_grad_kernel, _combine_kernel).
 //
-// What bounds it on this card: bytes. The heavy sweeps (the two sums and
-// the dot) read one row of W elements a slot: 2 KB at the hidden layer of
-// arxiv_gat, 2.75 M slots, from device memory (z is 347 MB, L2 50 MB), at
-// 2 flops a 4 bytes. The softmax and dpre sweeps read h floats a slot.
+// What bounds it on this card: bytes, once the per-slot work is spread over
+// enough of them. The heavy sweeps (the two sums and the dot) read one row
+// of W elements a slot: 2 KB at the hidden layer of arxiv_gat, 2.75 M
+// slots, from device memory (z is 347 MB, L2 50 MB), at 2 flops a 4 bytes.
+// The softmax and dpre sweeps read h floats a slot.
 //
 // The design is S3's row engine (csrc/gather_sum.cu), whose table, task
 // numbering and pad-skipping walk both take from ell_table.cuh:
-// - Lanes sized to the width. The sums spread a row's W features over G
-//   lanes, 4 a lane as one 16-byte load (8 bytes for bf16) when rows are
-//   aligned and d % 4 == 0 (so a lane's 4 features lie in one head), else 1
-//   a lane; G the smallest power of two covering W, at most 32; wider rows
-//   take several feature chunks, one group task each. Each lane reads the
-//   weight of its own head: the lanes of a head read one address. The dot
-//   sweep and the scores take G lanes a head (lanes sized to d), loop over
-//   the head's chunks, and reduce across the group by a butterfly; a
-//   warp-wide dot group sums four slots at once, transposing them as it
-//   adds (6 shuffles for 4 slots, not 20) and keeps one chunk of dy in
-//   registers (64 registers, not 80): on an H100 the dot sweep at
-//   arxiv_gat's hidden layer went from 3.0 to 2.4 ms with both.
+// - Two ways to spread a row's W features, chosen from the shape and the
+//   rows' alignment (the C entry points' `lanes`):
+//   - 16-byte lanes, when rows are aligned and d % 4 == 0 (a lane's 4
+//     features lie in one head): the sums spread a row over G lanes, 4 a
+//     lane as one 16-byte load (8 bytes for bf16), G the smallest power of
+//     two covering W, at most 32; wider rows take several feature chunks,
+//     one group task each, and each task walks the row's slots. Each lane
+//     reads the weight of its own head: the lanes of a head read one
+//     address. At arxiv_gat's (4, 128) a task covers 512 features, so the
+//     per-slot work (the column, the place, the weights) is paid once a
+//     2 KB row in 4 tasks, and the rows' gather from device memory bounds
+//     the sweep (0.7-0.85 of it on an H100).
+//   - Whole rows, otherwise (d % 4 != 0, or rows off 16-byte alignment):
+//     the sums take a row piece with one warp, each lane NC loads of PW
+//     features (PW = 2, one 8-byte load for f32, when d is even and rows
+//     are aligned to 2 elements, else 1), NC ROW_LOADS_NARROW or
+//     ROW_LOADS: 24 floats a lane at DGL's (3, 250). Per slot the warp
+//     takes the column and the place once, lane k loads the slot's weight
+//     of head k and each lane takes each load's weight from its head's
+//     lane (a shuffle), then makes all its loads, ROW_UNROLL slots at once
+//     (3 KB a slot a warp at W = 750, f32). A row wider than 32 PW
+//     ROW_LOADS features takes several tasks. At (3, 250) the sweeps reach
+//     0.80-0.83 of the rows' bound on an H100.
+//   - One float a lane in 32-feature chunks, for more than ROW_HEADS heads
+//     off the 16-byte lanes: a task a chunk, each walking every slot (24
+//     times a row at W = 750). At DGL's (3, 250) that path reached only
+//     0.32-0.55 of the rows' bound on an H100, and bf16 was no faster:
+//     per-slot work, not bytes, bounded it.
+//   The dot sweep and the scores take G lanes a head (lanes sized to d),
+//   loop over the head's chunks, and reduce across the group by a
+//   butterfly; a warp-wide dot group sums four slots at once, transposing
+//   them as it adds (6 shuffles for 4 slots, not 20). The dot keeps dy in
+//   registers: one chunk at 16-byte lanes (64 registers, not 80; on an H100
+//   the dot sweep at arxiv_gat's hidden layer went from 3.0 to 2.4 ms with
+//   both), a head's chunks up to DOT_CHUNKS at one float a lane, so no
+//   slot reads dy again.
 // - Pad slots skipped: a warp-wide group loads 32 column ids at once,
 //   takes a ballot of the valid ones and compacts them in slot order into
 //   shared memory; narrower groups load their ids as they go.
-// - Loads before use: UNROLL rows are loaded into registers before their
-//   products are added (UNROLL = 8 lost on an H100: the sums 3 to 63 %
-//   slower at arxiv_gat's widths).
+// - Loads before use: UNROLL rows (ROW_UNROLL on whole rows) are loaded
+//   into registers before their products are added (UNROLL = 8 lost on an
+//   H100: the sums 3 to 63 % slower at arxiv_gat's widths).
 // - Long rows in fixed pieces: in the sums, a row of more than PIECE slots
 //   is summed as pieces of PIECE slots, each a task writing its f32 partial
 //   to a scratch; a second launch adds each row's partials in piece order
@@ -74,7 +99,8 @@
 //   and dpre sweeps take a row whole (a warp, 32 slots a step): they read
 //   h floats a slot.
 // - Determinism: every sum is row-owned and in a fixed order (slot order
-//   in a lane, then a fixed butterfly or piece order), no atomics; every
+//   in a lane, then a fixed butterfly or piece order; a feature's sum is
+//   the same on both paths, bit for bit), no atomics; every
 //   output element is written once. The same inputs give the same bits on
 //   every run.
 //
@@ -93,13 +119,21 @@ namespace {
 
 constexpr int HB = 8;            // heads a softmax/dpre lane holds at once
 constexpr int NODE_CHUNK = 256;  // nodes a partial of d_a_l, d_a_r sums
+constexpr int DOT_CHUNKS = 8;    // dy chunks a dot lane holds at PL = 1
+// Whole-row sums: the loads a lane makes a slot (ROW_LOADS_NARROW for rows
+// that fit, else ROW_LOADS), the slots loaded before their products are
+// added, and the most heads (one lane each holds a slot's α of a head).
+constexpr int ROW_LOADS = 12;
+constexpr int ROW_LOADS_NARROW = 4;
+constexpr int ROW_UNROLL = 2;
+constexpr int ROW_HEADS = 32;
 constexpr float MASK_VALUE = -1e30f;
 constexpr float DENOM_FLOOR = 1e-30f;
 
 using bf16 = __nv_bfloat16;
 
 // PL elements at p widened to f32: one 16-byte (f32) or 8-byte (bf16) load
-// for PL = 4.
+// for PL = 4, one 8-byte or 4-byte load for PL = 2.
 template <int PL>
 __device__ __forceinline__ void load(const float* p, float (&v)[PL]) {
   if constexpr (PL == 4) {
@@ -108,6 +142,10 @@ __device__ __forceinline__ void load(const float* p, float (&v)[PL]) {
     v[1] = q.y;
     v[2] = q.z;
     v[3] = q.w;
+  } else if constexpr (PL == 2) {
+    const float2 q = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
   } else {
     v[0] = __ldg(p);
   }
@@ -121,6 +159,10 @@ __device__ __forceinline__ void load(const bf16* p, float (&v)[PL]) {
     v[1] = __uint_as_float(raw.x & 0xffff0000u);
     v[2] = __uint_as_float(raw.y << 16);
     v[3] = __uint_as_float(raw.y & 0xffff0000u);
+  } else if constexpr (PL == 2) {
+    const unsigned raw = __ldg(reinterpret_cast<const unsigned*>(p));
+    v[0] = __uint_as_float(raw << 16);
+    v[1] = __uint_as_float(raw & 0xffff0000u);
   } else {
     v[0] = __uint_as_float(
         (unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
@@ -131,6 +173,8 @@ template <int PL>
 __device__ __forceinline__ void store(float* p, const float (&v)[PL]) {
   if constexpr (PL == 4)
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else if constexpr (PL == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
   else
     p[0] = v[0];
 }
@@ -141,6 +185,8 @@ __device__ __forceinline__ void store(bf16* p, const float (&v)[PL]) {
     __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
     q[0] = __floats2bfloat162_rn(v[0], v[1]);
     q[1] = __floats2bfloat162_rn(v[2], v[3]);
+  } else if constexpr (PL == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
   } else {
     p[0] = __float2bfloat16_rn(v[0]);
   }
@@ -399,26 +445,36 @@ gat_dot_kernel(const int* __restrict__ table, int n_buckets,
   const Piece q = piece_of(tab, n_buckets, unit);
   const size_t W = (size_t)h * d, hoff = (size_t)head * d;
   const E* gyr = dy + (size_t)nodes[tab.first[q.b] + q.row] * W + hoff;
-  // dy's first chunk stays in registers; a head wider than one chunk
-  // reads the rest again (from L1) for each slot.
-  float gy[PL];
-  if (g.in_group * PL < d) {
-    load<PL>(gyr + g.in_group * PL, gy);
-  } else {
+  // dy's first NCH chunks stay in registers: at PL = 1 a head's chunks, up
+  // to DOT_CHUNKS; at PL = 4 the first. The chunks past them are read
+  // again (from L1) for each slot.
+  constexpr int NCH = PL == 1 ? DOT_CHUNKS : 1;
+  float gy[NCH][PL];
 #pragma unroll
-    for (int p = 0; p < PL; ++p) gy[p] = 0.f;
+  for (int c = 0; c < NCH; ++c) {
+    const int f = (c * G + g.in_group) * PL;
+    if ((c == 0 || c < n_ch) && f < d) {
+      load<PL>(gyr + f, gy[c]);
+    } else {
+#pragma unroll
+      for (int p = 0; p < PL; ++p) gy[c][p] = 0.f;
+    }
   }
-  // This lane's share of <dy[v, head], z[col, head]>.
+  // This lane's share of <dy[v, head], z[col, head]>, its chunks in order.
   auto dot = [&](int col) {
     const E* zr = z + (size_t)col * W + hoff;
     float s = 0.f;
-    if (g.in_group * PL < d) {
-      float v[PL];
-      load<PL>(zr + g.in_group * PL, v);
 #pragma unroll
-      for (int p = 0; p < PL; ++p) s = fmaf(gy[p], v[p], s);
+    for (int c = 0; c < NCH; ++c) {
+      const int f = (c * G + g.in_group) * PL;
+      if ((c == 0 || c < n_ch) && f < d) {
+        float v[PL];
+        load<PL>(zr + f, v);
+#pragma unroll
+        for (int p = 0; p < PL; ++p) s = fmaf(gy[c][p], v[p], s);
+      }
     }
-    for (int c = 1; c < n_ch; ++c) {
+    for (int c = NCH; c < n_ch; ++c) {
       const int f = (c * G + g.in_group) * PL;
       if (f < d) {
         float v[PL], y[PL];
@@ -692,6 +748,184 @@ gat_combine_kernel(const int* __restrict__ table, int n_buckets,
 }
 
 // ---------------------------------------------------------------------------
+// The weighted sums on whole rows (rows the 16-byte lanes do not take): a
+// warp a task, a piece of a row and a span of its features; each lane holds
+// NC loads of PW features and makes all of them for each slot
+// ---------------------------------------------------------------------------
+
+// The loads a lane makes a slot in a whole-row sum of rows of `width`
+// features at pw a load (ROW_LOADS_NARROW or ROW_LOADS), and the tasks a
+// row takes, each 32 pw NC features wide.
+inline int row_loads(int width, int pw, int* tasks) {
+  const int per = 32 * pw;
+  *tasks = (width + per * ROW_LOADS - 1) / (per * ROW_LOADS);
+  const int need = (width + *tasks * per - 1) / (*tasks * per);
+  return need <= ROW_LOADS_NARROW ? ROW_LOADS_NARROW : ROW_LOADS;
+}
+
+// Where a lane works in a whole-row sum: its warp's unit (task / n_tasks: a
+// piece of a row or a zero row), whether its task is the unit's first (the
+// one that writes the heads' scalars), its first feature f0 and the head of
+// each load: load c takes features f0 + 32·PW·c .. + PW − 1 (one head,
+// since PW divides d), active below W.
+template <int PW, int NC>
+struct RowLane {
+  int lane, f0;
+  long long unit;
+  bool first;
+  int head[NC];
+};
+
+template <int PW, int NC>
+__device__ __forceinline__ RowLane<PW, NC> row_lane_of(int W, int d,
+                                                       int n_tasks) {
+  RowLane<PW, NC> l;
+  l.lane = threadIdx.x & 31;
+  const long long warp =
+      (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  l.unit = warp / n_tasks;
+  const int task = (int)(warp % n_tasks);
+  l.first = task == 0;
+  l.f0 = task * 32 * PW * NC + l.lane * PW;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int f = l.f0 + 32 * PW * c;
+    l.head[c] = f < W ? f / d : 0;
+  }
+  return l;
+}
+
+// Stores a node's row as finish does: the forward's sum rounded to E; with
+// BWD, dz = round(der·a_r) + round(acc + ds·a_l), ds the head's sum, held by
+// the lane of that number; the first task writes d_el.
+template <typename E, int PW, int NC, bool BWD>
+__device__ __forceinline__ void finish_row(
+    int node, const RowLane<PW, NC>& l, int W, int h,
+    const float (&acc)[NC][PW], float ds, E* __restrict__ y,
+    const float* __restrict__ der, const float* __restrict__ a_l,
+    const float* __restrict__ a_r, float* __restrict__ d_el) {
+  E* yr = y + (size_t)node * W;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int f = l.f0 + 32 * PW * c;
+    if constexpr (!BWD) {
+      if (f < W) store<PW>(yr + f, acc[c]);
+    } else {
+      const float dsh = __shfl_sync(FULL, ds, l.head[c]);
+      if (f >= W) continue;
+      const float dr = der[(size_t)node * h + l.head[c]];
+      float o[PW];
+#pragma unroll
+      for (int p = 0; p < PW; ++p) {
+        const float t1 = rounded<E>(__fmul_rn(dr, a_r[f + p]));
+        const float t2 =
+            rounded<E>(__fadd_rn(acc[c][p], __fmul_rn(dsh, a_l[f + p])));
+        o[p] = __fadd_rn(t1, t2);
+      }
+      store<PW>(yr + f, o);
+    }
+  }
+  if (BWD && l.first && l.lane < h) d_el[(size_t)node * h + l.lane] = ds;
+}
+
+// Pass 1 of a whole-row sum, as gat_sum_kernel's: for each slot the warp
+// takes its column and place once, lane k < h loads the slot's w[., k] (and
+// with BWD w[., h + k], summed into ds: the lane's head's d_el), each lane
+// takes the α of each load's head from that head's lane, and makes its NC
+// loads together. Each feature sums its slots in slot order, as the chunked
+// sum does. A split row's partials go to the scratch in its layout, for
+// gat_combine_kernel.
+template <typename E, int PW, int NC, bool BWD>
+__global__ void __launch_bounds__(THREADS, 2)
+gat_row_sum_kernel(const int* __restrict__ table, int n_buckets,
+                   const int* __restrict__ cols, const int* __restrict__ nodes,
+                   int n_rows, const int* __restrict__ zero_nodes, int n_zero,
+                   const int* __restrict__ widx, const float* __restrict__ w,
+                   const E* __restrict__ x, int n_x, int h, int d,
+                   int n_tasks, E* __restrict__ y,
+                   float* __restrict__ scratch, const float* __restrict__ der,
+                   const float* __restrict__ a_l,
+                   const float* __restrict__ a_r, float* __restrict__ d_el) {
+  __shared__ Tab tab;
+  __shared__ int compact[2 * THREADS];
+  int* const cc = compact + 2 * (threadIdx.x & ~31);
+  int* const cw = cc + 32;
+  load_tab(tab, table, n_buckets, n_rows);
+  const int W = h * d;
+  const RowLane<PW, NC> l = row_lane_of<PW, NC>(W, d, n_tasks);
+  float acc[NC][PW];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int p = 0; p < PW; ++p) acc[c][p] = 0.f;
+  float ds = 0.f;
+  const long long n_units = tab.unit0[n_buckets];
+  if (l.unit >= n_units) {
+    const long long zr = l.unit - n_units;
+    if (zr < n_zero)
+      finish_row<E, PW, NC, BWD>(zero_nodes[zr], l, W, h, acc, ds, y, der,
+                                 a_l, a_r, d_el);
+    return;
+  }
+  const Piece q = piece_of(tab, n_buckets, l.unit);
+  const int ws = BWD ? 2 * h : h;
+  const int* rw = widx + q.base;
+  compact_walk(cols + q.base, q.k0, q.k1, n_x, l.lane, cc, cw,
+               [&](int k) { return __ldg(rw + k); }, [&](int n) {
+    for (int j = 0; j < n; j += ROW_UNROLL) {
+      float v[ROW_UNROLL][NC][PW], a[ROW_UNROLL], e[ROW_UNROLL];
+#pragma unroll
+      for (int u = 0; u < ROW_UNROLL; ++u) {
+        a[u] = e[u] = 0.f;
+        if (j + u >= n) break;                // the same on every lane
+        const float* wr = w + (size_t)cw[j + u] * ws;
+        if (l.lane < h) {
+          a[u] = __ldg(wr + l.lane);
+          if (BWD) e[u] = __ldg(wr + h + l.lane);
+        }
+        const E* xr = x + (size_t)cc[j + u] * W;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int f = l.f0 + 32 * PW * c;
+          if (f < W) {
+            load<PW>(xr + f, v[u][c]);
+          } else {
+#pragma unroll
+            for (int p = 0; p < PW; ++p) v[u][c][p] = 0.f;
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < ROW_UNROLL; ++u) {
+        if (j + u >= n) break;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const float ac = __shfl_sync(FULL, a[u], l.head[c]);
+#pragma unroll
+          for (int p = 0; p < PW; ++p)
+            acc[c][p] = fmaf(ac, v[u][c][p], acc[c][p]);
+        }
+        if (BWD) ds += e[u];
+      }
+    }
+  });
+  if (q.P == 1) {
+    finish_row<E, PW, NC, BWD>(nodes[tab.first[q.b] + q.row], l, W, h, acc,
+                               ds, y, der, a_l, a_r, d_el);
+    return;
+  }
+  float* sp = scratch + (size_t)q.part * W;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int f = l.f0 + 32 * PW * c;
+    if (f < W) store<PW>(sp + f, acc[c]);
+  }
+  if (BWD && l.first && l.lane < h)
+    scratch[(size_t)tab.part0[n_buckets] * W + (size_t)q.part * h + l.lane] =
+        ds;
+}
+
+// ---------------------------------------------------------------------------
 // The attention vectors' cotangents: d_a_l = Σ_n d_el[n]·z[n], d_a_r =
 // Σ_n der[n]·z[n], a block a chunk of NODE_CHUNK nodes, then the chunks'
 // partials added in chunk order
@@ -761,8 +995,72 @@ int launch_sum(const int* table, int n_buckets, const int* cols,
   return (int)cudaGetLastError();
 }
 
+// The same on whole rows at PW features a load, the combine on the chunked
+// sum's one-float lanes.
+template <typename E, int PW, bool BWD>
+int launch_row_sum(const int* table, int n_buckets, const int* cols,
+                   const int* nodes, int n_rows, const int* zero_nodes,
+                   int n_zero, const int* widx, const float* w, const E* x,
+                   int n_x, int h, int d, E* y, float* scratch,
+                   const float* der, const float* a_l, const float* a_r,
+                   float* d_el, int n_units, int n_split,
+                   cudaStream_t stream) {
+  if (h > ROW_HEADS) return (int)cudaErrorInvalidValue;
+  const int W = h * d;
+  int n_tasks;
+  const int nc = row_loads(W, PW, &n_tasks);
+  const int G = lanes_for(W, 1);
+  const int n_chunks = (W + G - 1) / G;
+  unsigned b1, b2;
+  int err = blocks_for((long long)n_units * n_tasks, 32, &b1);
+  if (!err) err = blocks_for((long long)n_split * n_chunks, G, &b2);
+  if (err) return err;
+  if (b1 == 0) return 0;
+  if (nc == ROW_LOADS_NARROW)
+    gat_row_sum_kernel<E, PW, ROW_LOADS_NARROW, BWD><<<b1, THREADS, 0,
+                                                       stream>>>(
+        table, n_buckets, cols, nodes, n_rows, zero_nodes, n_zero, widx, w,
+        x, n_x, h, d, n_tasks, y, scratch, der, a_l, a_r, d_el);
+  else
+    gat_row_sum_kernel<E, PW, ROW_LOADS, BWD><<<b1, THREADS, 0, stream>>>(
+        table, n_buckets, cols, nodes, n_rows, zero_nodes, n_zero, widx, w,
+        x, n_x, h, d, n_tasks, y, scratch, der, a_l, a_r, d_el);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || b2 == 0) return (int)e;
+  gat_combine_kernel<E, 1, BWD><<<b2, THREADS, 0, stream>>>(
+      table, n_buckets, nodes, n_rows, h, d, G, n_chunks, scratch, y, der,
+      a_l, a_r, d_el);
+  return (int)cudaGetLastError();
+}
+
+// A sum of one table: on whole rows at rows features a load (1 or 2), else
+// (rows 0) at PL features a lane.
+template <typename E, int PL, bool BWD>
+int sum(int rows, const int* table, int n_buckets, const int* cols,
+        const int* nodes, int n_rows, const int* zero_nodes, int n_zero,
+        const int* widx, const float* w, const E* x, int n_x, int h, int d,
+        E* y, float* scratch, const float* der, const float* a_l,
+        const float* a_r, float* d_el, int n_units, int n_split,
+        cudaStream_t stream) {
+  if (rows == 2)
+    return launch_row_sum<E, 2, BWD>(table, n_buckets, cols, nodes, n_rows,
+                                     zero_nodes, n_zero, widx, w, x, n_x, h,
+                                     d, y, scratch, der, a_l, a_r, d_el,
+                                     n_units, n_split, stream);
+  if (rows == 1)
+    return launch_row_sum<E, 1, BWD>(table, n_buckets, cols, nodes, n_rows,
+                                     zero_nodes, n_zero, widx, w, x, n_x, h,
+                                     d, y, scratch, der, a_l, a_r, d_el,
+                                     n_units, n_split, stream);
+  return launch_sum<E, PL, BWD>(table, n_buckets, cols, nodes, n_rows,
+                                zero_nodes, n_zero, widx, w, x, n_x, h, d, y,
+                                scratch, der, a_l, a_r, d_el, n_units,
+                                n_split, stream);
+}
+
 template <typename E, int PL>
-int fwd(const int* table, int n_buckets, const int* cols, const int* nodes,
+int fwd(int rows, const int* table, int n_buckets, const int* cols,
+        const int* nodes,
         int n_rows, const int* zero_nodes, int n_zero, const int* flat,
         const E* z, const float* a_l, const float* a_r, int n_x, int h, int d,
         float slope, E* out, float* alpha, float* el, float* er,
@@ -783,10 +1081,10 @@ int fwd(const int* table, int n_buckets, const int* cols, const int* nodes,
         alpha);
     if ((err = (int)cudaGetLastError())) return err;
   }
-  return launch_sum<E, PL, false>(table, n_buckets, cols, nodes, n_rows,
-                                  zero_nodes, n_zero, flat, alpha, z, n_x, h,
-                                  d, out, scratch, nullptr, nullptr, nullptr,
-                                  nullptr, n_units, n_split, stream);
+  return sum<E, PL, false>(rows, table, n_buckets, cols, nodes, n_rows,
+                           zero_nodes, n_zero, flat, alpha, z, n_x, h, d, out,
+                           scratch, nullptr, nullptr, nullptr, nullptr,
+                           n_units, n_split, stream);
 }
 
 template <typename E, int PL>
@@ -817,17 +1115,17 @@ int bwd_dst(const int* table, int n_buckets, const int* cols,
 }
 
 template <typename E, int PL>
-int bwd_src(const int* table, int n_buckets, const int* cols,
+int bwd_src(int rows, const int* table, int n_buckets, const int* cols,
             const int* nodes, int n_rows, const int* zero_nodes, int n_zero,
             const int* twin, const E* dy, const float* ad, const float* der,
             const E* z, const float* a_l, const float* a_r, int n_x, int h,
             int d, E* dz, float* d_el, float* d_a, float* scratch,
             float* node_scratch, int n_units, int n_split,
             cudaStream_t stream) {
-  int err = launch_sum<E, PL, true>(table, n_buckets, cols, nodes, n_rows,
-                                    zero_nodes, n_zero, twin, ad, dy, n_x, h,
-                                    d, dz, scratch, der, a_l, a_r, d_el,
-                                    n_units, n_split, stream);
+  int err = sum<E, PL, true>(rows, table, n_buckets, cols, nodes, n_rows,
+                             zero_nodes, n_zero, twin, ad, dy, n_x, h, d, dz,
+                             scratch, der, a_l, a_r, d_el, n_units, n_split,
+                             stream);
   if (err) return err;
   const int W = h * d;
   const int n_parts = (n_x + NODE_CHUNK - 1) / NODE_CHUNK;
@@ -846,13 +1144,21 @@ int bwd_src(const int* table, int n_buckets, const int* cols,
 
 extern "C" {
 
+// `lanes`, in each entry point, says how the rows' features are spread
+// (ops/kernels/ell_gat.py lane_mode): 4, four features of one head a lane
+// as one 16-byte (f32) or 8-byte (bf16) load (d % 4 == 0, the row arrays
+// aligned to 4 elements); 2 or 1, whole rows (the sums a warp a row piece,
+// 2 features a load when d is even and the row arrays are aligned to 2
+// elements; h <= ROW_HEADS); 0, one feature a lane in 32-feature chunks.
+// The dot sweep takes one feature a lane unless lanes is 4.
+
 // The forward on the dst packing's table (table, cols, nodes, zero_nodes
 // as for gather_sum_f32; flat: each table slot's place in the packing's
 // flat slot order). z (n_x, h, d) f32, a_l and a_r (h, d) f32 ->
 // out (n_x, h, d) f32, alpha (flat slots, h) f32 (the slots of real rows
-// written; a pad slot's place is not), el and er (n_x, h) f32. vec: d % 4
-// == 0 and z, out, a_l, a_r 16-byte aligned. scratch: h d floats a piece
-// of a split row (null when none is split); n_units and n_split as for
+// written; a pad slot's place is not), el and er (n_x, h) f32. lanes: z,
+// out, a_l, a_r aligned as it says. scratch: h d floats a piece of a split
+// row (null when none is split); n_units and n_split as for
 // gather_sum_f32.
 int ell_gat_fwd_f32(const int* table, int n_buckets, const int* cols,
                     const int* nodes, int n_rows, const int* zero_nodes,
@@ -860,35 +1166,36 @@ int ell_gat_fwd_f32(const int* table, int n_buckets, const int* cols,
                     const float* a_l, const float* a_r, int n_x, int h, int d,
                     float slope, float* out, float* alpha, float* el,
                     float* er, float* scratch, int n_units, int n_split,
-                    int vec, int device, cudaStream_t stream) {
+                    int lanes, int device, cudaStream_t stream) {
   if (n_buckets > MAX_BUCKETS) return (int)cudaErrorInvalidValue;
   cudaSetDevice(device);
-  return vec ? fwd<float, 4>(table, n_buckets, cols, nodes, n_rows,
-                             zero_nodes, n_zero, flat, z, a_l, a_r, n_x, h, d,
-                             slope, out, alpha, el, er, scratch, n_units,
+  return lanes == 4
+             ? fwd<float, 4>(0, table, n_buckets, cols, nodes, n_rows,
+                             zero_nodes, n_zero, flat, z, a_l, a_r, n_x, h,
+                             d, slope, out, alpha, el, er, scratch, n_units,
                              n_split, stream)
-             : fwd<float, 1>(table, n_buckets, cols, nodes, n_rows,
-                             zero_nodes, n_zero, flat, z, a_l, a_r, n_x, h, d,
-                             slope, out, alpha, el, er, scratch, n_units,
+             : fwd<float, 1>(lanes, table, n_buckets, cols, nodes, n_rows,
+                             zero_nodes, n_zero, flat, z, a_l, a_r, n_x, h,
+                             d, slope, out, alpha, el, er, scratch, n_units,
                              n_split, stream);
 }
 
-// The same with z and out bf16 (vec: 8-byte aligned); a_l, a_r and every
-// other float array f32.
+// The same with z and out bf16; a_l, a_r and every other float array f32.
 int ell_gat_fwd_bf16(const int* table, int n_buckets, const int* cols,
                      const int* nodes, int n_rows, const int* zero_nodes,
                      int n_zero, const int* flat, const bf16* z,
                      const float* a_l, const float* a_r, int n_x, int h,
                      int d, float slope, bf16* out, float* alpha, float* el,
                      float* er, float* scratch, int n_units, int n_split,
-                     int vec, int device, cudaStream_t stream) {
+                     int lanes, int device, cudaStream_t stream) {
   if (n_buckets > MAX_BUCKETS) return (int)cudaErrorInvalidValue;
   cudaSetDevice(device);
-  return vec ? fwd<bf16, 4>(table, n_buckets, cols, nodes, n_rows,
+  return lanes == 4
+             ? fwd<bf16, 4>(0, table, n_buckets, cols, nodes, n_rows,
                             zero_nodes, n_zero, flat, z, a_l, a_r, n_x, h, d,
                             slope, out, alpha, el, er, scratch, n_units,
                             n_split, stream)
-             : fwd<bf16, 1>(table, n_buckets, cols, nodes, n_rows,
+             : fwd<bf16, 1>(lanes, table, n_buckets, cols, nodes, n_rows,
                             zero_nodes, n_zero, flat, z, a_l, a_r, n_x, h, d,
                             slope, out, alpha, el, er, scratch, n_units,
                             n_split, stream);
@@ -897,18 +1204,19 @@ int ell_gat_fwd_bf16(const int* table, int n_buckets, const int* cols,
 // Backward pass 1 on the dst packing's table: z, dy (n_x, h, d) f32, alpha,
 // el, er from the forward -> dal (table slots, h) f32 (scratch: dα in table
 // slot order), ad (flat slots, 2 h) f32 (each real slot's α then dpre),
-// der (n_x, h) f32 (0 for the zero rows). vec: d % 4 == 0, z and dy
-// 16-byte aligned. n_units as for gather_sum_f32.
+// der (n_x, h) f32 (0 for the zero rows). lanes: z and dy aligned as it
+// says. n_units as for gather_sum_f32.
 int ell_gat_bwd_dst_f32(const int* table, int n_buckets, const int* cols,
                         const int* nodes, int n_rows, const int* zero_nodes,
                         int n_zero, const int* flat, const float* z,
                         const float* dy, const float* alpha, const float* el,
                         const float* er, int n_x, int h, int d, float slope,
                         float* dal, float* ad, float* der, int n_units,
-                        int vec, int device, cudaStream_t stream) {
+                        int lanes, int device, cudaStream_t stream) {
   if (n_buckets > MAX_BUCKETS) return (int)cudaErrorInvalidValue;
   cudaSetDevice(device);
-  return vec ? bwd_dst<float, 4>(table, n_buckets, cols, nodes, n_rows,
+  return lanes == 4
+             ? bwd_dst<float, 4>(table, n_buckets, cols, nodes, n_rows,
                                  zero_nodes, n_zero, flat, z, dy, alpha, el,
                                  er, n_x, h, d, slope, dal, ad, der, n_units,
                                  stream)
@@ -918,17 +1226,18 @@ int ell_gat_bwd_dst_f32(const int* table, int n_buckets, const int* cols,
                                  stream);
 }
 
-// The same with z and dy bf16 (vec: 8-byte aligned).
+// The same with z and dy bf16.
 int ell_gat_bwd_dst_bf16(const int* table, int n_buckets, const int* cols,
                          const int* nodes, int n_rows, const int* zero_nodes,
                          int n_zero, const int* flat, const bf16* z,
                          const bf16* dy, const float* alpha, const float* el,
                          const float* er, int n_x, int h, int d, float slope,
                          float* dal, float* ad, float* der, int n_units,
-                         int vec, int device, cudaStream_t stream) {
+                         int lanes, int device, cudaStream_t stream) {
   if (n_buckets > MAX_BUCKETS) return (int)cudaErrorInvalidValue;
   cudaSetDevice(device);
-  return vec ? bwd_dst<bf16, 4>(table, n_buckets, cols, nodes, n_rows,
+  return lanes == 4
+             ? bwd_dst<bf16, 4>(table, n_buckets, cols, nodes, n_rows,
                                 zero_nodes, n_zero, flat, z, dy, alpha, el,
                                 er, n_x, h, d, slope, dal, ad, der, n_units,
                                 stream)
@@ -943,7 +1252,7 @@ int ell_gat_bwd_dst_bf16(const int* table, int n_buckets, const int* cols,
 // pass 1, a_l, a_r (h, d) f32 -> dz (n_x, h, d) f32, d_el (n_x, h) f32,
 // d_a (2, h, d) f32 (d_a_l then d_a_r). scratch: h d + h floats a piece of
 // a split row (null when none is split); node_scratch: ceil(n_x / 256) * 2
-// h d floats. vec: d % 4 == 0, dy, z, dz, a_l, a_r 16-byte aligned.
+// h d floats. lanes: dy, z, dz, a_l, a_r aligned as it says.
 int ell_gat_bwd_src_f32(const int* table, int n_buckets, const int* cols,
                         const int* nodes, int n_rows, const int* zero_nodes,
                         int n_zero, const int* twin, const float* dy,
@@ -951,21 +1260,23 @@ int ell_gat_bwd_src_f32(const int* table, int n_buckets, const int* cols,
                         const float* a_l, const float* a_r, int n_x, int h,
                         int d, float* dz, float* d_el, float* d_a,
                         float* scratch, float* node_scratch, int n_units,
-                        int n_split, int vec, int device,
+                        int n_split, int lanes, int device,
                         cudaStream_t stream) {
   if (n_buckets > MAX_BUCKETS) return (int)cudaErrorInvalidValue;
   cudaSetDevice(device);
-  return vec ? bwd_src<float, 4>(table, n_buckets, cols, nodes, n_rows,
+  return lanes == 4
+             ? bwd_src<float, 4>(0, table, n_buckets, cols, nodes, n_rows,
                                  zero_nodes, n_zero, twin, dy, ad, der, z,
                                  a_l, a_r, n_x, h, d, dz, d_el, d_a, scratch,
                                  node_scratch, n_units, n_split, stream)
-             : bwd_src<float, 1>(table, n_buckets, cols, nodes, n_rows,
-                                 zero_nodes, n_zero, twin, dy, ad, der, z,
-                                 a_l, a_r, n_x, h, d, dz, d_el, d_a, scratch,
-                                 node_scratch, n_units, n_split, stream);
+             : bwd_src<float, 1>(lanes, table, n_buckets, cols, nodes,
+                                 n_rows, zero_nodes, n_zero, twin, dy, ad,
+                                 der, z, a_l, a_r, n_x, h, d, dz, d_el, d_a,
+                                 scratch, node_scratch, n_units, n_split,
+                                 stream);
 }
 
-// The same with dy, z and dz bf16 (vec: 8-byte aligned; a_l, a_r f32).
+// The same with dy, z and dz bf16 (a_l, a_r f32).
 int ell_gat_bwd_src_bf16(const int* table, int n_buckets, const int* cols,
                          const int* nodes, int n_rows, const int* zero_nodes,
                          int n_zero, const int* twin, const bf16* dy,
@@ -973,15 +1284,16 @@ int ell_gat_bwd_src_bf16(const int* table, int n_buckets, const int* cols,
                          const float* a_l, const float* a_r, int n_x, int h,
                          int d, bf16* dz, float* d_el, float* d_a,
                          float* scratch, float* node_scratch, int n_units,
-                         int n_split, int vec, int device,
+                         int n_split, int lanes, int device,
                          cudaStream_t stream) {
   if (n_buckets > MAX_BUCKETS) return (int)cudaErrorInvalidValue;
   cudaSetDevice(device);
-  return vec ? bwd_src<bf16, 4>(table, n_buckets, cols, nodes, n_rows,
+  return lanes == 4
+             ? bwd_src<bf16, 4>(0, table, n_buckets, cols, nodes, n_rows,
                                 zero_nodes, n_zero, twin, dy, ad, der, z,
                                 a_l, a_r, n_x, h, d, dz, d_el, d_a, scratch,
                                 node_scratch, n_units, n_split, stream)
-             : bwd_src<bf16, 1>(table, n_buckets, cols, nodes, n_rows,
+             : bwd_src<bf16, 1>(lanes, table, n_buckets, cols, nodes, n_rows,
                                 zero_nodes, n_zero, twin, dy, ad, der, z,
                                 a_l, a_r, n_x, h, d, dz, d_el, d_a, scratch,
                                 node_scratch, n_units, n_split, stream);

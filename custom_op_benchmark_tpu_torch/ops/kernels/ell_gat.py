@@ -29,6 +29,12 @@ is 0 and the dz term ``der·a_r`` adds 0) and run their instructions
 unchanged; ``gat_forward`` returns ``er`` None, ``gat_backward_dst`` takes
 it so, and ``<sweep>.launches_no_dst`` counts these calls in either
 dtype.
+
+How a call spreads its rows follows z's shape and the arrays' alignment
+(:func:`lane_mode`): 16-byte lanes where d % 4 == 0 and the bases allow,
+else whole rows a warp (the sums load all of a row piece's features for
+each slot; the dot holds a head of dy in registers), which
+``<sweep>.launches_whole_row`` counts in either dtype.
 """
 
 from __future__ import annotations
@@ -48,6 +54,12 @@ from custom_op_benchmark_tpu_torch.ops.kernels.tiled_kernels import (
 )
 
 NODE_CHUNK = 256  # nodes a partial of d_a_l, d_a_r (csrc/ell_gat.cu)
+# Whole-row sums (csrc/ell_gat.cu): the loads a lane makes a slot, the
+# fewer for rows that fit them, and the most heads.
+ROW_LOADS = 12
+ROW_LOADS_NARROW = 4
+ROW_HEADS = 32
+DOT_CHUNKS = 8  # dy chunks a lane of the dot sweep holds at one float a lane
 
 
 def _table_args(ell: EllGraph):
@@ -63,11 +75,43 @@ def _table_args(ell: EllGraph):
     return args, ell_launch(t)
 
 
-def _vec(d: int, *tensors: torch.Tensor) -> int:
-    """1 when a lane moves 4 features of one head as one load: d % 4 == 0
-    and every base aligned to 4 elements."""
-    return int(d % 4 == 0 and all(
-        t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors))
+def lane_mode(h: int, d: int, align: int) -> int:
+    """How the sweeps spread rows of h heads of d features whose arrays
+    all start at a multiple of ``align`` elements (4, 2 or 1): 4, four
+    features of one head a lane as one load (d % 4 == 0, align 4); else,
+    up to ROW_HEADS heads, whole rows a warp at 2 features a load (d even,
+    align 2 or more) or 1; else 0, one feature a lane in 32-feature
+    chunks."""
+    if d % 4 == 0 and align % 4 == 0:
+        return 4
+    if h > ROW_HEADS:
+        return 0
+    return 2 if d % 2 == 0 and align % 2 == 0 else 1
+
+
+def _lanes(h: int, d: int, *tensors: torch.Tensor) -> int:
+    """:func:`lane_mode` for ``tensors``' bases."""
+    def align(t):
+        at = t.data_ptr() // t.element_size()
+        return 4 if at % 4 == 0 else 2 if at % 2 == 0 else 1
+
+    return lane_mode(h, d, min(map(align, tensors)))
+
+
+def whole_row_layout(width: int, pw: int):
+    """(features a lane holds, tasks a row) of a whole-row sum over rows of
+    ``width`` features at ``pw`` a load, as csrc/ell_gat.cu's row_loads
+    lays them out: a task covers 32·pw·loads features."""
+    per = 32 * pw
+    tasks = -(-width // (per * ROW_LOADS))
+    need = -(-width // (tasks * per))
+    loads = ROW_LOADS_NARROW if need <= ROW_LOADS_NARROW else ROW_LOADS
+    return loads * pw, tasks
+
+
+def _count_lanes(fn, lanes: int) -> None:
+    if lanes in (1, 2):
+        fn.launches_whole_row += 1
 
 
 def _check(ell: EllGraph, z: torch.Tensor, *more: torch.Tensor) -> None:
@@ -108,11 +152,12 @@ def gat_forward(ell: EllGraph, a_l: torch.Tensor, a_r, z: torch.Tensor,
     el = torch.empty((n, h), **f32)
     er = torch.empty((n, h), **f32)
     scratch = torch.empty((pieces * h * d,) if split else (0,), **f32)
+    lanes = _lanes(h, d, z, out, a_lf, a_rf)
     _call("ell_gat_fwd", z, *targs, _p(ell.table_flat), _p(z), _p(a_lf),
           _p(a_rf), n, h, d, slope, _p(out), _p(alpha), _p(el), _p(er),
-          _p(scratch) if split else None, units, split,
-          _vec(d, z, out, a_lf, a_rf))
+          _p(scratch) if split else None, units, split, lanes)
     _count(gat_forward, z)
+    _count_lanes(gat_forward, lanes)
     if no_dst:
         gat_forward.launches_no_dst += 1
     return out, alpha, el, None if no_dst else er
@@ -133,10 +178,12 @@ def gat_backward_dst(ell: EllGraph, z: torch.Tensor, dy: torch.Tensor,
     dal = torch.empty((ell.gather_table.cols.shape[0], h), **f32)
     ad = torch.empty((ell.total_slots, 2 * h), **f32)
     der = torch.empty((n, h), **f32)
+    lanes = _lanes(h, d, z, dy)
     _call("ell_gat_bwd_dst", z, *targs, _p(ell.table_flat), _p(z), _p(dy),
           _p(alpha), _p(el), _p(er), n, h, d, slope, _p(dal), _p(ad),
-          _p(der), units, _vec(d, z, dy))
+          _p(der), units, lanes)
     _count(gat_backward_dst, z)
+    _count_lanes(gat_backward_dst, lanes)
     if no_dst:
         gat_backward_dst.launches_no_dst += 1
     return ad, der
@@ -159,11 +206,13 @@ def gat_backward_src(ell_t: EllGraph, a_l: torch.Tensor, a_r,
     d_a = torch.empty((2, h, d), **f32)
     scratch = torch.empty((pieces * (h * d + h),) if split else (0,), **f32)
     node_scratch = torch.empty((-(-n // NODE_CHUNK) * 2 * h * d,), **f32)
+    lanes = _lanes(h, d, dy, z, dz, a_lf, a_rf)
     _call("ell_gat_bwd_src", z, *targs, _p(ell_t.table_twin), _p(dy),
           _p(ad), _p(der), _p(z), _p(a_lf), _p(a_rf), n, h, d, _p(dz),
           _p(d_el), _p(d_a), _p(scratch) if split else None,
-          _p(node_scratch), units, split, _vec(d, dy, z, dz, a_lf, a_rf))
+          _p(node_scratch), units, split, lanes)
     _count(gat_backward_src, z)
+    _count_lanes(gat_backward_src, lanes)
     if no_dst:
         gat_backward_src.launches_no_dst += 1
         return d_a[0].to(a_l.dtype), None, dz
@@ -172,3 +221,4 @@ def gat_backward_src(ell_t: EllGraph, a_l: torch.Tensor, a_r,
 
 for _sweep in (gat_forward, gat_backward_dst, gat_backward_src):
     _sweep.launches = _sweep.launches_bf16 = _sweep.launches_no_dst = 0
+    _sweep.launches_whole_row = 0

@@ -12,6 +12,10 @@ On the CPU (the tier-1 run):
   forward and cotangents; a wrong map reads the NaN the mirror leaves in
   the places no slot writes;
 - CPU tensors take the plain path: no library, the counters unchanged;
+- how a call spreads its rows (``lane_mode``) as a function of the shape and
+  the arrays' alignment, and the whole-row sums' layout: the features a
+  lane holds and the tasks a row takes, each feature once, a pair of
+  features in one head;
 - the source's constants (with those of S3's row engine, csrc/ell_table.cuh)
   agree with the wrappers', and it has no atomic.
 
@@ -24,6 +28,12 @@ and bf16, at (h, d) = (4, 128), (1, 40), (4, 32), (2, 128) and (2, 33)
 both packings, with nodes that have no in-edges, no out-edges or neither,
 and pad slots; two runs equal bit for bit; the launch counts of a 3-layer
 GAT step; and no gathered ``(R, D, h, d)`` tile in the op's peak memory.
+The whole-row path (d % 4 != 0, or arrays off 16-byte alignment) at (3,
+250) with and without the dst term, (2, 33), (4, 300) (two tasks a row)
+and a (4, 128) view two elements off, f32 and bf16, against the plain
+path and bit for bit against the one-float chunked sums it replaces, each
+call counted on ``.launches_whole_row``; more than ROW_HEADS heads keep
+the chunked sums.
 """
 
 import dataclasses
@@ -209,12 +219,17 @@ def test_mirror_of_the_sweeps_matches_the_plain_op(profile, h, d):
     assert not got[3][n - 10:].any()
 
 
+def _counts():
+    return [(f.launches, f.launches_bf16, f.launches_whole_row)
+            for f in SWEEPS]
+
+
 def test_cpu_tensors_take_the_plain_path(monkeypatch):
     def refuse():
         raise AssertionError("the CPU path built or loaded the library")
 
     monkeypatch.setattr(_build, "library", refuse)
-    before = [(f.launches, f.launches_bf16) for f in SWEEPS]
+    before = _counts()
     g = _graph(5)
     se, de = ell_dual(g)
     for dtype in (torch.float32, torch.bfloat16):
@@ -227,7 +242,57 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
         want = _plain(de, se, a_l.detach(), a_r.detach(), z.detach(), dy)
         for x, w in zip((out,) + got, want):
             assert x.dtype == dtype and torch.equal(x, w)
-    assert [(f.launches, f.launches_bf16) for f in SWEEPS] == before
+    assert _counts() == before
+
+
+def _offset(t: torch.Tensor, k: int) -> torch.Tensor:
+    """A contiguous copy of t whose base lies k elements past an aligned
+    allocation."""
+    buf = t.new_empty(t.numel() + k)
+    buf[k:].copy_(t.reshape(-1))
+    return buf[k:].view(t.shape)
+
+
+# (h, d, base offset in elements, the lane mode): 16-byte lanes (4) where
+# d % 4 == 0 and the bases allow, whole rows at 2 or 1 features a load up
+# to ROW_HEADS heads, else one float a lane in chunks (0).
+LANE_CASES = [(3, 250, 0, 2), (2, 33, 0, 1), (4, 128, 2, 2), (4, 128, 1, 1),
+              (4, 128, 0, 4), (1, 40, 0, 4), (4, 300, 0, 4), (3, 250, 1, 1),
+              (kg.ROW_HEADS + 1, 3, 0, 0), (kg.ROW_HEADS + 1, 4, 0, 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h, d, offset, mode", LANE_CASES)
+def test_the_path_follows_the_shape_and_alignment(h, d, offset, mode,
+                                                  dtype):
+    z = _offset(torch.zeros(3, h, d, dtype=dtype), offset)
+    align = 4 if offset == 0 else 2 if offset % 2 == 0 else 1
+    assert kg.lane_mode(h, d, align) == mode
+    assert kg._lanes(h, d, z, torch.empty_like(z)) == mode
+
+
+# (row width, features a load) → (features a lane holds, tasks a row).
+LAYOUTS = [(750, 2, 24, 1), (66, 1, 4, 1), (1200, 2, 24, 2), (750, 1, 12, 2),
+           (753, 1, 12, 2), (512, 2, 24, 1), (40, 2, 8, 1), (1, 1, 4, 1)]
+
+
+@pytest.mark.parametrize("width, pw, per_lane, tasks", LAYOUTS)
+def test_whole_row_layout(width, pw, per_lane, tasks):
+    """Each feature of the row is one lane's, once: task t, lane l, load c
+    take features t·32·K + 32·pw·c + l·pw .. + pw − 1 (K the features a
+    lane holds); with pw = 2 a load's pair starts at an even feature, so
+    it lies in one head of any even d."""
+    assert kg.whole_row_layout(width, pw) == (per_lane, tasks)
+    loads = per_lane // pw
+    assert loads in (kg.ROW_LOADS_NARROW, kg.ROW_LOADS)
+    f = (torch.arange(tasks)[:, None, None, None] * 32 * per_lane
+         + 32 * pw * torch.arange(loads)[None, :, None, None]
+         + pw * torch.arange(32)[None, None, :, None]
+         + torch.arange(pw)).reshape(-1)
+    f = f[f < width]
+    assert torch.equal(f.sort().values, torch.arange(width))
+    if pw == 2:
+        assert torch.equal(f[1::2], f[::2] + 1) and not (f[::2] % 2).any()
 
 
 def test_the_source_agrees_with_the_wrappers():
@@ -236,7 +301,11 @@ def test_the_source_agrees_with_the_wrappers():
     assert '#include "ell_table.cuh"' in text
     text += (_build.CSRC / "ell_table.cuh").read_text()
     for name, value in (("PIECE", PIECE), ("MAX_BUCKETS", MAX_BUCKETS),
-                        ("NODE_CHUNK", kg.NODE_CHUNK)):
+                        ("NODE_CHUNK", kg.NODE_CHUNK),
+                        ("ROW_LOADS", kg.ROW_LOADS),
+                        ("ROW_LOADS_NARROW", kg.ROW_LOADS_NARROW),
+                        ("ROW_HEADS", kg.ROW_HEADS),
+                        ("DOT_CHUNKS", kg.DOT_CHUNKS)):
         assert re.search(rf"constexpr int {name} = (\d+);",
                          text).group(1) == str(value), name
     assert re.search(r"MASK_VALUE = (-1e30)f;", text)
@@ -302,6 +371,63 @@ def test_kernels_match_the_plain_path(cuda, profile, h, d, dtype):
         assert torch.equal(x, y)
 
 
+def _sweeps(de, se, a_l, a_r, z, dy):
+    """The three sweeps called directly on z and dy as given (their bases
+    kept): (out, d_a_l, d_a_r, dz)."""
+    out, alpha, el, er = kg.gat_forward(de, a_l, a_r, z, SLOPE)
+    ad, der = kg.gat_backward_dst(de, z, dy, alpha, el, er, SLOPE)
+    return (out,) + kg.gat_backward_src(se, a_l, a_r, z, dy, ad, der)
+
+
+# (h, d, base offset of z and dy in elements, the dst term, the lane
+# mode): whole rows at 2 features a load (DGL's (3, 250) with and without
+# the dst term; (4, 300) two elements off, 1200 features, two tasks a
+# row; (4, 128) two elements off) and at 1 ((2, 33); (3, 251), two tasks
+# a row); more than ROW_HEADS heads keep the chunked sums (0).
+WHOLE_ROW = [(3, 250, 0, True, 2), (3, 250, 0, False, 2), (2, 33, 0, True, 1),
+             (4, 300, 2, True, 2), (4, 128, 2, True, 2), (3, 251, 0, True, 1),
+             (kg.ROW_HEADS + 1, 3, 0, True, 0)]
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h, d, offset, has_dst, mode", WHOLE_ROW)
+def test_whole_rows_match_the_plain_path(cuda, monkeypatch, h, d, offset,
+                                         has_dst, mode, dtype):
+    """On the hub graph (the sums' pieces and combine run) against the
+    plain path at the tolerances above, bit for bit on repeat, and bit for
+    bit against the one-float chunked sums: each feature sums its slots in
+    the same order, and the dot sweep's lanes hold the same features."""
+    g = _graph(6, device=cuda)
+    se, de = ell_dual(g, profile="train")
+    assert max(b.width for b in se.buckets) > PIECE
+    z, a_l, a_r, dy = _inputs(h + d, g.n_nodes, h, d, dtype, cuda)
+    z, dy = _offset(z, offset), _offset(dy, offset)
+    if not has_dst:
+        a_r = None
+    assert kg._lanes(h, d, z, dy) == mode
+    before = [f.launches_whole_row for f in SWEEPS]
+    got = _sweeps(de, se, a_l, a_r, z, dy)
+    after = [f.launches_whole_row for f in SWEEPS]
+    assert [b - a for a, b in zip(before, after)] == [int(mode > 0)] * 3
+    want = _plain(de, se, a_l, a_r, z, dy)
+    for name, x, w in zip(("out", "d_a_l", "d_a_r", "dz"), got, want):
+        if w is None:
+            assert x is None and not has_dst, name
+            continue
+        assert x.dtype == w.dtype and x.shape == w.shape, name
+        _close(name, x, w, dtype == torch.bfloat16)
+    again = _sweeps(de, se, a_l, a_r, z, dy)
+    monkeypatch.setattr(kg, "lane_mode", lambda h, d, align: 0)
+    chunked = _sweeps(de, se, a_l, a_r, z, dy)
+    assert [f.launches_whole_row for f in SWEEPS] == [
+        a + 2 * int(mode > 0) for a in before]
+    for name, x, y, c in zip(("out", "d_a_l", "d_a_r", "dz"), got, again,
+                             chunked):
+        if x is not None:
+            assert torch.equal(x, y) and torch.equal(x, c), name
+
+
 @pytest.mark.chip
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_a_gat_step_counts_its_sweeps(cuda, dtype):
@@ -315,12 +441,16 @@ def test_a_gat_step_counts_its_sweeps(cuda, dtype):
     attr = "launches_bf16" if dtype == torch.bfloat16 else "launches"
     other = "launches" if dtype == torch.bfloat16 else "launches_bf16"
     before = [(getattr(f, attr), getattr(f, other)) for f in SWEEPS]
+    whole = [f.launches_whole_row for f in SWEEPS]
     model(g, x.to(cuda), ell=ell).square().sum().backward()
     torch.cuda.synchronize()
     after = [(getattr(f, attr), getattr(f, other)) for f in SWEEPS]
     # Three layers: a forward sweep each, and both backward passes each.
     assert [(a - b, c - e) for (b, e), (a, c) in zip(before, after)] == [
         (3, 0), (3, 0), (3, 0)]
+    # (4, 32) and (1, 40), as arxiv_gat's (4, 128) and (1, 40): every
+    # sweep on 16-byte lanes.
+    assert [f.launches_whole_row for f in SWEEPS] == whole
     for p in model.parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all()
 

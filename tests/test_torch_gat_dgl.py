@@ -20,8 +20,10 @@ On the card (marker ``chip``, skipped without a CUDA device; run with
 tests/test_torch_gat_dgl.py``): the no-dst sweeps against the plain torch
 path on the same CUDA tensors at the model's (h, d) = (3, 250) (one
 feature a lane) and (1, 40), in f32 and bf16, each call counted on
-``.launches_no_dst``, two runs equal bit for bit; and a 3-layer step of
-the model counts 3/3/3 no-dst launches.
+``.launches_no_dst``, (3, 250) on ``.launches_whole_row`` too, two runs
+equal bit for bit; a 3-layer step of the model counts 3/3/3 no-dst
+launches; and at the cell's widths (3 heads of 250, 40 out) a step
+counts 2/2/2 whole-row launches, the output layer on 16-byte lanes.
 """
 
 import numpy as np
@@ -217,10 +219,14 @@ def test_no_dst_kernels_match_the_plain_path(cuda, h, d, dtype):
     z, a_l, _, dy = _inputs(h + d, g.n_nodes, h, d, dtype, cuda)
     attr = "launches_bf16" if dtype == torch.bfloat16 else "launches"
     before = [(f.launches_no_dst, getattr(f, attr)) for f in SWEEPS]
+    whole = [f.launches_whole_row for f in SWEEPS]
     got = _no_dst_kernel(de, se, a_l, z, dy)
     after = [(f.launches_no_dst, getattr(f, attr)) for f in SWEEPS]
     assert [(a - b, c - e) for (b, e), (a, c) in zip(before, after)] == [
         (1, 1)] * 3
+    # 250 % 4 != 0: whole rows; (1, 40): 16-byte lanes.
+    assert [f.launches_whole_row - w for f, w in zip(SWEEPS, whole)] == [
+        int(d % 4 != 0)] * 3
     out, alphas, signs = ell_ops._gat_fwd_plain(de, a_l, None, z, SLOPE)
     d_a_l, d_a_r, dz = ell_ops._gat_bwd_plain(de, se, a_l, None, z, alphas,
                                               signs, dy, SLOPE)
@@ -247,5 +253,23 @@ def test_a_dgl_gat_step_counts_its_no_dst_sweeps(cuda):
     # every one without a dst term.
     assert [(a - b, c - e) for (b, e), (a, c) in zip(before, after)] == [
         (3, 3)] * 3
+    for p in model.parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all()
+
+
+@pytest.mark.chip
+def test_a_dgl_gat_step_at_the_cells_widths_counts_its_whole_rows(cuda):
+    g = _graph(7, device=cuda)
+    ell = ell_dual(g, profile="train")
+    model = _build(dict(PUBLISHED, in_dim=24), cuda)
+    x = torch.randn(g.n_nodes, 24, generator=torch.Generator().manual_seed(9))
+    before = [(f.launches_whole_row, f.launches_no_dst) for f in SWEEPS]
+    model(g, x.to(cuda), ell=ell).square().sum().backward()
+    torch.cuda.synchronize()
+    after = [(f.launches_whole_row, f.launches_no_dst) for f in SWEEPS]
+    # The two hidden layers at (3, 250) on whole rows, the output layer at
+    # (1, 40) on 16-byte lanes; all three without a dst term.
+    assert [(a - b, c - e) for (b, e), (a, c) in zip(before, after)] == [
+        (2, 3)] * 3
     for p in model.parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all()
