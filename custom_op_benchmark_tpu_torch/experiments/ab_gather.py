@@ -7,12 +7,20 @@ build and against variant builds of itself.
 Each source is copied out of git under ``build/`` beforehand, so the run
 needs no ``.git``.
 
-``--parent``: the one-launch S3 before its redesign (long rows in pieces,
-lanes sized to the width, pad slots skipped): ``git show
-008df9d:custom_op_benchmark_tpu_torch/csrc/gather_sum.cu``, whose
-``gather_sum_*`` and ``csr_sum_*`` take no scratch. The committed
-wrappers launch it through an adapter that drops the scratch arguments
-(the wrapper still allocates the scratch, from PyTorch's cache). At every
+``--parent``: a parent's ``csrc/gather_sum.cu`` (any commit from
+``0babd0f`` on, whose ``gather_sum_*`` and ``csr_sum_*`` take the committed
+arguments), with the ``csrc/ell_table.cuh`` of the same commit beside it
+where it includes one: a quoted include resolves beside the source first,
+then in the committed ``csrc/``. For the parent commit, say ``P``::
+
+    mkdir -p build/ab/P
+    for f in gather_sum.cu ell_table.cuh; do
+      git show P:custom_op_benchmark_tpu_torch/csrc/$f > build/ab/P/$f
+    done
+
+Each build's entry points are bound with the committed signatures and
+launched by the committed wrappers (S3's from the build, every other
+entry point from the committed library; ``common.on_library``). At every
 S3 row shape of PERF.md's kernel table, and at the hub shapes (the
 power-law graph's ELL src table, whose widest bucket pads the 27,565-slot
 hub to 32,768, and its src CSR rows, the sum of ``pl_spmm/xla_segment``'s
@@ -42,8 +50,6 @@ power limit; exits 1 if a check failed. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
-import contextlib
-import ctypes
 import json
 import statistics
 import subprocess
@@ -56,11 +62,14 @@ import torch
 from custom_op_benchmark_tpu_torch import models
 from custom_op_benchmark_tpu_torch.data import planted_partition
 from custom_op_benchmark_tpu_torch.experiments import exp_pallas_gather
-from custom_op_benchmark_tpu_torch.graph.ell import one_bucket_table
+from custom_op_benchmark_tpu_torch.experiments.common import (
+    load_builds,
+    on_library,
+)
+from custom_op_benchmark_tpu_torch.graph.ell import PIECE, one_bucket_table
 from custom_op_benchmark_tpu_torch.ops import ell_dual, vector_spmm, xla
 from custom_op_benchmark_tpu_torch.ops.kernels import _build
 from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import (
-    PIECE,
     csr_sum,
     gather_sum,
 )
@@ -77,74 +86,19 @@ ARXIV = dict(num_classes=40, nodes_per_class=4000, feat_dim=128,
              avg_degree=13)
 STEP_MODELS = {"GCN": dict(hidden_dim=128, num_layers=2),
                "GraphSAGE": dict(hidden_dim=128, num_layers=2)}
-_P, _I = ctypes.c_void_p, ctypes.c_int
-
-
-# The parent's C signatures (no scratch): gather_sum_* and csr_sum_*.
-PARENT_SIGNATURES = {
-    "gather_sum": [_P, _I, _P, _P, _I, _P, _I, _P, _P] + [_I] * 4 + [_P],
-    "csr_sum": [_P, _I, _P, _P, _P] + [_I] * 4 + [_P],
-}
-# What the parent's entry points keep of the committed wrapper's arguments:
-# all but (scratch, units, split rows) and (scratch, slots).
-PARENT_DROP = {"gather_sum": slice(12, 15), "csr_sum": slice(8, 10)}
-
-
-def build(sources) -> list:
-    """Each source built on its own into a shared library, one nvcc for
-    each, all started together; their paths."""
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sos = [_build.BUILD_DIR / f"ab_gather_{src.stem}.so" for src in sources]
-    procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
-                               str(_build.CSRC), "-shared", "-o", str(so),
-                               str(src)])
-             for src, so in zip(sources, sos)]
-    for src, proc in zip(sources, procs):
-        if proc.wait() != 0:
-            raise RuntimeError(f"nvcc failed on {src}")
-    return sos
-
-
-def load(so: Path, argtypes=None, signatures=None) -> ctypes.CDLL:
-    """A built library whose ``gather_sum_f32`` takes ``argtypes``, or
-    each entry point named in ``signatures`` its types."""
-    lib = ctypes.CDLL(str(so))
-    types = dict(signatures or {"gather_sum_f32": argtypes})
-    for name, argt in types.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argt
-        fn.restype = ctypes.c_int
-    return lib
+S3_ENTRIES = ("gather_sum", "csr_sum")
 
 
 class Library:
-    """S3's entry points from ``lib`` behind the committed wrappers' calls
-    (the parent's with the scratch arguments dropped); every other entry
-    point from the committed library."""
+    """S3's entry points from ``lib``, every other entry point from the
+    committed library."""
 
-    def __init__(self, lib, drop=None):
-        self.lib, self.drop, self.real = lib, drop or {}, _build.library()
+    def __init__(self, lib):
+        self.lib, self.real = lib, _build.library()
 
     def __getattr__(self, name):
-        base = name.rsplit("_", 1)[0]
-        if base not in ("gather_sum", "csr_sum"):
-            return getattr(self.real, name)
-        fn, cut = getattr(self.lib, name), self.drop.get(base)
-        if cut is None:
-            return fn
-        return lambda *a: fn(*a[:cut.start], *a[cut.stop:])
-
-
-@contextlib.contextmanager
-def on_library(lib):
-    """S3's wrapper launches ``lib``'s kernel: a variant build of the
-    one-launch csrc/gather_sum.cu, with the same entry point."""
-    real = _build.library
-    _build.library = lambda: lib
-    try:
-        yield
-    finally:
-        _build.library = real
+        s3 = name.rsplit("_", 1)[0] in S3_ENTRIES
+        return getattr(self.lib if s3 else self.real, name)
 
 
 def ms(fn, timing):
@@ -385,7 +339,8 @@ def steps_ab(parent, pl_case, ds, g, timing):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path,
-                    help="the one-launch gather_sum.cu before the redesign")
+                    help="a parent's gather_sum.cu (its ell_table.cuh "
+                    "beside it)")
     ap.add_argument("--variant", type=Path, action="append", default=[],
                     help="an edited copy of the committed gather_sum.cu "
                     "(same entry points), timed against it")
@@ -403,16 +358,11 @@ def main(argv=None) -> int:
     ds = planted_partition(**ARXIV)
     g = ds.graph.to(dev)
     sources = ([args.parent] if args.parent else []) + args.variant
-    built = dict(zip(sources, build(sources)))
+    built = dict(zip(sources, load_builds(sources, "ab_gather")))
     if args.parent or args.variant:
-        entries = {f"{b}_{t}": types for b, types in PARENT_SIGNATURES.items()
-                   for t in ("f32", "bf16")}
-        parent = (Library(load(built[args.parent], signatures=entries),
-                          PARENT_DROP) if args.parent
-                  else Library(_build.library()))
-        ours = {name: _build._SIGNATURES[name] for name in entries}
-        variants = {v.stem: Library(load(built[v], signatures=ours))
-                    for v in args.variant}
+        parent = Library(built[args.parent] if args.parent
+                         else _build.library())
+        variants = {v.stem: Library(built[v]) for v in args.variant}
         out["shapes"], good = parent_ab(parent, variants,
                                         s3_shapes(dev, case, g), timing)
         ok &= good

@@ -9,17 +9,25 @@ seconds. A host-only probe (:func:`run_host_main`) touches no card: its
 figures are host figures at every size, and ``--device cpu`` and
 ``--small`` both pick its small size. Rows are timed by ``benchlib.bench_fn`` with ``iters="auto"``
 (CUDA events, median of 3 windows of at least 20 ms).
+
+The A/B scripts (``ab_tiled``, ``ab_gather``) build other copies of the
+kernels' sources (:func:`load_builds`) and run the committed wrappers on
+them (:func:`on_library`).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes
 import json
+import subprocess
 import sys
 from typing import Callable, Optional
 
 import torch
 
+from custom_op_benchmark_tpu_torch.ops.kernels import _build
 from custom_op_benchmark_tpu_torch.utils.benchlib import bench_fn
 from custom_op_benchmark_tpu_torch.utils.device import cuda_device
 
@@ -133,3 +141,44 @@ def run_host_main(name: str, doc: str, run: Callable, argv=None) -> int:
     result = run("small" if args.small or args.device == "cpu" else "full")
     emit(name, result)
     return 0 if result.get("ok", True) else 1
+
+
+def load_builds(sources, tag: str) -> list:
+    """Each CUDA source built on its own into a shared library under
+    ``build/`` with the port's nvcc flags (one nvcc each, all started
+    together; a quoted include resolves beside the source first, then in
+    ``csrc/``) and its entry points bound with the committed signatures
+    (``_build._SIGNATURES``): the libraries, in order, each with
+    ``.entries``, the names of the entry points it has."""
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sos = [_build.BUILD_DIR / f"{tag}_{src.parent.name}_{src.stem}.so"
+           for src in sources]
+    procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                               str(_build.CSRC), "-shared", "-o", str(so),
+                               str(src)])
+             for src, so in zip(sources, sos)]
+    libs = []
+    for src, so, proc in zip(sources, sos, procs):
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed on {src}")
+        lib = ctypes.CDLL(str(so))
+        lib.entries = {name for name in _build._SIGNATURES
+                       if hasattr(lib, name)}
+        for name in lib.entries:
+            fn = getattr(lib, name)
+            fn.argtypes = _build._SIGNATURES[name]
+            fn.restype = ctypes.c_int
+        libs.append(lib)
+    return libs
+
+
+@contextlib.contextmanager
+def on_library(lib):
+    """Inside the block every wrapper of ``ops/kernels`` launches ``lib``'s
+    entry points: ``_build.call`` looks the library up at each launch."""
+    real = _build.library
+    _build.library = lambda: lib
+    try:
+        yield
+    finally:
+        _build.library = real

@@ -43,6 +43,12 @@ DEFAULT_WIDTHS = (4, 8, 16, 32, 64, 128, 256, 512, 1024)
 TRAIN_WIDTHS = tuple(range(4, 65, 4)) + (96, 128, 192, 256, 384, 512,
                                          768, 1024)
 
+# The table engine that S3 and the GAT sweeps share (csrc/ell_table.cuh):
+# the buckets its table in shared memory holds, and the slots a piece of a
+# long row takes.
+MAX_BUCKETS = 64
+PIECE = 256
+
 
 @dataclasses.dataclass(frozen=True)
 class EllBucket:
@@ -105,6 +111,21 @@ class GatherTable:
             self, buckets=self.buckets.to(device), cols=self.cols.to(device),
             nodes=self.nodes.to(device),
             zero_nodes=self.zero_nodes.to(device))
+
+
+def ell_launch(table: GatherTable):
+    """(units, split rows, pieces) of the table engine's two passes over
+    ``table``, from its host layout: the rows' pieces plus the zero rows,
+    the rows wider than PIECE and their pieces."""
+    units = int(table.zero_nodes.shape[0])
+    split = pieces = 0
+    for _, w, _, rows in table.layout:
+        p = max(1, -(-w // PIECE))
+        units += rows * p
+        if p > 1:
+            split += rows
+            pieces += rows * p
+    return units, split, pieces
 
 
 @functools.lru_cache(maxsize=64)

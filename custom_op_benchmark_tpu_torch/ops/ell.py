@@ -64,8 +64,8 @@ from custom_op_benchmark_tpu_torch.graph.ell import (
 )
 from custom_op_benchmark_tpu_torch.graph.graph import Graph
 from custom_op_benchmark_tpu_torch.ops.kernels import ell_gat
+from custom_op_benchmark_tpu_torch.ops.kernels._build import on_cpu
 from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import gather_sum
-from custom_op_benchmark_tpu_torch.ops.kernels.tiled_kernels import _on_cpu
 from custom_op_benchmark_tpu_torch.utils.spans import spanned
 
 MASK_VALUE = -1e30
@@ -798,7 +798,7 @@ class _EllGat(Function):
         if not ell.buckets:
             ctx.save_for_backward(a_l, a_r, z)
             return torch.zeros_like(z)
-        if _on_cpu(*(t for t in (a_l, a_r, z, ell.row_pos)
+        if on_cpu(*(t for t in (a_l, a_r, z, ell.row_pos)
                      if t is not None)):
             out, alphas, signs = _gat_fwd_plain(ell, a_l, a_r, z, slope)
             ctx.n_alpha = len(alphas)
@@ -826,7 +826,7 @@ class _EllGat(Function):
             return (None, None, torch.zeros_like(a_l),
                     None if a_r is None else torch.zeros_like(a_r),
                     torch.zeros_like(z), None)
-        if _on_cpu(z):
+        if on_cpu(z):
             alphas, signs = rest[: ctx.n_alpha], rest[ctx.n_alpha:]
             grads = _gat_bwd_plain(ell, ell_t, a_l, a_r, z, alphas, signs,
                                    dy, ctx.slope)

@@ -1,4 +1,5 @@
-"""Build the hand-written CUDA kernels and load them with ctypes.
+"""Build the hand-written CUDA kernels, load them with ctypes and launch
+them.
 
 The sources under ``custom_op_benchmark_tpu_torch/csrc/`` have a plain C
 interface, so ``nvcc`` compiles them in seconds (no PyTorch headers): one
@@ -8,6 +9,12 @@ library. The build runs at first use, into
 sources, their headers and the flags: an unchanged checkout reuses its
 library, a changed one builds anew. A failed build raises with nvcc's
 output; there is no fallback.
+
+Every wrapper of ``ops/kernels`` launches through :func:`call`, which
+picks the entry point for the dtype, passes the device and stream, opens
+``utils.spans.launch`` around the launch, checks its status and counts it
+on the wrapper. The argument checks the wrappers share (:func:`on_cpu`,
+:func:`check_cuda`) live here too.
 """
 
 from __future__ import annotations
@@ -19,6 +26,10 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
+
+from custom_op_benchmark_tpu_torch.utils.spans import launch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -141,3 +152,80 @@ def check(status: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error for its launch."""
     if status != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {status}")
+
+
+# ---------------------------------------------------------------------------
+# The launch path and the checks the wrappers share
+# ---------------------------------------------------------------------------
+
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU, False when every tensor lies
+    on one CUDA device; raises on anything else."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(
+            f"tensors on several devices: {sorted(map(str, devices))}")
+    (dev,) = devices
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    return False
+
+
+def check_cuda(*, ints=(), floats=(), bf16=False) -> None:
+    """The checks every CUDA entry point needs of its arguments: ``ints``
+    contiguous int32; ``floats`` contiguous and of one dtype, float32 or,
+    with ``bf16``, also bfloat16."""
+    for t in ints:
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError("index arrays must be contiguous int32")
+    allowed = KERNEL_DTYPES if bf16 else (torch.float32,)
+    for t in floats:
+        if t.dtype not in allowed or not t.is_contiguous():
+            raise ValueError(
+                "the kernel takes contiguous tensors of "
+                f"{' or '.join(map(str, allowed))}, got {t.dtype}, "
+                f"contiguous={t.is_contiguous()}")
+    if len({t.dtype for t in floats}) > 1:
+        raise ValueError("the kernel takes one dtype per call, got "
+                         f"{sorted(str(t.dtype) for t in floats)}")
+
+
+def c_ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    """``t``'s data pointer as a C argument."""
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def entry(name: str, t: torch.Tensor) -> str:
+    """The C entry point of ``name`` for ``t``'s dtype (``<name>_f32`` or
+    ``<name>_bf16``)."""
+    return f"{name}_{'bf16' if t.dtype == torch.bfloat16 else 'f32'}"
+
+
+def device_stream(t: torch.Tensor):
+    """(device index, current stream) of ``t``'s device, the last two
+    arguments of every C entry point."""
+    return (t.device.index,
+            ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream))
+
+
+def call(fn, name: str, t: torch.Tensor, *args) -> None:
+    """Launch the C entry point of ``name`` for ``t``'s dtype with
+    ``args`` as given, then ``t``'s device and current stream, inside
+    ``spans.launch`` (a profiler then links the kernel to the caller's
+    span); raise naming the entry point if the launch failed; else count
+    one launch on ``fn``: ``fn.launches`` in float32, ``fn.launches_bf16``
+    in bfloat16. The library is looked up at each call."""
+    name = entry(name, t)
+    dev, stream = device_stream(t)
+    kernel = getattr(library(), name)
+    with launch(name):
+        check(kernel(*args, dev, stream), name)
+    if t.dtype == torch.bfloat16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1

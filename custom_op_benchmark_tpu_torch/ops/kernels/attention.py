@@ -32,17 +32,17 @@ from __future__ import annotations
 
 import torch
 
-from custom_op_benchmark_tpu_torch.ops.kernels import _build
+from custom_op_benchmark_tpu_torch.ops.kernels._build import (
+    call,
+    check_cuda,
+    on_cpu,
+)
 from custom_op_benchmark_tpu_torch.ops.kernels.tiled_kernels import (
     TILE,
-    _check_cuda,
-    _count,
-    _entry,
-    _heads,
-    _on_cpu,
-    _row_tiles,
-    _stream,
-    _vec,
+    as_heads,
+    check_mask,
+    row_tiles,
+    vec16,
 )
 from custom_op_benchmark_tpu_torch.ops.segments import sorted_segment_reduce
 
@@ -58,10 +58,10 @@ def fused_attention_rows_plain(tile_ptr, tile_cols, mask, q, k, v, scale):
     ptr = tile_ptr.long()
     rows = torch.repeat_interleave(torch.arange(nrb, device=q.device),
                                    ptr[1:] - ptr[:-1])
-    qh, kh, vh = _heads(q).float(), _heads(k).float(), _heads(v).float()
-    qt = _row_tiles(qh, rows, r)                            # (T, R, H, d)
-    kt = _row_tiles(kh, tile_cols, c)                       # (T, C, H, d)
-    vt = _row_tiles(vh, tile_cols, c)
+    qh, kh, vh = as_heads(q).float(), as_heads(k).float(), as_heads(v).float()
+    qt = row_tiles(qh, rows, r)                            # (T, R, H, d)
+    kt = row_tiles(kh, tile_cols, c)                       # (T, C, H, d)
+    vt = row_tiles(vh, tile_cols, c)
     s = torch.einsum("trhd,tchd->htrc", qt, kt) * scale
     s = torch.where(mask, s, NEG_INF)
     m = sorted_segment_reduce(s.amax(-1), ptr, "max", dim=1)  # (H, NRB, R)
@@ -82,8 +82,8 @@ def check_kernel_args(tile_ptr, tile_cols, mask, q, k, v, *, s5=False):
     on anything it does not take. K4 takes float32 or bfloat16, S5
     (``s5=True``) float32; both any head width d ≥ 1. Returns
     (n_q, H, d, nrb)."""
-    _check_cuda(ints=(tile_ptr, tile_cols), floats=(q, k, v), mask=mask,
-                bf16=not s5)
+    check_cuda(ints=(tile_ptr, tile_cols), floats=(q, k, v), bf16=not s5)
+    check_mask(mask)
     n_q, h, d = (q.shape[0], 1, q.shape[1]) if q.dim() == 2 else q.shape
     nrb = tile_ptr.shape[0] - 1
     if d < 1:
@@ -123,7 +123,9 @@ def kernel_route(d: int) -> tuple[str, int, int, int]:
     return "wide", blocks, -(-slices // blocks), width
 
 
-def _launch(entry, args, tile_ptr, tile_cols, mask, q, k, v, scale, s5):
+def _launch(fn, name, args, tile_ptr, tile_cols, mask, q, k, v, scale, s5):
+    """One launch of ``name``'s entry point for q's dtype, counted on
+    ``fn``, with the switches ``args`` after the launch layout."""
     n_q, h, d, nrb = check_kernel_args(tile_ptr, tile_cols, mask, q, k, v,
                                        s5=s5)
     if mask.data_ptr() % 16:
@@ -133,13 +135,11 @@ def _launch(entry, args, tile_ptr, tile_cols, mask, q, k, v, scale, s5):
     # launch on the small graphs costs about as much host time as device
     # time, so the wrapper makes no views or ctypes objects.
     out = torch.empty_like(q)
-    dev, stream = _stream(q)
     _, blocks, clusters, width = kernel_route(d)
-    _build.check(getattr(_build.library(), entry)(
-        tile_ptr.data_ptr(), tile_cols.data_ptr(), mask.data_ptr(),
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), nrb, h, d,
-        n_q, k.shape[0], n_q, float(scale), _vec(d, q, k, v), blocks,
-        clusters, width, *args, dev, stream), entry)
+    call(fn, name, q, tile_ptr.data_ptr(), tile_cols.data_ptr(),
+         mask.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+         out.data_ptr(), nrb, h, d, n_q, k.shape[0], n_q, float(scale),
+         vec16(d, q, k, v), blocks, clusters, width, *args)
     return out
 
 
@@ -149,13 +149,11 @@ def fused_attention_rows(tile_ptr, tile_cols, mask, q, k, v, scale: float):
     or bfloat16, any d ≥ 1."""
     if not q.shape[1:] == k.shape[1:] == v.shape[1:]:
         raise ValueError("q, k and v differ in heads or width")
-    if _on_cpu(tile_ptr, tile_cols, mask, q, k, v):
+    if on_cpu(tile_ptr, tile_cols, mask, q, k, v):
         return fused_attention_rows_plain(tile_ptr, tile_cols, mask, q, k, v,
                                           scale)
-    out = _launch(_entry("fused_attention_rows", q), (), tile_ptr,
-                  tile_cols, mask, q, k, v, scale, s5=False)
-    _count(fused_attention_rows, q)
-    return out
+    return _launch(fused_attention_rows, "fused_attention_rows", (),
+                   tile_ptr, tile_cols, mask, q, k, v, scale, s5=False)
 
 
 fused_attention_rows.launches = fused_attention_rows.launches_bf16 = 0
@@ -174,9 +172,9 @@ def attn_variant_plain(tile_ptr, tile_cols, mask, q, k, v, scale,
     nrb = tile_ptr.shape[0] - 1
     ptr = tile_ptr.long()
     counts = ptr[1:] - ptr[:-1]
-    qh, kh, vh = _heads(q), _heads(k), _heads(v)
+    qh, kh, vh = as_heads(q), as_heads(k), as_heads(v)
     blocks = torch.arange(nrb, device=q.device)
-    qt = _row_tiles(qh, blocks, r)                            # (NRB, R, H, d)
+    qt = row_tiles(qh, blocks, r)                            # (NRB, R, H, d)
     h = qh.shape[1]
     m = q.new_full((nrb, r, h), M_INIT)
     l = q.new_zeros((nrb, r, h))
@@ -185,8 +183,8 @@ def attn_variant_plain(tile_ptr, tile_cols, mask, q, k, v, scale,
     for slot in range(n_slots):
         live = slot < counts                                  # (NRB,)
         t = (ptr[:-1] + slot).clamp(max=max(mask.shape[0] - 1, 0))
-        kt = _row_tiles(kh, tile_cols[t], c)                  # (NRB, C, H, d)
-        vt = _row_tiles(vh, tile_cols[t], c)
+        kt = row_tiles(kh, tile_cols[t], c)                  # (NRB, C, H, d)
+        vt = row_tiles(vh, tile_cols[t], c)
         s = torch.einsum("brhd,bchd->brch", qt, kt) * scale
         if use_mask:
             s = torch.where(mask[t][..., None], s, NEG_INF)
@@ -225,20 +223,18 @@ def attn_variant(tile_ptr, tile_cols, mask, q, k, v, scale: float, *,
         raise ValueError("attn_variant takes bfloat16 only with use_exp and "
                          "use_mask on (K4's bf16 kernel); got use_exp="
                          f"{use_exp}, use_mask={use_mask}")
-    if _on_cpu(tile_ptr, tile_cols, mask, q, k, v):
+    if on_cpu(tile_ptr, tile_cols, mask, q, k, v):
         if bf16:
             return fused_attention_rows_plain(tile_ptr, tile_cols, mask, q, k,
                                               v, scale)
         return attn_variant_plain(tile_ptr, tile_cols, mask, q, k, v, scale,
                                   use_exp, use_mask)
-    if bf16:
-        out = _launch("fused_attention_rows_bf16", (), tile_ptr, tile_cols,
-                      mask, q, k, v, scale, s5=False)
-    else:
-        out = _launch("attn_variant_f32", (int(use_exp), int(use_mask)),
-                      tile_ptr, tile_cols, mask, q, k, v, scale, s5=True)
-    _count(attn_variant, q)
-    return out
+    if bf16:     # K4's bf16 launch, counted on attn_variant
+        return _launch(attn_variant, "fused_attention_rows", (), tile_ptr,
+                       tile_cols, mask, q, k, v, scale, s5=False)
+    return _launch(attn_variant, "attn_variant", (int(use_exp),
+                                                  int(use_mask)),
+                   tile_ptr, tile_cols, mask, q, k, v, scale, s5=True)
 
 
 attn_variant.launches = attn_variant.launches_bf16 = 0

@@ -41,16 +41,15 @@ from __future__ import annotations
 
 import torch
 
-from custom_op_benchmark_tpu_torch.graph.ell import EllGraph
-from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import (
+from custom_op_benchmark_tpu_torch.graph.ell import (
     MAX_BUCKETS,
+    EllGraph,
     ell_launch,
 )
-from custom_op_benchmark_tpu_torch.ops.kernels.tiled_kernels import (
-    _call,
-    _check_cuda,
-    _count,
-    _p,
+from custom_op_benchmark_tpu_torch.ops.kernels._build import (
+    c_ptr,
+    call,
+    check_cuda,
 )
 
 NODE_CHUNK = 256  # nodes a partial of d_a_l, d_a_r (csrc/ell_gat.cu)
@@ -69,9 +68,9 @@ def _table_args(ell: EllGraph):
     nb = t.buckets.shape[0]
     if nb > MAX_BUCKETS:
         raise ValueError(f"{nb} buckets; the kernels take {MAX_BUCKETS}")
-    _check_cuda(ints=(t.buckets, t.cols, t.nodes, t.zero_nodes))
-    args = (_p(t.buckets), nb, _p(t.cols), _p(t.nodes), t.nodes.shape[0],
-            _p(t.zero_nodes), t.zero_nodes.shape[0])
+    check_cuda(ints=(t.buckets, t.cols, t.nodes, t.zero_nodes))
+    args = (c_ptr(t.buckets), nb, c_ptr(t.cols), c_ptr(t.nodes),
+            t.nodes.shape[0], c_ptr(t.zero_nodes), t.zero_nodes.shape[0])
     return args, ell_launch(t)
 
 
@@ -115,7 +114,7 @@ def _count_lanes(fn, lanes: int) -> None:
 
 
 def _check(ell: EllGraph, z: torch.Tensor, *more: torch.Tensor) -> None:
-    _check_cuda(floats=(z,) + more, bf16=True)
+    check_cuda(floats=(z,) + more, bf16=True)
     if z.dim() != 3 or z.shape[0] != ell.n_nodes or 0 in z.shape[1:]:
         raise ValueError(f"z must be (n_nodes={ell.n_nodes}, h, d) with h, "
                          f"d > 0, got {tuple(z.shape)}")
@@ -153,10 +152,10 @@ def gat_forward(ell: EllGraph, a_l: torch.Tensor, a_r, z: torch.Tensor,
     er = torch.empty((n, h), **f32)
     scratch = torch.empty((pieces * h * d,) if split else (0,), **f32)
     lanes = _lanes(h, d, z, out, a_lf, a_rf)
-    _call("ell_gat_fwd", z, *targs, _p(ell.table_flat), _p(z), _p(a_lf),
-          _p(a_rf), n, h, d, slope, _p(out), _p(alpha), _p(el), _p(er),
-          _p(scratch) if split else None, units, split, lanes)
-    _count(gat_forward, z)
+    call(gat_forward, "ell_gat_fwd", z, *targs, c_ptr(ell.table_flat),
+         c_ptr(z), c_ptr(a_lf), c_ptr(a_rf), n, h, d, slope, c_ptr(out),
+         c_ptr(alpha), c_ptr(el), c_ptr(er),
+         c_ptr(scratch) if split else None, units, split, lanes)
     _count_lanes(gat_forward, lanes)
     if no_dst:
         gat_forward.launches_no_dst += 1
@@ -179,10 +178,10 @@ def gat_backward_dst(ell: EllGraph, z: torch.Tensor, dy: torch.Tensor,
     ad = torch.empty((ell.total_slots, 2 * h), **f32)
     der = torch.empty((n, h), **f32)
     lanes = _lanes(h, d, z, dy)
-    _call("ell_gat_bwd_dst", z, *targs, _p(ell.table_flat), _p(z), _p(dy),
-          _p(alpha), _p(el), _p(er), n, h, d, slope, _p(dal), _p(ad),
-          _p(der), units, lanes)
-    _count(gat_backward_dst, z)
+    call(gat_backward_dst, "ell_gat_bwd_dst", z, *targs,
+         c_ptr(ell.table_flat), c_ptr(z), c_ptr(dy), c_ptr(alpha), c_ptr(el),
+         c_ptr(er), n, h, d, slope, c_ptr(dal), c_ptr(ad), c_ptr(der), units,
+         lanes)
     _count_lanes(gat_backward_dst, lanes)
     if no_dst:
         gat_backward_dst.launches_no_dst += 1
@@ -207,11 +206,11 @@ def gat_backward_src(ell_t: EllGraph, a_l: torch.Tensor, a_r,
     scratch = torch.empty((pieces * (h * d + h),) if split else (0,), **f32)
     node_scratch = torch.empty((-(-n // NODE_CHUNK) * 2 * h * d,), **f32)
     lanes = _lanes(h, d, dy, z, dz, a_lf, a_rf)
-    _call("ell_gat_bwd_src", z, *targs, _p(ell_t.table_twin), _p(dy),
-          _p(ad), _p(der), _p(z), _p(a_lf), _p(a_rf), n, h, d, _p(dz),
-          _p(d_el), _p(d_a), _p(scratch) if split else None,
-          _p(node_scratch), units, split, lanes)
-    _count(gat_backward_src, z)
+    call(gat_backward_src, "ell_gat_bwd_src", z, *targs,
+         c_ptr(ell_t.table_twin), c_ptr(dy), c_ptr(ad), c_ptr(der), c_ptr(z),
+         c_ptr(a_lf), c_ptr(a_rf), n, h, d, c_ptr(dz), c_ptr(d_el),
+         c_ptr(d_a), c_ptr(scratch) if split else None, c_ptr(node_scratch),
+         units, split, lanes)
     _count_lanes(gat_backward_src, lanes)
     if no_dst:
         gat_backward_src.launches_no_dst += 1

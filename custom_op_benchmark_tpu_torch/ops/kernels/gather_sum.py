@@ -24,9 +24,10 @@ Sums are f32 in both dtypes and rounded once to x's dtype, as the TPU
 kernel sums in ``x.dtype`` with f32 accumulation: bf16 rows are widened
 where they are added, never copied to f32 as a whole.
 
-On the card a row of more than :data:`PIECE` slots is summed in pieces of
-PIECE slots whose compensated partials a second launch combines in piece
-order (csrc/gather_sum.cu); the wrapper allocates their scratch with
+On the card a row of more than PIECE slots (``graph.ell.PIECE``, the
+table engine's; csrc/ell_table.cuh) is summed in pieces of PIECE slots
+whose compensated partials a second launch combines in piece order
+(csrc/gather_sum.cu); the wrapper allocates their scratch with
 ``torch.empty``, sized from what the host knows (the table's host layout,
 or the CSR entry's slot count), and reads nothing back from the card.
 
@@ -44,41 +45,20 @@ from typing import Union
 import torch
 
 from custom_op_benchmark_tpu_torch.graph.ell import (
+    MAX_BUCKETS,
+    PIECE,
     GatherTable,
+    ell_launch,
     one_bucket_table,
 )
-from custom_op_benchmark_tpu_torch.ops.kernels import _build
-from custom_op_benchmark_tpu_torch.ops.kernels.tiled_kernels import (
-    _check_cuda,
-    _count,
-    _entry,
-    _on_cpu,
-    _p,
-    _stream,
+from custom_op_benchmark_tpu_torch.ops.kernels._build import (
+    c_ptr,
+    call,
+    check_cuda,
+    on_cpu,
 )
 
-MAX_BUCKETS = 64  # the kernel's table in shared memory (csrc/gather_sum.cu)
-PIECE = 256       # slots a piece of a long row (csrc/gather_sum.cu PIECE)
 _INT_MAX = 2**31 - 1
-
-
-def _windows(slots: int) -> int:
-    return -(-slots // PIECE)
-
-
-def ell_launch(table: GatherTable):
-    """(units, split rows, pieces) of S3's two passes over ``table``, from
-    its host layout: the rows' pieces plus the zero rows, the rows wider
-    than PIECE and their pieces."""
-    units = int(table.zero_nodes.shape[0])
-    split = pieces = 0
-    for _, w, _, rows in table.layout:
-        p = max(1, _windows(w))
-        units += rows * p
-        if p > 1:
-            split += rows
-            pieces += rows * p
-    return units, split, pieces
 
 
 def _table(cols: Union[torch.Tensor, GatherTable], x: torch.Tensor):
@@ -115,10 +95,10 @@ def gather_sum(cols, x: torch.Tensor) -> torch.Tensor:
     (n_x, ...) → y (n_out, ...): each table row's sum of the rows of x it
     names (out-of-range names add 0) in its output row, zero rows 0."""
     table = _table(cols, x)
-    if _on_cpu(table.cols, x):
+    if on_cpu(table.cols, x):
         return gather_sum_plain(table, x)
-    _check_cuda(ints=(table.buckets, table.cols, table.nodes,
-                      table.zero_nodes), floats=(x,), bf16=True)
+    check_cuda(ints=(table.buckets, table.cols, table.nodes,
+                     table.zero_nodes), floats=(x,), bf16=True)
     nb = table.buckets.shape[0]
     if nb > MAX_BUCKETS:
         raise ValueError(f"{nb} buckets; the kernel takes {MAX_BUCKETS}")
@@ -138,13 +118,10 @@ def gather_sum(cols, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{units} tasks; the kernel takes {_INT_MAX}")
     scratch = torch.empty((pieces, 2, d) if split else (0,),
                           device=x.device, dtype=torch.float32)
-    dev, stream = _stream(x)
-    name = _entry("gather_sum", x)
-    _build.check(getattr(_build.library(), name)(
-        _p(table.buckets), nb, _p(table.cols), _p(table.nodes), n_rows,
-        _p(table.zero_nodes), n_zero, _p(xf), _p(out), d, xf.shape[0], vec,
-        _p(scratch) if split else None, units, split, dev, stream), name)
-    _count(gather_sum, x)
+    call(gather_sum, "gather_sum", x, c_ptr(table.buckets), nb,
+         c_ptr(table.cols), c_ptr(table.nodes), n_rows,
+         c_ptr(table.zero_nodes), n_zero, c_ptr(xf), c_ptr(out), d,
+         xf.shape[0], vec, c_ptr(scratch) if split else None, units, split)
     return out.reshape((table.n_out,) + trail)
 
 
@@ -206,11 +183,11 @@ def csr_sum(ptr: torch.Tensor, x: torch.Tensor,
     same bits on every run."""
     _csr_args(ptr, x, idx)
     tensors = (ptr, x) if idx is None else (ptr, x, idx)
-    if _on_cpu(*tensors):
+    if on_cpu(*tensors):
         return csr_sum_plain(ptr, x, idx)
     xf = x.reshape(x.shape[0], -1)
     ints = (ptr,) if idx is None else (ptr, idx)
-    _check_cuda(ints=ints, floats=(xf,), bf16=True)
+    check_cuda(ints=ints, floats=(xf,), bf16=True)
     trail = tuple(x.shape[1:])
     n_rows, d = ptr.numel() - 1, xf.shape[1]
     out = torch.empty((n_rows, d), device=x.device, dtype=x.dtype)
@@ -222,14 +199,11 @@ def csr_sum(ptr: torch.Tensor, x: torch.Tensor,
     # Windows of PIECE slots over idx (or x's rows for identity slots):
     # two partials of d (sum, carry) each, then one int a window.
     n_slots = xf.shape[0] if idx is None else idx.numel()
-    scratch = torch.empty(_windows(n_slots) * (4 * d + 1), device=x.device,
-                          dtype=torch.float32)
-    dev, stream = _stream(x)
-    name = _entry("csr_sum", x)
-    _build.check(getattr(_build.library(), name)(
-        _p(ptr), n_rows, None if idx is None else _p(idx), _p(xf), _p(out),
-        d, xf.shape[0], vec, _p(scratch), n_slots, dev, stream), name)
-    _count(csr_sum, x)
+    scratch = torch.empty(-(-n_slots // PIECE) * (4 * d + 1),
+                          device=x.device, dtype=torch.float32)
+    call(csr_sum, "csr_sum", x, c_ptr(ptr), n_rows,
+         None if idx is None else c_ptr(idx), c_ptr(xf), c_ptr(out), d,
+         xf.shape[0], vec, c_ptr(scratch), n_slots)
     return out.reshape((n_rows,) + trail)
 
 

@@ -25,18 +25,17 @@ from typing import Optional
 
 import torch
 
-from custom_op_benchmark_tpu_torch.ops.kernels import _build
+from custom_op_benchmark_tpu_torch.ops.kernels._build import (
+    c_ptr,
+    call,
+    check_cuda,
+    on_cpu,
+)
 from custom_op_benchmark_tpu_torch.ops.kernels.tiled_kernels import (
     TILE,
-    _check_cuda,
-    _count,
-    _entry,
-    _on_cpu,
-    _p,
-    _row_tiles,
-    _stream,
-    _vec,
+    row_tiles,
     spmm_row_sweep_plain,
+    vec16,
 )
 
 
@@ -82,7 +81,7 @@ def copy_path(x: torch.Tensor) -> str:
     """How the kernels move x's rows: ``"tma"`` (2-D TMA box copies; rows
     of whole 16-byte pieces and x 16-byte aligned) or ``"element"`` (4-byte
     cp.async for float32, loads and stores for bfloat16)."""
-    return "tma" if _vec(x.shape[1], x) else "element"
+    return "tma" if vec16(x.shape[1], x) else "element"
 
 
 # ---------------------------------------------------------------------------
@@ -91,7 +90,7 @@ def copy_path(x: torch.Tensor) -> str:
 
 def spmm_row_sweep_dma_plain(cols_pad, vals_pad, x, n_out=None):
     nrb, mt, r, c = vals_pad.shape
-    xt = _row_tiles(x[:, None], cols_pad.reshape(-1), c)    # (nrb·mt, C, 1, d)
+    xt = row_tiles(x[:, None], cols_pad.reshape(-1), c)    # (nrb·mt, C, 1, d)
     xt = xt[:, :, 0].reshape(nrb, mt, c, x.shape[1]).float()
     y = torch.einsum("bsrc,bscd->brd", vals_pad.float(), xt)
     y = y.reshape(nrb * r, -1)[: nrb * r if n_out is None else n_out]
@@ -102,9 +101,9 @@ def spmm_row_sweep_dma(cols_pad, vals_pad, x, n_out: Optional[int] = None):
     """cols_pad: (nrb, max_tpr) int32, vals_pad: (nrb, max_tpr, R, C), x:
     (n_x, d) → y (n_out, d) with ``n_out`` ≤ nrb·R (default nrb·R);
     float32 or bfloat16."""
-    if _on_cpu(cols_pad, vals_pad, x):
+    if on_cpu(cols_pad, vals_pad, x):
         return spmm_row_sweep_dma_plain(cols_pad, vals_pad, x, n_out)
-    _check_cuda(ints=(cols_pad,), floats=(vals_pad, x), bf16=True)
+    check_cuda(ints=(cols_pad,), floats=(vals_pad, x), bf16=True)
     nrb, mt = vals_pad.shape[:2]
     if tuple(cols_pad.shape) != (nrb, mt):
         raise ValueError(f"cols_pad {tuple(cols_pad.shape)} does not match "
@@ -113,12 +112,9 @@ def spmm_row_sweep_dma(cols_pad, vals_pad, x, n_out: Optional[int] = None):
     _check_dma(vals_pad, x, n_out, nrb)
     d = x.shape[1]
     out = torch.empty((n_out, d), device=x.device, dtype=x.dtype)
-    dev, stream = _stream(x)
-    entry = _entry("spmm_row_sweep_dma", x)
-    _build.check(getattr(_build.library(), entry)(
-        _p(cols_pad), _p(vals_pad), _p(x), _p(out), nrb, mt, d, x.shape[0],
-        n_out, _vec(d, x), dev, stream), entry)
-    _count(spmm_row_sweep_dma, x)
+    call(spmm_row_sweep_dma, "spmm_row_sweep_dma", x, c_ptr(cols_pad),
+         c_ptr(vals_pad), c_ptr(x), c_ptr(out), nrb, mt, d, x.shape[0],
+         n_out, vec16(d, x))
     return out
 
 
@@ -134,9 +130,9 @@ def spmm_row_sweep_dma_v2(tile_ptr, tile_cols, vals, x,
     """vals: (T, R, C), x: (n_x, d) → y (n_out, d) with ``n_out`` ≤ NRB·R
     (default NRB·R); float32 or bfloat16. S2 computes K2's function, so its
     plain version is K2's, :func:`spmm_row_sweep_plain`."""
-    if _on_cpu(tile_ptr, tile_cols, vals, x):
+    if on_cpu(tile_ptr, tile_cols, vals, x):
         return spmm_row_sweep_plain(tile_ptr, tile_cols, vals, x, n_out)
-    _check_cuda(ints=(tile_ptr, tile_cols), floats=(vals, x), bf16=True)
+    check_cuda(ints=(tile_ptr, tile_cols), floats=(vals, x), bf16=True)
     nrb = tile_ptr.shape[0] - 1
     if vals.dim() != 3 or tile_cols.shape != vals.shape[:1]:
         raise ValueError(f"vals must be (T, R, C) with T = {tile_cols.shape[0]}"
@@ -145,12 +141,9 @@ def spmm_row_sweep_dma_v2(tile_ptr, tile_cols, vals, x,
     _check_dma(vals, x, n_out, nrb)
     d = x.shape[1]
     out = torch.empty((n_out, d), device=x.device, dtype=x.dtype)
-    dev, stream = _stream(x)
-    entry = _entry("spmm_row_sweep_dma_v2", x)
-    _build.check(getattr(_build.library(), entry)(
-        _p(tile_ptr), _p(tile_cols), _p(vals), _p(x), _p(out), nrb, d,
-        x.shape[0], n_out, _vec(d, x), dev, stream), entry)
-    _count(spmm_row_sweep_dma_v2, x)
+    call(spmm_row_sweep_dma_v2, "spmm_row_sweep_dma_v2", x,
+         c_ptr(tile_ptr), c_ptr(tile_cols), c_ptr(vals), c_ptr(x), c_ptr(out),
+         nrb, d, x.shape[0], n_out, vec16(d, x))
     return out
 
 

@@ -333,14 +333,11 @@ def l2_gather_rate(device=None, *, table_rows: int = 16384,
     default, about the S3 experiment's gathers): the better of 8 and 16
     rows in flight a warp. Measured by csrc/l2_probe.cu, a kernel whose only purpose is
     this measurement, so the bound it gives S3's rows does not move when
-    S3 does. Measured on the CUDA device; raises where there is none."""
+    S3 does. Measured on the CUDA device; raises where there is none.
+    ``l2_gather_rate.launches`` counts the probe's launches."""
     import numpy as np
 
     from custom_op_benchmark_tpu_torch.ops.kernels import _build
-    from custom_op_benchmark_tpu_torch.ops.kernels.tiled_kernels import (
-        _p,
-        _stream,
-    )
 
     if not torch.cuda.is_available():
         raise RuntimeError("l2_gather_rate measures a CUDA device; none is "
@@ -349,16 +346,16 @@ def l2_gather_rate(device=None, *, table_rows: int = 16384,
     table = torch.from_numpy(np.random.default_rng(11).standard_normal(
         (table_rows, L2_PROBE_ROW_BYTES // 4), dtype=np.float32)).to(dev)
     out = torch.empty(warps, device=dev)
-    lib = _build.library()
-    index, stream = _stream(table)
 
     def probe(depth):
-        _build.check(lib.l2_probe_f32(_p(table), table_rows, reads, warps,
-                                      depth, _p(out), index, stream),
-                     "l2_probe_f32")
+        _build.call(l2_gather_rate, "l2_probe", table, _build.c_ptr(table),
+                    table_rows, reads, warps, depth, _build.c_ptr(out))
 
     t = min(statistics.median(time_cuda(lambda: probe(depth), device=dev))
             for depth in (8, 16))
     if not bool(torch.isfinite(out).all()):
         raise RuntimeError("the L2 probe wrote a non-finite sum")
     return warps * reads * L2_PROBE_ROW_BYTES / t
+
+
+l2_gather_rate.launches = 0

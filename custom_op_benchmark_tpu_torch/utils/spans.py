@@ -21,9 +21,9 @@ The port's spans, all under four prefixes:
   ``data.batch_wait`` (the consumer's wait for the next batch) in the
   sampled pipeline.
 
-``launch(name)`` wraps a kernel launched outside the dispatcher (a ctypes
-call through ``ops/kernels/tiled_kernels._call``, as the GAT sweeps'), so
-that the profiler links it to a host event inside the caller's span.
+``launch(name)`` wraps a kernel launched outside the dispatcher (every
+ctypes call, through ``ops/kernels/_build.call``), so that the profiler
+links it to a host event inside the caller's span.
 
 ``torch.profiler`` records a thread only where its state reaches it: the
 caller's thread and autograd's threads. A ``threading.Thread`` such as

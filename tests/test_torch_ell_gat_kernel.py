@@ -44,6 +44,7 @@ import pytest
 import torch
 
 from custom_op_benchmark_tpu_torch.graph import from_coo, random_graph
+from custom_op_benchmark_tpu_torch.graph.ell import MAX_BUCKETS, PIECE
 from custom_op_benchmark_tpu_torch.models.gat import GAT
 from custom_op_benchmark_tpu_torch.ops import ell as ell_ops
 from custom_op_benchmark_tpu_torch.ops.ell import (
@@ -54,10 +55,6 @@ from custom_op_benchmark_tpu_torch.ops.ell import (
 )
 from custom_op_benchmark_tpu_torch.ops.kernels import _build
 from custom_op_benchmark_tpu_torch.ops.kernels import ell_gat as kg
-from custom_op_benchmark_tpu_torch.ops.kernels.gather_sum import (
-    MAX_BUCKETS,
-    PIECE,
-)
 
 SLOPE = 0.2
 SHAPES = [(4, 128), (1, 40), (4, 32), (2, 128), (2, 33)]

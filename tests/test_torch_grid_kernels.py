@@ -11,8 +11,16 @@ inputs for both packages, on the tile-aligned 32×32 grid in 128×128 tiles,
 f32, rtol/atol 1e-5; in bf16, one bf16 rounding. A numpy model of S1/S2's
 persistent schedule (csrc/grid_dma.cu) runs its mbarrier ring under random
 interleavings of the producer warp, the copies and the consumers.
+
+The one launch path of ops/kernels, ``_build.call``, on a fake library:
+the entry point by dtype, the device and stream last, the op-scope range
+inside the caller's span, the error naming the entry point, the launch
+counted under its dtype and not on failure; and every wrapper, taken past
+its CPU branch, launching once through it.
 """
 
+import contextlib
+import ctypes
 import sys
 from pathlib import Path
 
@@ -21,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+from torch.profiler import ProfilerActivity, profile
 
 if not hasattr(pltpu, "TPUMemorySpace"):
     pltpu.TPUMemorySpace = pltpu.MemorySpace
@@ -42,15 +51,21 @@ from custom_op_benchmark_tpu.ops.pallas.tiled_kernels import (  # noqa: E402
 )
 from custom_op_benchmark_tpu_torch.graph import (  # noqa: E402
     grid_graph,
+    random_graph,
     reorder_graph,
     tile_aligned_order,
     tile_graph,
 )
+from custom_op_benchmark_tpu_torch.ops import ell_dual  # noqa: E402
+from custom_op_benchmark_tpu_torch.ops.kernels import _build  # noqa: E402
 from custom_op_benchmark_tpu_torch.ops.kernels import attention as k_attn  # noqa: E402
+from custom_op_benchmark_tpu_torch.ops.kernels import ell_gat as k_gat  # noqa: E402
+from custom_op_benchmark_tpu_torch.ops.kernels import gather_sum as k_gather  # noqa: E402
 from custom_op_benchmark_tpu_torch.ops.kernels import grid_dma as k_dma  # noqa: E402
 from custom_op_benchmark_tpu_torch.ops.kernels import (  # noqa: E402
     tiled_kernels as k_tiled,
 )
+from custom_op_benchmark_tpu_torch.utils import spans  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SIDE, D = 32, 16
@@ -345,17 +360,157 @@ def test_bf16_wrappers_run_plain_on_cpu(grids):
     assert [(w.launches, w.launches_bf16) for w in wrappers] == before
 
 
-def test_launches_are_counted_by_dtype():
-    """A launch counts under its dtype only, so a float32 row's launches
-    hold no bfloat16 ones."""
+class _FakeLibrary:
+    """A kernel library whose every entry point records its name and
+    arguments and returns ``status``."""
+
+    def __init__(self, status):
+        self.status, self.calls = status, []
+
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+
+        def entry(*args):
+            self.calls.append((name, args))
+            return self.status
+        return entry
+
+
+def _fake_library(monkeypatch, status=0):
+    """``_build.call`` launches on a fake library, device 7, stream "s"."""
+    lib = _FakeLibrary(status)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "device_stream", lambda t: (7, "s"))
+    return lib
+
+
+def _counter():
     def fn():
         pass
 
     fn.launches = fn.launches_bf16 = 0
-    k_tiled._count(fn, torch.zeros(1))
-    k_tiled._count(fn, torch.zeros(1, dtype=torch.bfloat16))
-    k_tiled._count(fn, torch.zeros(1, dtype=torch.bfloat16))
+    return fn
+
+
+@pytest.mark.parametrize("status", [0, 700], ids=["ok", "failed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_call_launches_the_dtypes_entry_in_a_span_and_counts_it(
+        monkeypatch, dtype, status):
+    """``_build.call`` launches ``<name>_f32`` or ``<name>_bf16`` by the
+    tensor's dtype with the arguments as given, then the device and the
+    stream; inside an op-scope profiler range named after the entry point,
+    within the caller's span; counts one launch under the dtype, and none
+    where the launch failed, which raises naming the entry point."""
+    lib = _fake_library(monkeypatch, status)
+    fn = _counter()
+    entry = "kern_bf16" if dtype == torch.bfloat16 else "kern_f32"
+    arg = ctypes.c_void_p(16)
+    failed = pytest.raises(RuntimeError, match=rf"^{entry}: .*{status}")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with spans.span("ell.kern.fwd"), (failed if status
+                                          else contextlib.nullcontext()):
+            _build.call(fn, "kern", torch.zeros(2, dtype=dtype), 3, arg, None)
+    assert lib.calls == [(entry, (3, arg, None, 7, "s"))]
+    n = 0 if status else 1
+    assert (fn.launches, fn.launches_bf16) == (
+        (0, n) if dtype == torch.bfloat16 else (n, 0))
+    ev = {e.name: e for e in prof.events()}
+    k, s = ev[entry].time_range, ev["ell.kern.fwd"].time_range
+    assert not ev[entry].is_user_annotation
+    assert s.start <= k.start <= k.end <= s.end
+
+
+def test_launches_are_counted_by_dtype(monkeypatch):
+    """A launch counts under its dtype only, so a float32 row's launches
+    hold no bfloat16 ones."""
+    _fake_library(monkeypatch)
+    fn = _counter()
+    _build.call(fn, "kern", torch.zeros(1))
+    _build.call(fn, "kern", torch.zeros(1, dtype=torch.bfloat16))
+    _build.call(fn, "kern", torch.zeros(1, dtype=torch.bfloat16))
     assert (fn.launches, fn.launches_bf16) == (1, 2)
+
+
+def _wrapper_launches(tg, dtype):
+    """{kernel: (wrapper whose counter counts, entry point, one call)}:
+    every wrapper of ops/kernels on CPU tensors of ``dtype``."""
+    x = torch.from_numpy(_normal(40, tg.n_nodes, D)).to(dtype)
+    vals = torch.from_numpy(_tile_vals(tg, 41)).to(dtype)
+    tgt = tg.transpose()
+    att = (tgt.tile_ptr, tgt.tile_cols, tgt.mask, x, x, x, D ** -0.5)
+    se, de = ell_dual(random_graph(60, 400, seed=2))
+    h, d = 2, 8
+    z = torch.from_numpy(_normal(42, de.n_nodes, h, d)).to(dtype)
+    a = torch.from_numpy(_normal(43, h, d))
+    el = torch.zeros((de.n_nodes, h))
+    alpha = torch.zeros((de.total_slots, h))
+    ad = torch.zeros((de.total_slots, 2 * h))
+    ptr = torch.tensor([0, 3, 3, 7], dtype=torch.int32)
+    cols = torch.randint(0, tg.n_nodes, (5, 4), dtype=torch.int32)
+    sfx = "bf16" if dtype == torch.bfloat16 else "f32"
+    cases = {
+        "K1": (k_tiled.sddmm_tiles, "sddmm_tiles", lambda: k_tiled.sddmm_tiles(
+            tg.tile_rows, tg.tile_cols, tg.mask, x, x)),
+        "K2": (k_tiled.spmm_row_sweep, "spmm_row_sweep",
+               lambda: k_tiled.spmm_row_sweep(tg.tile_ptr, tg.tile_cols,
+                                              vals, x)),
+        "K3": (k_tiled.spmm_col_sweep, "spmm_col_sweep",
+               lambda: k_tiled.spmm_col_sweep(tg.tile_ptr_c, tg.tile_perm_c,
+                                              tg.tile_rows, vals, x)),
+        "K4": (k_attn.fused_attention_rows, "fused_attention_rows",
+               lambda: k_attn.fused_attention_rows(*att)),
+        # S5 in bf16 is K4's bf16 launch, counted on attn_variant.
+        "S5": (k_attn.attn_variant, "fused_attention_rows"
+               if dtype == torch.bfloat16 else "attn_variant",
+               lambda: k_attn.attn_variant(*att)),
+        "S1": (k_dma.spmm_row_sweep_dma, "spmm_row_sweep_dma",
+               lambda: k_dma.spmm_row_sweep_dma(
+                   *k_dma.pad_layout(tg, vals), x)),
+        "S2": (k_dma.spmm_row_sweep_dma_v2, "spmm_row_sweep_dma_v2",
+               lambda: k_dma.spmm_row_sweep_dma_v2(tg.tile_ptr, tg.tile_cols,
+                                                   vals, x)),
+        "S3": (k_gather.gather_sum, "gather_sum",
+               lambda: k_gather.gather_sum(cols, x)),
+        "S3 CSR": (k_gather.csr_sum, "csr_sum",
+                   lambda: k_gather.csr_sum(ptr, x)),
+        "G1": (k_gat.gat_forward, "ell_gat_fwd",
+               lambda: k_gat.gat_forward(de, a, a, z, 0.2)),
+        "G2": (k_gat.gat_backward_dst, "ell_gat_bwd_dst",
+               lambda: k_gat.gat_backward_dst(de, z, z, alpha, el, el, 0.2)),
+        "G3": (k_gat.gat_backward_src, "ell_gat_bwd_src",
+               lambda: k_gat.gat_backward_src(se, a, a, z, z, ad, el)),
+    }
+    if dtype == torch.float32:
+        cases["S4"] = (k_tiled.spmm_dotonly, "spmm_dotonly",
+                       lambda: k_tiled.spmm_dotonly(tg.tile_ptr,
+                                                    tg.tile_cols, x))
+    return {k: (fn, f"{entry}_{sfx}", run)
+            for k, (fn, entry, run) in cases.items()}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_every_wrapper_launches_through_call(grids, monkeypatch, dtype):
+    """Each wrapper of ops/kernels, taken past its CPU branch, makes exactly
+    one launch, of its entry point for the dtype, through ``_build.call``
+    and counts it there under the dtype."""
+    _, tg = grids
+    for module in (k_tiled, k_attn, k_dma, k_gather, k_gat):
+        monkeypatch.setattr(module, "on_cpu", lambda *t: False,
+                            raising=False)
+    for name, (fn, entry, run) in _wrapper_launches(tg, dtype).items():
+        for attr in [a for a in vars(fn) if a.startswith("launches")]:
+            monkeypatch.setattr(fn, attr, getattr(fn, attr))
+        lib = _fake_library(monkeypatch)
+        before = (fn.launches, getattr(fn, "launches_bf16", 0))
+        run()
+        assert [c[0] for c in lib.calls] == [entry], name
+        assert lib.calls[0][1][-2:] == (7, "s"), name
+        bf16 = dtype == torch.bfloat16
+        assert (fn.launches, getattr(fn, "launches_bf16", 0)) == (
+            before[0] + (not bf16), before[1] + bf16), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

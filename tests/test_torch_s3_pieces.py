@@ -20,7 +20,7 @@ the JAX package at the row lengths the pieces change.
   {1, 3, 4, 8, 64, 128, 300}, f32 (1e-4 of the largest value) and bf16
   (one bf16 rounding of JAX's f32 sum: 2⁻⁷·|JAX| + 1e-4·max|JAX|).
 - Source checks: the C entry points' parameters against
-  ``_build._SIGNATURES``, PIECE in the wrapper against the source (the
+  ``_build._SIGNATURES``, PIECE of the host side against the source (the
   row engine's header csrc/ell_table.cuh), and no atomic in
   csrc/gather_sum.cu or its header.
 """
@@ -41,7 +41,9 @@ import exp_pallas_gather as jax_gather  # noqa: E402
 
 from custom_op_benchmark_tpu import ops as jops  # noqa: E402
 from custom_op_benchmark_tpu_torch.graph.ell import (  # noqa: E402
+    PIECE,
     GatherTable,
+    ell_launch,
     one_bucket_table,
 )
 from custom_op_benchmark_tpu_torch.ops.kernels import _build  # noqa: E402
@@ -49,7 +51,7 @@ from custom_op_benchmark_tpu_torch.ops.kernels import (  # noqa: E402
     gather_sum as ks,
 )
 
-L = ks.PIECE
+L = PIECE
 HUB = 27_565        # the largest src row of random_graph(131072, 2M, power_law)
 LENGTHS = (0, 1, L - 1, L, L + 1, 4 * L + 3, HUB)
 WIDTHS = (1, 3, 4, 8, 64, 128, 300)
@@ -292,7 +294,7 @@ def test_ell_pieces_follow_the_table(bucket_rows):
         nodes=torch.arange(n_rows, dtype=torch.int32),
         zero_nodes=torch.tensor([n_rows], dtype=torch.int32),
         n_out=n_rows + 1, layout=layout)
-    units, split, pieces = ks.ell_launch(tab)
+    units, split, pieces = ell_launch(tab)
     assert units == len(pass1) and split == len(pass2)
     assert pieces == sum(p for *_, p in pass2)
     assert [first for _, _, first, _ in pass2] == list(np.cumsum(
@@ -312,7 +314,7 @@ def test_the_packing_carries_its_layout():
         ends = [r for _, _, r in b[1:]] + [tab.nodes.shape[0]]
         assert [tuple(e) for e in tab.layout] == [
             (o, w, r, e - r) for (o, w, r), e in zip(b, ends)]
-        assert ks.ell_launch(tab)[0] >= tab.nodes.shape[0]
+        assert ell_launch(tab)[0] >= tab.nodes.shape[0]
     assert max(w for _, w, _, _ in ell_dual(g)[0].gather_table.layout) > L
 
 
@@ -536,4 +538,4 @@ def test_one_bucket_table_has_its_layout():
     cols = torch.zeros((5, L + 3), dtype=torch.int32)
     tab = one_bucket_table(cols)
     assert tab.layout == ((0, L + 3, 0, 5),)
-    assert ks.ell_launch(tab) == (10, 5, 10)
+    assert ell_launch(tab) == (10, 5, 10)

@@ -10,6 +10,13 @@ no bit of the loss or the parameters; without it ``span`` builds no
 ``record_function``. The sampled pipeline's ``data.*`` spans show on the
 producer's thread in a ``benchlib.trace_fn`` trace. ``launch``, around a
 ctypes kernel launch, is an op-scope range inside the span around it.
+
+On the card (marker ``chip``, skipped without a CUDA device; run with
+``python -m pytest --noconftest -p no:cacheprovider
+tests/test_torch_spans.py``): S3's kernels, launched through
+``ops/kernels/_build.call`` by ``ell_copy_spmm`` forward and backward, are
+listed under their launch range, which opens inside ``ell.copy_spmm.fwd``
+or ``.bwd``: the span that a profile credits their device time to.
 """
 
 import json
@@ -17,13 +24,14 @@ import json
 import numpy as np
 import pytest
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, schedule
 
 from custom_op_benchmark_tpu_torch.data import synthetic
 from custom_op_benchmark_tpu_torch.data.pipeline import prefetch
 from custom_op_benchmark_tpu_torch.data.sampling import NeighborSampler
+from custom_op_benchmark_tpu_torch.graph import random_graph
 from custom_op_benchmark_tpu_torch.models import GAT, GraphSAGE
-from custom_op_benchmark_tpu_torch.ops import ell_dual
+from custom_op_benchmark_tpu_torch.ops import ell_copy_spmm, ell_dual
 from custom_op_benchmark_tpu_torch.train.loop import (
     create_train_state,
     make_sampled_step,
@@ -198,3 +206,63 @@ def test_data_spans_on_the_producer_thread(ds, tmp_path):
     assert not threads["data.sample"] & threads["data.batch_wait"]
     for _ in items:
         pass
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    return torch.device("cuda")
+
+
+S3_KERNELS = ("gather_sum_kernel", "gather_combine_kernel")
+
+
+@pytest.mark.chip
+def test_copy_spmm_kernels_are_credited_to_their_spans(cuda):
+    """Each S3 kernel of ``ell_copy_spmm`` forward and backward (a
+    power-law graph, so hub rows take the combine pass too) is listed under
+    a host event that opens inside exactly one of ``ell.copy_spmm.fwd`` and
+    ``.bwd``: its launch range, ``gather_sum_f32``. Both spans get device
+    time. A bare ctypes launch would be listed under the autograd
+    Function's range, which opens before the span. Profiled as
+    gnnbench/run.py's traced tail profiles, after a dropped warm-up cycle
+    (the tracer links a window's first kernel to no launching event)."""
+    g = random_graph(4000, 60_000, seed=5, power_law=True).to(cuda)
+    se, de = ell_dual(g)
+    x = torch.randn(g.n_nodes, 64, device=cuda, requires_grad=True)
+
+    def step():
+        ell_copy_spmm(de, se, x).sum().backward()
+        torch.cuda.synchronize()
+
+    step()                                          # builds the library
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        step()
+        prof.step()
+        step()
+        step()
+        prof.step()
+    cpu = torch.autograd.DeviceType.CPU
+    events = [e for e in prof.events() if e.device_type == cpu]
+    op_spans = [e for e in events
+                if e.name in ("ell.copy_spmm.fwd", "ell.copy_spmm.bwd")]
+    found, credited = [], {}
+    for e in events:
+        ks = [k for k in e.kernels if any(n in k.name for n in S3_KERNELS)]
+        if not ks:
+            continue
+        holders = [s.name for s in op_spans
+                   if s.time_range.start <= e.time_range.start
+                   <= s.time_range.end]
+        found.append((e.name, holders, len(ks)))
+        if e.name == "gather_sum_f32" and len(holders) == 1:
+            credited[holders[0]] = (credited.get(holders[0], 0)
+                                    + sum(k.duration for k in ks))
+    assert all(name == "gather_sum_f32" and len(holders) == 1
+               for name, holders, _ in found), found
+    assert sorted(credited) == ["ell.copy_spmm.bwd", "ell.copy_spmm.fwd"], (
+        found)
+    assert all(us > 0 for us in credited.values()), credited
