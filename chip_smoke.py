@@ -138,8 +138,14 @@ reddit_sage's dataset and ``dryrun_multichip``.
     dz, d_a_l and d_a_r, the plain backward on the kernel's LeakyReLU
     sides), bit for bit on repeat, timed beside their plain versions and
     two bounds (the bf16 GAT step of 19 launches each sweep 3 times in
-    bf16); one train step of DGL's GAT launches each sweep 3 times, every
-    launch counted on ``.launches_no_dst``;
+    bf16); DGL's GAT hidden-layer tail (csrc/norm_act.cu: ×ds, +r, batch
+    norm with the batch's statistics, ReLU) at the cell's shape (169,343
+    × 3 × 250, f32) against its plain version (y, h, mean, rstd; d_out,
+    d_r, d_weight, d_bias), bit for bit on repeat, timed beside its plain
+    version, the PyTorch ops it replaces and its bound (5 and 6 tensor
+    passes at 3.35 TB/s); one train step of DGL's GAT launches each sweep
+    3 times, every launch counted on ``.launches_no_dst``, and the fused
+    tail twice each way;
 17. the command line on cora_gat (with ``layer_allclose_ok``), arxiv_gat
     and arxiv_transformer at ``--scale 1``, ``--epochs 2``: finite
     losses, launches counted;
@@ -353,6 +359,20 @@ GAT_NO_DST_SHAPES = ((3, 250),)
 GAT_SLOPE = 0.2
 GAT_TOL = 1e-5
 GAT_BF16_ATOL = 1e-3
+# DGL's ogbn-arxiv GAT's hidden-layer tail, ReLU(BN(out·ds + r)), at the
+# cell's shape (nodes, heads, head width), f32: the fused kernels against
+# their plain version (ops/kernels/norm_act.py), each output's worst
+# |kernel − plain| ≤ NORM_ACT_TOL·max|plain| (the column sums run in other
+# orders; h = out·ds + r, rounded at each step on both sides, equal bit
+# for bit). Bounds: the passes over one (n, h·d) f32 tensor that each
+# direction needs, at 3.35 TB/s (forward: out, r in, h out; h in, y out;
+# backward: g, h in; g, h in, dh, d_out out).
+NORM_ACT_SHAPE = (169_343, 3, 250)
+NORM_ACT_TOL = 1e-5
+NORM_ACT_EPS = 1e-5
+NORM_ACT_PASSES = {"norm_act_forward": 5, "norm_act_backward": 6}
+NORM_ACT_SOURCE = "custom_op_benchmark_tpu_torch/csrc/norm_act.cu"
+NORM_ACT_REPLACES = "none: the JAX package has no DGL GAT"
 # reddit_sage (train/run.py): the command line at full width for its
 # default 2 epochs; steps profiled for the device's idle share.
 REDDIT_SCALE = 1
@@ -2243,13 +2263,143 @@ def phase_gat_sweeps(kern, data):
     return dict(rows=rows, errs=errs, dgl_launches=dgl_gat_step(data))
 
 
+def norm_act_inputs(dev):
+    """out (n, h, d), ds (n, 1, 1) in [0.3, 3], r (n, h·d) with the
+    columns' means off zero, weight in [0.5, 1.5], bias (so that ReLU cuts
+    every column), g (n, h·d), at NORM_ACT_SHAPE on the card."""
+    n, h, d = NORM_ACT_SHAPE
+    w = h * d
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    uniform = lambda lo, hi, *shape: lo + (hi - lo) * torch.rand(
+        shape, generator=gen, device=dev)
+    return (randn(n, h, d), uniform(0.3, 3.0, n, 1, 1),
+            randn(n, w) + 2 * randn(w), uniform(0.5, 1.5, w),
+            0.5 * randn(w), randn(n, w))
+
+
+def phase_norm_act(dev):
+    """DGL's GAT hidden-layer tail (csrc/norm_act.cu) at NORM_ACT_SHAPE:
+    ``norm_act_forward`` and ``norm_act_backward`` on card tensors against
+    their plain version on the same inputs (the plain backward on the
+    kernels' h, mean and rstd, so both take the same ReLU mask), each call
+    counted once, the same bits on a repeat; then each direction timed in
+    turns with its plain version, beside the PyTorch ops it replaces (×ds,
+    +r, ``F.batch_norm`` with the batch's statistics, ReLU, and their
+    backward by autograd: the model's path before the fused tail) and its
+    bound."""
+    from torch.nn import functional as F
+
+    from custom_op_benchmark_tpu_torch.ops.kernels import norm_act as kn
+
+    n, h, d = NORM_ACT_SHAPE
+    eps = NORM_ACT_EPS
+    out, ds, r, weight, bias, g = norm_act_inputs(dev)
+    fwd, bwd = kn.norm_act_forward, kn.norm_act_backward
+
+    def kernels():
+        got = fwd(out, ds, r, weight, bias, eps)
+        return got, bwd(g, got[1], ds, got[2], got[3], weight, bias)
+
+    before = (fwd.launches, bwd.launches)
+    (y, hh, mean, rstd), grads = kernels()
+    assert (fwd.launches - before[0], bwd.launches - before[1]) == (1, 1)
+    again = kernels()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(
+        (y, hh, mean, rstd, *grads), (*again[0], *again[1]))), "repeat"
+    del again
+    want_y, want_h, want_mean, want_rstd = kn._forward_plain(
+        out, ds, r, weight, bias, eps)
+    assert torch.equal(hh, want_h), "h = out·ds + r"
+    want_grads = kn._backward_plain(g, hh, ds, mean, rstd, weight, bias)
+    e = {}
+    for name, got, want in (("y", y, want_y), ("mean", mean, want_mean),
+                            ("rstd", rstd, want_rstd),
+                            *zip(("d_out", "d_r", "d_weight", "d_bias"),
+                                 grads, want_grads)):
+        assert got.dtype == torch.float32 and got.shape == want.shape, name
+        err = float((got.double() - want.double()).abs().max())
+        top = float(want.abs().max())
+        assert err <= NORM_ACT_TOL * top, (
+            f"norm_act {name}: kernel vs plain {err:.3e} of max|plain| "
+            f"{top:.4g}")
+        e[name] = (err, err / top)
+    log(f"[norm_act] {n:,} x {h} x {d} f32: kernel vs plain, worst abs err "
+        f"(of max|plain|): " + ", ".join(f"{k} {v[0]:.3e} ({v[1]:.2e})"
+                                         for k, v in e.items())
+        + "; h equal bit for bit; every output equal bit for bit on repeat")
+    del want_y, want_h, want_mean, want_rstd, want_grads
+
+    leaves = [t.detach().requires_grad_() for t in (out, r, weight, bias)]
+
+    def lib_fwd():
+        o, res, wt, b = leaves
+        return F.relu(F.batch_norm((o * ds).reshape(n, -1) + res, None, None,
+                                   wt, b, training=True, eps=eps))
+
+    lib_y = lib_fwd()
+    lib_grads = torch.autograd.grad(lib_y, leaves, g, retain_graph=True)
+    lib_err = {k: float((a.detach().reshape(b.shape) - b).abs().max())
+               for k, a, b in zip(("y", "d_out", "d_r", "d_weight",
+                                   "d_bias"), (lib_y, *lib_grads),
+                                  (y, *grads))}
+    flips = int(((lib_y.detach() > 0) != (y > 0)).sum())
+    log("[norm_act] the PyTorch ops it replaces, max abs diff from the "
+        "kernels: " + ", ".join(f"{k} {v:.3e}" for k, v in lib_err.items())
+        + f" ({flips} of {y.numel():,} ReLU masks differ: batch norm's own "
+        "sums put those pre-activations, a few ulps from 0, on the other "
+        "side, where a gradient takes or drops g)")
+    del lib_grads
+    calls = {
+        "norm_act_forward": (
+            lambda: fwd(out, ds, r, weight, bias, eps),
+            lambda: kn._forward_plain(out, ds, r, weight, bias, eps),
+            lib_fwd),
+        "norm_act_backward": (
+            lambda: bwd(g, hh, ds, mean, rstd, weight, bias),
+            lambda: kn._backward_plain(g, hh, ds, mean, rstd, weight, bias),
+            lambda: torch.autograd.grad(lib_y, leaves, g,
+                                        retain_graph=True)),
+    }
+    tensor = n * h * d * 4
+    keys = {"norm_act_forward": ("y", "mean", "rstd"),
+            "norm_act_backward": ("d_out", "d_r", "d_weight", "d_bias")}
+    rows, errs = {}, {}
+    for name, (kfn, pfn, lfn) in calls.items():
+        p1 = time_ms(pfn)
+        k1, k2 = time_ms(kfn), time_ms(kfn)
+        p2 = time_ms(pfn)
+        l1, l2 = time_ms(lfn), time_ms(lfn)
+        passes = NORM_ACT_PASSES[name]
+        row = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                   bound_ms=passes * tensor / PEAK_BYTES * 1e3,
+                   bound_by="bytes", library_ms=(l1 + l2) / 2,
+                   library="the PyTorch ops it replaces: ×ds, +r, "
+                   "F.batch_norm (batch statistics), ReLU"
+                   + (" and their backward by autograd"
+                      if name == "norm_act_backward" else ""))
+        rows[name] = row
+        errs[name] = tuple(max(e[k][i] for k in keys[name])
+                           for i in range(2))
+        log(f"[time] {name:18s} {n:,} x {h * d} kernel {k1:.4f}/{k2:.4f} ms "
+            f"plain {p1:.4f}/{p2:.4f} ms  PyTorch ops {l1:.4f}/{l2:.4f} ms  "
+            f"bound {row['bound_ms']:.4f} ms ({passes} x "
+            f"{tensor / 1e6:.1f} MB) share {row['bound_ms'] / row['ms']:.3f}")
+    del calls, lib_y, leaves, out, ds, r, g, y, hh, grads
+    torch.cuda.empty_cache()
+    return dict(rows=rows, errs=errs)
+
+
 def dgl_gat_step(data):
     """One AdamW step of DGL's ogbn-arxiv GAT (3 layers, 3 heads of 250)
     on the arxiv configuration's ELL view: every sweep launched once a
-    layer, each launch without a dst term. Returns the no-dst launches by
-    sweep."""
+    layer, each launch without a dst term, and the fused tail once each
+    way a hidden layer. Returns the no-dst launches by sweep and the
+    tail's by wrapper."""
     from custom_op_benchmark_tpu_torch.models import GATDGL
     from custom_op_benchmark_tpu_torch.ops.kernels import ell_gat as kgat
+    from custom_op_benchmark_tpu_torch.ops.kernels import norm_act as kn
     from custom_op_benchmark_tpu_torch.train import (
         create_train_state,
         make_train_step,
@@ -2262,21 +2412,27 @@ def dgl_gat_step(data):
     state = create_train_state(model, learning_rate=2e-3)
     step = make_train_step(apply_kwargs={"ell": data["ell"]})
     sweeps = [getattr(kgat, k) for k in GAT_SWEEPS]
+    tail = (kn.norm_act_forward, kn.norm_act_backward)
     for fn in sweeps:
         fn.launches = fn.launches_bf16 = fn.launches_no_dst = 0
+    for fn in tail:
+        fn.launches = 0
     loss, _ = step(state, g, x, labels, mask)
     torch.cuda.synchronize()
     counts = [(fn.launches_no_dst, fn.launches, fn.launches_bf16)
               for fn in sweeps]
+    tail_counts = {fn.__name__: fn.launches for fn in tail}
     log(f"[gat] DGL GAT train step (ell, 3 x 250): the sweeps' launches "
-        f"(no dst, f32, bf16) {dict(zip(GAT_SWEEPS, counts))}; loss "
-        f"{float(loss):.6f}")
-    # Three layers: each sweep once a layer, none with a dst term.
+        f"(no dst, f32, bf16) {dict(zip(GAT_SWEEPS, counts))}; the fused "
+        f"tail's {tail_counts}; loss {float(loss):.6f}")
+    # Three layers: each sweep once a layer, none with a dst term; the
+    # two hidden layers' tails once each way.
     assert counts == [(3, 3, 0)] * 3, counts
+    assert list(tail_counts.values()) == [2, 2], tail_counts
     assert np.isfinite(float(loss)), loss
     del state, step, model
     torch.cuda.empty_cache()
-    return {k: c[0] for k, c in zip(GAT_SWEEPS, counts)}
+    return {**{k: c[0] for k, c in zip(GAT_SWEEPS, counts)}, **tail_counts}
 
 
 def s3_l2_rate(dev, table_rows=16384, d=128, rows=125_000, slots=16):
@@ -3693,6 +3849,7 @@ def main() -> int:
     arxiv_in = run("arxiv build", arxiv_data, dev)
     arxiv = run("arxiv", phase_arxiv, kern, arxiv_in)
     gat = run("gat sweeps", phase_gat_sweeps, kern, arxiv_in)
+    norm = run("norm_act", phase_norm_act, dev)
     gc.collect()
     torch.cuda.empty_cache()
     csr_errs, csr_row, csr_narrow, gat_csr = run("csr", phase_csr, kern,
@@ -3892,6 +4049,15 @@ def main() -> int:
                       "term) on the ELL path" if no_dst else
                       "one arxiv GAT train step (3 layers) on the ELL path"
                       + (" in bf16" if bf16 else ""))))
+    n, h, d = NORM_ACT_SHAPE
+    for name, row in norm["rows"].items():
+        report.append(kernel_row(
+            name, NORM_ACT_SOURCE, NORM_ACT_REPLACES,
+            gat["dgl_launches"][name], norm["errs"][name][0],
+            dict(row, max_err_of_max=norm["errs"][name][1]),
+            f"DGL GAT hidden-layer tail, {n:,} x {h * d} f32 ({h} heads of "
+            f"{d}); launches: one DGL ogbn-arxiv GAT train step (3 layers) "
+            "on the ELL path"))
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

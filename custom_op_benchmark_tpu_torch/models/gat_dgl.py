@@ -16,6 +16,11 @@ and ReLU; the last layer (one head) takes the mean over its head and adds
 ``bias_last``. The attention runs through :func:`models.gat.attend`: the
 fused ``ell_gat_attention`` on the ELL view, ``softmax_aggregate_dst``
 without one. There is no dense-block path.
+
+A hidden layer's tail, ``ReLU(BN(out·deg_in^1/2 + x·W_resᵀ))``, is one
+autograd Function, :func:`norm_act`: on CUDA tensors the fused passes of
+``ops/kernels/norm_act.py`` (csrc/norm_act.cu) forward and backward, which
+keep only the batch norm's input between them.
 """
 
 from __future__ import annotations
@@ -25,10 +30,14 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 from custom_op_benchmark_tpu_torch.models.flax_init import flax_init_
 from custom_op_benchmark_tpu_torch.models.gat import GAT, attend
+from custom_op_benchmark_tpu_torch.ops.kernels.norm_act import (
+    norm_act_backward,
+    norm_act_forward,
+)
+from custom_op_benchmark_tpu_torch.utils.spans import span
 
 
 class DegreeScales:
@@ -49,9 +58,43 @@ class DegreeScales:
         return self._scales
 
 
+class _NormAct(torch.autograd.Function):
+    """``ReLU(BN(out·ds + r))`` with the batch's statistics; keeps h =
+    out·ds + r, the columns' mean and rstd, and its small inputs."""
+
+    @staticmethod
+    def forward(ctx, out, ds, r, weight, bias, eps):
+        out, ds, r = out.contiguous(), ds.contiguous(), r.contiguous()
+        with span("gat_dgl.norm_act.fwd"):
+            y, h, mean, rstd = norm_act_forward(out, ds, r, weight, bias, eps)
+        ctx.save_for_backward(h, ds, mean, rstd, weight, bias)
+        ctx.out_shape = out.shape
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        h, ds, mean, rstd, weight, bias = ctx.saved_tensors
+        with span("gat_dgl.norm_act.bwd"):
+            d_out, d_r, d_weight, d_bias = norm_act_backward(
+                g.contiguous(), h, ds, mean, rstd, weight, bias)
+        return (d_out.view(ctx.out_shape), None, d_r, d_weight, d_bias, None)
+
+
+def norm_act(out, ds, r, weight, bias, eps: float):
+    """``ReLU(BatchNorm1d(out·ds + r))`` over n rows with the batch's mean
+    and biased variance: out (n, h, d), ds (n, 1, 1), r (n, h·d), weight
+    and bias (h·d,) → (n, h·d). No gradient reaches ds."""
+    return _NormAct.apply(out, ds, r, weight, bias, eps)
+
+
 class GATDGLLayer(nn.Module):
     """One layer of DGL's ogbn-arxiv GAT (its ``GATConv`` with symmetric
-    normalisation, no dst attention and a linear residual)."""
+    normalisation, no dst attention and a linear residual).
+
+    A hidden layer (``concat_heads``) returns the three terms of its output
+    ``out·dst_scale + res``, ``(out (n, h, d), dst_scale (n, 1, 1), res (n,
+    h·d))``, for :func:`norm_act` to combine in its fused pass; the last
+    layer returns the mean over its heads of the sum, (n, d)."""
 
     def __init__(self, in_dim: int, out_dim: int, num_heads: int = 1,
                  negative_slope: float = 0.2, concat_heads: bool = True, *,
@@ -76,8 +119,10 @@ class GATDGLLayer(nn.Module):
         z = self.W(x).reshape(n, h, d) * src_scale
         out = attend(g, z, self.a_l, None, ell=ell,
                      negative_slope=self.negative_slope)
-        out = out * dst_scale + self.W_res(x).reshape(n, h, d)
-        return out.reshape(n, h * d) if self.concat_heads else out.mean(1)
+        res = self.W_res(x)
+        if self.concat_heads:
+            return out, dst_scale, res
+        return (out * dst_scale + res.reshape(n, h, d)).mean(1)
 
 
 class GATDGL(GAT):
@@ -91,6 +136,13 @@ class GATDGL(GAT):
     layers differ from GAT's, so GAT's constructor is not run: the three
     attributes its forward reads are set here (no dropout, no remat, f32).
     One :class:`DegreeScales` serves every layer.
+
+    On the card the hidden width ``hidden_dim · num_heads`` is bounded by
+    the fused tail's kernels, which take a group of ``8 / gcd(W, 8)`` rows
+    as at most 1,024 16-byte vectors: W ≤ 4096 where W is a multiple of 8,
+    ≤ 2048 where it is 4 mod 8, ≤ 1024 where it is 2 mod 4 (DGL's 750),
+    ≤ 512 where it is odd. A wider hidden layer raises on CUDA tensors
+    (``ops/kernels/norm_act.py``); on CPU tensors any width runs.
     """
 
     def __init__(self, hidden_dim: int, out_dim: int, num_layers: int = 3,
@@ -120,8 +172,9 @@ class GATDGL(GAT):
         with torch.no_grad():
             self.bias_last.zero_()
 
-    def _between(self, i: int, x):
-        return F.relu(self.norms[i](x))
+    def _between(self, i: int, parts):
+        norm = self.norms[i]
+        return norm_act(*parts, norm.weight, norm.bias, norm.eps)
 
     def _output(self, out):
         return out + self.bias_last

@@ -35,7 +35,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("tiled_kernels.cu", "attention.cu", "grid_dma.cu",
-           "gather_sum.cu", "l2_probe.cu", "ell_gat.cu")
+           "gather_sum.cu", "l2_probe.cu", "ell_gat.cu", "norm_act.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -66,6 +66,9 @@ _SIGNATURES = {
     + [_I] * 3 + [ctypes.c_float] + [_P] * 3 + [_I] * 3 + [_P],
     "ell_gat_bwd_src_f32": [_P, _I, _P, _P, _I, _P, _I] + [_P] * 7
     + [_I] * 3 + [_P] * 5 + [_I] * 4 + [_P],
+    "norm_act_fwd_f32": [_P] * 5 + [_I] * 2 + [ctypes.c_float] + [_P] * 5
+    + [_I, _P],
+    "norm_act_bwd_f32": [_P] * 7 + [_I] * 2 + [_P] * 5 + [_I, _P],
 }
 _SIGNATURES.update({name.replace("_f32", "_bf16"): _SIGNATURES[name]
                     for name in ("sddmm_tiles_f32", "spmm_row_sweep_f32",

@@ -155,7 +155,8 @@ def test_no_dst_term_is_the_op_at_a_zero_a_r(dtype):
 def test_degrees_clamp_at_one(path):
     """Node n - 2 (its loop alone) and node n - 1 (no edge) both scale by
     1; the first attends to itself alone, the second to nothing, so a
-    layer gives z + the residual and the residual alone."""
+    hidden layer's three terms sum to z + the residual and the residual
+    alone."""
     g, _, _ = _small_graph()
     src_scale, dst_scale = DegreeScales()(g)
     deg_out = torch.bincount(g.src[: g.n_edges].long(), minlength=N)
@@ -169,8 +170,9 @@ def test_degrees_clamp_at_one(path):
     layer = _build(SMALL).layers[0]
     x, _, _ = _inputs_of(SMALL)
     views = {"ell": ell_dual(g, profile="train")} if path == "ell" else {}
-    out = layer(g, x, **views)
-    res = layer.W_res(x)
+    out, scale, res = layer(g, x, **views)
+    out = (out * scale).reshape(N, -1) + res
+    assert torch.equal(res, layer.W_res(x))
     assert torch.equal(out[N - 1], res[N - 1])
     torch.testing.assert_close(out[N - 2], layer.W(x)[N - 2] + res[N - 2])
 
