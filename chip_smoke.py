@@ -145,7 +145,15 @@ reddit_sage's dataset and ``dryrun_multichip``.
     version, the PyTorch ops it replaces and its bound (5 and 6 tensor
     passes at 3.35 TB/s); one train step of DGL's GAT launches each sweep
     3 times, every launch counted on ``.launches_no_dst``, and the fused
-    tail twice each way;
+    tail twice each way; RevGAT's shapes of both: the sweeps with no dst
+    term at a block group's (3 heads of 128) and the first layer's (3 of
+    256), on 16-byte lanes, and the tail as RevGAT's batch norm + ReLU
+    (ds = 0, r = out, so h = out bit for bit) at 169,343 × 384 and × 768,
+    each checked, timed and bounded as above; one train step of RevGAT (5
+    layers, 3 heads of 256, 2 groups) launches the sweeps 14, 8 and 8
+    times, none with a dst term or on whole rows, the tail 13 and 7 times
+    and its couplings 6 forwards and 6 recomputes, and each block's
+    recomputed F₂ equals its forward's bit for bit;
 17. the command line on cora_gat (with ``layer_allclose_ok``), arxiv_gat
     and arxiv_transformer at ``--scale 1``, ``--epochs 2``: finite
     losses, launches counted;
@@ -351,11 +359,25 @@ GIN_MODEL = dict(hidden_dim=128, num_layers=2)
 # its own rounding). The attention with no dst term (``a_r`` None, DGL's
 # ogbn-arxiv GAT) at that model's hidden layer, 3 heads of 250 (one float
 # a lane), in f32; a 3-layer step of that model launches each sweep once a
-# layer, every launch counted on ``.launches_no_dst``. The plain versions
-# (5-50 ms a call) are timed as the grid's calls are (GRID_TIMING).
+# layer, every launch counted on ``.launches_no_dst``. RevGAT's no-dst
+# shapes (REVGAT_NO_DST_SHAPES: a block group's 3 heads of 128, the first
+# layer's 3 of 256, both on 16-byte lanes) likewise; their launches are
+# those of one RevGAT step (REVGAT). The plain versions (5-50 ms a call)
+# are timed as the grid's calls are (GRID_TIMING).
 GAT_SWEEPS = ("gat_forward", "gat_backward_dst", "gat_backward_src")
 GAT_SHAPES = ((4, 128), (1, 40))
-GAT_NO_DST_SHAPES = ((3, 250),)
+REVGAT_NO_DST_SHAPES = ((3, 128), (3, 256))
+GAT_NO_DST_SHAPES = ((3, 250),) + REVGAT_NO_DST_SHAPES
+# RevGAT at its published ogbn-arxiv widths (models/revgat.py), one AdamW
+# step on the arxiv configuration's ELL view: the forward runs the 8
+# attention layers and the backward recomputes the 6 block functions F, so
+# the sweeps launch 14/8/8 times (forward, dst and src backward), the
+# batch norm + ReLU tail 7 + 6 = 13 times forward and 7 backward, the
+# couplings 6 forwards and 6 recomputes.
+REVGAT = dict(hidden_dim=256, num_layers=5, num_heads=3, group=2)
+REVGAT_SWEEP_LAUNCHES = (14, 8, 8)
+REVGAT_TAIL_LAUNCHES = (13, 7)
+REVGAT_COUPLING = (6, 6)
 GAT_SLOPE = 0.2
 GAT_TOL = 1e-5
 GAT_BF16_ATOL = 1e-3
@@ -367,10 +389,17 @@ GAT_BF16_ATOL = 1e-3
 # for bit). Bounds: the passes over one (n, h·d) f32 tensor that each
 # direction needs, at 3.35 TB/s (forward: out, r in, h out; h in, y out;
 # backward: g, h in; g, h in, dh, d_out out).
+# RevGAT's batch norm + ReLU runs the same kernels with ds = 0 and r = out
+# = u (so h = u bit for bit) at a block group's width (3 × 128) and the
+# whole width (3 × 256) before the last layer: NORM_ACT_REVGAT_SHAPES.
+# Its bounds are the passes that op needs: forward u in (the sums), u in
+# and y out; backward g, u in (the sums), g, u in and du out.
 NORM_ACT_SHAPE = (169_343, 3, 250)
+NORM_ACT_REVGAT_SHAPES = ((169_343, 3, 128), (169_343, 3, 256))
 NORM_ACT_TOL = 1e-5
 NORM_ACT_EPS = 1e-5
 NORM_ACT_PASSES = {"norm_act_forward": 5, "norm_act_backward": 6}
+NORM_ACT_REVGAT_PASSES = {"norm_act_forward": 3, "norm_act_backward": 5}
 NORM_ACT_SOURCE = "custom_op_benchmark_tpu_torch/csrc/norm_act.cu"
 NORM_ACT_REPLACES = "none: the JAX package has no DGL GAT"
 # reddit_sage (train/run.py): the command line at full width for its
@@ -2114,7 +2143,7 @@ def phase_gat_sweeps(kern, data):
     tensors: the forward's out, α at every table slot, el and er; the
     backward's dz, d_a_l and d_a_r (er and d_a_r None with no dst term;
     then one train step of DGL's GAT at 3 heads of 250 counts 3/3/3
-    no-dst launches), where
+    no-dst launches, and one of RevGAT 14/8/8: :func:`revgat_step`), where
     the plain backward takes the slots' LeakyReLU sides from the kernel's
     el and er (f32 sums in another order can put a slot's el + er, near 0,
     on the other side of the kink, where the slopes differ; those slots
@@ -2260,42 +2289,65 @@ def phase_gat_sweeps(kern, data):
         del got, out, alpha, el, er, ad, der, d_a_l, d_a_r, dz, z, dy
         del out_p, alphas_p, signs_p, alpha_p, signs, calls, moved
         torch.cuda.empty_cache()
-    return dict(rows=rows, errs=errs, dgl_launches=dgl_gat_step(data))
+    return dict(rows=rows, errs=errs, dgl_launches=dgl_gat_step(data),
+                revgat_launches=revgat_step(data))
 
 
-def norm_act_inputs(dev):
+def norm_act_inputs(dev, shape, revgat):
     """out (n, h, d), ds (n, 1, 1) in [0.3, 3], r (n, h·d) with the
     columns' means off zero, weight in [0.5, 1.5], bias (so that ReLU cuts
-    every column), g (n, h·d), at NORM_ACT_SHAPE on the card."""
-    n, h, d = NORM_ACT_SHAPE
+    every column), g (n, h·d), at ``shape`` on the card; with ``revgat``
+    RevGAT's call instead: out = r = u (n, h·d) with the columns' means
+    off zero, ds = 0 (n,)."""
+    n, h, d = shape
     w = h * d
     gen = torch.Generator(device=dev).manual_seed(SEED + 24)
     randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
     uniform = lambda lo, hi, *shape: lo + (hi - lo) * torch.rand(
         shape, generator=gen, device=dev)
-    return (randn(n, h, d), uniform(0.3, 3.0, n, 1, 1),
-            randn(n, w) + 2 * randn(w), uniform(0.5, 1.5, w),
-            0.5 * randn(w), randn(n, w))
+    out, ds, r = (randn(n, h, d), uniform(0.3, 3.0, n, 1, 1),
+                  randn(n, w) + 2 * randn(w))
+    if revgat:
+        out, ds = r, torch.zeros(n, device=dev)
+    return (out, ds, r, uniform(0.5, 1.5, w), 0.5 * randn(w), randn(n, w))
 
 
 def phase_norm_act(dev):
-    """DGL's GAT hidden-layer tail (csrc/norm_act.cu) at NORM_ACT_SHAPE:
-    ``norm_act_forward`` and ``norm_act_backward`` on card tensors against
-    their plain version on the same inputs (the plain backward on the
-    kernels' h, mean and rstd, so both take the same ReLU mask), each call
-    counted once, the same bits on a repeat; then each direction timed in
-    turns with its plain version, beside the PyTorch ops it replaces (×ds,
-    +r, ``F.batch_norm`` with the batch's statistics, ReLU, and their
-    backward by autograd: the model's path before the fused tail) and its
-    bound."""
+    """DGL's GAT hidden-layer tail (csrc/norm_act.cu) at NORM_ACT_SHAPE,
+    and RevGAT's batch norm + ReLU through it (ds = 0, r = out) at
+    NORM_ACT_REVGAT_SHAPES: ``norm_act_forward`` and ``norm_act_backward``
+    on card tensors against their plain version on the same inputs (the
+    plain backward on the kernels' h, mean and rstd, so both take the same
+    ReLU mask), each call counted once, the same bits on a repeat; then
+    each direction timed in turns with its plain version, beside the
+    PyTorch ops it replaces (for DGL's GAT ×ds, +r, ``F.batch_norm`` with
+    the batch's statistics, ReLU, and their backward by autograd: the
+    model's path before the fused tail; for RevGAT ``F.batch_norm`` and
+    ReLU) and its bound. Rows and errors are keyed by kernel name, with
+    ``:revgat <width>`` for RevGAT's."""
+    cases = [(NORM_ACT_SHAPE, False)] + [(shape, True)
+                                         for shape in NORM_ACT_REVGAT_SHAPES]
+    rows, errs = {}, {}
+    for shape, revgat in cases:
+        tag = f":revgat {shape[1] * shape[2]}" if revgat else ""
+        r, e = norm_act_case(dev, shape, revgat)
+        rows.update({k + tag: v for k, v in r.items()})
+        errs.update({k + tag: v for k, v in e.items()})
+    return dict(rows=rows, errs=errs)
+
+
+def norm_act_case(dev, shape, revgat):
+    """One shape of :func:`phase_norm_act`: (rows, errors) by kernel."""
     from torch.nn import functional as F
 
     from custom_op_benchmark_tpu_torch.ops.kernels import norm_act as kn
 
-    n, h, d = NORM_ACT_SHAPE
+    n, h, d = shape
     eps = NORM_ACT_EPS
-    out, ds, r, weight, bias, g = norm_act_inputs(dev)
+    out, ds, r, weight, bias, g = norm_act_inputs(dev, shape, revgat)
     fwd, bwd = kn.norm_act_forward, kn.norm_act_backward
+    label = f"{n:,} x {h * d} f32" + (
+        " (RevGAT: ds = 0, r = out)" if revgat else f" ({h} x {d})")
 
     def kernels():
         got = fwd(out, ds, r, weight, bias, eps)
@@ -2312,6 +2364,7 @@ def phase_norm_act(dev):
     want_y, want_h, want_mean, want_rstd = kn._forward_plain(
         out, ds, r, weight, bias, eps)
     assert torch.equal(hh, want_h), "h = out·ds + r"
+    assert not revgat or torch.equal(hh, r), "h = u with ds = 0"
     want_grads = kn._backward_plain(g, hh, ds, mean, rstd, weight, bias)
     e = {}
     for name, got, want in (("y", y, want_y), ("mean", mean, want_mean),
@@ -2321,32 +2374,44 @@ def phase_norm_act(dev):
         assert got.dtype == torch.float32 and got.shape == want.shape, name
         err = float((got.double() - want.double()).abs().max())
         top = float(want.abs().max())
-        assert err <= NORM_ACT_TOL * top, (
-            f"norm_act {name}: kernel vs plain {err:.3e} of max|plain| "
-            f"{top:.4g}")
-        e[name] = (err, err / top)
-    log(f"[norm_act] {n:,} x {h} x {d} f32: kernel vs plain, worst abs err "
-        f"(of max|plain|): " + ", ".join(f"{k} {v[0]:.3e} ({v[1]:.2e})"
-                                         for k, v in e.items())
+        assert err <= NORM_ACT_TOL * max(top, 1e-30), (
+            f"norm_act {label} {name}: kernel vs plain {err:.3e} of "
+            f"max|plain| {top:.4g}")
+        e[name] = (err, err / max(top, 1e-30))
+    log(f"[norm_act] {label}: kernel vs plain, worst abs err (of "
+        f"max|plain|): " + ", ".join(f"{k} {v[0]:.3e} ({v[1]:.2e})"
+                                     for k, v in e.items())
         + "; h equal bit for bit; every output equal bit for bit on repeat")
     del want_y, want_h, want_mean, want_rstd, want_grads
 
-    leaves = [t.detach().requires_grad_() for t in (out, r, weight, bias)]
+    if revgat:
+        leaves = [t.detach().requires_grad_() for t in (r, weight, bias)]
+        names = ("y", "d_r", "d_weight", "d_bias")
+        ours = (y, grads[1], grads[2], grads[3])
 
-    def lib_fwd():
-        o, res, wt, b = leaves
-        return F.relu(F.batch_norm((o * ds).reshape(n, -1) + res, None, None,
-                                   wt, b, training=True, eps=eps))
+        def lib_fwd():
+            u, wt, b = leaves
+            return F.relu(F.batch_norm(u, None, None, wt, b, training=True,
+                                       eps=eps))
+    else:
+        leaves = [t.detach().requires_grad_() for t in (out, r, weight,
+                                                        bias)]
+        names = ("y", "d_out", "d_r", "d_weight", "d_bias")
+        ours = (y, *grads)
+
+        def lib_fwd():
+            o, res, wt, b = leaves
+            return F.relu(F.batch_norm((o * ds).reshape(n, -1) + res, None,
+                                       None, wt, b, training=True, eps=eps))
 
     lib_y = lib_fwd()
     lib_grads = torch.autograd.grad(lib_y, leaves, g, retain_graph=True)
     lib_err = {k: float((a.detach().reshape(b.shape) - b).abs().max())
-               for k, a, b in zip(("y", "d_out", "d_r", "d_weight",
-                                   "d_bias"), (lib_y, *lib_grads),
-                                  (y, *grads))}
+               for k, a, b in zip(names, (lib_y, *lib_grads), ours)}
     flips = int(((lib_y.detach() > 0) != (y > 0)).sum())
-    log("[norm_act] the PyTorch ops it replaces, max abs diff from the "
-        "kernels: " + ", ".join(f"{k} {v:.3e}" for k, v in lib_err.items())
+    log(f"[norm_act] {label}: the PyTorch ops it replaces, max abs diff "
+        "from the kernels: " + ", ".join(f"{k} {v:.3e}"
+                                         for k, v in lib_err.items())
         + f" ({flips} of {y.numel():,} ReLU masks differ: batch norm's own "
         "sums put those pre-activations, a few ulps from 0, on the other "
         "side, where a gradient takes or drops g)")
@@ -2365,30 +2430,33 @@ def phase_norm_act(dev):
     tensor = n * h * d * 4
     keys = {"norm_act_forward": ("y", "mean", "rstd"),
             "norm_act_backward": ("d_out", "d_r", "d_weight", "d_bias")}
+    library = ("the PyTorch ops it replaces: F.batch_norm (batch "
+               "statistics), ReLU" if revgat else "the PyTorch ops it "
+               "replaces: ×ds, +r, F.batch_norm (batch statistics), ReLU")
+    passes_by = NORM_ACT_REVGAT_PASSES if revgat else NORM_ACT_PASSES
     rows, errs = {}, {}
     for name, (kfn, pfn, lfn) in calls.items():
         p1 = time_ms(pfn)
         k1, k2 = time_ms(kfn), time_ms(kfn)
         p2 = time_ms(pfn)
         l1, l2 = time_ms(lfn), time_ms(lfn)
-        passes = NORM_ACT_PASSES[name]
+        passes = passes_by[name]
         row = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                    bound_ms=passes * tensor / PEAK_BYTES * 1e3,
                    bound_by="bytes", library_ms=(l1 + l2) / 2,
-                   library="the PyTorch ops it replaces: ×ds, +r, "
-                   "F.batch_norm (batch statistics), ReLU"
-                   + (" and their backward by autograd"
-                      if name == "norm_act_backward" else ""))
+                   library=library + (" and their backward by autograd"
+                                      if name == "norm_act_backward"
+                                      else ""))
         rows[name] = row
         errs[name] = tuple(max(e[k][i] for k in keys[name])
                            for i in range(2))
-        log(f"[time] {name:18s} {n:,} x {h * d} kernel {k1:.4f}/{k2:.4f} ms "
+        log(f"[time] {name:18s} {label} kernel {k1:.4f}/{k2:.4f} ms "
             f"plain {p1:.4f}/{p2:.4f} ms  PyTorch ops {l1:.4f}/{l2:.4f} ms  "
             f"bound {row['bound_ms']:.4f} ms ({passes} x "
             f"{tensor / 1e6:.1f} MB) share {row['bound_ms'] / row['ms']:.3f}")
     del calls, lib_y, leaves, out, ds, r, g, y, hh, grads
     torch.cuda.empty_cache()
-    return dict(rows=rows, errs=errs)
+    return rows, errs
 
 
 def dgl_gat_step(data):
@@ -2431,6 +2499,68 @@ def dgl_gat_step(data):
     assert list(tail_counts.values()) == [2, 2], tail_counts
     assert np.isfinite(float(loss)), loss
     del state, step, model
+    torch.cuda.empty_cache()
+    return {**{k: c[0] for k, c in zip(GAT_SWEEPS, counts)}, **tail_counts}
+
+
+def revgat_step(data):
+    """One AdamW step of RevGAT (REVGAT: 5 layers, 3 heads of 256, 2
+    groups) on the arxiv configuration's ELL view, each counter zeroed
+    just before it: the sweeps' launches (no dst, all, on whole rows), the
+    tail's by wrapper and the couplings' forwards and recomputes, against
+    REVGAT_SWEEP_LAUNCHES, REVGAT_TAIL_LAUNCHES and REVGAT_COUPLING; each
+    block's F₂ of the backward equal to its forward's bit for bit. Returns
+    the no-dst launches by sweep and the tail's by wrapper."""
+    from custom_op_benchmark_tpu_torch.models import RevGAT
+    from custom_op_benchmark_tpu_torch.models.revgat import GroupCoupling
+    from custom_op_benchmark_tpu_torch.ops.kernels import ell_gat as kgat
+    from custom_op_benchmark_tpu_torch.ops.kernels import norm_act as kn
+    from custom_op_benchmark_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+    )
+
+    g, x, labels, mask = (data[k] for k in ("g", "x", "labels", "mask"))
+    model = RevGAT(out_dim=data["ds"].num_classes, in_dim=x.shape[1],
+                   **REVGAT).to(g.device)
+    f2 = []
+    for block in model.layers[1:-1]:
+        def record(i, g_, ell_, u, f=block.f):
+            out = f(i, g_, ell_, u)
+            if i == 1:
+                f2.append(out.detach().clone())
+            return out
+        block.f = record
+    state = create_train_state(model, learning_rate=2e-3)
+    step = make_train_step(apply_kwargs={"ell": data["ell"]})
+    sweeps = [getattr(kgat, k) for k in GAT_SWEEPS]
+    tail = (kn.norm_act_forward, kn.norm_act_backward)
+    for fn in sweeps:
+        fn.launches = fn.launches_bf16 = fn.launches_no_dst = 0
+        fn.launches_whole_row = 0
+    for fn in tail:
+        fn.launches = 0
+    GroupCoupling.forwards = GroupCoupling.recomputes = 0
+    loss, _ = step(state, g, x, labels, mask)
+    torch.cuda.synchronize()
+    counts = [(fn.launches_no_dst, fn.launches, fn.launches_whole_row)
+              for fn in sweeps]
+    tail_counts = {fn.__name__: fn.launches for fn in tail}
+    coupling = (GroupCoupling.forwards, GroupCoupling.recomputes)
+    blocks = len(model.layers) - 2
+    same = [torch.equal(a, b) for a, b in zip(f2[:blocks],
+                                              f2[:blocks - 1:-1])]
+    log(f"[gat] RevGAT train step (ell, 5 layers, 3 x 256, 2 groups): the "
+        f"sweeps' launches (no dst, f32, whole rows) "
+        f"{dict(zip(GAT_SWEEPS, counts))}; the fused tail's {tail_counts}; "
+        f"couplings' forwards, recomputes {coupling}; F₂ recomputed bit for "
+        f"bit in blocks 1-{blocks}: {same}; loss {float(loss):.6f}")
+    assert counts == [(n, n, 0) for n in REVGAT_SWEEP_LAUNCHES], counts
+    assert tuple(tail_counts.values()) == REVGAT_TAIL_LAUNCHES, tail_counts
+    assert coupling == REVGAT_COUPLING, coupling
+    assert len(f2) == 2 * blocks and all(same), same
+    assert np.isfinite(float(loss)), loss
+    del state, step, model, f2
     torch.cuda.empty_cache()
     return {**{k: c[0] for k, c in zip(GAT_SWEEPS, counts)}, **tail_counts}
 
@@ -4038,23 +4168,35 @@ def main() -> int:
         _, _, source, replaces = kern.table[name]
         bf16 = label.endswith(",bf16")
         no_dst = label.endswith(",no dst")
+        rev = no_dst and label.startswith(tuple(
+            "h={} d={},".format(*hd) for hd in REVGAT_NO_DST_SHAPES))
         report.append(kernel_row(
             f"{name}:{label}", source, replaces,
-            (dtype["gat_bf16_launches"] if bf16 else gat["dgl_launches"]
-             if no_dst else arxiv["gat_launches"])[name],
+            (dtype["gat_bf16_launches"] if bf16 else gat["revgat_launches"]
+             if rev else gat["dgl_launches"] if no_dst
+             else arxiv["gat_launches"])[name],
             gat["errs"][(name, label)][0],
             dict(row, max_err_of_max=gat["errs"][(name, label)][1]),
             gat_shape(name, label.replace(",", ", "),
+                      "one RevGAT train step (5 layers, 3 heads of 256, 2 "
+                      "groups, every shape; the backward's recompute "
+                      "included) on the ELL path" if rev else
                       "one DGL ogbn-arxiv GAT train step (3 layers, no dst "
                       "term) on the ELL path" if no_dst else
                       "one arxiv GAT train step (3 layers) on the ELL path"
                       + (" in bf16" if bf16 else ""))))
     n, h, d = NORM_ACT_SHAPE
-    for name, row in norm["rows"].items():
+    for key, row in norm["rows"].items():
+        name, _, rev = key.partition(":")
         report.append(kernel_row(
-            name, NORM_ACT_SOURCE, NORM_ACT_REPLACES,
-            gat["dgl_launches"][name], norm["errs"][name][0],
-            dict(row, max_err_of_max=norm["errs"][name][1]),
+            key, NORM_ACT_SOURCE, NORM_ACT_REPLACES,
+            (gat["revgat_launches"] if rev else gat["dgl_launches"])[name],
+            norm["errs"][key][0],
+            dict(row, max_err_of_max=norm["errs"][key][1]),
+            f"RevGAT batch norm + ReLU, {n:,} x {rev.split()[1]} f32, ds = "
+            "0 and r = out; launches: one RevGAT train step (5 layers, 3 "
+            "heads of 256, 2 groups; the recompute included) on the ELL path"
+            if rev else
             f"DGL GAT hidden-layer tail, {n:,} x {h * d} f32 ({h} heads of "
             f"{d}); launches: one DGL ogbn-arxiv GAT train step (3 layers) "
             "on the ELL path"))

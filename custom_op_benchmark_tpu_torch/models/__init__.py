@@ -1,11 +1,12 @@
-"""Models: the graph transformer, GAT (and DGL's ogbn-arxiv GAT), GCN, GIN
-and GraphSAGE."""
+"""Models: the graph transformer, GAT (and DGL's ogbn-arxiv GAT, and
+RevGAT), GCN, GIN and GraphSAGE."""
 
 from custom_op_benchmark_tpu_torch.models.convert import flax_to_state_dict
 from custom_op_benchmark_tpu_torch.models.gat import GAT, GATLayer
 from custom_op_benchmark_tpu_torch.models.gat_dgl import GATDGL, GATDGLLayer
 from custom_op_benchmark_tpu_torch.models.gcn import GCN, GCNLayer
 from custom_op_benchmark_tpu_torch.models.gin import GIN, GINLayer
+from custom_op_benchmark_tpu_torch.models.revgat import RevGAT
 from custom_op_benchmark_tpu_torch.models.sage import GraphSAGE, SAGELayer
 from custom_op_benchmark_tpu_torch.models.transformer import (
     GraphMultiHeadAttention,
@@ -16,4 +17,4 @@ from custom_op_benchmark_tpu_torch.models.transformer import (
 __all__ = ["GAT", "GATDGL", "GATDGLLayer", "GATLayer", "GCN", "GCNLayer",
            "GIN", "GINLayer", "GraphMultiHeadAttention",
            "GraphSAGE", "GraphTransformer", "GraphTransformerLayer",
-           "SAGELayer", "flax_to_state_dict"]
+           "RevGAT", "SAGELayer", "flax_to_state_dict"]

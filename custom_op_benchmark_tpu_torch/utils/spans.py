@@ -19,7 +19,16 @@ The port's spans, all under four prefixes:
 - ``data.sample`` (one batch's sampling in ``train.loop.sampled_batches``),
   ``data.to_device`` (the prefetch thread's copies) and
   ``data.batch_wait`` (the consumer's wait for the next batch) in the
-  sampled pipeline.
+  sampled pipeline;
+- ``train.reversible.fwd`` / ``.bwd`` around a reversible block's forward
+  and backward (``models.revgat``), and ``train.recompute`` around the
+  backward's recomputation of the block's functions (:func:`recompute`).
+
+Every span opened inside :func:`recompute` on its thread ends in
+``.recompute`` (``ell.gat_attention.fwd.recompute``), so that a forward
+run again in the backward is told apart from the step's forward: the
+``.fwd`` and ``.bwd`` spans are the step's own work, the ``.recompute``
+spans what recomputation adds.
 
 ``launch(name)`` wraps a kernel launched outside the dispatcher (every
 ctypes call, through ``ops/kernels/_build.call``), so that the profiler
@@ -37,11 +46,16 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 
 import torch
 from torch.autograd import profiler as _profiler
 
 _OFF = contextlib.nullcontext()
+RECOMPUTE = ".recompute"
+# The suffix of the spans opened on this thread: RECOMPUTE inside
+# ``recompute``, else none.
+_tag = threading.local()
 
 
 def _recording() -> bool:
@@ -51,10 +65,25 @@ def _recording() -> bool:
 
 def span(name: str):
     """``record_function(name)`` while a profiler records, else a shared
-    no-op context."""
+    no-op context; inside :func:`recompute` the name ends in
+    ``.recompute``."""
     if _recording():
-        return _profiler.record_function(name)
+        return _profiler.record_function(name + getattr(_tag, "suffix", ""))
     return _OFF
+
+
+@contextlib.contextmanager
+def recompute():
+    """The span ``train.recompute``, inside which every span this thread
+    opens ends in ``.recompute``. The tag is set whether or not a profiler
+    records, and read only by :func:`span` while one does."""
+    with span("train.recompute"):
+        outer = getattr(_tag, "suffix", "")
+        _tag.suffix = RECOMPUTE
+        try:
+            yield
+        finally:
+            _tag.suffix = outer
 
 
 def launch(name: str):

@@ -9,7 +9,11 @@ forward and backward spans, each inside its phase; the profiler changes
 no bit of the loss or the parameters; without it ``span`` builds no
 ``record_function``. The sampled pipeline's ``data.*`` spans show on the
 producer's thread in a ``benchlib.trace_fn`` trace. ``launch``, around a
-ctypes kernel launch, is an op-scope range inside the span around it.
+ctypes kernel launch, is an op-scope range inside the span around it. A
+RevGAT step adds ``train.reversible.fwd`` / ``.bwd`` around its blocks and
+``train.recompute`` around the backward's recompute, inside which every
+span ends in ``.recompute``; with no profiler ``span`` is the shared
+no-op there too.
 
 On the card (marker ``chip``, skipped without a CUDA device; run with
 ``python -m pytest --noconftest -p no:cacheprovider
@@ -30,7 +34,7 @@ from custom_op_benchmark_tpu_torch.data import synthetic
 from custom_op_benchmark_tpu_torch.data.pipeline import prefetch
 from custom_op_benchmark_tpu_torch.data.sampling import NeighborSampler
 from custom_op_benchmark_tpu_torch.graph import random_graph
-from custom_op_benchmark_tpu_torch.models import GAT, GraphSAGE
+from custom_op_benchmark_tpu_torch.models import GAT, GraphSAGE, RevGAT
 from custom_op_benchmark_tpu_torch.ops import ell_copy_spmm, ell_dual
 from custom_op_benchmark_tpu_torch.train.loop import (
     create_train_state,
@@ -177,6 +181,92 @@ def test_launch_is_an_op_range_inside_its_span():
     assert ev["ell.op.fwd"].is_user_annotation
     assert not ev["op_f32"].is_user_annotation
     assert s.start <= k.start <= k.end <= s.end
+
+
+def _revgat_step(ds):
+    model = RevGAT(hidden_dim=4, out_dim=3, num_layers=5, num_heads=2,
+                   group=2, in_dim=12)
+    return model, _full_graph(ds, model)
+
+
+def test_recompute_tag_builds_nothing_without_a_profiler(ds, monkeypatch):
+    """Inside ``recompute`` with no profiler, ``span`` is still the shared
+    no-op context and a RevGAT step builds no ``record_function``."""
+    with spans.recompute():
+        assert spans.span("ell.op.fwd") is spans.span("train.step")
+        assert spans.span("ell.op.fwd") is spans._OFF
+    built, real = [], spans._profiler.record_function
+
+    def spy(name, *args, **kwargs):
+        if name.startswith(PREFIXES):
+            built.append(name)
+        return real(name, *args, **kwargs)
+
+    monkeypatch.setattr(spans._profiler, "record_function", spy)
+    model, run = _revgat_step(ds)
+    run(_state(model))
+    assert built == []
+
+
+def test_recompute_tag_ends_at_its_context():
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with spans.span("ell.a.fwd"):
+            with spans.recompute():
+                with spans.span("ell.b.fwd"):
+                    with spans.recompute():
+                        with spans.span("ell.c.fwd"):
+                            pass
+                    with spans.span("ell.d.fwd"):
+                        pass
+            with spans.span("ell.e.fwd"):
+                pass
+    names = sorted(e.name for e in prof.events()
+                   if e.name.startswith(PREFIXES))
+    assert names == ["ell.a.fwd", "ell.b.fwd.recompute",
+                     "ell.c.fwd.recompute", "ell.d.fwd.recompute",
+                     "ell.e.fwd", "train.recompute",
+                     "train.recompute.recompute"]
+
+
+def test_revgat_step_records_its_recompute_inside_the_backward(ds):
+    """A RevGAT step of 3 blocks of 2 groups: ``train.reversible.fwd``
+    three times inside ``train.forward``, ``.bwd`` three times inside
+    ``train.backward``, one ``train.recompute`` an F (six) inside a
+    ``.bwd``, the attention's forward span 8 times (the model's layers)
+    and 6 times with ``.recompute`` (each inside a ``train.recompute``),
+    its backward span 8 times; no ``.recompute`` name anywhere else."""
+    model, run = _revgat_step(ds)
+    state = _state(model)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run(state)
+    found = {}
+    for e in prof.events():
+        if e.name.startswith(PREFIXES + ("revgat.",)):
+            found.setdefault(e.name, []).append(e)
+    counts = {k: len(v) for k, v in found.items()}
+    assert counts == {
+        **dict.fromkeys(PHASES, 1),
+        "train.reversible.fwd": 3, "train.reversible.bwd": 3,
+        "train.recompute": 6,
+        "ell.gat_attention.fwd": 8, "ell.gat_attention.bwd": 8,
+        "ell.gat_attention.fwd.recompute": 6,
+        "revgat.norm_act.fwd": 7, "revgat.norm_act.bwd": 7,
+        "revgat.norm_act.fwd.recompute": 6}
+
+    def inside(inner, outers):
+        return any(o.time_range.start <= inner.time_range.start
+                   and inner.time_range.end <= o.time_range.end
+                   for o in outers)
+
+    fwd, bwd = found["train.forward"], found["train.backward"]
+    assert all(inside(e, fwd) for e in found["train.reversible.fwd"])
+    assert all(inside(e, bwd) for e in found["train.reversible.bwd"])
+    assert all(inside(e, found["train.reversible.bwd"])
+               for e in found["train.recompute"])
+    for name, events in found.items():
+        if name.endswith(".recompute"):
+            assert all(inside(e, found["train.recompute"]) for e in events)
+    assert not any(inside(e, fwd) for e in found["train.recompute"])
 
 
 def test_data_spans_on_the_producer_thread(ds, tmp_path):
